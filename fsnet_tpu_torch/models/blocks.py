@@ -1,0 +1,180 @@
+"""Network blocks on NHWC tensors (counterpart of ``fsnet_tpu.models.blocks``).
+
+Every block takes and returns NHWC tensors, as the JAX package does, and
+takes ``train`` at call time. Parameters keep the JAX package's names one to
+one (``kernel`` -> ``weight``, BN ``scale`` -> ``weight``, ``mean``/``var``
+-> ``running_mean``/``running_var``), so ``models.flax_convert`` maps a flax
+checkpoint onto them by name.
+
+Random initialisation mirrors flax's defaults (truncated-normal LeCun
+kernels, zero biases, identity BatchNorm) and draws only from the
+``torch.Generator`` passed to :func:`init_params`.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.conv3x3 import PAD_MODES, conv3x3
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over the last (channel) axis of an NHWC tensor.
+
+    Eval (or ``frozen``) uses the running statistics; training normalises
+    with the biased batch variance and updates the running statistics as
+    flax does: ``ra = 0.9 * ra + 0.1 * batch`` (flax momentum 0.9 is torch
+    momentum 0.1). eps 1e-5."""
+
+    momentum = 0.1
+    eps = 1e-5
+
+    def __init__(self, num_features: int, frozen: bool = False):
+        super().__init__()
+        self.frozen = frozen
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train and not self.frozen:
+            dims = tuple(range(x.dim() - 1))
+            xf = x.float()
+            mean = xf.mean(dim=dims)
+            var = (xf * xf).mean(dim=dims) - mean * mean
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean) * mul + self.bias).to(x.dtype)
+
+
+class Conv(nn.Module):
+    """Bias-free convolution on NHWC tensors (counterpart of the ``nn.Conv``
+    the JAX encoder uses). The weight is OIHW, PyTorch's layout; the call
+    runs ``F.conv2d`` on a channels-last view, so no copy is made."""
+
+    def __init__(self, in_features: int, out_features: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, dilation: int = 1):
+        super().__init__()
+        self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.weight = nn.Parameter(torch.empty(out_features, in_features,
+                                               kernel_size, kernel_size))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, None, self.stride,
+                     self.padding, self.dilation)
+        return y.permute(0, 2, 3, 1)
+
+
+class Conv3x3(nn.Module):
+    """Stride-1 3x3 conv with one-pixel ``zeros`` or ``replicate`` padding
+    through :func:`fsnet_tpu_torch.ops.conv3x3.conv3x3` (the Hopper kernel on
+    a CUDA device). The weight stays HWIO ``[3, 3, Cin, Co]``, the JAX
+    layout the kernel reads. ``x`` may be a tuple of NHWC parts, convolved as
+    their channel concat."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 padding_mode: str = "zeros"):
+        super().__init__()
+        if padding_mode not in PAD_MODES:
+            raise ValueError(f"padding_mode must be one of {PAD_MODES}")
+        self.padding_mode = padding_mode
+        self.weight = nn.Parameter(torch.empty(3, 3, in_features,
+                                               out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+
+    def forward(self, x) -> torch.Tensor:
+        return conv3x3(x, self.weight, self.bias, self.padding_mode)
+
+
+class ConvBnReLU(nn.Module):
+    """3x3 conv -> BN -> ReLU, the decoder's block. ``padding_mode``
+    'zeros' or 'replicate' (the decoder's second upconv)."""
+
+    def __init__(self, input_features: int, output_features: int,
+                 padding_mode: str = "zeros"):
+        super().__init__()
+        self.conv = Conv3x3(input_features, output_features, padding_mode)
+        self.norm = BatchNorm(output_features)
+
+    def forward(self, x, train: bool = False) -> torch.Tensor:
+        return torch.relu(self.norm(self.conv(x), train))
+
+
+def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
+    """2x nearest-neighbour upsample of an NHWC tensor (contiguous result)."""
+    B, H, W, C = x.shape
+    x = x[:, :, None, :, None, :].expand(B, H, 2, W, 2, C)
+    return x.reshape(B, H * 2, W * 2, C)
+
+
+def _interp_matrix(in_size: int, out_size: int, align_corners: bool,
+                   dtype, device) -> torch.Tensor:
+    """Dense 1D bilinear interpolation matrix [out, in] (two-hot rows)."""
+    if align_corners and out_size > 1 and in_size > 1:
+        pos = torch.linspace(0.0, in_size - 1.0, out_size, dtype=dtype,
+                             device=device)
+    else:
+        pos = ((torch.arange(out_size, dtype=dtype, device=device) + 0.5)
+               * (in_size / out_size) - 0.5).clamp(0.0, in_size - 1.0)
+    i0 = torch.floor(pos).long()
+    i1 = torch.clamp(i0 + 1, max=in_size - 1)
+    f = pos - i0.to(dtype)
+    cols = torch.arange(in_size, device=device)
+    m = ((cols[None, :] == i0[:, None]) * (1.0 - f[:, None])
+         + (cols[None, :] == i1[:, None]) * f[:, None])
+    return m.to(dtype)
+
+
+def interpolate_bilinear(x: torch.Tensor, out_h: int, out_w: int,
+                         align_corners: bool = True) -> torch.Tensor:
+    """Bilinear resize of an NHWC tensor, as ``F.interpolate`` with
+    ``align_corners``; separable, as two small matrix products."""
+    B, H, W, C = x.shape
+    Ay = _interp_matrix(H, out_h, align_corners, x.dtype, x.device)
+    Ax = _interp_matrix(W, out_w, align_corners, x.dtype, x.device)
+    x = torch.einsum("oh,bhwc->bowc", Ay, x)
+    return torch.einsum("pw,bowc->bopc", Ax, x)
+
+
+def max_pool_3x3_s2_p1(x: torch.Tensor) -> torch.Tensor:
+    """``MaxPool2d(kernel_size=3, stride=2, padding=1)`` on NHWC (the padding
+    acts as -inf)."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1)
+    return y.permute(0, 2, 3, 1)
+
+
+def _lecun_normal_(t: torch.Tensor, fan_in: int,
+                   generator: torch.Generator) -> None:
+    """flax ``lecun_normal``: truncated normal on [-2, 2] standard deviations,
+    scaled to variance 1 / fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    # inverse-CDF sampling of a standard normal cut at [-2, 2]
+    cut = math.erf(2 / math.sqrt(2))
+    u = torch.rand(t.shape, generator=generator, dtype=torch.float64)
+    v = torch.erfinv((2 * u - 1) * cut) * (std * math.sqrt(2.0))
+    with torch.no_grad():
+        t.copy_(v.clamp(-2 * std, 2 * std))
+
+
+def init_params(module: nn.Module, generator: torch.Generator) -> None:
+    """Initialise every conv and BatchNorm under ``module`` as flax's
+    defaults would, drawing only from ``generator``."""
+    for m in module.modules():
+        if isinstance(m, Conv):
+            _lecun_normal_(m.weight, m.weight[0].numel(), generator)
+        elif isinstance(m, Conv3x3):
+            _lecun_normal_(m.weight, m.weight[..., 0].numel(), generator)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, BatchNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)

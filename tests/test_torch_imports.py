@@ -1,0 +1,96 @@
+"""The port stands alone and runs on the card unless told otherwise.
+
+* A static scan (the container may preload jax, so importing and then
+  checking ``sys.modules`` proves nothing): no file of ``fsnet_tpu_torch``
+  and not ``chip_smoke.py`` imports ``jax``, ``flax``, ``optax`` or
+  ``fsnet_tpu``.
+* Entry points called without ``device=`` raise when no CUDA device is
+  present, instead of quietly running on the CPU.
+* ``chip_smoke.py`` fails, and prints no result, without a CUDA device.
+"""
+import ast
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "fsnet_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "fsnet_tpu"}
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
+              == "import_module" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import(path):
+    bad = FORBIDDEN.intersection(_imported_roots(path))
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+
+
+def test_model_without_device_raises():
+    _no_cuda()
+    from fsnet_tpu_torch.entry import flagship_model
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        flagship_model(64, 96)
+
+
+def test_eval_step_without_device_raises():
+    _no_cuda()
+    from fsnet_tpu_torch.runtime.state import make_eval_step
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_eval_step()
+
+
+def test_entry_without_device_raises():
+    _no_cuda()
+    from fsnet_tpu_torch.entry import entry
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
+
+
+def _run_smoke(cwd: Path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    for line in proc.stdout.splitlines():
+        try:
+            obj = json.loads(line)
+        except ValueError:
+            continue
+        assert not (isinstance(obj, dict) and obj.get("ok")), line
+
+
+def test_chip_smoke_fails_without_cuda():
+    _no_cuda()
+    _run_smoke(ROOT)
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    _run_smoke(tmp_path)
