@@ -7,30 +7,63 @@ GPU and checks it: the quickest proof that the port starts on the card.
 Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. builds the kernels from ``fsnet_tpu_torch/csrc`` (nvcc, sm_90a) and
-   prints the build time and the compiler's register/spill report;
+2. builds the kernels from ``fsnet_tpu_torch/csrc`` (nvcc, sm_90a, one
+   process per source, all together) and prints the build time and the
+   compiler's register/spill report;
 3. turns TF32 off for matrix products and cuDNN convolutions, so every
-   float32 reference on the card is full float32;
+   float32 number on the card (the encoder's convs included) is full
+   float32;
 4. holds the conv3x3 kernel against its plain version at each of the
    decoder's 14 conv shapes at batch 12 x 192x640, in float32 and bfloat16
    (max |kernel - plain| / max |plain| <= 1e-4 and 2e-2);
-5. the main path: builds the flagship ``MonoDepthWPose`` (ResNet-18 +
+5. the eval path: builds the flagship ``MonoDepthWPose`` (ResNet-18 +
    16-bin MultiChannelDepthDecoder, seeded random weights) on the card and
    runs one ``forward_test`` through ``make_eval_step`` at batch 12 x
-   192x640, float32, with the launch counter set to 0 just before; checks
+   192x640, float32, with the launch counters set to 0 just before; checks
    that the decoder's convs ran at the 14 shapes of phase 4, each through
-   the kernel (14 launches), and that depth is finite, [12, 192, 640, 1]
-   and within [0.5, 100];
+   the kernel (14 launches, no other kernel), and that depth is finite,
+   [12, 192, 640, 1] and within [0.5, 100];
 6. runs the same weights and input at batch 2 on the card and through the
    port on the CPU (plain versions) and compares depth (rel-max <= 1e-3);
 7. times, with CUDA events after warm-up, ``forward_test`` at batch 1
    (latency) and batch 12 (images/s), and at each conv shape the kernel,
    its plain version and ``F.conv2d`` (a yardstick only; the port never
-   calls it for these convs).
+   calls it for these convs);
+8. holds the training kernels against their plain versions at the shapes
+   the train step gives them at batch 12 x 192x640: the conv's moments
+   epilogue at the 10 upconv shapes, the input cotangent (the conv kernel
+   on the flipped weight) and the weight cotangent at all 14 (max error /
+   max |plain| <= 2e-5 for out, s2, dx and dw; s1 against the sum of
+   |out|), and the depth-direct warp forward (max abs err <= 1e-6, the
+   overlap equal) and backward (<= 1e-6 relative) at 96 warps (4 scales x
+   2 frames x 12); prints how many samples the TPU kernel's lane-window
+   clamp would have moved there;
+9. the train path: ``flagship_model(..., device="cuda")`` with the
+   ``bench.py`` recipe (Adam lr 1e-4, clip 1.0, StepLR) and
+   ``make_train_step("cuda")``, three steps at batch 12 x 192x640 on the
+   synthetic KITTI-like batch, the launch counters set to 0 just before;
+   checks the launches of every kernel per step, a finite loss, and that
+   parameters and BN running statistics changed;
+10. one train step at batch 2 x 192x640 on the card against the port on the
+    CPU from the same weights and batch, held to the JAX package's own
+    backward gate between two routes (``scripts/tpu_smoke.py``): loss rel
+    <= 1e-4, global gradient rel-L2 < 3e-2, every leaf < 0.5 (the worst is
+    printed), and Adam's first update differing by more than lr / 2 on
+    under 2% of the parameters. In float32 the two sides' decoder outputs
+    differ by about 1e-6 (cuDNN and the kernels against the CPU), which
+    moves bilinear corners of the warp wherever a coordinate lies that
+    close to an integer; each such sample moves the gradient of its pixel
+    by O(1);
+11. times the train step at batch 12 (images/s over 10 steps after
+    warm-up; the batch on the card, as ``bench.py`` times the JAX step, and
+    again from host numpy arrays) and each training kernel at its shapes beside its plain
+    version, its bound and, where one PyTorch call computes the same
+    function, that call (cuDNN's conv backward for the single-part
+    zero-padded convs; a yardstick only).
 
-It prints the per-shape record and the kernel record as JSON lines and,
-last, the result line ``{"ok": true, "device": {...}}``. It imports nothing
-of JAX or of the JAX package.
+It prints the record and the kernel line as JSON lines and, last, the
+result line ``{"ok": true, "device": {...}}``. It imports nothing of JAX or
+of the JAX package.
 """
 from __future__ import annotations
 
@@ -124,6 +157,436 @@ def flagship_batch(batch: int, seed: int = 0):
     return {"image/0": img, "P2": P2}
 
 
+def launch_counters():
+    """The launch counter of every kernel wrapper, by kernel name."""
+    from fsnet_tpu_torch.ops import conv3x3 as tc
+    from fsnet_tpu_torch.ops import warp_depth as twd
+
+    return {"conv3x3": tc.conv3x3, "conv3x3_bn": tc.conv3x3_bn,
+            "conv3x3_dx": tc.conv3x3_dx, "conv3x3_dw": tc.conv3x3_dw,
+            "warp_depth_fwd": twd.warp_depth_fwd,
+            "warp_depth_bwd": twd.warp_depth_bwd}
+
+
+def zero(counters) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def read(counters):
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def rel_err(got, ref, scale=None):
+    """(max |got - ref|, that over ``scale`` or max |ref|)."""
+    diff = (got.double() - ref.double()).abs().max().item()
+    den = ref.double().abs().max().item() if scale is None else scale
+    return diff, diff / max(den, 1e-30)
+
+
+def ms_bound(ops, nbytes):
+    """(bound ms, what bounds it): float32 operations at the peak outside
+    the tensor cores, bytes at the HBM rate."""
+    t_ops, t_bytes = ops / PEAK_OPS[torch.float32], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def sum_bounds(items):
+    """Sum of per-shape (ops, bytes) -> (bound ms, what bounds the sum)."""
+    return ms_bound(sum(o for o, _ in items), sum(b for _, b in items))
+
+
+# (S scales, F frames) of the flagship's warp
+S_SCALES, F_FRAMES, BAND = 4, 2, 4
+
+
+def lane_window_moves(x, W, L=128, window=3):
+    """Samples whose corner columns the TPU prep kernel's lane window
+    (``prep_kernel.py:150-164``) would have clamped: per output row and
+    128-lane output tile the columns are held to ``window`` tiles ending at
+    the tile of the row's largest right corner. ``x`` [N, H, W] unclamped."""
+    T = W // L
+    if T * L != W:
+        return None
+    kw = min(window, T)
+    x0 = torch.floor(x.clamp(0.0, W - 1)).long()
+    x1 = (x0 + 1).clamp(max=W - 1)
+    hi = x1.view(*x1.shape[:2], T, L).amax(dim=-1) // L          # [N, H, T]
+    lo = ((hi - (kw - 1)).clamp(0, T - kw) * L).repeat_interleave(L, dim=-1)
+    hic = lo + kw * L - 1
+    moved = (x0 < lo) | (x0 > hic) | (x1 < lo) | (x1 > hic)
+    return int(moved.sum().item())
+
+
+def warp_scene(batch_np, seed=0):
+    """The warp's operands at the flagship batch: sources, per-scale depth
+    and the projection rows of the batch's GT poses."""
+    from fsnet_tpu_torch.ops.geometry import invert_K, make_K44
+    from fsnet_tpu_torch.ops.warp_depth import make_affine_rows
+
+    dev = "cuda"
+    B = batch_np["P2"].shape[0]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    image = torch.cat([torch.from_numpy(batch_np[f"original_image/{f}"])
+                       for f in (1, -1)]).to(dev).contiguous()
+    depth = (2.0 + 40.0 * torch.rand(S_SCALES * B, HEIGHT, WIDTH,
+                                     generator=g, device=dev))
+    K = make_K44(torch.from_numpy(batch_np["P2"]).to(dev))
+    Ts = torch.stack([torch.from_numpy(batch_np[f"relative_pose/{f}"])
+                      for f in (1, -1)]).to(dev)
+    return image, depth, make_affine_rows(K, invert_K(K), Ts, S_SCALES)
+
+
+def check_training_kernels(batch_np, rows):
+    """Phase 8: each training kernel against its plain version, on the
+    card, at the train path's shapes. Returns per-kernel errors and the
+    inputs the timings reuse."""
+    from fsnet_tpu_torch.ops import conv3x3 as tc
+    from fsnet_tpu_torch.ops import warp_depth as twd
+    from fsnet_tpu_torch.ops.geometry import project_rows
+
+    errs = {k: 0.0 for k in ("conv3x3_bn", "conv3x3_bn_mom", "conv3x3_dx",
+                             "conv3x3_dw", "warp_depth_fwd",
+                             "warp_depth_bwd")}
+    for i, (name, H, W, Cs, Co, pad) in enumerate(SHAPES):
+        parts, w, b = conv_inputs(BATCH, H, W, Cs, Co, torch.float32, seed=i)
+        gy = torch.randn(BATCH, H, W, Co, device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(100 + i))
+        row = rows[i]
+        if name.startswith("upconv_"):
+            out, s1, s2 = tc.conv3x3_bn(parts, w, b, pad)
+            torch.cuda.synchronize()
+            ref = tc.conv3x3_plain(parts, w, b, pad)
+            r1, r2 = tc.moments_plain(ref)
+            d_out, e_out = rel_err(out, ref)
+            # s1 sums values of both signs: its scale is the sum of |out|
+            d1, e1 = rel_err(s1, r1, ref.abs().sum((0, 1, 2)).max().item())
+            d2, e2 = rel_err(s2, r2)
+            row.update(bn_rel_err=e_out, s1_rel_err=e1, s2_rel_err=e2)
+            errs["conv3x3_bn"] = max(errs["conv3x3_bn"], d_out)
+            errs["conv3x3_bn_mom"] = max(errs["conv3x3_bn_mom"], d1, d2)
+            check(e_out <= 2e-5 and e1 <= 2e-5 and e2 <= 2e-5,
+                  f"{name} moments kernel: rel err out {e_out:.2e} s1 "
+                  f"{e1:.2e} s2 {e2:.2e} > 2e-5")
+        dxs = tc.conv3x3_dx(gy, w, pad, Cs)
+        dw = tc.conv3x3_dw(parts, gy, pad)
+        torch.cuda.synchronize()
+        ref_dxs = tc.conv3x3_dx_plain(gy, w, pad, Cs)
+        ref_dw = tc.conv3x3_dw_plain(parts, gy, pad)
+        e_dx = 0.0
+        for a, r in zip(dxs, ref_dxs):
+            d, e = rel_err(a, r)
+            errs["conv3x3_dx"] = max(errs["conv3x3_dx"], d)
+            e_dx = max(e_dx, e)
+        d, e_dw = rel_err(dw, ref_dw)
+        errs["conv3x3_dw"] = max(errs["conv3x3_dw"], d)
+        row.update(dx_rel_err=e_dx, dw_rel_err=e_dw)
+        check(e_dx <= 2e-5, f"{name} dx: rel err {e_dx:.2e} > 2e-5")
+        check(e_dw <= 2e-5, f"{name} dw: rel err {e_dw:.2e} > 2e-5")
+        print(f"check {name:11s} train kernels: rel err "
+              + (f"bn out {row['bn_rel_err']:.2e} s1 {row['s1_rel_err']:.2e} "
+                 f"s2 {row['s2_rel_err']:.2e} " if "bn_rel_err" in row else "")
+              + f"dx {e_dx:.2e} dw {e_dw:.2e}")
+
+    image, depth, arows = warp_scene(batch_np)
+    got = twd.warp_depth_fwd(image, depth, arows, S_SCALES, F_FRAMES, BAND)
+    gy = torch.randn(got[0].shape, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(7))
+    dd = twd.warp_depth_bwd(depth, gy, got[2], got[3], arows, S_SCALES,
+                            F_FRAMES)
+    torch.cuda.synchronize()
+    ref = twd.warp_depth_plain(image, depth, arows, S_SCALES, F_FRAMES, BAND)
+    dd_ref = twd.warp_depth_bwd_plain(depth, gy, ref[2], ref[3], arows,
+                                      S_SCALES, F_FRAMES)
+    ov_diff = int((got[1] != ref[1]).sum().item())
+    fwd = max(rel_err(a, r)[0] for a, r in zip((got[0], got[2], got[3]),
+                                              (ref[0], ref[2], ref[3])))
+    d_dd, e_dd = rel_err(dd, dd_ref)
+    errs["warp_depth_fwd"], errs["warp_depth_bwd"] = fwd, d_dd
+    x = project_rows(twd._per_warp_depth(depth, S_SCALES, F_FRAMES),
+                     arows)["x"]
+    moved = lane_window_moves(x, WIDTH)
+    print(f"check warp N={arows.shape[0]} {HEIGHT}x{WIDTH} band {BAND}: "
+          f"fwd max abs err {fwd:.2e} (out, va, vb), overlap mismatches "
+          f"{ov_diff}, d depth rel err {e_dd:.2e}; TPU lane-window clamp "
+          f"would move {moved} of {x.numel()} samples")
+    check(ov_diff == 0 and fwd <= 1e-6, "warp forward kernel disagrees")
+    check(e_dd <= 1e-6, f"warp backward kernel: rel err {e_dd:.2e} > 1e-6")
+    return errs, dict(image=image, depth=depth, arows=arows, gy=gy,
+                      va=got[2], vb=got[3], lane_window_moves=moved,
+                      samples=x.numel())
+
+
+def white_noise_images(batch_np, seed=7):
+    """The batch with its images replaced by white noise in [0, 1): the
+    synthetic textures are so smooth that many 3x3 SSIM windows have a
+    variance at float32 rounding level, where the variance clamp switches
+    their gradient on and off at random."""
+    rng = np.random.RandomState(seed)
+    out = dict(batch_np)
+    for key in sorted(out):
+        if key.startswith(("image/", "original_image/")):
+            out[key] = rng.rand(*out[key].shape).astype(np.float32)
+    return out
+
+
+def bn_cancelled(name):
+    """Conv biases of the decoder's ConvBnReLU blocks: train-mode BN removes
+    them, so their exact gradient is 0 and both sides hold rounding noise."""
+    return ".upconv_" in name and name.endswith(".conv.bias")
+
+
+def train_phases(counters, record):
+    """Phases 8-11. Returns the launch counts of the train path and the
+    kernel line's entries of the training kernels."""
+    import torch.nn.functional as F
+
+    from fsnet_tpu_torch.entry import (flagship_model, flagship_optimizer,
+                                       synthetic_batch)
+    from fsnet_tpu_torch.ops import conv3x3 as tc
+    from fsnet_tpu_torch.ops import warp_depth as twd
+    from fsnet_tpu_torch.runtime.state import make_train_step
+
+    rows = [dict(name=n) for n, *_ in SHAPES]
+    batch = synthetic_batch(BATCH, HEIGHT, WIDTH)
+
+    # 8. training kernels against their plain versions
+    errs, warp_in = check_training_kernels(batch, rows)
+    record["lane_window_moves"] = dict(moved=warp_in["lane_window_moves"],
+                                       samples=warp_in["samples"])
+
+    # 9. the train path, three steps at bs12
+    model = flagship_model(HEIGHT, WIDTH, device="cuda", seed=0)
+    opt, _ = flagship_optimizer(model)
+    step = make_train_step("cuda")
+    p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    s0 = {n: b.clone() for n, b in model.named_buffers()
+          if n.endswith("running_var")}
+    steps = 3
+    zero(counters)
+    losses = []
+    for _ in range(steps):
+        losses.append(float(step(model, opt, batch)["loss"]))
+    torch.cuda.synchronize()
+    counts = read(counters)
+    n_dx = sum(len(Cs) for _, _, _, Cs, _, _ in SHAPES)
+    want = dict(conv3x3=4, conv3x3_bn=10, conv3x3_dx=n_dx,
+                conv3x3_dw=len(SHAPES), warp_depth_fwd=1, warp_depth_bwd=1)
+    print(f"train path: {steps} steps bs{BATCH}@{HEIGHT}x{WIDTH} f32, "
+          f"losses {losses}, launches {counts}")
+    check(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    check(counts == {k: n * steps for k, n in want.items()},
+          f"train path launches {counts}, expected per step {want}")
+    moved = sum(int((p.detach() != p0[n]).any().item())
+                for n, p in model.named_parameters())
+    stats_moved = sum(int((b != s0[n]).any().item())
+                      for n, b in model.named_buffers() if n in s0)
+    check(moved >= len(p0) - 10 and stats_moved == len(s0),
+          f"{moved} of {len(p0)} parameters and {stats_moved} of {len(s0)} "
+          "BN variances changed")
+    record["train_path"] = dict(steps=steps, losses=losses,
+                                launches=counts, launches_per_step=want,
+                                params_changed=moved, params=len(p0))
+
+    # 10. one step at bs2 on the card against the port on the CPU
+    small = white_noise_images({k: v[:2] for k, v in batch.items()})
+    res = {}
+    for dev in ("cuda", "cpu"):
+        m = flagship_model(HEIGHT, WIDTH, device=dev, seed=0)
+        o, _ = flagship_optimizer(m)
+        start = {k: p.detach().cpu().double()
+                 for k, p in m.named_parameters()}
+        met = make_train_step(dev, with_grads=True)(m, o, small)
+        res[dev] = (float(met["loss"]),
+                    {k: g.detach().cpu().double()
+                     for k, g in met["_grads"].items()},
+                    {k: p.detach().cpu().double() - start[k]
+                     for k, p in m.named_parameters()})
+    (l_card, g_card, u_card), (l_cpu, g_cpu, u_cpu) = res["cuda"], res["cpu"]
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    kept = [k for k in g_cpu if not bn_cancelled(k)]
+    num = sum(float(((g_card[k] - g_cpu[k]) ** 2).sum()) for k in kept)
+    den = sum(float((g_cpu[k] ** 2).sum()) for k in kept)
+    grad_rel = (num / den) ** 0.5
+    leaf = {k: float((g_card[k] - g_cpu[k]).norm() / g_cpu[k].norm())
+            for k in kept}
+    worst = max(leaf, key=leaf.get)
+    lr = 1e-4
+    n_upd = sum(u.numel() for u in u_cpu.values())
+    upd_frac = sum(int(((u_card[k] - u_cpu[k]).abs() > lr / 2).sum())
+                   for k in u_cpu) / n_upd
+    print(f"card vs CPU port, train step bs2@{HEIGHT}x{WIDTH}: loss "
+          f"{l_card:.6f} vs {l_cpu:.6f} (rel {loss_rel:.2e}), global grad "
+          f"rel-L2 {grad_rel:.2e}, worst leaf {worst} {leaf[worst]:.2e}, "
+          f"Adam updates differing by > lr/2: {upd_frac:.4%}")
+    record["train_card_vs_cpu"] = dict(loss_rel=loss_rel, grad_rel_l2=grad_rel,
+                                       worst_leaf=worst,
+                                       worst_leaf_rel_l2=leaf[worst],
+                                       adam_update_differs=upd_frac)
+    check(loss_rel <= 1e-4, f"card vs CPU loss rel {loss_rel:.2e} > 1e-4")
+    check(grad_rel < 3e-2, f"card vs CPU grad rel-L2 {grad_rel:.2e} >= 3e-2")
+    check(leaf[worst] < 0.5, f"card vs CPU grad of {worst}: rel-L2 "
+          f"{leaf[worst]:.2e} >= 0.5")
+    check(upd_frac < 0.02, f"card vs CPU Adam updates differ on "
+          f"{upd_frac:.2%} of the parameters")
+
+    # 11. timings: the train step with the batch on the card (as bench.py
+    # times the JAX step) and from host numpy arrays (pageable copies
+    # included), then each training kernel
+    on_card = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    n_steps = 10
+
+    def step_ms(b):
+        for _ in range(2):
+            step(model, opt, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step(model, opt, b)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n_steps * 1e3
+
+    ms_card, ms_host = step_ms(on_card), step_ms(batch)
+    record["train_step"] = dict(bs=BATCH, ms=ms_card,
+                                imgs_per_s=BATCH / ms_card * 1e3,
+                                ms_from_host=ms_host,
+                                peak_mem_gb=torch.cuda.max_memory_allocated()
+                                / 1e9)
+    print(f"train step bs{BATCH}@{HEIGHT}x{WIDTH} f32 (mean of {n_steps}): "
+          f"batch on the card {ms_card:.3f} ms = "
+          f"{BATCH / ms_card * 1e3:.2f} imgs/s; from host numpy "
+          f"{ms_host:.3f} ms = {BATCH / ms_host * 1e3:.2f} imgs/s")
+
+    torch.backends.cudnn.benchmark = True      # the yardstick's best
+    tot = {k: dict(ms=0.0, plain_ms=0.0, items=[], lib_ms=0.0,
+                   lib_kernel_ms=0.0, lib_shapes=[])
+           for k in ("conv3x3_bn", "conv3x3_dx", "conv3x3_dw")}
+    for i, (name, H, W, Cs, Co, pad) in enumerate(SHAPES):
+        parts, w, b = conv_inputs(BATCH, H, W, Cs, Co, torch.float32, seed=i)
+        gy = torch.randn(BATCH, H, W, Co, device="cuda")
+        n, cin = BATCH * H * W, sum(Cs)
+        row = rows[i]
+        timed = {}
+        if name.startswith("upconv_"):
+            timed["conv3x3_bn"] = (
+                lambda: tc.conv3x3_bn(parts, w, b, pad),
+                lambda: tc.moments_plain(tc.conv3x3_plain(parts, w, b, pad)),
+                (2.0 * 9 * n * cin * Co + 3.0 * n * Co,
+                 4.0 * (n * cin + 9 * cin * Co + Co + n * Co + 2 * Co)), None)
+        lib = len(Cs) == 1 and pad == "zeros"
+        xc = parts[0].permute(0, 3, 1, 2)
+        wc = w.permute(3, 2, 0, 1).contiguous()
+        gc = gy.permute(0, 3, 1, 2)
+        timed["conv3x3_dx"] = (
+            lambda: tc.conv3x3_dx(gy, w, pad, Cs),
+            lambda: tc.conv3x3_dx_plain(gy, w, pad, Cs),
+            (2.0 * 9 * n * Co * cin,
+             4.0 * (n * Co + 9 * cin * Co + n * cin)),
+            (lambda: torch.nn.grad.conv2d_input(xc.shape, wc, gc, padding=1))
+            if lib else None)
+        timed["conv3x3_dw"] = (
+            lambda: tc.conv3x3_dw(parts, gy, pad),
+            lambda: tc.conv3x3_dw_plain(parts, gy, pad),
+            (2.0 * 9 * n * cin * Co,
+             4.0 * (n * cin + n * Co + 9 * cin * Co)),
+            (lambda: torch.nn.grad.conv2d_weight(xc, wc.shape, gc, padding=1))
+            if lib else None)
+        for k, (fn, plain, ob, library) in timed.items():
+            t = tot[k]
+            ms = cuda_ms(fn, iters=10)
+            t["ms"] += ms
+            t["plain_ms"] += cuda_ms(plain, iters=3, warmup=1)
+            t["items"].append(ob)
+            row[f"{k}_ms"] = ms
+            row[f"{k}_bound_ms"] = ms_bound(*ob)[0]
+            if library is not None:
+                row[f"{k}_library_ms"] = cuda_ms(library, iters=10)
+                t["lib_ms"] += row[f"{k}_library_ms"]
+                t["lib_kernel_ms"] += ms
+                t["lib_shapes"].append(name)
+        print(f"time  {name:11s} "
+              + " ".join(f"{k[8:]} {row[f'{k}_ms']:.4f} ms (bound "
+                         f"{row[f'{k}_bound_ms']:.4f})" for k in timed))
+    torch.backends.cudnn.benchmark = False
+    record["train_shapes"] = rows
+
+    # the warp at N = 96
+    img, dep, ar = warp_in["image"], warp_in["depth"], warp_in["arows"]
+    N, C = ar.shape[0], img.shape[-1]
+    FB, SB, px = img.shape[0], dep.shape[0], N * HEIGHT * WIDTH
+    warp_t = {
+        "warp_depth_fwd": (
+            lambda: twd.warp_depth_fwd(img, dep, ar, S_SCALES, F_FRAMES, BAND),
+            lambda: twd.warp_depth_plain(img, dep, ar, S_SCALES, F_FRAMES,
+                                         BAND),
+            (px * (32.0 + 14.0 * C),
+             4.0 * (FB * HEIGHT * WIDTH * C + SB * HEIGHT * WIDTH + N * 16)
+             + px * (3 * 4.0 * C + 1))),
+        "warp_depth_bwd": (
+            lambda: twd.warp_depth_bwd(dep, warp_in["gy"], warp_in["va"],
+                                       warp_in["vb"], ar, S_SCALES, F_FRAMES),
+            lambda: twd.warp_depth_bwd_plain(dep, warp_in["gy"],
+                                             warp_in["va"], warp_in["vb"], ar,
+                                             S_SCALES, F_FRAMES),
+            (px * (40.0 + 4.0 * C),
+             4.0 * (3 * px * C + 2 * SB * HEIGHT * WIDTH + N * 16))),
+    }
+    kernels = []
+    src = "fsnet_tpu_torch/csrc/"
+    meta = {
+        "conv3x3_bn": (src + "conv3x3.cu",
+                       "fsnet_tpu/ops/pallas/conv_kernel.py:258"),
+        "conv3x3_dx": (src + "conv3x3.cu",
+                       "fsnet_tpu/ops/pallas/conv_kernel.py:210"),
+        "conv3x3_dw": (src + "conv3x3_dw.cu",
+                       "fsnet_tpu/ops/pallas/conv_kernel.py:351"),
+        "warp_depth_fwd": (src + "warp_depth.cu",
+                           "fsnet_tpu/ops/pallas/prep_kernel.py:190 + "
+                           "fsnet_tpu/ops/pallas/warp_kernel.py:1022"),
+        "warp_depth_bwd": (src + "warp_depth.cu",
+                           "fsnet_tpu/ops/pallas/prep_kernel.py:277"),
+    }
+    for k, t in tot.items():
+        b_ms, b_by = sum_bounds(t["items"])
+        entry = dict(name=k, route="cuda", source=meta[k][0],
+                     replaces=meta[k][1], launches=counts[k],
+                     max_abs_err=errs[k], ms=t["ms"], plain_ms=t["plain_ms"],
+                     bound_ms=b_ms, bound_by=b_by,
+                     library_ms=t["lib_ms"] if t["lib_shapes"] else None)
+        if k == "conv3x3_bn":
+            entry["max_abs_err_moments"] = errs["conv3x3_bn_mom"]
+        if t["lib_shapes"]:
+            entry["library_shapes"] = t["lib_shapes"]
+            entry["ms_library_shapes"] = t["lib_kernel_ms"]
+        entry["note"] = ("sums over the shapes of one bs12 train step, "
+                         "float32" + ("; library_ms: cuDNN conv backward "
+                                      "(torch.nn.grad) at library_shapes, "
+                                      "ms_library_shapes the kernel there"
+                                      if t["lib_shapes"] else ""))
+        kernels.append(entry)
+    for k, (fn, plain, ob) in warp_t.items():
+        ms = cuda_ms(fn, iters=10)
+        b_ms, b_by = ms_bound(*ob)
+        kernels.append(dict(
+            name=k, route="cuda", source=meta[k][0], replaces=meta[k][1],
+            launches=counts[k], max_abs_err=errs[k], ms=ms,
+            plain_ms=cuda_ms(plain, iters=3, warmup=1), bound_ms=b_ms,
+            bound_by=b_by, library_ms=None,
+            note=f"N={N} warps of {HEIGHT}x{WIDTH}x{C}, band {BAND}, "
+                 "float32"))
+    for e in kernels:
+        print(f"time  {e['name']:15s} kernel {e['ms']:.4f} ms  plain "
+              f"{e['plain_ms']:.4f} ms  bound {e['bound_ms']:.4f} ms "
+              f"({e['bound_by']})  library "
+              + ("none" if e["library_ms"] is None else
+                 f"{e['library_ms']:.4f} ms vs kernel "
+                 f"{e['ms_library_shapes']:.4f} ms at "
+                 f"{len(e['library_shapes'])} shapes"))
+    return dict(counts=counts, kernels=kernels)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -136,6 +599,8 @@ def main() -> int:
     from fsnet_tpu_torch.ops import _build
     from fsnet_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
     from fsnet_tpu_torch.runtime.state import make_eval_step
+
+    counters = launch_counters()
 
     record = {}
     # 1. the card
@@ -190,10 +655,11 @@ def main() -> int:
     hooks = [m.register_forward_pre_hook(lambda m, args: seen.append(args[0]))
              for m in model.modules() if isinstance(m, Conv3x3)]
     batch = flagship_batch(BATCH)
-    conv3x3.launches = 0
+    zero(counters)
     pred = eval_step(model, batch)
     torch.cuda.synchronize()
-    launches = conv3x3.launches
+    eval_counts = read(counters)
+    launches = eval_counts["conv3x3"]
     for h in hooks:
         h.remove()
     seen_shapes = []
@@ -206,6 +672,8 @@ def main() -> int:
           f"main path conv shapes {seen_shapes} differ from {want}")
     check(launches == len(SHAPES), f"{launches} conv3x3 launches in one "
           f"forward, expected {len(SHAPES)}")
+    check(all(n == 0 for k, n in eval_counts.items() if k != "conv3x3"),
+          f"the eval path launched training kernels: {eval_counts}")
     depth = pred["depth"]
     check(tuple(depth.shape) == (BATCH, HEIGHT, WIDTH, 1),
           f"depth shape {tuple(depth.shape)}")
@@ -276,11 +744,16 @@ def main() -> int:
         bound_ms=max(tot["ops_ms"], tot["bytes_ms"]),
         bound_by="operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes",
         library_ms=None, conv2d_ms=tot["conv2d_ms"],
-        note="ms, plain_ms, bound_ms, conv2d_ms: sums over the 14 decoder "
-             "convs of one bs12 forward, float32")
+        note="eval path (forward_test): ms, plain_ms, bound_ms, conv2d_ms "
+             "are sums over the 14 decoder convs of one bs12 forward, "
+             "float32")
+
+    # 8-11. the train path
+    train = train_phases(counters, record)
+    kernel["launches_train_path"] = train["counts"]["conv3x3"]
 
     print(json.dumps(record))
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel] + train["kernels"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

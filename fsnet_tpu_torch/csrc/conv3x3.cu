@@ -31,6 +31,21 @@
 // shared-memory traffic stays well below the FMA issue rate. Ragged tiles
 // (H=6, W=20, Cin=96, Co=16) are masked at load and store. This is the
 // simple first kernel: no tensor cores (wgmma), no TMA, no double buffering.
+//
+// The same kernel computes the input cotangent of the conv (the caller
+// passes the zero-padded output cotangent and the spatially flipped,
+// io-transposed weight), as the TPU kernel does with transposed mats.
+//
+// BN-moments epilogue (MOM, float32 only). Replaces conv_kernel.py
+// conv3x3_fused_mats_m: besides the output, the kernel returns the
+// per-channel sum and sum of squares of the STORED output in f32, so
+// train-mode BatchNorm never re-reads the activation. Each thread sums its
+// PX pixels, a warp (all pixel groups of one channel group) reduces with
+// shuffles, and lane 0 adds the block's partial into the [2, Co] buffer with
+// atomicAdd. The order of those atomics varies, so the moments are not
+// bitwise run-to-run deterministic (f32 rounding of the block partials only).
+// The two-part input of the TPU kernel's `prev` operand is already summed
+// in-kernel here.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -62,13 +77,13 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-template <typename T, int TCO>
+template <typename T, int TCO, bool MOM>
 __global__ void __launch_bounds__(NPG * (TCO / CO_T))
 conv3x3_nhwc_kernel(const T* __restrict__ x0, int C0,
                     const T* __restrict__ x1, int C1,
                     const T* __restrict__ w, const T* __restrict__ bias,
-                    T* __restrict__ out, int H, int W, int Co,
-                    int tiles_w, int tiles_h, int replicate) {
+                    T* __restrict__ out, float* __restrict__ mom, int H,
+                    int W, int Co, int tiles_w, int tiles_h, int replicate) {
   constexpr int NCG = TCO / CO_T;       // channel groups per block
   constexpr int NT = NPG * NCG;         // threads per block
   __shared__ float s_in[CI][HALO_H][HALO_W];
@@ -163,26 +178,58 @@ conv3x3_nhwc_kernel(const T* __restrict__ x0, int C0,
   }
 
   const int gy = h0 + ty;
-  if (gy >= H) return;
+  float s1[CO_T], s2[CO_T];
 #pragma unroll
-  for (int k = 0; k < PX; ++k) {
-    const int gx = w0 + tx + k;
-    if (gx >= W) continue;
-    T* o = out + (((size_t)b * H + gy) * W + gx) * Co;
+  for (int c = 0; c < CO_T; ++c) s1[c] = s2[c] = 0.f;
+  if (gy < H) {
+#pragma unroll
+    for (int k = 0; k < PX; ++k) {
+      const int gx = w0 + tx + k;
+      if (gx >= W) continue;
+      T* o = out + (((size_t)b * H + gy) * W + gx) * Co;
+#pragma unroll
+      for (int c = 0; c < CO_T; ++c) {
+        const int co = co0 + cg * CO_T + c;
+        if (co >= Co) continue;
+        const float bv = bias != nullptr ? to_f32(bias[co]) : 0.f;
+        const T v = from_f32<T>(acc[k][c] + bv);
+        o[co] = v;
+        if (MOM) {
+          const float vs = to_f32(v);       // moments of the stored value
+          s1[c] += vs;
+          s2[c] += vs * vs;
+        }
+      }
+    }
+  }
+  if (MOM) {
+    // the warp holds all NPG pixel groups of channel group cg
 #pragma unroll
     for (int c = 0; c < CO_T; ++c) {
-      const int co = co0 + cg * CO_T + c;
-      if (co >= Co) continue;
-      const float bv = bias != nullptr ? to_f32(bias[co]) : 0.f;
-      o[co] = from_f32<T>(acc[k][c] + bv);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        s1[c] += __shfl_xor_sync(0xffffffffu, s1[c], off);
+        s2[c] += __shfl_xor_sync(0xffffffffu, s2[c], off);
+      }
+    }
+    if (pg == 0) {
+#pragma unroll
+      for (int c = 0; c < CO_T; ++c) {
+        const int co = co0 + cg * CO_T + c;
+        if (co < Co) {
+          atomicAdd(&mom[co], s1[c]);
+          atomicAdd(&mom[Co + co], s2[c]);
+        }
+      }
     }
   }
 }
 
-template <typename T>
+template <typename T, bool MOM>
 void launch(int tco, dim3 grid, cudaStream_t stream, const void* x0, int C0,
             const void* x1, int C1, const void* w, const void* bias, void* out,
-            int H, int W, int Co, int tiles_w, int tiles_h, int replicate) {
+            float* mom, int H, int W, int Co, int tiles_w, int tiles_h,
+            int replicate) {
   const T* px0 = static_cast<const T*>(x0);
   const T* px1 = static_cast<const T*>(x1);
   const T* pw = static_cast<const T*>(w);
@@ -190,18 +237,50 @@ void launch(int tco, dim3 grid, cudaStream_t stream, const void* x0, int C0,
   T* po = static_cast<T*>(out);
   switch (tco) {
     case 16:
-      conv3x3_nhwc_kernel<T, 16><<<grid, NPG * 2, 0, stream>>>(
-          px0, C0, px1, C1, pw, pb, po, H, W, Co, tiles_w, tiles_h, replicate);
+      conv3x3_nhwc_kernel<T, 16, MOM><<<grid, NPG * 2, 0, stream>>>(
+          px0, C0, px1, C1, pw, pb, po, mom, H, W, Co, tiles_w, tiles_h,
+          replicate);
       break;
     case 32:
-      conv3x3_nhwc_kernel<T, 32><<<grid, NPG * 4, 0, stream>>>(
-          px0, C0, px1, C1, pw, pb, po, H, W, Co, tiles_w, tiles_h, replicate);
+      conv3x3_nhwc_kernel<T, 32, MOM><<<grid, NPG * 4, 0, stream>>>(
+          px0, C0, px1, C1, pw, pb, po, mom, H, W, Co, tiles_w, tiles_h,
+          replicate);
       break;
     default:
-      conv3x3_nhwc_kernel<T, 64><<<grid, NPG * 8, 0, stream>>>(
-          px0, C0, px1, C1, pw, pb, po, H, W, Co, tiles_w, tiles_h, replicate);
+      conv3x3_nhwc_kernel<T, 64, MOM><<<grid, NPG * 8, 0, stream>>>(
+          px0, C0, px1, C1, pw, pb, po, mom, H, W, Co, tiles_w, tiles_h,
+          replicate);
       break;
   }
+}
+
+int conv_launch(const void* x0, int C0, const void* x1, int C1,
+                const void* w, const void* bias, void* out, void* mom, int B,
+                int H, int W, int Co, int replicate, int dtype,
+                void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || Co <= 0 || C0 <= 0 || C1 < 0 ||
+      (C1 > 0 && x1 == nullptr) || (dtype != 0 && dtype != 1) ||
+      (mom != nullptr && dtype != 0))
+    return (int)cudaErrorInvalidValue;
+  const int tiles_w = (W + TW - 1) / TW;
+  const int tiles_h = (H + TH - 1) / TH;
+  const long long nblk = (long long)B * tiles_h * tiles_w;
+  const int tco = Co <= 16 ? 16 : (Co <= 32 ? 32 : 64);
+  const int co_tiles = (Co + tco - 1) / tco;
+  if (nblk > INT_MAX || co_tiles > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)nblk, (unsigned)co_tiles);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* m = static_cast<float*>(mom);
+  if (m != nullptr)
+    launch<float, true>(tco, grid, s, x0, C0, x1, C1, w, bias, out, m, H, W,
+                        Co, tiles_w, tiles_h, replicate);
+  else if (dtype == 0)
+    launch<float, false>(tco, grid, s, x0, C0, x1, C1, w, bias, out, m, H, W,
+                         Co, tiles_w, tiles_h, replicate);
+  else
+    launch<__nv_bfloat16, false>(tco, grid, s, x0, C0, x1, C1, w, bias, out,
+                                 m, H, W, Co, tiles_w, tiles_h, replicate);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -214,22 +293,18 @@ extern "C" int fsnet_conv3x3_nhwc(const void* x0, int C0, const void* x1,
                                   int C1, const void* w, const void* bias,
                                   void* out, int B, int H, int W, int Co,
                                   int replicate, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || Co <= 0 || C0 <= 0 || C1 < 0 ||
-      (C1 > 0 && x1 == nullptr) || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  const int tiles_w = (W + TW - 1) / TW;
-  const int tiles_h = (H + TH - 1) / TH;
-  const long long nblk = (long long)B * tiles_h * tiles_w;
-  const int tco = Co <= 16 ? 16 : (Co <= 32 ? 32 : 64);
-  const int co_tiles = (Co + tco - 1) / tco;
-  if (nblk > INT_MAX || co_tiles > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)nblk, (unsigned)co_tiles);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    launch<float>(tco, grid, s, x0, C0, x1, C1, w, bias, out, H, W, Co,
-                  tiles_w, tiles_h, replicate);
-  else
-    launch<__nv_bfloat16>(tco, grid, s, x0, C0, x1, C1, w, bias, out, H, W,
-                          Co, tiles_w, tiles_h, replicate);
-  return (int)cudaGetLastError();
+  return conv_launch(x0, C0, x1, C1, w, bias, out, nullptr, B, H, W, Co,
+                     replicate, dtype, stream);
+}
+
+// The same with the moments epilogue, float32 only: `mom` is a zeroed
+// [2, Co] f32 buffer that receives the per-channel sum and sum of squares
+// of the stored `out`.
+extern "C" int fsnet_conv3x3_bn_nhwc(const void* x0, int C0, const void* x1,
+                                     int C1, const void* w, const void* bias,
+                                     void* out, void* mom, int B, int H, int W,
+                                     int Co, int replicate, void* stream) {
+  if (mom == nullptr) return (int)cudaErrorInvalidValue;
+  return conv_launch(x0, C0, x1, C1, w, bias, out, mom, B, H, W, Co,
+                     replicate, 0, stream);
 }

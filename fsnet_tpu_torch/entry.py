@@ -1,5 +1,7 @@
-"""The flagship depth model of the port and its export-style forward
-(counterpart of ``__graft_entry__._flagship_model`` and ``entry()``).
+"""The flagship depth model of the port, its export-style forward, the
+synthetic KITTI-like training batch and the training recipe's optimizer
+(counterpart of ``__graft_entry__._flagship_model``, ``_synthetic_batch``,
+``entry()`` and the optimizer of ``bench.py``).
 
 The configuration is the JAX flagship's with ``fsnet_tpu_torch`` names: a
 ResNet-18 encoder with ``out_indices=(-1, 0, 1, 2, 3)`` and a
@@ -10,10 +12,12 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
 
 from .utils.builder import build
 from .utils.device import DeviceLike, resolve_device
+from .utils.keys import encode_batch
 
 
 def flagship_config(height: int, width: int) -> Dict:
@@ -60,3 +64,62 @@ def entry(device: DeviceLike = "cuda") -> Tuple[Callable, Tuple[torch.Tensor]]:
             return model.dummy_forward(image)
 
     return fn, (image,)
+
+
+def synthetic_batch(batch: int, height: int, width: int) -> Dict:
+    """KITTI-like synthetic training batch, string-keyed numpy arrays (the
+    numbers of ``__graft_entry__._synthetic_batch``, from the same
+    ``RandomState(0)``): small random rotations (+-0.3 deg), forward/back
+    translation tz of 0.55-0.8 m, and spatially correlated textures
+    (bicubic-upsampled low-frequency noise) in [0, 1]."""
+    from scipy.ndimage import zoom
+
+    rng = np.random.RandomState(0)
+    P2 = np.zeros((batch, 3, 4), np.float32)
+    P2[:, 0, 0] = P2[:, 1, 1] = 0.58 * width
+    P2[:, 0, 2] = width / 2
+    P2[:, 1, 2] = height / 2
+    P2[:, 2, 2] = 1.0
+
+    def pose(direction):
+        out = np.tile(np.eye(4, dtype=np.float32), (batch, 1, 1))
+        for b in range(batch):
+            w = np.deg2rad(rng.uniform(-0.3, 0.3, 3)).astype(np.float32)
+            th = float(np.linalg.norm(w)) + 1e-12
+            k = w / th
+            K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]],
+                          [-k[1], k[0], 0]], np.float32)
+            out[b, :3, :3] = (np.eye(3, dtype=np.float32) + np.sin(th) * K
+                              + (1 - np.cos(th)) * (K @ K))
+            out[b, :3, 3] = [rng.uniform(-0.05, 0.05),
+                             rng.uniform(-0.02, 0.02),
+                             direction * rng.uniform(0.55, 0.8)]
+        return out
+
+    def img():
+        lo = rng.rand(batch, max(height // 16, 2), max(width // 16, 2), 3)
+        up = zoom(lo, (1, height / lo.shape[1], width / lo.shape[2], 1),
+                  order=3, grid_mode=True, mode="nearest")
+        return np.clip(up, 0.0, 1.0).astype(np.float32)
+
+    data = {
+        ("image", 0): img(), ("image", 1): img(), ("image", -1): img(),
+        ("original_image", 0): img(), ("original_image", 1): img(),
+        ("original_image", -1): img(),
+        ("relative_pose", 1): pose(+1), ("relative_pose", -1): pose(-1),
+        "P2": P2,
+    }
+    return encode_batch(data)
+
+
+def flagship_optimizer(model: torch.nn.Module, steps_per_epoch: int = 1000):
+    """The training recipe of ``bench.py``: Adam (lr 1e-4), global-norm
+    clip 1.0, StepLR with step_size 8, over all of ``model``'s
+    parameters. Returns (optimizer, schedule)."""
+    from .runtime.optim import build_optimizer
+
+    return build_optimizer(list(model.parameters()),
+                           dict(name="adam", lr=1e-4),
+                           dict(name="StepLR", step_size=8),
+                           steps_per_epoch=steps_per_epoch,
+                           clip_gradients=1.0)

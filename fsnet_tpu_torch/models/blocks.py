@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.conv3x3 import PAD_MODES, conv3x3
+from ..ops.conv3x3 import PAD_MODES, conv3x3, conv3x3_bn
 
 
 class BatchNorm(nn.Module):
@@ -26,10 +26,9 @@ class BatchNorm(nn.Module):
 
     Eval (or ``frozen``) uses the running statistics; training normalises
     with the biased batch variance and updates the running statistics as
-    flax does: ``ra = 0.9 * ra + 0.1 * batch`` (flax momentum 0.9 is torch
-    momentum 0.1). eps 1e-5."""
+    flax does: ``ra = 0.9 * ra + (1 - 0.9) * batch``. eps 1e-5."""
 
-    momentum = 0.1
+    momentum = 0.9      # flax convention (torch momentum 0.1)
     eps = 1e-5
 
     def __init__(self, num_features: int, frozen: bool = False):
@@ -40,19 +39,28 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
+    def update_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        with torch.no_grad():
+            self.running_mean.mul_(self.momentum).add_(
+                mean.detach() * (1 - self.momentum))
+            self.running_var.mul_(self.momentum).add_(
+                var.detach() * (1 - self.momentum))
+
+    def normalize(self, x: torch.Tensor, mean: torch.Tensor,
+                  var: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean) * mul + self.bias).to(x.dtype)
+
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train and not self.frozen:
             dims = tuple(range(x.dim() - 1))
-            xf = x.float()
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
             mean = xf.mean(dim=dims)
             var = (xf * xf).mean(dim=dims) - mean * mean
-            with torch.no_grad():
-                self.running_mean.lerp_(mean, self.momentum)
-                self.running_var.lerp_(var, self.momentum)
+            self.update_stats(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((x - mean) * mul + self.bias).to(x.dtype)
+        return self.normalize(x, mean, var)
 
 
 class Conv(nn.Module):
@@ -96,7 +104,12 @@ class Conv3x3(nn.Module):
 
 class ConvBnReLU(nn.Module):
     """3x3 conv -> BN -> ReLU, the decoder's block. ``padding_mode``
-    'zeros' or 'replicate' (the decoder's second upconv)."""
+    'zeros' or 'replicate' (the decoder's second upconv).
+
+    In training the batch statistics come with the conv
+    (:func:`~fsnet_tpu_torch.ops.conv3x3.conv3x3_bn`, the kernel's moments
+    epilogue): mean = s1 / n, var = s2 / n - mean^2 over the n = B*H*W
+    pixels, as ``fsnet_tpu.models.blocks.ConvBnReLU._call_packed``."""
 
     def __init__(self, input_features: int, output_features: int,
                  padding_mode: str = "zeros"):
@@ -105,7 +118,15 @@ class ConvBnReLU(nn.Module):
         self.norm = BatchNorm(output_features)
 
     def forward(self, x, train: bool = False) -> torch.Tensor:
-        return torch.relu(self.norm(self.conv(x), train))
+        if not train or self.norm.frozen:
+            return torch.relu(self.norm(self.conv(x), train))
+        conv = self.conv
+        y, s1, s2 = conv3x3_bn(x, conv.weight, conv.bias, conv.padding_mode)
+        n = y.shape[0] * y.shape[1] * y.shape[2]
+        mean = s1 / n
+        var = s2 / n - mean * mean
+        self.norm.update_stats(mean, var)
+        return torch.relu(self.norm.normalize(y, mean, var))
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -142,6 +163,24 @@ def interpolate_bilinear(x: torch.Tensor, out_h: int, out_w: int,
     Ax = _interp_matrix(W, out_w, align_corners, x.dtype, x.device)
     x = torch.einsum("oh,bhwc->bowc", Ay, x)
     return torch.einsum("pw,bowc->bopc", Ax, x)
+
+
+def adaptive_avg_pool2d(x: torch.Tensor, out_h: int,
+                        out_w: int) -> torch.Tensor:
+    """Adaptive average pool of an NHWC tensor, torch's window arithmetic:
+    a reshape-mean when the sizes divide, else windows
+    [floor(i H / out), ceil((i + 1) H / out))."""
+    B, H, W, C = x.shape
+    if H % out_h == 0 and W % out_w == 0:
+        return x.reshape(B, out_h, H // out_h, out_w, W // out_w, C).mean(
+            dim=(2, 4))
+    rows = []
+    for i in range(out_h):
+        y0, y1 = (i * H) // out_h, -(-((i + 1) * H) // out_h)
+        rows.append(torch.stack([
+            x[:, y0:y1, (j * W) // out_w:-(-((j + 1) * W) // out_w)].mean(
+                dim=(1, 2)) for j in range(out_w)], dim=1))
+    return torch.stack(rows, dim=1)
 
 
 def max_pool_3x3_s2_p1(x: torch.Tensor) -> torch.Tensor:

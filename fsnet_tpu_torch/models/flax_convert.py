@@ -1,4 +1,4 @@
-"""Weight bridge: the JAX package's flax variables -> the port's state_dict.
+"""Weight bridge: the JAX package's flax variables <-> the port's state_dict.
 
 The inverse of ``fsnet_tpu.models.torch_convert`` for the port's own
 modules. ``variables`` is ``{'params': tree, 'batch_stats': tree}`` of
@@ -15,6 +15,8 @@ takes); no JAX import is needed. Names map one to one:
 
 The bridge is strict: every flax leaf is consumed exactly once, every
 tensor of the port's state_dict is filled, and shapes must agree.
+:func:`to_flax` is the inverse: port tensors by state_dict name (weights,
+statistics or gradients) -> the flax tree, for leaf-by-leaf comparisons.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .blocks import Conv
+from .blocks import BatchNorm, Conv
 
 _LEAF = {
     ("params", "kernel"): "weight",
@@ -90,3 +92,38 @@ def load_flax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     """Load flax ``variables`` into ``model`` in place (strict)."""
     model.load_state_dict(flax_to_state_dict(model, variables), strict=True)
     return model
+
+
+_INVERSE = {
+    False: {"weight": ("params", "kernel"), "bias": ("params", "bias")},
+    True: {"weight": ("params", "scale"), "bias": ("params", "bias"),
+           "running_mean": ("batch_stats", "mean"),
+           "running_var": ("batch_stats", "var")},
+}
+
+
+def flax_path(model: nn.Module, key: str) -> Tuple[str, Tuple[str, ...]]:
+    """(collection, path) of the flax leaf of the port tensor ``key``."""
+    scope, leaf = key.rsplit(".", 1)
+    is_bn = isinstance(model.get_submodule(scope), BatchNorm)
+    collection, name = _INVERSE[is_bn][leaf]
+    return collection, tuple(scope.split(".")) + (("bn",) if is_bn else ()) \
+        + (name,)
+
+
+def to_flax(model: nn.Module, tensors: Mapping[str, torch.Tensor]) -> Dict:
+    """Port tensors keyed by ``model``'s state_dict names -> the nested
+    ``{collection: tree}`` of numpy arrays in flax's layouts (HWIO
+    kernels)."""
+    out: Dict = {}
+    for key, value in tensors.items():
+        collection, path = flax_path(model, key)
+        arr = value.detach().cpu().numpy()
+        module = model.get_submodule(key.rsplit(".", 1)[0])
+        if isinstance(module, Conv) and key.endswith(".weight"):
+            arr = arr.transpose(2, 3, 1, 0)            # OIHW -> HWIO
+        node = out.setdefault(collection, {})
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = arr
+    return out

@@ -1,18 +1,44 @@
-"""MonoDepth2 head: the depth forward and the eval prediction (counterpart of
-``fsnet_tpu.models.heads.monodepth2_decoder.MonoDepth2Decoder``; its
-self-supervised loss arrives with the training slice).
+"""MonoDepth2 head: the depth forward, the eval prediction and the
+self-supervised loss of the GT-pose flagship (counterpart of
+``fsnet_tpu.models.heads.monodepth2_decoder.MonoDepth2Decoder``).
+
+The loss covers the flagship's branch: every pose is a dataset constant, so
+all S scales x F frames are warped by one depth-direct warp
+(:func:`~fsnet_tpu_torch.ops.warp_depth.warp_depth_fused`, the Hopper
+kernels on a CUDA device); then 0.85 SSIM + 0.15 L1 per pixel, the overlap
+mask, the identity automask with the identity candidates pre-minned over
+the frames, and edge-aware smoothness over a dyadic color pyramid. Other
+branches (learned or residual poses, patched or motion masks, light
+compensation, SSIM weights, distillation, depth monitors) raise.
+
+The identity tie-break noise is an input: ``noise`` [F, B, H, W] standard
+normal values, scaled by 1e-5 as in the JAX package; without it no noise is
+added. The port cannot reproduce the JAX random bits.
 
 The constructor takes the JAX head's full option surface, so one config
-dict builds either package; the loss options are stored for the loss.
+dict builds either package.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Sequence
 
+import torch
 from torch import nn
 
+from ...ops.geometry import abs_, get_smooth_loss, invert_K, make_K44
+from ...ops.ssim import ssim, ssim_target_stats
+from ...ops.warp_depth import make_affine_rows, warp_depth_fused
 from ...utils.builder import build
-from ..blocks import interpolate_bilinear
+from ..blocks import adaptive_avg_pool2d, interpolate_bilinear
+
+
+def reprojection_loss(pred: torch.Tensor, target: torch.Tensor,
+                      ssim_weight: float = 0.85,
+                      target_stats=None) -> torch.Tensor:
+    """0.85 SSIM + 0.15 L1, mean over channels -> [..., H, W, 1]."""
+    l1 = abs_(target - pred).mean(dim=-1, keepdim=True)
+    s = ssim(pred, target, y_stats=target_stats).mean(dim=-1, keepdim=True)
+    return ssim_weight * s + (1.0 - ssim_weight) * l1
 
 
 class MonoDepth2Decoder(nn.Module):
@@ -47,20 +73,18 @@ class MonoDepth2Decoder(nn.Module):
         self.height, self.width = height, width
         self.frame_ids = tuple(frame_ids)
         self.min_depth, self.max_depth = min_depth, max_depth
-        self.loss_options = dict(
-            pose_loss_weight=pose_loss_weight,
-            distillation_loss_weight=distillation_loss_weight,
-            residualflow_weight=residualflow_weight,
-            is_unscaled_distill=is_unscaled_distill,
-            is_uncertain_distill=is_uncertain_distill,
-            overlapped_mask=overlapped_mask, is_log_image=is_log_image,
-            is_residual_flow=is_residual_flow,
-            is_light_compensate=is_light_compensate,
-            is_ssim_weight=is_ssim_weight,
-            photometric_net_grad_weight=photometric_net_grad_weight,
-            multiscale_head_cfg=multiscale_head_cfg,
-            photometric_net_cfg=photometric_net_cfg,
-            warp_impl=warp_impl, warp_band=warp_band)
+        self.pose_loss_weight = pose_loss_weight
+        self.distillation_loss_weight = distillation_loss_weight
+        self.residualflow_weight = residualflow_weight
+        self.overlapped_mask = overlapped_mask
+        self.is_log_image = is_log_image
+        self.warp_impl, self.warp_band = warp_impl, warp_band
+        # switches of loss branches the port does not run yet: the loss
+        # raises when one is on (the distillation options act only through
+        # distillation_loss_weight, the net options only with the net)
+        self.unported = dict(is_residual_flow=is_residual_flow,
+                             is_light_compensate=is_light_compensate,
+                             is_ssim_weight=is_ssim_weight)
         self.depth_decoder = build(**dict(depth_decoder_cfg))
 
     def forward_depth(self, features, P2=None, train: bool = False) -> Dict:
@@ -76,3 +100,165 @@ class MonoDepth2Decoder(nn.Module):
                 output_dict[("depth", self.scales[0], self.scales[0])],
                 self.height, self.width, align_corners=True)
         return dict(depth=depth)
+
+    # ------------------------------------------------------------------ loss
+
+    def _check_branch(self, input_dict, output_dict) -> None:
+        on = [k for k, v in self.unported.items() if v]
+        if self.distillation_loss_weight > 0:
+            on.append("distillation_loss_weight")
+        if self.warp_impl != "band":
+            on.append(f"warp_impl={self.warp_impl!r}")
+        for key in ("patched_mask", "motion_mask", "depth_gt"):
+            if key in input_dict:
+                on.append(f"input {key!r}")
+        if not output_dict.pop("pose_is_const", False):
+            on.append("learned poses")
+        if on:
+            raise NotImplementedError("the port's loss runs the GT-pose "
+                                      f"flagship branch only, not {on}")
+        if self.residualflow_weight != 0:
+            raise AssertionError("residual-flow loss is dormant in the "
+                                 "reference; not implemented")
+
+    def _warp_all(self, input_dict, output_dict):
+        """Warp the source frames into frame 0 for every (scale, frame) pair
+        in one depth-direct warp. Returns (preds [S, F, B, H, W, C],
+        overlap [S, F, B, H, W] bool or None, depths_full
+        [S, B, H, W, 1])."""
+        frames = self.frame_ids[1:]
+        S, F = len(self.scales), len(frames)
+        H, W = self.height, self.width
+        depths_full = torch.stack([
+            interpolate_bilinear(output_dict[("depth", s, s)], H, W,
+                                 align_corners=True)
+            for s in self.scales], dim=0)
+        B = depths_full.shape[1]
+        K = make_K44(input_dict["P2"])
+        Ts = torch.stack([output_dict[("cam_T_cam", f)] for f in frames])
+        sources = torch.stack([input_dict[("original_image", f)]
+                               for f in frames])
+        C = sources.shape[-1]
+        arows = make_affine_rows(K, invert_K(K), Ts, S)
+        ft = torch.promote_types(depths_full.dtype, torch.float32)
+        preds, overlap = warp_depth_fused(
+            sources.reshape(F * B, H, W, C).to(ft).contiguous(),
+            depths_full.reshape(S * B, H, W).to(ft).contiguous(),
+            arows.to(ft), S, F, self.warp_band)
+        preds = preds.reshape(S, F, B, H, W, C)
+        overlap = (overlap.reshape(S, F, B, H, W) if self.overlapped_mask
+                   else None)
+        return preds, overlap, depths_full
+
+    def compute_total_reprojection_loss(self, output_dict, input_dict,
+                                        noise: Optional[torch.Tensor] = None):
+        """Min-reprojection + identity automask + smoothness over all scales.
+        Returns (losses dict, hm dict, total loss); stores the full-resolution
+        depths in ``output_dict[('depth', 0, s)]``."""
+        scales = self.scales
+        frames = self.frame_ids[1:]
+        S, F = len(scales), len(frames)
+        H, W = self.height, self.width
+
+        preds, overlap, depths_full = self._warp_all(input_dict, output_dict)
+        for si, s in enumerate(scales):
+            output_dict[("depth", 0, s)] = depths_full[si]
+            for fi, f in enumerate(frames):
+                output_dict[("original_image", f, s)] = preds[si, fi]
+
+        target = input_dict[("original_image", 0)]
+        B, C = target.shape[0], target.shape[-1]
+        t_stats = ssim_target_stats(target)
+
+        def sf_tile(t):
+            return t[None].expand(S * F, *t.shape).reshape(-1, *t.shape[1:])
+
+        proj_loss = reprojection_loss(
+            preds.reshape(-1, H, W, C), sf_tile(target),
+            target_stats=tuple(sf_tile(t) for t in t_stats)
+        ).reshape(S, F, B, H, W)
+        if overlap is not None:
+            # a large constant blocks gradients and loses the min
+            proj_loss = torch.where(overlap, proj_loss,
+                                    proj_loss.new_full((), 100.0))
+
+        losses: Dict[str, torch.Tensor] = {}
+        hm: Dict[str, Any] = {}
+        if self.is_log_image:
+            hm["original_image"] = target[0:1]
+            for fi, f in enumerate(frames):
+                hm[f"predicted_image_{f}"] = preds[0, fi, 0:1]
+
+        # identity automask, with the identity candidates pre-minned over
+        # the frames (scale-independent)
+        identity = torch.stack([
+            reprojection_loss(input_dict[("original_image", f)], target,
+                              target_stats=t_stats)
+            for f in frames], dim=0)[..., 0]                 # [F, B, H, W]
+        if noise is not None:
+            identity = identity + noise.to(identity) * 1e-5
+        identity_min = torch.amin(identity, dim=0)
+        combined = torch.cat([identity_min[None, None].expand(S, 1, B, H, W),
+                              proj_loss], dim=1)
+        to_opt = torch.amin(combined, dim=1)                  # [S, B, H, W]
+        if self.is_log_image:
+            hm["loss_mask_0"] = dict(data=(
+                torch.amin(proj_loss[0], dim=0) < identity_min
+            )[0:1, ..., None])
+
+        # sums in float32 or wider; no patched mask: the normaliser is the
+        # pixel count
+        acc = torch.promote_types(to_opt.dtype, torch.float32)
+        photo_norm = torch.tensor(B * H * W, dtype=acc) + 1e-6
+        # dyadic color pyramid by successive 2x2 means, while the sizes
+        # halve; other scales take the adaptive pool of the target (the
+        # JAX package's reshape fails there)
+        color_pyr = {0: target}
+        cur = target
+        for s in range(1, max(scales) + 1 if scales else 1):
+            Bc, Hc, Wc, Cc = cur.shape
+            if Hc % 2 or Wc % 2:
+                break
+            cur = cur.to(acc).reshape(Bc, Hc // 2, 2, Wc // 2, 2, Cc).mean(
+                dim=(2, 4)).to(target.dtype)
+            color_pyr[s] = cur
+        total_loss = 0.0
+        for si, s in enumerate(scales):
+            loss_s = to_opt[si].to(acc).sum() / photo_norm.to(to_opt.device)
+            disp = output_dict[("disp", s)]
+            h, w = disp.shape[1], disp.shape[2]
+            color = (color_pyr[s]
+                     if s in color_pyr and color_pyr[s].shape[1:3] == (h, w)
+                     else adaptive_avg_pool2d(target, h, w))
+            mean_disp = disp.to(acc).mean(dim=(1, 2), keepdim=True)
+            norm_disp = disp / (mean_disp + 1e-7).to(disp.dtype)
+            smooth = get_smooth_loss(norm_disp, color) * 1e-5 / (2 ** s)
+            losses[f"smooth_loss/{s}"] = smooth.detach()
+            loss_s = loss_s + smooth
+            total_loss = total_loss + loss_s
+            losses[f"loss/{s}"] = loss_s.detach()
+        return losses, hm, total_loss / S
+
+    def compute_pose_loss(self, output_dict, input_dict) -> torch.Tensor:
+        """L1 between the warp poses and the GT relative poses."""
+        pose_loss = 0.0
+        for f in self.frame_ids[1:]:
+            pose_loss = pose_loss + abs_(
+                input_dict[("relative_pose", f)]
+                - output_dict[("cam_T_cam", f)]).mean()
+        return pose_loss
+
+    def loss(self, output_dict, input_dict,
+             noise: Optional[torch.Tensor] = None) -> Dict:
+        """Total training loss: {'loss', 'loss_dict', 'hm'}."""
+        self._check_branch(input_dict, output_dict)
+        losses, hm, total_loss = self.compute_total_reprojection_loss(
+            output_dict, input_dict, noise=noise)
+        if self.pose_loss_weight > 0:
+            pose_loss = self.compute_pose_loss(output_dict, input_dict)
+            losses["pose_loss"] = pose_loss.detach()
+            total_loss = total_loss + self.pose_loss_weight * pose_loss
+        losses["total_loss"] = total_loss.detach()
+        if not self.is_log_image:
+            hm = {}
+        return {"loss": total_loss, "loss_dict": losses, "hm": hm}

@@ -1,7 +1,7 @@
-"""MonoDepth meta-architectures, inference path (counterpart of
+"""MonoDepth meta-architectures (counterpart of
 ``fsnet_tpu.models.meta_archs.monodepth2_model``: ``MonoDepthWPose``'s
-``forward_test``/``dummy_forward`` and ``MonoDepthInference``; training
-arrives with the next slice).
+GT-pose ``forward_train``, ``forward_test`` and ``dummy_forward``, and
+``MonoDepthInference``).
 
 Batches are string-keyed (``'image/0'``, ``'P2'``) and decoded to the
 reference's tuple-key protocol at entry. Images are NHWC float tensors.
@@ -56,8 +56,32 @@ class MonoDepthWPose(BaseMetaArch):
                           **dict(head_cfg))
         _place(self, device, seed)
 
-    def forward_train(self, data: Dict, meta: Dict) -> Dict:
-        raise NotImplementedError("training comes with the next slice")
+    def forward_train(self, data: Dict, meta: Dict,
+                      noise: Optional[torch.Tensor] = None) -> Dict:
+        """Depth forward in train mode (BN batch statistics, running
+        statistics updated), then the head's loss with the dataset's GT
+        relative poses as the warp poses. ``noise``: the identity tie-break
+        noise of the head's loss, or None."""
+        data = _decode(data)
+        outputs: Dict = {}
+        for f_i in self.train_cfg.get("depth_production_frames", [0]):
+            features = self.depth_backbone(data[("image", 0)], train=True)
+            output_f_i = self.head.forward_depth(features, data["P2"],
+                                                 train=True)
+            if f_i == 0:
+                outputs.update(output_f_i)
+            else:
+                # reference quirk kept: re-keys the frame-0 depths
+                for key in output_f_i:
+                    if key[0] == "depth":
+                        outputs[(f"depth_{f_i}", key[1], key[2])] = \
+                            outputs[key]
+        for f_i in self.train_cfg["frame_ids"][1:]:
+            outputs[("cam_T_cam", f_i)] = data[("relative_pose", f_i)]
+        # every warp pose is a dataset constant: the head may take the
+        # depth-direct warp
+        outputs["pose_is_const"] = True
+        return self.head.loss(outputs, data, noise=noise)
 
     def forward_test(self, data: Dict, meta: Dict) -> Dict:
         data = _decode(data)

@@ -58,6 +58,173 @@ def test_kernel_matches_plain(cuda, dtype, shape):
     assert err <= TOL[dtype], err
 
 
+def _randn(g, *shape, scale=1.0):
+    return torch.randn(*shape, generator=g, device="cuda") * scale
+
+
+@pytest.mark.parametrize("shape", [
+    # (B, H, W, Cs, Co, pad_mode): ragged tiles, two parts, each tile width
+    (2, 6, 20, (512,), 256, "zeros"),
+    (2, 12, 40, (128, 128), 128, "replicate"),
+    (1, 9, 33, (32, 64), 32, "replicate"),
+    (3, 17, 70, (16,), 16, "replicate"),
+])
+def test_moments_kernel_matches_plain(cuda, shape):
+    from fsnet_tpu_torch.ops.conv3x3 import conv3x3_bn, conv3x3_plain
+
+    B, H, W, Cs, Co, pad_mode = shape
+    g = torch.Generator(device=cuda).manual_seed(1)
+    parts = [_randn(g, B, H, W, c) for c in Cs]
+    w = _randn(g, 3, 3, sum(Cs), Co, scale=1 / np.sqrt(9 * sum(Cs)))
+    b = _randn(g, Co, scale=0.1)
+    n0 = conv3x3_bn.launches
+    out, s1, s2 = conv3x3_bn(parts, w, b, pad_mode)
+    torch.cuda.synchronize()
+    assert conv3x3_bn.launches == n0 + 1
+    ref = conv3x3_plain(parts, w, b, pad_mode)
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+    # moments: relative to the sum of |summands|
+    assert (s1 - ref.sum((0, 1, 2))).abs().max() <= \
+        1e-5 * ref.abs().sum((0, 1, 2)).max()
+    assert (s2 - (out * out).sum((0, 1, 2))).abs().max() <= \
+        1e-5 * (out * out).sum((0, 1, 2)).max()
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 6, 20, (512,), 256, "zeros"),
+    (2, 12, 40, (128, 128), 128, "replicate"),
+    (1, 9, 33, (32, 64), 32, "replicate"),
+    (3, 17, 70, (16,), 16, "replicate"),
+    (2, 5, 7, (3,), 40, "zeros"),
+])
+def test_conv_gradient_kernels_match_plain(cuda, shape):
+    """dx (the conv kernel on the padded cotangent, flipped weights) and dw
+    (csrc/conv3x3_dw.cu) against their plain versions."""
+    from fsnet_tpu_torch.ops import conv3x3 as tc
+
+    B, H, W, Cs, Co, pad_mode = shape
+    g = torch.Generator(device=cuda).manual_seed(2)
+    parts = [_randn(g, B, H, W, c) for c in Cs]
+    w = _randn(g, 3, 3, sum(Cs), Co, scale=1 / np.sqrt(9 * sum(Cs)))
+    gy = _randn(g, B, H, W, Co)
+    n_dx, n_dw = tc.conv3x3_dx.launches, tc.conv3x3_dw.launches
+    dxs = tc.conv3x3_dx(gy, w, pad_mode, Cs)
+    dw = tc.conv3x3_dw(parts, gy, pad_mode)
+    torch.cuda.synchronize()
+    assert tc.conv3x3_dx.launches == n_dx + len(Cs)
+    assert tc.conv3x3_dw.launches == n_dw + 1
+    ref_dxs = tc.conv3x3_dx_plain(gy, w, pad_mode, Cs)
+    for a, r in zip(dxs, ref_dxs):
+        assert a.shape == r.shape
+        assert (a - r).abs().max() <= 1e-4 * r.abs().max()
+    ref_dw = tc.conv3x3_dw_plain(parts, gy, pad_mode)
+    assert dw.shape == ref_dw.shape
+    assert (dw - ref_dw).abs().max() <= 1e-4 * ref_dw.abs().max()
+
+
+def test_conv_autograd_on_card_matches_cpu(cuda):
+    from fsnet_tpu_torch.ops.conv3x3 import conv3x3_bn
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    parts = [_randn(g, 2, 10, 36, c) for c in (32, 64)]
+    w = _randn(g, 3, 3, 96, 32, scale=0.05)
+    b = _randn(g, 32, scale=0.1)
+    cot = _randn(g, 2, 10, 36, 32)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_(True)
+                  for t in (*parts, w, b)]
+        out, s1, s2 = conv3x3_bn(leaves[:2], leaves[2], leaves[3],
+                                 "replicate")
+        ((out * cot.to(dev)).sum() + s1.sum() * 1e-2
+         + s2.sum() * 1e-4).backward()
+        grads[dev] = [t.grad.cpu() for t in leaves]
+    for a, r in zip(grads["cuda"], grads["cpu"]):
+        assert (a - r).abs().max() <= 1e-4 * r.abs().max()
+
+
+def _warp_scene(g, S, F, B, H, W, C):
+    from fsnet_tpu_torch.ops.geometry import invert_K, make_K44
+    from fsnet_tpu_torch.ops.warp_depth import make_affine_rows
+
+    image = torch.rand(F * B, H, W, C, generator=g, device="cuda")
+    depth = 4.0 + 20.0 * torch.rand(S * B, H, W, generator=g, device="cuda")
+    P = torch.zeros(B, 3, 4, device="cuda")
+    P[:, 0, 0] = P[:, 1, 1] = 0.58 * W
+    P[:, 0, 2], P[:, 1, 2], P[:, 2, 2] = W / 2, H / 2, 1.0
+    K = make_K44(P)
+    Ts = torch.eye(4, device="cuda").repeat(F, B, 1, 1)
+    Ts[..., :3, 3] = (torch.rand(F, B, 3, generator=g, device="cuda") - 0.5) \
+        * torch.tensor([0.2, 0.1, 1.4], device="cuda")
+    return image, depth, make_affine_rows(K, invert_K(K), Ts, S)
+
+
+@pytest.mark.parametrize("dims", [(2, 2, 2, 16, 128, 3, 4),
+                                  (4, 2, 3, 24, 200, 3, 4),
+                                  (1, 2, 1, 7, 33, 2, 8)])
+def test_warp_kernels_match_plain(cuda, dims):
+    """Kernels A and B against their plain versions on the card: the
+    projection is rounded once per operation on both, so the corners agree
+    and the values nearly bitwise."""
+    from fsnet_tpu_torch.ops import warp_depth as twd
+
+    S, F, B, H, W, C, band = dims
+    g = torch.Generator(device=cuda).manual_seed(4)
+    image, depth, arows = _warp_scene(g, S, F, B, H, W, C)
+    n0, n1 = twd.warp_depth_fwd.launches, twd.warp_depth_bwd.launches
+    got = twd.warp_depth_fwd(image, depth, arows, S, F, band)
+    ref = twd.warp_depth_plain(image, depth, arows, S, F, band)
+    gy = torch.randn(got[0].shape, generator=g, device=cuda)
+    dd = twd.warp_depth_bwd(depth, gy, got[2], got[3], arows, S, F)
+    dd_ref = twd.warp_depth_bwd_plain(depth, gy, ref[2], ref[3], arows, S, F)
+    torch.cuda.synchronize()
+    assert twd.warp_depth_fwd.launches == n0 + 1
+    assert twd.warp_depth_bwd.launches == n1 + 1
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape and a.dtype == r.dtype
+    assert torch.equal(got[1], ref[1])
+    for a, r in zip((got[0], got[2], got[3]), (ref[0], ref[2], ref[3])):
+        assert (a - r).abs().max() <= 1e-6
+    assert (dd - dd_ref).abs().max() <= 1e-5 * dd_ref.abs().max()
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """The flagship train step at a small size through every training
+    kernel, against the port on the CPU from the same weights and batch
+    (white-noise images, as tests/test_torch_train_step.py explains)."""
+    from fsnet_tpu_torch.entry import (flagship_model, flagship_optimizer,
+                                       synthetic_batch)
+    from fsnet_tpu_torch.ops import conv3x3 as tc
+    from fsnet_tpu_torch.ops import warp_depth as twd
+    from fsnet_tpu_torch.runtime.state import make_train_step
+
+    H, W, B = 64, 128, 2
+    batch = synthetic_batch(B, H, W)
+    rng = np.random.RandomState(7)
+    for key in sorted(batch):
+        if key.startswith(("image/", "original_image/")):
+            batch[key] = rng.rand(*batch[key].shape).astype(np.float32)
+    counters = (tc.conv3x3, tc.conv3x3_bn, tc.conv3x3_dx, tc.conv3x3_dw,
+                twd.warp_depth_fwd, twd.warp_depth_bwd)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = flagship_model(H, W, device=dev, seed=0)
+        opt, _ = flagship_optimizer(model)
+        before = [f.launches for f in counters]
+        met = make_train_step(dev, with_grads=True)(model, opt, batch)
+        ran = [f.launches - n for f, n in zip(counters, before)]
+        res[dev] = (float(met["loss"]), met["_grads"], ran)
+    assert res["cuda"][2] == [4, 10, 18, 14, 1, 1]
+    assert res["cpu"][2] == [0] * 6
+    assert abs(res["cuda"][0] - res["cpu"][0]) <= 1e-4 * abs(res["cpu"][0])
+    keys = [k for k in res["cpu"][1]
+            if not (".upconv_" in k and k.endswith(".conv.bias"))]
+    num = sum(float(((res["cuda"][1][k].cpu() - res["cpu"][1][k]) ** 2).sum())
+              for k in keys)
+    den = sum(float((res["cpu"][1][k] ** 2).sum()) for k in keys)
+    assert (num / den) ** 0.5 <= 1e-2
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
     from fsnet_tpu_torch.ops.conv3x3 import conv3x3
 

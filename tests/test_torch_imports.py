@@ -65,6 +65,14 @@ def test_eval_step_without_device_raises():
         make_eval_step()
 
 
+def test_train_step_without_device_raises():
+    _no_cuda()
+    from fsnet_tpu_torch.runtime.state import make_train_step
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step()
+
+
 def test_entry_without_device_raises():
     _no_cuda()
     from fsnet_tpu_torch.entry import entry
