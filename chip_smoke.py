@@ -59,7 +59,32 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     again from host numpy arrays) and each training kernel at its shapes beside its plain
     version, its bound and, where one PyTorch call computes the same
     function, that call (cuDNN's conv backward for the single-part
-    zero-padded convs; a yardstick only).
+    zero-padded convs; a yardstick only);
+12. holds the grid warp's kernels against their plain versions at the grid
+    route's shapes at batch 12: 96 reprojection grids @192x640 (4 scales x
+    2 frames x 12) against the 24 source frames for kernel F (bilinear,
+    border, C=3: out, va, vb) and against the 12 patched masks for kernel E
+    (nearest, zeros, C=1), max abs err <= 1e-6 and the ``== 1.0`` overlap
+    equal; prints how many samples the TPU kernel's lane-window clamp would
+    have moved there;
+13. the grid route of the flagship: three train steps at batch 12 x
+    192x640 on the synthetic batch with an all-ones ``patched_mask`` (as
+    every dataset batch carries one), the launch counters set to 0 just
+    before; checks per step kernel F 1 launch, kernel E 1, the depth-direct
+    kernels 0 and the conv kernels as in phase 9, a finite loss and changed
+    parameters and BN statistics; then one step from the same weights with
+    and one without the mask (the depth-direct route): loss rel <= 1e-4 and
+    global gradient rel-L2 < 3e-2 between the two routes;
+14. the learned-pose ``MonoDepthMeta``: three train steps at batch 12, the
+    counters set to 0 just before; per step kernel F 1 launch, kernel E 0,
+    the depth-direct kernels 0, the conv kernels as in phase 9; a finite
+    loss and changed pose parameters;
+15. one ``MonoDepthMeta`` step at batch 2 on the card against the port on
+    the CPU, held to phase 10's gate;
+16. times both grid-route steps at batch 12 (images/s over 10 steps after
+    warm-up, the batch on the card) and kernels E and F beside their plain
+    versions and bounds (``F.grid_sample``, another function without the
+    band, is timed beside them as a yardstick only).
 
 It prints the record and the kernel line as JSON lines and, last, the
 result line ``{"ok": true, "device": {...}}``. It imports nothing of JAX or
@@ -161,11 +186,14 @@ def launch_counters():
     """The launch counter of every kernel wrapper, by kernel name."""
     from fsnet_tpu_torch.ops import conv3x3 as tc
     from fsnet_tpu_torch.ops import warp_depth as twd
+    from fsnet_tpu_torch.ops import warp_fast as twf
 
     return {"conv3x3": tc.conv3x3, "conv3x3_bn": tc.conv3x3_bn,
             "conv3x3_dx": tc.conv3x3_dx, "conv3x3_dw": tc.conv3x3_dw,
             "warp_depth_fwd": twd.warp_depth_fwd,
-            "warp_depth_bwd": twd.warp_depth_bwd}
+            "warp_depth_bwd": twd.warp_depth_bwd,
+            "warp_grid_fused": twf.grid_band_fused,
+            "warp_grid_fwd": twf.grid_band_fwd}
 
 
 def zero(counters) -> None:
@@ -201,17 +229,20 @@ def sum_bounds(items):
 S_SCALES, F_FRAMES, BAND = 4, 2, 4
 
 
-def lane_window_moves(x, W, L=128, window=3):
-    """Samples whose corner columns the TPU prep kernel's lane window
-    (``prep_kernel.py:150-164``) would have clamped: per output row and
-    128-lane output tile the columns are held to ``window`` tiles ending at
-    the tile of the row's largest right corner. ``x`` [N, H, W] unclamped."""
+def lane_window_moves(x, W, L=128, window=3, nearest=False):
+    """Samples whose corner columns the TPU kernels' lane window
+    (``prep_kernel.py:150-164``, ``warp_kernel.py:236-309``) would have
+    clamped: per output row and 128-lane output tile the columns are held
+    to ``window`` tiles ending at the tile of the row's largest right
+    corner. ``x`` [N, H, W] unclamped; bilinear corners of the border
+    clamp, or with ``nearest`` those of the unclamped nearest warp."""
     T = W // L
     if T * L != W:
         return None
     kw = min(window, T)
-    x0 = torch.floor(x.clamp(0.0, W - 1)).long()
-    x1 = (x0 + 1).clamp(max=W - 1)
+    x0f = torch.floor(x + 0.5) if nearest else torch.floor(x.clamp(0.0, W - 1))
+    x0 = x0f.clamp(0, W - 1).long()
+    x1 = (x0f + 1).clamp(0, W - 1).long()
     hi = x1.view(*x1.shape[:2], T, L).amax(dim=-1) // L          # [N, H, T]
     lo = ((hi - (kw - 1)).clamp(0, T - kw) * L).repeat_interleave(L, dim=-1)
     hic = lo + kw * L - 1
@@ -338,6 +369,98 @@ def bn_cancelled(name):
     return ".upconv_" in name and name.endswith(".conv.bias")
 
 
+def grad_rel_l2(g_a, g_b):
+    """Global rel-L2 of the gradients ``g_a`` against ``g_b`` (by parameter
+    name), without the BN-cancelled biases."""
+    kept = [k for k in g_b if not bn_cancelled(k)]
+    num = sum(float(((g_a[k].double() - g_b[k].double()) ** 2).sum())
+              for k in kept)
+    den = sum(float((g_b[k].double() ** 2).sum()) for k in kept)
+    return (num / den) ** 0.5
+
+
+def card_vs_cpu(build, batch, what):
+    """One train step of ``build(...)`` on the card and through the port on
+    the CPU, from the same seeded weights and ``batch``, held to the JAX
+    package's own backward gate between two routes: loss rel <= 1e-4,
+    global gradient rel-L2 < 3e-2, every leaf < 0.5, Adam's first update
+    off by more than lr / 2 on under 2% of the parameters."""
+    from fsnet_tpu_torch.entry import flagship_optimizer
+    from fsnet_tpu_torch.runtime.state import make_train_step
+
+    res = {}
+    for dev in ("cuda", "cpu"):
+        m = build(HEIGHT, WIDTH, device=dev, seed=0)
+        o, _ = flagship_optimizer(m)
+        start = {k: p.detach().cpu().double()
+                 for k, p in m.named_parameters()}
+        met = make_train_step(dev, with_grads=True)(m, o, batch)
+        res[dev] = (float(met["loss"]),
+                    {k: g.detach().cpu().double()
+                     for k, g in met["_grads"].items()},
+                    {k: p.detach().cpu().double() - start[k]
+                     for k, p in m.named_parameters()})
+    (l_card, g_card, u_card), (l_cpu, g_cpu, u_cpu) = res["cuda"], res["cpu"]
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    grad_rel = grad_rel_l2(g_card, g_cpu)
+    leaf = {k: float((g_card[k] - g_cpu[k]).norm() / g_cpu[k].norm())
+            for k in g_cpu if not bn_cancelled(k)}
+    worst = max(leaf, key=leaf.get)
+    lr = 1e-4
+    n_upd = sum(u.numel() for u in u_cpu.values())
+    upd_frac = sum(int(((u_card[k] - u_cpu[k]).abs() > lr / 2).sum())
+                   for k in u_cpu) / n_upd
+    bs = next(iter(batch.values())).shape[0]
+    print(f"card vs CPU port, {what} bs{bs}@{HEIGHT}x{WIDTH}: loss "
+          f"{l_card:.6f} vs {l_cpu:.6f} (rel {loss_rel:.2e}), global grad "
+          f"rel-L2 {grad_rel:.2e}, worst leaf {worst} {leaf[worst]:.2e}, "
+          f"Adam updates differing by > lr/2: {upd_frac:.4%}")
+    check(loss_rel <= 1e-4, f"{what}: card vs CPU loss rel {loss_rel:.2e} "
+          "> 1e-4")
+    check(grad_rel < 3e-2, f"{what}: card vs CPU grad rel-L2 "
+          f"{grad_rel:.2e} >= 3e-2")
+    check(leaf[worst] < 0.5, f"{what}: card vs CPU grad of {worst}: rel-L2 "
+          f"{leaf[worst]:.2e} >= 0.5")
+    check(upd_frac < 0.02, f"{what}: card vs CPU Adam updates differ on "
+          f"{upd_frac:.2%} of the parameters")
+    return dict(loss_rel=loss_rel, grad_rel_l2=grad_rel, worst_leaf=worst,
+                worst_leaf_rel_l2=leaf[worst], adam_update_differs=upd_frac)
+
+
+def drive_steps(model, opt, batch, counters, want, what, steps=3):
+    """Phases 9, 13, 14: ``steps`` train steps through ``make_train_step``,
+    the launch counters set to 0 just before and read just after; checks
+    the launches per step against ``want``, finite losses, and that the
+    parameters and BN running variances changed."""
+    from fsnet_tpu_torch.runtime.state import make_train_step
+
+    step = make_train_step("cuda")
+    p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    s0 = {n: b.clone() for n, b in model.named_buffers()
+          if n.endswith("running_var")}
+    zero(counters)
+    losses = []
+    for _ in range(steps):
+        losses.append(float(step(model, opt, batch)["loss"]))
+    torch.cuda.synchronize()
+    counts = read(counters)
+    print(f"{what}: {steps} steps bs{BATCH}@{HEIGHT}x{WIDTH} f32, "
+          f"losses {losses}, launches {counts}")
+    check(all(np.isfinite(losses)), f"{what}: non-finite loss {losses}")
+    check(counts == {k: n * steps for k, n in want.items()},
+          f"{what} launches {counts}, expected per step {want}")
+    changed = {n for n, p in model.named_parameters()
+               if bool((p.detach() != p0[n]).any())}
+    stats_moved = sum(int((b != s0[n]).any().item())
+                      for n, b in model.named_buffers() if n in s0)
+    check(len(changed) >= len(p0) - 10 and stats_moved == len(s0),
+          f"{what}: {len(changed)} of {len(p0)} parameters and {stats_moved} "
+          f"of {len(s0)} BN variances changed")
+    return dict(steps=steps, losses=losses, launches=counts,
+                launches_per_step=want, params_changed=len(changed),
+                params=len(p0), unchanged=sorted(set(p0) - changed))
+
+
 def train_phases(counters, record):
     """Phases 8-11. Returns the launch counts of the train path and the
     kernel line's entries of the training kernels."""
@@ -361,76 +484,18 @@ def train_phases(counters, record):
     model = flagship_model(HEIGHT, WIDTH, device="cuda", seed=0)
     opt, _ = flagship_optimizer(model)
     step = make_train_step("cuda")
-    p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
-    s0 = {n: b.clone() for n, b in model.named_buffers()
-          if n.endswith("running_var")}
-    steps = 3
-    zero(counters)
-    losses = []
-    for _ in range(steps):
-        losses.append(float(step(model, opt, batch)["loss"]))
-    torch.cuda.synchronize()
-    counts = read(counters)
     n_dx = sum(len(Cs) for _, _, _, Cs, _, _ in SHAPES)
     want = dict(conv3x3=4, conv3x3_bn=10, conv3x3_dx=n_dx,
-                conv3x3_dw=len(SHAPES), warp_depth_fwd=1, warp_depth_bwd=1)
-    print(f"train path: {steps} steps bs{BATCH}@{HEIGHT}x{WIDTH} f32, "
-          f"losses {losses}, launches {counts}")
-    check(all(np.isfinite(losses)), f"non-finite loss {losses}")
-    check(counts == {k: n * steps for k, n in want.items()},
-          f"train path launches {counts}, expected per step {want}")
-    moved = sum(int((p.detach() != p0[n]).any().item())
-                for n, p in model.named_parameters())
-    stats_moved = sum(int((b != s0[n]).any().item())
-                      for n, b in model.named_buffers() if n in s0)
-    check(moved >= len(p0) - 10 and stats_moved == len(s0),
-          f"{moved} of {len(p0)} parameters and {stats_moved} of {len(s0)} "
-          "BN variances changed")
-    record["train_path"] = dict(steps=steps, losses=losses,
-                                launches=counts, launches_per_step=want,
-                                params_changed=moved, params=len(p0))
+                conv3x3_dw=len(SHAPES), warp_depth_fwd=1, warp_depth_bwd=1,
+                warp_grid_fused=0, warp_grid_fwd=0)
+    record["train_path"] = drive_steps(model, opt, batch, counters, want,
+                                       "train path")
+    counts = record["train_path"]["launches"]
 
     # 10. one step at bs2 on the card against the port on the CPU
     small = white_noise_images({k: v[:2] for k, v in batch.items()})
-    res = {}
-    for dev in ("cuda", "cpu"):
-        m = flagship_model(HEIGHT, WIDTH, device=dev, seed=0)
-        o, _ = flagship_optimizer(m)
-        start = {k: p.detach().cpu().double()
-                 for k, p in m.named_parameters()}
-        met = make_train_step(dev, with_grads=True)(m, o, small)
-        res[dev] = (float(met["loss"]),
-                    {k: g.detach().cpu().double()
-                     for k, g in met["_grads"].items()},
-                    {k: p.detach().cpu().double() - start[k]
-                     for k, p in m.named_parameters()})
-    (l_card, g_card, u_card), (l_cpu, g_cpu, u_cpu) = res["cuda"], res["cpu"]
-    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
-    kept = [k for k in g_cpu if not bn_cancelled(k)]
-    num = sum(float(((g_card[k] - g_cpu[k]) ** 2).sum()) for k in kept)
-    den = sum(float((g_cpu[k] ** 2).sum()) for k in kept)
-    grad_rel = (num / den) ** 0.5
-    leaf = {k: float((g_card[k] - g_cpu[k]).norm() / g_cpu[k].norm())
-            for k in kept}
-    worst = max(leaf, key=leaf.get)
-    lr = 1e-4
-    n_upd = sum(u.numel() for u in u_cpu.values())
-    upd_frac = sum(int(((u_card[k] - u_cpu[k]).abs() > lr / 2).sum())
-                   for k in u_cpu) / n_upd
-    print(f"card vs CPU port, train step bs2@{HEIGHT}x{WIDTH}: loss "
-          f"{l_card:.6f} vs {l_cpu:.6f} (rel {loss_rel:.2e}), global grad "
-          f"rel-L2 {grad_rel:.2e}, worst leaf {worst} {leaf[worst]:.2e}, "
-          f"Adam updates differing by > lr/2: {upd_frac:.4%}")
-    record["train_card_vs_cpu"] = dict(loss_rel=loss_rel, grad_rel_l2=grad_rel,
-                                       worst_leaf=worst,
-                                       worst_leaf_rel_l2=leaf[worst],
-                                       adam_update_differs=upd_frac)
-    check(loss_rel <= 1e-4, f"card vs CPU loss rel {loss_rel:.2e} > 1e-4")
-    check(grad_rel < 3e-2, f"card vs CPU grad rel-L2 {grad_rel:.2e} >= 3e-2")
-    check(leaf[worst] < 0.5, f"card vs CPU grad of {worst}: rel-L2 "
-          f"{leaf[worst]:.2e} >= 0.5")
-    check(upd_frac < 0.02, f"card vs CPU Adam updates differ on "
-          f"{upd_frac:.2%} of the parameters")
+    record["train_card_vs_cpu"] = card_vs_cpu(flagship_model, small,
+                                              "train step")
 
     # 11. timings: the train step with the batch on the card (as bench.py
     # times the JAX step) and from host numpy arrays (pageable copies
@@ -584,7 +649,211 @@ def train_phases(counters, record):
                  f"{e['library_ms']:.4f} ms vs kernel "
                  f"{e['ms_library_shapes']:.4f} ms at "
                  f"{len(e['library_shapes'])} shapes"))
-    return dict(counts=counts, kernels=kernels)
+    return dict(counts=counts, kernels=kernels, batch=batch, warp_in=warp_in,
+                want=want)
+
+
+def grid_scene(batch_np, warp_in):
+    """The grid route's warp operands at the flagship batch: the 24 source
+    frames, the 12 patched masks (the NuScenes ``CAM_BACK`` form: the
+    bottom 2/9 of the rows zeroed) and the 96 reprojection grids of phase
+    8's depth through the batch's GT poses, in the loss's (s, f, b)
+    order."""
+    from fsnet_tpu_torch.ops.geometry import invert_K, make_K44, reproject
+
+    S, F, B, H, W = S_SCALES, F_FRAMES, BATCH, HEIGHT, WIDTH
+    N = S * F * B
+
+    def per_warp(t):
+        return t[None, None].expand(S, F, *t.shape).reshape(N, *t.shape[1:])
+
+    K = make_K44(torch.from_numpy(batch_np["P2"]).cuda())
+    Ts = torch.stack([torch.from_numpy(batch_np[f"relative_pose/{f}"])
+                      for f in (1, -1)]).cuda()
+    depth = warp_in["depth"].view(S, 1, B, H, W).expand(S, F, B, H, W)
+    grid = reproject(depth.reshape(N, H, W, 1), per_warp(K),
+                     per_warp(invert_K(K)),
+                     Ts[None].expand(S, F, B, 4, 4).reshape(N, 4, 4))
+    mask = torch.ones(B, H, W, 1, device="cuda")
+    mask[:, H - (2 * H) // 9:] = 0.0
+    return warp_in["image"], mask, grid.contiguous()
+
+
+def check_grid_kernels(scene):
+    """Phase 12: kernels F and E against their plain versions at the grid
+    route's shapes. Returns their max abs errors and the lane-window
+    counts."""
+    from fsnet_tpu_torch.ops import warp_fast as twf
+
+    image, mask, grid = scene
+    got = twf.grid_band_fused(image, grid, "border", BAND)
+    ov = twf.grid_band_fwd(mask, grid, "nearest", "zeros", BAND)
+    torch.cuda.synchronize()
+    ref = twf.grid_band_plain(image, grid, "bilinear", "border", BAND)
+    ref_ov = twf.grid_band_plain(mask, grid, "nearest", "zeros", BAND,
+                                 False)[0]
+    err_f = max(rel_err(a, r)[0] for a, r in zip(got, ref))
+    err_e = rel_err(ov, ref_ov)[0]
+    ov_diff = int(((ov == 1.0) != (ref_ov == 1.0)).sum().item())
+    x = twf.unnormalize(grid[..., 0], WIDTH)
+    moved = dict(photometric=lane_window_moves(x, WIDTH),
+                 mask=lane_window_moves(x, WIDTH, nearest=True),
+                 samples=x.numel())
+    print(f"check grid warp N={grid.shape[0]} {HEIGHT}x{WIDTH} band {BAND}: "
+          f"kernel F (bilinear, border, C={image.shape[-1]}) max abs err "
+          f"{err_f:.2e} (out, va, vb); kernel E (nearest, zeros, C=1, "
+          f"{mask.shape[0]} masks) max abs err {err_e:.2e}, overlap "
+          f"mismatches {ov_diff}; TPU lane-window clamp would move "
+          f"{moved['photometric']} (photometric) and {moved['mask']} (mask) "
+          f"of {moved['samples']} samples")
+    check(err_f <= 1e-6, f"kernel F: max abs err {err_f:.2e} > 1e-6")
+    check(err_e <= 1e-6 and ov_diff == 0,
+          f"kernel E: max abs err {err_e:.2e}, {ov_diff} overlap mismatches")
+    return dict(warp_grid_fused=err_f, warp_grid_fwd=err_e), moved
+
+
+def grid_phases(counters, record, train):
+    """Phases 12-16. Returns the kernel line's entries of kernels E and F
+    and the launch counts of the two grid-route paths."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from fsnet_tpu_torch.entry import (flagship_model, flagship_optimizer,
+                                       learned_pose_model, synthetic_batch)
+    from fsnet_tpu_torch.ops import warp_fast as twf
+    from fsnet_tpu_torch.runtime.state import make_train_step
+
+    # 12. kernels E and F against their plain versions
+    scene = grid_scene(train["batch"], train["warp_in"])
+    errs, moved = check_grid_kernels(scene)
+    record["grid_lane_window_moves"] = moved
+
+    # 13. the flagship on the grid route: a batch with a patched mask
+    masked = synthetic_batch(BATCH, HEIGHT, WIDTH, patched_mask="ones")
+    want_mask = dict(train["want"], warp_depth_fwd=0, warp_depth_bwd=0,
+                     warp_grid_fused=1, warp_grid_fwd=1)
+    model = flagship_model(HEIGHT, WIDTH, device="cuda", seed=0)
+    opt, _ = flagship_optimizer(model)
+    record["grid_path_mask"] = drive_steps(model, opt, masked, counters,
+                                           want_mask, "grid path (mask)")
+    state = copy.deepcopy(model.state_dict())
+    route = {}
+    for tag, b in (("grid", masked), ("depth-direct", train["batch"])):
+        model.load_state_dict(state)
+        o, _ = flagship_optimizer(model)
+        met = make_train_step("cuda", with_grads=True)(model, o, b)
+        route[tag] = (float(met["loss"]), {k: g.detach() for k, g in
+                                           met["_grads"].items()})
+    model.load_state_dict(state)
+    loss_rel = abs(route["grid"][0] - route["depth-direct"][0]) / \
+        abs(route["depth-direct"][0])
+    grad_rel = grad_rel_l2(route["grid"][1], route["depth-direct"][1])
+    print(f"grid route (mask of ones) vs depth-direct route, one step bs"
+          f"{BATCH} from the same weights: loss {route['grid'][0]:.6f} vs "
+          f"{route['depth-direct'][0]:.6f} (rel {loss_rel:.2e}), global "
+          f"grad rel-L2 {grad_rel:.2e}")
+    record["grid_vs_depth_route"] = dict(loss_rel=loss_rel,
+                                         grad_rel_l2=grad_rel)
+    check(loss_rel <= 1e-4, f"grid vs depth-direct route: loss rel "
+          f"{loss_rel:.2e} > 1e-4")
+    check(grad_rel < 3e-2, f"grid vs depth-direct route: grad rel-L2 "
+          f"{grad_rel:.2e} >= 3e-2")
+
+    # 14. the learned-pose MonoDepthMeta
+    want_pose = dict(want_mask, warp_grid_fwd=0)
+    meta = learned_pose_model(HEIGHT, WIDTH, device="cuda", seed=0)
+    meta_opt, _ = flagship_optimizer(meta)
+    rec = drive_steps(meta, meta_opt, train["batch"], counters, want_pose,
+                      "grid path (learned pose)")
+    pose = [n for n, _ in meta.named_parameters()
+            if n.startswith(("pose_backbone.", "head.pose_decoder."))]
+    stuck = [n for n in pose if n in rec["unchanged"]]
+    check(not stuck, f"learned pose: parameters of the pose net did not "
+          f"change: {stuck}")
+    rec["pose_params"] = len(pose)
+    record["grid_path_learned_pose"] = rec
+
+    # 15. one MonoDepthMeta step at bs2 on the card against the CPU port
+    small = white_noise_images({k: v[:2] for k, v in train["batch"].items()})
+    record["learned_pose_card_vs_cpu"] = card_vs_cpu(
+        learned_pose_model, small, "learned-pose train step")
+
+    # 16. timings: both grid-route steps, then kernels E and F
+    step = make_train_step("cuda")
+    n_steps = 10
+    for key, m, o, b in (("grid_step_mask", model, opt, masked),
+                         ("grid_step_learned_pose", meta, meta_opt,
+                          train["batch"])):
+        on_card = {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+        for _ in range(2):
+            step(m, o, on_card)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step(m, o, on_card)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / n_steps * 1e3
+        record[key] = dict(bs=BATCH, ms=ms, imgs_per_s=BATCH / ms * 1e3)
+        print(f"{key} bs{BATCH}@{HEIGHT}x{WIDTH} f32 (mean of {n_steps}, "
+              f"batch on the card): {ms:.3f} ms = {BATCH / ms * 1e3:.2f} "
+              "imgs/s")
+
+    image, mask, grid = scene
+    N, H, W, _ = grid.shape
+    C, M, px = image.shape[-1], mask.shape[0], grid.shape[0] * H * W
+    g_bytes = 4.0 * grid.numel()
+    yard = {k: (src.permute(0, 3, 1, 2).repeat(N // src.shape[0], 1, 1, 1),
+                mode, pad)
+            for k, src, mode, pad in (
+                ("warp_grid_fused", image, "bilinear", "border"),
+                ("warp_grid_fwd", mask, "nearest", "zeros"))}
+    timed = {
+        "warp_grid_fused": (
+            lambda: twf.grid_band_fused(image, grid, "border", BAND),
+            lambda: twf.grid_band_plain(image, grid, "bilinear", "border",
+                                        BAND),
+            (px * (20.0 + 21.0 * C),
+             g_bytes + 4.0 * image.numel() + 3 * 4.0 * px * C),
+            "fsnet_tpu/ops/pallas/warp_kernel.py:1022 (grid route, "
+            "grid_sample_band_pallas_fused :1328) + warp_kernel.py:974",
+            f"N={N} grids of {H}x{W} against {image.shape[0]} sources, C={C},"
+            f" bilinear, border, band {BAND}, float32"),
+        "warp_grid_fwd": (
+            lambda: twf.grid_band_fwd(mask, grid, "nearest", "zeros", BAND),
+            lambda: twf.grid_band_plain(mask, grid, "nearest", "zeros", BAND,
+                                        False),
+            (px * 29.0, g_bytes + 4.0 * mask.numel() + 4.0 * px),
+            "fsnet_tpu/ops/pallas/warp_kernel.py:752 + warp_kernel.py:1115",
+            f"N={N} grids of {H}x{W} against {M} patched masks, C=1, "
+            f"nearest, zeros, band {BAND}, float32"),
+    }
+    launches = {k: record["grid_path_mask"]["launches"][k]
+                + record["grid_path_learned_pose"]["launches"][k]
+                for k in timed}
+    kernels = []
+    for k, (fn, plain, ob, replaces, note) in timed.items():
+        src, mode, pad = yard[k]
+        b_ms, b_by = ms_bound(*ob)
+        kernels.append(dict(
+            name=k, route="cuda", source="fsnet_tpu_torch/csrc/warp_grid.cu",
+            replaces=replaces, launches=launches[k], max_abs_err=errs[k],
+            ms=cuda_ms(fn, iters=10), plain_ms=cuda_ms(plain, iters=3,
+                                                       warmup=1),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            grid_sample_ms=cuda_ms(lambda: F.grid_sample(
+                src, grid, mode=mode, padding_mode=pad, align_corners=True),
+                iters=10),
+            note=note + "; launches: 3 steps each of the two grid-route "
+                 "paths (phases 13, 14); grid_sample_ms: F.grid_sample "
+                 "(exact, no band, no va/vb) on the sources tiled to N, a "
+                 "yardstick only"))
+    for e in kernels:
+        print(f"time  {e['name']:15s} kernel {e['ms']:.4f} ms  plain "
+              f"{e['plain_ms']:.4f} ms  bound {e['bound_ms']:.4f} ms "
+              f"({e['bound_by']})  F.grid_sample {e['grid_sample_ms']:.4f} ms"
+              "  library none")
+    return kernels
 
 
 def main() -> int:
@@ -752,8 +1021,11 @@ def main() -> int:
     train = train_phases(counters, record)
     kernel["launches_train_path"] = train["counts"]["conv3x3"]
 
+    # 12-16. the grid route: patched-mask batches and learned poses
+    grid_kernels = grid_phases(counters, record, train)
+
     print(json.dumps(record))
-    print(json.dumps({"kernels": [kernel] + train["kernels"]}))
+    print(json.dumps({"kernels": [kernel] + train["kernels"] + grid_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,16 +1,20 @@
-"""The flagship depth model of the port, its export-style forward, the
-synthetic KITTI-like training batch and the training recipe's optimizer
-(counterpart of ``__graft_entry__._flagship_model``, ``_synthetic_batch``,
-``entry()`` and the optimizer of ``bench.py``).
+"""The flagship depth model of the port, its learned-pose baseline, its
+export-style forward, the synthetic KITTI-like training batch and the
+training recipe's optimizer (counterpart of
+``__graft_entry__._flagship_model``, ``_synthetic_batch``, ``entry()`` and
+the optimizer of ``bench.py``).
 
-The configuration is the JAX flagship's with ``fsnet_tpu_torch`` names: a
-ResNet-18 encoder with ``out_indices=(-1, 0, 1, 2, 3)`` and a
+The flagship's configuration is the JAX flagship's with ``fsnet_tpu_torch``
+names: a ResNet-18 encoder with ``out_indices=(-1, 0, 1, 2, 3)`` and a
 ``MultiChannelDepthDecoder`` with 16 bins, scales 0-3 and depth 0.5-100,
-under ``MonoDepthWPose``. It is built through the builder.
+under ``MonoDepthWPose``. The learned-pose baseline is ``MonoDepthMeta``
+with the same depth net, a ResNet-18 pose encoder over frame pairs (six
+input channels) and a ``PoseDecoder`` for two frames. Both are built
+through the builder.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +55,35 @@ def flagship_model(height: int, width: int, device: DeviceLike = "cuda",
     return build(**flagship_config(height, width), device=device, seed=seed)
 
 
+def learned_pose_config(height: int, width: int) -> Dict:
+    """``MonoDepthMeta``: the flagship's depth net and head, with a
+    ResNet-18 pose encoder over the concatenated frame pairs (BN in train
+    mode) and ``PoseDecoder(num_ch_enc=(64, 64, 128, 256, 512),
+    num_input_features=1, num_frames_to_predict_for=2)``."""
+    cfg = flagship_config(height, width)
+    cfg["name"] = \
+        "fsnet_tpu_torch.models.meta_archs.monodepth2_model.MonoDepthMeta"
+    cfg["pose_backbone_cfg"] = dict(
+        name="fsnet_tpu_torch.models.backbones.resnet.resnet",
+        depth=18, num_stages=4, out_indices=(-1, 0, 1, 2, 3),
+        norm_eval=False, dilations=(1, 1, 1, 1), num_input_images=2,
+    )
+    cfg["head_cfg"]["pose_decoder_cfg"] = dict(
+        name="fsnet_tpu_torch.models.heads.pose_decoder.PoseDecoder",
+        num_ch_enc=(64, 64, 128, 256, 512), num_input_features=1,
+        num_frames_to_predict_for=2,
+    )
+    return cfg
+
+
+def learned_pose_model(height: int, width: int, device: DeviceLike = "cuda",
+                       seed: int = 0):
+    """The learned-pose ``MonoDepthMeta`` with seeded random weights on
+    ``device``."""
+    return build(**learned_pose_config(height, width), device=device,
+                 seed=seed)
+
+
 def entry(device: DeviceLike = "cuda") -> Tuple[Callable, Tuple[torch.Tensor]]:
     """(fn, example_args): single-image depth forward (``dummy_forward``) at
     the KITTI training resolution, 192x640."""
@@ -66,12 +99,20 @@ def entry(device: DeviceLike = "cuda") -> Tuple[Callable, Tuple[torch.Tensor]]:
     return fn, (image,)
 
 
-def synthetic_batch(batch: int, height: int, width: int) -> Dict:
+def synthetic_batch(batch: int, height: int, width: int,
+                    patched_mask: Optional[str] = None) -> Dict:
     """KITTI-like synthetic training batch, string-keyed numpy arrays (the
     numbers of ``__graft_entry__._synthetic_batch``, from the same
     ``RandomState(0)``): small random rotations (+-0.3 deg), forward/back
     translation tz of 0.55-0.8 m, and spatially correlated textures
-    (bicubic-upsampled low-frequency noise) in [0, 1]."""
+    (bicubic-upsampled low-frequency noise) in [0, 1].
+
+    ``patched_mask`` adds the mask every dataset puts in its samples, as
+    float64 [batch, height, width], after all random draws: ``"ones"``
+    (``mono_dataset.py:105``) or ``"nuscenes"``, with the bottom 2/9 of the
+    rows zeroed (the ego body of ``CAM_BACK``, rows 700-899 of 900 in
+    ``nuscene_dataset.py:216-220``). With a mask the flagship's loss takes
+    the grid route, as it does on every dataset."""
     from scipy.ndimage import zoom
 
     rng = np.random.RandomState(0)
@@ -109,6 +150,14 @@ def synthetic_batch(batch: int, height: int, width: int) -> Dict:
         ("relative_pose", 1): pose(+1), ("relative_pose", -1): pose(-1),
         "P2": P2,
     }
+    if patched_mask is not None:
+        mask = np.ones((batch, height, width))
+        if patched_mask == "nuscenes":
+            mask[:, height - (2 * height) // 9:] = 0.0
+        elif patched_mask != "ones":
+            raise ValueError(f"patched_mask {patched_mask!r}: None, 'ones' "
+                             "or 'nuscenes'")
+        data["patched_mask"] = mask
     return encode_batch(data)
 
 

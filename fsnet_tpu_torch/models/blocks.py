@@ -64,20 +64,23 @@ class BatchNorm(nn.Module):
 
 
 class Conv(nn.Module):
-    """Bias-free convolution on NHWC tensors (counterpart of the ``nn.Conv``
-    the JAX encoder uses). The weight is OIHW, PyTorch's layout; the call
-    runs ``F.conv2d`` on a channels-last view, so no copy is made."""
+    """Convolution on NHWC tensors (counterpart of the flax ``nn.Conv`` the
+    JAX encoder and pose decoder use), bias-free unless ``bias``. The weight
+    is OIHW, PyTorch's layout; the call runs ``F.conv2d`` on a channels-last
+    view, so no copy is made."""
 
     def __init__(self, in_features: int, out_features: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0, dilation: int = 1):
+                 stride: int = 1, padding: int = 0, dilation: int = 1,
+                 bias: bool = False):
         super().__init__()
         self.stride, self.padding, self.dilation = stride, padding, dilation
         self.weight = nn.Parameter(torch.empty(out_features, in_features,
                                                kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, None, self.stride,
-                     self.padding, self.dilation)
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
+                     self.stride, self.padding, self.dilation)
         return y.permute(0, 2, 3, 1)
 
 
@@ -209,6 +212,8 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
     for m in module.modules():
         if isinstance(m, Conv):
             _lecun_normal_(m.weight, m.weight[0].numel(), generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
         elif isinstance(m, Conv3x3):
             _lecun_normal_(m.weight, m.weight[..., 0].numel(), generator)
             nn.init.zeros_(m.bias)

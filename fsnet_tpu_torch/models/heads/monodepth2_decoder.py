@@ -1,15 +1,27 @@
-"""MonoDepth2 head: the depth forward, the eval prediction and the
-self-supervised loss of the GT-pose flagship (counterpart of
+"""MonoDepth2 head: the depth and pose forwards, the eval prediction and the
+self-supervised loss (counterpart of
 ``fsnet_tpu.models.heads.monodepth2_decoder.MonoDepth2Decoder``).
 
-The loss covers the flagship's branch: every pose is a dataset constant, so
-all S scales x F frames are warped by one depth-direct warp
-(:func:`~fsnet_tpu_torch.ops.warp_depth.warp_depth_fused`, the Hopper
-kernels on a CUDA device); then 0.85 SSIM + 0.15 L1 per pixel, the overlap
-mask, the identity automask with the identity candidates pre-minned over
-the frames, and edge-aware smoothness over a dyadic color pyramid. Other
-branches (learned or residual poses, patched or motion masks, light
-compensation, SSIM weights, distillation, depth monitors) raise.
+The loss warps the source frames into frame 0 for all S scales x F frames
+in one pass, on one of the JAX package's two routes:
+
+* depth-direct, when every pose is a dataset constant and the batch has no
+  ``patched_mask`` (the GT-pose flagship on a synthetic batch):
+  :func:`~fsnet_tpu_torch.ops.warp_depth.warp_depth_fused`;
+* the grid route otherwise (every dataset batch carries ``patched_mask``;
+  learned poses): :func:`~fsnet_tpu_torch.ops.geometry.reproject` builds
+  the [S*F*B, H, W, 2] grids, one bilinear/border band warp
+  (:func:`~fsnet_tpu_torch.ops.warp_fast.grid_sample`) warps all of them
+  against the F*B sources, and the overlap is the analytic in-bounds test,
+  or with a mask its nearest/zeros warp tested ``== 1.0``. Gradients reach
+  depth and poses through the grid.
+
+Then 0.85 SSIM + 0.15 L1 per pixel, the overlap mask, the identity automask
+with the identity candidates pre-minned over the frames, the patched mask,
+and edge-aware smoothness over a dyadic color pyramid. Other branches
+(residual poses or flow, motion masks, light compensation, SSIM weights,
+distillation, depth monitors) raise. On a CUDA device the warps are the
+Hopper kernels.
 
 The identity tie-break noise is an input: ``noise`` [F, B, H, W] standard
 normal values, scaled by 1e-5 as in the JAX package; without it no noise is
@@ -25,9 +37,11 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 from torch import nn
 
-from ...ops.geometry import abs_, get_smooth_loss, invert_K, make_K44
+from ...ops.geometry import (abs_, get_smooth_loss, invert_K, make_K44,
+                             reproject)
 from ...ops.ssim import ssim, ssim_target_stats
 from ...ops.warp_depth import make_affine_rows, warp_depth_fused
+from ...ops.warp_fast import grid_sample, unnormalize
 from ...utils.builder import build
 from ..blocks import adaptive_avg_pool2d, interpolate_bilinear
 
@@ -66,9 +80,9 @@ class MonoDepth2Decoder(nn.Module):
         super().__init__()
         if depth_decoder_cfg is None:
             raise ValueError("depth_decoder_cfg required")
-        if pose_decoder_cfg is not None or learnable_photometric_uncertain:
-            raise NotImplementedError("the pose decoder and the photometric "
-                                      "uncertainty net come with later slices")
+        if learnable_photometric_uncertain:
+            raise NotImplementedError("the photometric uncertainty net comes "
+                                      "with a later slice")
         self.scales = tuple(scales)
         self.height, self.width = height, width
         self.frame_ids = tuple(frame_ids)
@@ -86,9 +100,14 @@ class MonoDepth2Decoder(nn.Module):
                              is_light_compensate=is_light_compensate,
                              is_ssim_weight=is_ssim_weight)
         self.depth_decoder = build(**dict(depth_decoder_cfg))
+        if pose_decoder_cfg is not None:
+            self.pose_decoder = build(**dict(pose_decoder_cfg))
 
     def forward_depth(self, features, P2=None, train: bool = False) -> Dict:
         return self.depth_decoder(features, P2, train=train)
+
+    def forward_pose(self, pose_features):
+        return self.pose_decoder(pose_features)
 
     def get_prediction(self, input_dict, output_dict) -> Dict:
         """Full-resolution depth for eval/export; ('depth', 0, 0) is
@@ -109,23 +128,22 @@ class MonoDepth2Decoder(nn.Module):
             on.append("distillation_loss_weight")
         if self.warp_impl != "band":
             on.append(f"warp_impl={self.warp_impl!r}")
-        for key in ("patched_mask", "motion_mask", "depth_gt"):
+        for key in ("motion_mask", "depth_gt"):
             if key in input_dict:
                 on.append(f"input {key!r}")
-        if not output_dict.pop("pose_is_const", False):
-            on.append("learned poses")
         if on:
-            raise NotImplementedError("the port's loss runs the GT-pose "
-                                      f"flagship branch only, not {on}")
+            raise NotImplementedError("the port's loss does not run the "
+                                      f"branches of {on} yet")
         if self.residualflow_weight != 0:
             raise AssertionError("residual-flow loss is dormant in the "
                                  "reference; not implemented")
 
     def _warp_all(self, input_dict, output_dict):
         """Warp the source frames into frame 0 for every (scale, frame) pair
-        in one depth-direct warp. Returns (preds [S, F, B, H, W, C],
-        overlap [S, F, B, H, W] bool or None, depths_full
-        [S, B, H, W, 1])."""
+        in one pass, depth-direct when every pose is a constant and there is
+        no patched mask, else on the grid route. Returns (preds
+        [S, F, B, H, W, C], overlap [S, F, B, H, W] bool or None,
+        depths_full [S, B, H, W, 1])."""
         frames = self.frame_ids[1:]
         S, F = len(self.scales), len(frames)
         H, W = self.height, self.width
@@ -135,19 +153,58 @@ class MonoDepth2Decoder(nn.Module):
             for s in self.scales], dim=0)
         B = depths_full.shape[1]
         K = make_K44(input_dict["P2"])
+        inv_K = invert_K(K)
         Ts = torch.stack([output_dict[("cam_T_cam", f)] for f in frames])
         sources = torch.stack([input_dict[("original_image", f)]
                                for f in frames])
         C = sources.shape[-1]
-        arows = make_affine_rows(K, invert_K(K), Ts, S)
         ft = torch.promote_types(depths_full.dtype, torch.float32)
-        preds, overlap = warp_depth_fused(
-            sources.reshape(F * B, H, W, C).to(ft).contiguous(),
-            depths_full.reshape(S * B, H, W).to(ft).contiguous(),
-            arows.to(ft), S, F, self.warp_band)
-        preds = preds.reshape(S, F, B, H, W, C)
-        overlap = (overlap.reshape(S, F, B, H, W) if self.overlapped_mask
-                   else None)
+        sources = sources.reshape(F * B, H, W, C).to(ft).contiguous()
+        pose_const = bool(output_dict.pop("pose_is_const", False))
+        if pose_const and "patched_mask" not in input_dict:
+            preds, overlap = warp_depth_fused(
+                sources, depths_full.reshape(S * B, H, W).to(ft).contiguous(),
+                make_affine_rows(K, inv_K, Ts, S).to(ft), S, F,
+                self.warp_band)
+            preds = preds.reshape(S, F, B, H, W, C)
+            overlap = (overlap.reshape(S, F, B, H, W) if self.overlapped_mask
+                       else None)
+            return preds, overlap, depths_full
+
+        # the grid route: warp n = (s F + f) B + b reads source f B + b,
+        # i.e. n mod F B, which the band warp indexes without tiling
+        N = S * F * B
+
+        def per_warp(t):                              # [B, ...] -> [N, ...]
+            return t[None, None].expand(S, F, *t.shape).reshape(
+                N, *t.shape[1:])
+
+        grids = reproject(
+            depths_full[:, None].expand(S, F, B, H, W, 1).reshape(N, H, W, 1),
+            per_warp(K), per_warp(inv_K),
+            Ts[None].expand(S, F, B, 4, 4).reshape(N, 4, 4))
+        grids = grids.to(ft).contiguous()
+        preds = grid_sample(sources, grids, mode="bilinear",
+                            padding_mode="border", impl=self.warp_impl,
+                            band=self.warp_band).reshape(S, F, B, H, W, C)
+        overlap = None
+        if self.overlapped_mask:
+            if "patched_mask" not in input_dict:
+                # the nearest/zeros warp of all-ones is exactly the
+                # in-bounds test of the grid
+                xu = unnormalize(grids[..., 0], W)
+                yu = unnormalize(grids[..., 1], H)
+                overlap = ((xu >= -0.5) & (xu < W - 0.5) & (yu >= -0.5)
+                           & (yu < H - 0.5))
+            else:
+                # the mask of warp n is mask n mod B, as the JAX package's
+                # F-fold broadcast of it gives
+                patched = input_dict["patched_mask"].to(preds.dtype)
+                warped = grid_sample(patched[..., None].contiguous(), grids,
+                                     mode="nearest", padding_mode="zeros",
+                                     impl=self.warp_impl, band=self.warp_band)
+                overlap = warped == 1.0
+            overlap = overlap.reshape(S, F, B, H, W)
         return preds, overlap, depths_full
 
     def compute_total_reprojection_loss(self, output_dict, input_dict,
@@ -206,10 +263,17 @@ class MonoDepth2Decoder(nn.Module):
                 torch.amin(proj_loss[0], dim=0) < identity_min
             )[0:1, ..., None])
 
-        # sums in float32 or wider; no patched mask: the normaliser is the
-        # pixel count
+        # sums in float32 or wider; the normaliser is the patched mask's sum
+        # (the pixel count without one). Datasets give the mask as float64:
+        # cast it first, or it would widen the whole loss chain
         acc = torch.promote_types(to_opt.dtype, torch.float32)
-        photo_norm = torch.tensor(B * H * W, dtype=acc) + 1e-6
+        patched = input_dict.get("patched_mask")
+        if patched is None:
+            photo_norm = torch.tensor(B * H * W, dtype=acc) + 1e-6
+        else:
+            patched = patched.to(to_opt.dtype)
+            to_opt = to_opt * patched[None]
+            photo_norm = patched.to(acc).sum() + 1e-6
         # dyadic color pyramid by successive 2x2 means, while the sizes
         # halve; other scales take the adaptive pool of the target (the
         # JAX package's reshape fails there)

@@ -1,7 +1,7 @@
 """MonoDepth meta-architectures (counterpart of
-``fsnet_tpu.models.meta_archs.monodepth2_model``: ``MonoDepthWPose``'s
-GT-pose ``forward_train``, ``forward_test`` and ``dummy_forward``, and
-``MonoDepthInference``).
+``fsnet_tpu.models.meta_archs.monodepth2_model``: ``MonoDepthMeta``, the
+learned-pose baseline; ``MonoDepthWPose``'s GT-pose ``forward_train``,
+``forward_test`` and ``dummy_forward``; and ``MonoDepthInference``).
 
 Batches are string-keyed (``'image/0'``, ``'P2'``) and decoded to the
 reference's tuple-key protocol at entry. Images are NHWC float tensors.
@@ -17,6 +17,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ...ops.geometry import transformation_from_parameters
 from ...utils.builder import build
 from ...utils.device import DeviceLike, resolve_device
 from ...utils.keys import decode_batch
@@ -35,6 +36,58 @@ def _place(module: nn.Module, device: DeviceLike, seed: int) -> None:
     dev = resolve_device(device)
     init_params(module, torch.Generator().manual_seed(seed))
     module.to(dev)
+
+
+class MonoDepthMeta(BaseMetaArch):
+    """monodepth2 baseline: the depth net on frame 0 and a pose net on each
+    (source, target) frame pair; the head warps with the predicted poses,
+    so the loss takes the grid route and its gradients reach the pose net
+    through the grid."""
+
+    def __init__(self, depth_backbone_cfg: Dict, pose_backbone_cfg: Dict,
+                 head_cfg: Dict, train_cfg: Dict,
+                 test_cfg: Optional[Dict] = None, device: DeviceLike = "cuda",
+                 seed: int = 0):
+        super().__init__()
+        self.train_cfg = dict(train_cfg)
+        self.test_cfg = dict(test_cfg or {})
+        self.depth_backbone = build(**dict(depth_backbone_cfg))
+        self.pose_backbone = build(**dict(pose_backbone_cfg))
+        self.head = build(frame_ids=tuple(self.train_cfg["frame_ids"]),
+                          **dict(head_cfg))
+        _place(self, device, seed)
+
+    def forward_train(self, data: Dict, meta: Dict,
+                      noise: Optional[torch.Tensor] = None) -> Dict:
+        """Depth forward (without ``P2``, as the reference does) and, per
+        source frame in order, the pose net in train mode on
+        ``cat([f, 0])`` for f < 0, else ``cat([0, f])``: its BN running
+        statistics take one update per frame. Then the head's loss."""
+        data = _decode(data)
+        features = self.depth_backbone(data[("image", 0)], train=True)
+        outputs = self.head.forward_depth(features, train=True)
+        for f_i in self.train_cfg["frame_ids"][1:]:
+            pair = ([data[("image", f_i)], data[("image", 0)]] if f_i < 0
+                    else [data[("image", 0)], data[("image", f_i)]])
+            pose_feats = [self.pose_backbone(torch.cat(pair, dim=-1),
+                                             train=True)]
+            axisangle, translation = self.head.forward_pose(pose_feats)
+            outputs[("axisangle", f_i)] = axisangle
+            outputs[("translation", f_i)] = translation
+            outputs[("cam_T_cam", f_i)] = transformation_from_parameters(
+                axisangle[:, 0], translation[:, 0], invert=f_i < 0)
+        return self.head.loss(outputs, data, noise=noise)
+
+    def forward_test(self, data: Dict, meta: Dict) -> Dict:
+        data = _decode(data)
+        features = self.depth_backbone(data[("image", 0)], train=False)
+        outputs = self.head.forward_depth(features, train=False)
+        return self.head.get_prediction(data, outputs)
+
+    def dummy_forward(self, image: torch.Tensor) -> Dict:
+        features = self.depth_backbone(image, train=False)
+        outputs = self.head.forward_depth(features, train=False)
+        return self.head.get_prediction(None, outputs)
 
 
 class MonoDepthWPose(BaseMetaArch):

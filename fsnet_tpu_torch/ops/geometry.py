@@ -1,13 +1,15 @@
 """Camera geometry on NHWC tensors (counterpart of ``fsnet_tpu.ops.geometry``:
 ``disp_to_depth``, ``depth_to_disp``, ``make_K44``, ``invert_K``,
-``reproject`` and ``get_smooth_loss``).
+``reproject``, ``rot_from_axisangle``, ``get_translation_matrix``,
+``transformation_from_parameters`` and ``get_smooth_loss``).
 
 Projection runs in float32 at least, and the per-pixel 3x3 matvec is an
 explicit chain of multiplies and adds, one rounding per operation, as
 ``geometry.py:191-197`` requires: pixel addressing needs sub-pixel
 precision at W=640. :func:`project_rows` is that chain in pixel space, for
 warps given as affine rows; the warp kernels of ``csrc/warp_depth.cu``
-repeat it operation for operation.
+repeat it operation for operation. :func:`reproject` is the grid route's
+form, with the JAX package's order of operations.
 """
 from __future__ import annotations
 
@@ -72,19 +74,74 @@ def project_rows(depth: torch.Tensor, arows: torch.Tensor) -> Dict:
 
 def reproject(depth: torch.Tensor, K: torch.Tensor, inv_K: torch.Tensor,
               T: torch.Tensor) -> torch.Tensor:
-    """Depth [B, H, W, 1] through pose T and intrinsics K -> the sampling
-    grid [B, H, W, 2] in normalized [-1, 1] coordinates (align_corners),
-    with ``M = (K T)[:3] diag-embed(inv_K)`` composed per batch and the
-    per-pixel matvec of :func:`project_rows`."""
+    """Depth [B, H, W, 1] through pose T and intrinsics K (each [B, 4, 4])
+    -> the sampling grid [B, H, W, 2] in normalized [-1, 1] coordinates
+    (align_corners), in float32 or wider. ``A = (K T)[:3, :3] inv_K3`` and
+    ``b = (K T)[:3, 3]`` are composed per batch; per pixel
+    ``c = A [j, i, 1]`` as an explicit chain, then ``x = (cx d + bx) /
+    (cz d + bz + 1e-7)`` with a true division, as ``geometry.py:196-206``
+    computes it."""
     B, H, W, _ = depth.shape
     mt = _mat_dtype(K.dtype)
     P = torch.matmul(K.to(mt), T.to(mt))[:, :3, :]
     A = torch.matmul(P[:, :, :3], inv_K[:, :3, :3].to(mt))
-    rows = torch.cat([A.reshape(B, 9), P[:, :, 3]], dim=1)
-    p = project_rows(depth[..., 0], rows)
-    u = p["x"] / (W - 1)
-    v = p["y"] / (H - 1)
+    jj = torch.arange(W, dtype=mt, device=depth.device).view(1, 1, W)
+    ii = torch.arange(H, dtype=mt, device=depth.device).view(1, H, 1)
+    d = depth[..., 0].to(mt)
+    a = A.view(B, 9, 1, 1)
+    b = P[:, :, 3].view(B, 3, 1, 1)
+    cam = [(a[:, 3 * k] * jj + a[:, 3 * k + 1] * ii + a[:, 3 * k + 2]) * d
+           + b[:, k] for k in range(3)]
+    den = cam[2] + 1e-7
+    u = cam[0] / den / (W - 1)
+    v = cam[1] / den / (H - 1)
     return torch.stack([(u - 0.5) * 2.0, (v - 0.5) * 2.0], dim=-1)
+
+
+def rot_from_axisangle(vec: torch.Tensor) -> torch.Tensor:
+    """Axis-angle [B, 3] or [B, 1, 3] -> rotation [B, 4, 4] (Rodrigues,
+    with the 1e-7 axis epsilon of ``geometry.py:45-76``)."""
+    if vec.dim() == 3:
+        vec = vec[:, 0, :]
+    angle = torch.linalg.norm(vec, dim=-1, keepdim=True)
+    axis = vec / (angle + 1e-7)
+    ca = torch.cos(angle)[..., 0]
+    sa = torch.sin(angle)[..., 0]
+    C = 1.0 - ca
+    x, y, z = axis[..., 0], axis[..., 1], axis[..., 2]
+    xs, ys, zs = x * sa, y * sa, z * sa
+    xC, yC, zC = x * C, y * C, z * C
+    xyC, yzC, zxC = x * yC, y * zC, z * xC
+    zeros, ones = torch.zeros_like(ca), torch.ones_like(ca)
+    return torch.stack([
+        x * xC + ca, xyC - zs, zxC + ys, zeros,
+        xyC + zs, y * yC + ca, yzC - xs, zeros,
+        zxC - ys, yzC + xs, z * zC + ca, zeros,
+        zeros, zeros, zeros, ones], dim=-1).reshape(vec.shape[0], 4, 4)
+
+
+def get_translation_matrix(translation: torch.Tensor) -> torch.Tensor:
+    """Translation [B, 3] -> [B, 4, 4]."""
+    B = translation.shape[0]
+    eye = torch.eye(4, dtype=translation.dtype, device=translation.device)
+    top = torch.cat([eye[:3, :3].expand(B, 3, 3), translation[:, :, None]],
+                    dim=2)
+    return torch.cat([top, eye[3:].expand(B, 1, 4)], dim=1)
+
+
+def transformation_from_parameters(axisangle: torch.Tensor,
+                                   translation: torch.Tensor,
+                                   invert: bool = False) -> torch.Tensor:
+    """(axisangle, translation), each [B, 1, 3] as the pose decoder gives
+    them per frame (or [B, 3]) -> cam_T_cam [B, 4, 4]: ``T R``, or
+    ``R^T T(-t)`` with ``invert`` (``geometry.py:90-101``)."""
+    R = rot_from_axisangle(axisangle)
+    t = translation[:, 0, :] if translation.dim() == 3 else translation
+    if invert:
+        R = R.transpose(1, 2)
+        t = -t
+    T = get_translation_matrix(t)
+    return torch.matmul(R, T) if invert else torch.matmul(T, R)
 
 
 def abs_(x: torch.Tensor) -> torch.Tensor:

@@ -39,9 +39,10 @@ def make_train_step(device: DeviceLike = "cuda",
     """Training step ``train_step(model, optimizer, batch, noise=None) ->
     metrics``: moves a string-keyed batch (numpy arrays or tensors) to
     ``device``, runs ``model.forward_train`` (BN in train mode; the running
-    statistics are updated in the model), back-propagates the float32 loss,
-    and applies one ``optimizer.step`` to the gradients of the optimizer's
-    parameters (zeros for a parameter the loss does not reach). ``noise``:
+    statistics are updated in the model), back-propagates the loss in
+    float32 or wider, and applies one ``optimizer.step`` to the gradients of
+    the optimizer's parameters (zeros for a parameter the loss does not
+    reach; the pose net's too, where the model has one). ``noise``:
     the identity tie-break noise [F, B, H, W] of the loss, or None for none.
 
     Returns the metrics: the loss dict of the head plus ``loss`` and
@@ -59,7 +60,8 @@ def make_train_step(device: DeviceLike = "cuda",
         if noise is not None:
             noise = noise.to(dev)
         out = model.forward_train(data, {"is_training": True}, noise=noise)
-        loss = out["loss"].float()
+        loss = out["loss"]
+        loss = loss.to(torch.promote_types(loss.dtype, torch.float32))
         grads = torch.autograd.grad(loss, optimizer.params,
                                     allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g

@@ -1,18 +1,23 @@
-"""Where the time of the flagship train step goes on the card.
+"""Where the time of a train step goes on the card.
 
     python -m fsnet_tpu_torch.scripts.profile_train [--batch 12] [--iters 5]
+        [--model {wpose,learned_pose}] [--route {depth,grid}] [--host-batch]
 
-Builds the flagship ``MonoDepthWPose`` (seeded random weights) and the
-``bench.py`` recipe (Adam lr 1e-4, clip 1.0, StepLR) on the CUDA device
-with TF32 off, puts the synthetic KITTI-like batch on the card (as
-``bench.py`` does for the JAX step; ``--host-batch`` passes numpy arrays,
-so each step copies them), warms up, then runs
-``--iters`` train steps at 192x640 float32 under ``torch.profiler`` and
-prints: the wall time per step and images/s, the device's busy and idle
-share of that window, device time by group (each of the port's kernels,
-cuDNN/cuBLAS, the optimizer's multi-tensor updates, copies, everything
-else: the loss, BN, ReLU and their gradients) and the kernels with the most
-device time.
+Builds the model (seeded random weights) and the ``bench.py`` recipe (Adam
+lr 1e-4, clip 1.0, StepLR) on the CUDA device with TF32 off: the flagship
+``MonoDepthWPose`` (``--model wpose``) or the learned-pose
+``MonoDepthMeta`` (``--model learned_pose``, always the grid route). The
+flagship's loss takes the depth-direct route on the synthetic KITTI-like
+batch (``--route depth``) and the grid route when the batch carries an
+all-ones ``patched_mask``, as every dataset batch does (``--route grid``).
+Puts the batch on the card (as ``bench.py`` does for the JAX step;
+``--host-batch`` passes numpy arrays, so each step copies them), warms up,
+then runs ``--iters`` train steps at 192x640 float32 under
+``torch.profiler`` and prints: the wall time per step and images/s, the
+device's busy and idle share of that window, device time by group (each of
+the port's kernels, cuDNN/cuBLAS, the optimizer's multi-tensor updates,
+copies, everything else: the loss, the grid's reprojection, BN, ReLU and
+their gradients) and the kernels with the most device time.
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ _GROUPS = (
     ("conv3x3_dw_kernel", "conv3x3 weight cotangent (kernel D)"),
     ("warp_depth_fwd_kernel", "warp forward (kernel A)"),
     ("warp_depth_bwd_kernel", "warp backward (kernel B)"),
+    ("warp_grid_kernel<true>", "grid warp + va, vb (kernel F)"),
+    ("warp_grid_kernel<false>", "grid warp forward (kernel E)"),
 )
 
 
@@ -54,19 +61,27 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=12)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--host-batch", action="store_true")
+    ap.add_argument("--model", choices=("wpose", "learned_pose"),
+                    default="wpose")
+    ap.add_argument("--route", choices=("depth", "grid"), default="depth")
     args = ap.parse_args(argv)
+    if args.model == "learned_pose" and args.route != "grid":
+        ap.error("learned poses take the grid route: pass --route grid")
 
-    from ..entry import flagship_model, flagship_optimizer, synthetic_batch
+    from ..entry import (flagship_model, flagship_optimizer,
+                         learned_pose_model, synthetic_batch)
     from ..runtime.state import make_train_step
 
     # full float32, as chip_smoke.py measures it: no TF32 in cuDNN/cuBLAS
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     H, W, B = 192, 640, args.batch
-    model = flagship_model(H, W, device="cuda", seed=0)
+    build = flagship_model if args.model == "wpose" else learned_pose_model
+    model = build(H, W, device="cuda", seed=0)
     opt, _ = flagship_optimizer(model)
     step = make_train_step("cuda")
-    batch = synthetic_batch(B, H, W)
+    mask = "ones" if args.model == "wpose" and args.route == "grid" else None
+    batch = synthetic_batch(B, H, W, patched_mask=mask)
     if not args.host_batch:
         batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
     for _ in range(3):
@@ -93,8 +108,9 @@ def main(argv=None) -> None:
                           text=True, check=True, timeout=60).stdout.strip()
     n = args.iters
     where = "from host numpy" if args.host_batch else "on the card"
-    lines = [f"{card}; torch {torch.__version__}; train step bs{B}@{H}x{W} "
-             f"float32, batch {where}, {n} steps under torch.profiler",
+    lines = [f"{card}; torch {torch.__version__}; train step of "
+             f"{args.model}, {args.route} route, bs{B}@{H}x{W} float32, "
+             f"batch {where}, {n} steps under torch.profiler",
              f"wall per step {wall_ms / n:.3f} ms ({B * n / wall_ms * 1e3:.2f}"
              f" imgs/s); device busy per step {busy_ms / n:.3f} ms; idle "
              f"share {1 - busy_ms / wall_ms:.3f}",

@@ -253,3 +253,89 @@ def test_flagship_on_card_matches_cpu(cuda):
     cpu = make_eval_step("cpu")(flagship_model(H, W, device="cpu"), batch)
     a, b = gpu["depth"].cpu().numpy(), cpu["depth"].numpy()
     assert np.abs(a - b).max() / np.abs(b).max() <= 1e-3
+
+
+def _grid_scene(g, M, N, H, W, C):
+    """Images and smooth grids that leave the image at its edges."""
+    image = torch.rand(M, H, W, C, generator=g, device="cuda")
+    ys = torch.linspace(-1.15, 1.15, H, device="cuda").view(1, H, 1)
+    xs = torch.linspace(-1.1, 1.1, W, device="cuda").view(1, 1, W)
+    n = torch.arange(N, device="cuda").view(N, 1, 1).float()
+    gx = xs + 0.05 * torch.sin(6.28 * xs + n) * torch.cos(3.14 * ys)
+    gy = ys + 0.25 * torch.cos(3.14 * xs + 0.5 * n)
+    jit = (torch.rand(N, H, W, 2, generator=g, device="cuda") * 2 - 1) \
+        * torch.tensor([2.0 / W, 1.5 / H], device="cuda")
+    return image, (torch.stack([gx.expand(N, H, W), gy.expand(N, H, W)],
+                               dim=-1) + jit).contiguous()
+
+
+@pytest.mark.parametrize("padding", ["border", "zeros"])
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+@pytest.mark.parametrize("dims", [(2, 4, 16, 128, 3, 4),
+                                  (3, 6, 24, 200, 1, 8),
+                                  (1, 2, 7, 33, 2, 4)])
+def test_grid_warp_kernels_match_plain(cuda, mode, padding, dims):
+    """Kernels E (every mode and padding) and F (bilinear) against their
+    plain versions on the card: the coordinates are rounded once per
+    operation on both, so the corners agree and the values bitwise."""
+    from fsnet_tpu_torch.ops import warp_fast as twf
+
+    M, N, H, W, C, band = dims
+    g = torch.Generator(device=cuda).manual_seed(5)
+    image, grid = _grid_scene(g, M, N, H, W, C)
+    n_e, n_f = twf.grid_band_fwd.launches, twf.grid_band_fused.launches
+    out = twf.grid_band_fwd(image, grid, mode, padding, band)
+    ref = twf.grid_band_plain(image, grid, mode, padding, band)
+    torch.cuda.synchronize()
+    assert twf.grid_band_fwd.launches == n_e + 1
+    assert out.shape == ref[0].shape == (N, H, W, C)
+    assert (out - ref[0]).abs().max() <= 1e-6
+    if mode == "nearest":
+        ones = torch.ones(M, H, W, 1, device=cuda)
+        mask = twf.grid_band_fwd(ones, grid, mode, padding, band)
+        assert torch.equal(mask == 1.0, twf.grid_band_plain(
+            ones, grid, mode, padding, band, False)[0] == 1.0)
+        return
+    got = twf.grid_band_fused(image, grid, padding, band)
+    torch.cuda.synchronize()
+    assert twf.grid_band_fused.launches == n_f + 1
+    for a, r in zip(got, ref):
+        assert (a - r).abs().max() <= 1e-6
+
+
+@pytest.mark.parametrize("kind", ["mask", "learned_pose"])
+def test_grid_route_train_step_on_card_matches_cpu(cuda, kind):
+    """The grid-route train steps at a small size, on the card through
+    kernels E and F, against the port on the CPU."""
+    from fsnet_tpu_torch.entry import (flagship_model, flagship_optimizer,
+                                       learned_pose_model, synthetic_batch)
+    from fsnet_tpu_torch.ops import warp_depth as twd
+    from fsnet_tpu_torch.ops import warp_fast as twf
+    from fsnet_tpu_torch.runtime.state import make_train_step
+
+    H, W, B = 64, 128, 2
+    batch = synthetic_batch(B, H, W, patched_mask="ones" if kind == "mask"
+                            else None)
+    rng = np.random.RandomState(7)
+    for key in sorted(batch):
+        if key.startswith(("image/", "original_image/")):
+            batch[key] = rng.rand(*batch[key].shape).astype(np.float32)
+    build = flagship_model if kind == "mask" else learned_pose_model
+    counters = (twf.grid_band_fused, twf.grid_band_fwd, twd.warp_depth_fwd)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = build(H, W, device=dev, seed=0)
+        opt, _ = flagship_optimizer(model)
+        before = [f.launches for f in counters]
+        met = make_train_step(dev, with_grads=True)(model, opt, batch)
+        ran = [f.launches - n for f, n in zip(counters, before)]
+        res[dev] = (float(met["loss"]), met["_grads"], ran)
+    assert res["cuda"][2] == [1, 1 if kind == "mask" else 0, 0]
+    assert res["cpu"][2] == [0, 0, 0]
+    assert abs(res["cuda"][0] - res["cpu"][0]) <= 1e-4 * abs(res["cpu"][0])
+    keys = [k for k in res["cpu"][1]
+            if not (".upconv_" in k and k.endswith(".conv.bias"))]
+    num = sum(float(((res["cuda"][1][k].cpu() - res["cpu"][1][k]) ** 2).sum())
+              for k in keys)
+    den = sum(float((res["cpu"][1][k] ** 2).sum()) for k in keys)
+    assert (num / den) ** 0.5 < 3e-2

@@ -1,17 +1,30 @@
-"""The port's flagship train step (on the CPU: the plain versions of its
-kernels) against the JAX package's, from the same bridged weights and the
-same batch, with no tie-break noise on either side. Two JAX routes:
+"""The port's train steps (on the CPU: the plain versions of their kernels)
+against the JAX package's, from the same bridged weights and the same
+batch, with no tie-break noise on either side. Routes:
 
-* ``xla``: the JAX package's CPU route at 64x96 (grid warp, XLA convs), both
-  sides in float64 (the port's wrappers take float32; their plain versions
-  are written for any float type, and this test widens the wrappers' type
-  check to float64 on the CPU);
+* ``xla``: the flagship ``MonoDepthWPose`` on the JAX package's CPU route at
+  64x96 (grid warp, XLA convs), both sides in float64 (the port's wrappers
+  take float32; their plain versions are written for any float type, and
+  this test widens the wrappers' type check to float64 on the CPU); the
+  port takes its depth-direct route;
 * ``tpu``: its shipped TPU route at 64x128 in float32, forced on the CPU as
   ``tests/test_multichip_kernel_route.py`` does (``jax.default_backend``
   reads "tpu", every ``pallas_call`` is interpreted), so the depth-direct
   warp (``warp_prep_pallas`` + the fused band warp + ``warp_prep_bwd_pallas``)
   and the train-mode conv kernels (``conv3x3_fused_mats_m``,
-  ``conv3x3_fused_dw``) run; the test proves that they did.
+  ``conv3x3_fused_dw``) run; the test proves that they did;
+* ``mask_xla`` and ``mask_tpu``: the same two with a batch that carries the
+  NuScenes ``CAM_BACK`` ``patched_mask``, as every dataset batch carries
+  one, so both packages take the grid route: one bilinear/border band warp
+  of all S x F grids and the nearest/zeros warp of the mask for the overlap.
+  On ``mask_tpu`` the test proves that the fused grid-route kernel
+  (``warp_rows_pallas_dma_fused``) and the forward kernel
+  (``warp_rows_pallas_dma``) ran and ``warp_prep_pallas`` did not;
+* ``meta_xla``: the learned-pose ``MonoDepthMeta`` at 64x96 in float64: the
+  grid cotangent reaches the pose net, and the pose net's BN runs in train
+  mode once per source frame, so its running statistics take two momentum
+  updates per step on both sides (held by the statistics bound below, and
+  counted on the port's side).
 
 The JAX side runs ``model.apply(..., mutable=["batch_stats"])`` under
 ``jax.value_and_grad`` at matmul precision "highest", then the optax chain
@@ -24,19 +37,24 @@ stencil) then differ by 8.6e-3 in rel-L2 of d loss / d depth.
 
 Bounds, with the values measured when this test was written:
 
-* float64 (``xla``): loss rel <= 1e-5 (1.1e-8); gradients per leaf rel-L2
-  <= 1e-4 (6e-14); parameters after the Adam step within 1e-6 (7e-10); BN
-  running statistics within 1e-6 (3e-15).
-* float32 (``tpu``): rounding flips discrete choices (a bilinear corner
-  where a coordinate lies within an ulp of an integer, the reprojection
-  min at near ties), each of which moves the gradient of one pixel by O(1).
-  The JAX package's own XLA and TPU routes differ by 1.2e-3 in global
-  gradient rel-L2 on this batch (worst leaf 2.8e-3, dispconv_1). So: loss
-  rel <= 1e-5 (1.6e-7); global gradient rel-L2 <= 1e-2 (2.3e-3), per leaf
-  <= 2e-2 (5.4e-3); Adam's first step is about lr * sign(g), so every
-  parameter is within 2 lr (1 + 1e-6) of JAX's and at least 97% of them
-  within 1e-6 (98.7%); BN running statistics within 1e-5 * max(1, |ref|)
-  (2.7e-6: the batch variance E[x^2] - mean^2 cancels, in float32).
+* float64: loss rel <= 1e-5 on ``xla``, where the two packages take
+  different warp routes (4.3e-16), and <= 1e-10 where both take the grid
+  route (2.9e-16 ``mask_xla``, 6.8e-16 ``meta_xla``); gradients per leaf
+  rel-L2 <= 1e-4 (6e-14; 9.3e-13 on ``meta_xla``, 4.6e-14 at worst over
+  its 68 pose leaves); parameters after the Adam step within 1e-6
+  (2e-13); BN running statistics within 1e-6 (7e-15).
+* float32 (``tpu``, ``mask_tpu``): rounding flips discrete choices (a
+  bilinear corner where a coordinate lies within an ulp of an integer, the
+  reprojection min at near ties), each of which moves the gradient of one
+  pixel by O(1). The JAX package's own XLA and TPU routes differ by 1.2e-3
+  in global gradient rel-L2 on this batch (worst leaf 2.8e-3, dispconv_1).
+  So: loss rel <= 1e-5 (1.6e-7 on both); global gradient rel-L2 <= 1e-2
+  (2.3e-3; 2.9e-3 on ``mask_tpu``), per leaf <= 2e-2 (5.4e-3; 9.1e-3);
+  Adam's first step is about lr * sign(g), so
+  every parameter is within 2 lr (1 + 1e-6) of JAX's and at least 97% of
+  them within 1e-6 (98.7%); BN running statistics within
+  1e-5 * max(1, |ref|) (2.7e-6: the batch variance E[x^2] - mean^2
+  cancels, in float32).
 
 The conv biases of the decoder's ``ConvBnReLU`` blocks feed train-mode BN,
 which removes any constant per channel: their exact gradient is 0, and both
@@ -54,16 +72,25 @@ import jax.experimental.pallas as pl
 import optax
 
 import __graft_entry__ as ge
-from fsnet_tpu_torch.entry import flagship_model, flagship_optimizer, \
-    synthetic_batch
+from fsnet_tpu_torch.entry import (flagship_model, flagship_optimizer,
+                                   learned_pose_config, learned_pose_model,
+                                   synthetic_batch)
 from fsnet_tpu_torch.models.flax_convert import load_flax_variables, to_flax
 from fsnet_tpu_torch.ops import conv3x3 as tc
 from fsnet_tpu_torch.ops import warp_depth as twd
+from fsnet_tpu_torch.ops import warp_fast as twf
 from fsnet_tpu_torch.runtime.state import make_train_step
 
 torch.set_num_threads(1)
 
-ROUTES = {"xla": (64, 96, np.float64), "tpu": (64, 128, np.float32)}
+# name: (H, W, dtype, model, patched mask)
+ROUTES = {
+    "xla": (64, 96, np.float64, "wpose", None),
+    "tpu": (64, 128, np.float32, "wpose", None),
+    "mask_xla": (64, 96, np.float64, "wpose", "nuscenes"),
+    "mask_tpu": (64, 128, np.float32, "wpose", "nuscenes"),
+    "meta_xla": (64, 96, np.float64, "meta", None),
+}
 B = 2
 LR = 1e-4
 
@@ -93,10 +120,10 @@ def _flat(tree, path=()):
             yield path + (k,), v
 
 
-def _batch(H, W, dtype):
+def _batch(H, W, dtype, patched_mask=None):
     """The synthetic batch's poses and intrinsics with white-noise images
     (see the module docstring), in ``dtype``."""
-    batch = synthetic_batch(B, H, W)
+    batch = synthetic_batch(B, H, W, patched_mask=patched_mask)
     rng = np.random.RandomState(7)
     for key in sorted(batch):
         if key.startswith(("image/", "original_image/")):
@@ -104,15 +131,44 @@ def _batch(H, W, dtype):
     return {k: v.astype(dtype) for k, v in batch.items()}
 
 
-def _jax_step(H, W, batch, dtype):
+def _jax_names(cfg):
+    """A port config with the JAX package's names."""
+    if isinstance(cfg, dict):
+        return {k: _jax_names(v) for k, v in cfg.items()}
+    if isinstance(cfg, str):
+        return cfg.replace("fsnet_tpu_torch.", "fsnet_tpu.")
+    return cfg
+
+
+def jax_model(kind, H, W):
+    """The JAX package's flagship or learned-pose ``MonoDepthMeta``."""
+    if kind == "wpose":
+        return ge._flagship_model(H, W)
+    from fsnet_tpu.utils.builder import build
+
+    return build(**_jax_names(learned_pose_config(H, W)))
+
+
+def jax_init(kind, model, image):
+    """Every variable of ``model``: the depth path, and for the learned-pose
+    model the pose net on a frame pair."""
+    def init_all(m, x):
+        out = m.dummy_forward(x)
+        if kind == "meta":
+            pair = jax.numpy.concatenate([x, x], axis=-1)
+            m.head.forward_pose([m.pose_backbone(pair, train=False)])
+        return out
+    return jax.jit(lambda x: model.init({"params": jax.random.PRNGKey(0)},
+                                        x, method=init_all))(image)
+
+
+def _jax_step(kind, H, W, batch, dtype):
     from fsnet_tpu.runtime.optim import build_optimizer
 
-    model = ge._flagship_model(H, W)
+    model = jax_model(kind, H, W)
     rng = np.random.RandomState(0)
     with jax.default_matmul_precision("highest"):
-        v = jax.jit(lambda x: model.init(
-            {"params": jax.random.PRNGKey(0)}, x,
-            method=model.dummy_forward))(batch["image/0"])
+        v = jax_init(kind, model, batch["image/0"])
         v = jax.tree.map(lambda a: np.asarray(a, dtype),
                          _to_dicts(_randomise(v, rng)))
 
@@ -136,12 +192,13 @@ def _jax_step(H, W, batch, dtype):
 
 def _run(name):
     """Both steps on route ``name``: the JAX reference, the port's results
-    in flax layout, and the counts of the TPU kernels the JAX side ran."""
-    H, W, dtype = ROUTES[name]
-    batch = _batch(H, W, dtype)
+    in flax layout, the counts of the TPU kernels the JAX side ran and the
+    pose net's BN updates on the port's side."""
+    H, W, dtype, kind, mask = ROUTES[name]
+    batch = _batch(H, W, dtype, mask)
     calls = {}
     with pytest.MonkeyPatch.context() as mp:
-        if name == "tpu":
+        if name.endswith("tpu"):
             import fsnet_tpu.ops.pallas.conv_kernel as ck
             import fsnet_tpu.ops.pallas.prep_kernel as prk
             import fsnet_tpu.ops.pallas.warp_kernel as wk
@@ -152,9 +209,13 @@ def _run(name):
                     kwargs["interpret"] = True
                     return _orig(*args, **kwargs)
                 mp.setattr(mod.pl, "pallas_call", patched)
-            for mods, fn in (((prk, jwd), "warp_prep_pallas"),
-                             ((ck,), "conv3x3_fused_mats_m"),
-                             ((ck,), "conv3x3_fused_dw")):
+            counted_fns = [((prk, jwd), "warp_prep_pallas"),
+                           ((ck,), "conv3x3_fused_mats_m"),
+                           ((ck,), "conv3x3_fused_dw")]
+            if mask is not None:
+                counted_fns += [((wk,), "warp_rows_pallas_dma_fused"),
+                                ((wk,), "warp_rows_pallas_dma")]
+            for mods, fn in counted_fns:
                 calls[fn] = 0
 
                 def counted(*args, _orig=getattr(mods[0], fn), _fn=fn,
@@ -167,17 +228,24 @@ def _run(name):
         x64 = dtype == np.float64
         jax.config.update("jax_enable_x64", x64)
         try:
-            ref = _jax_step(H, W, batch, dtype)
+            ref = _jax_step(kind, H, W, batch, dtype)
         finally:
             jax.config.update("jax_enable_x64", False)
-    port = flagship_model(H, W, device="cpu").to(
+    build_port = flagship_model if kind == "wpose" else learned_pose_model
+    port = build_port(H, W, device="cpu").to(
         torch.float64 if x64 else torch.float32)
     load_flax_variables(port, ref["variables"])
     opt, _ = flagship_optimizer(port)
+    pose_bn_updates = []
     with pytest.MonkeyPatch.context() as mp:
         if x64:
             mp.setitem(tc._DTYPES, torch.float64, -1)
             mp.setattr(twd, "_DTYPES", (torch.float64,))
+            mp.setattr(twf, "_DTYPES", (torch.float64,))
+        if kind == "meta":
+            bn = port.pose_backbone.bn1
+            mp.setattr(bn, "update_stats", lambda m, v, _orig=bn.update_stats:
+                       (pose_bn_updates.append(1), _orig(m, v)))
         metrics = make_train_step("cpu", with_grads=True)(port, opt, batch)
     got = dict(loss=float(metrics["loss"]),
                grads=to_flax(port, metrics["_grads"])["params"],
@@ -186,7 +254,8 @@ def _run(name):
                                     if k.endswith(("running_mean",
                                                    "running_var"))}
                              )["batch_stats"])
-    return dict(name=name, ref=ref, got=got, calls=calls)
+    return dict(name=name, ref=ref, got=got, calls=calls,
+                pose_bn_updates=len(pose_bn_updates))
 
 
 @pytest.fixture(params=sorted(ROUTES))
@@ -206,8 +275,10 @@ def _rel_l2(a, r):
 
 def test_train_step_matches_jax(route):
     ref, got = route["ref"], route["got"]
-    f64 = route["name"] == "xla"
-    assert abs(got["loss"] - ref["loss"]) <= 1e-5 * abs(ref["loss"])
+    name = route["name"]
+    f64 = ROUTES[name][2] == np.float64
+    loss_tol = 1e-10 if f64 and name != "xla" else 1e-5
+    assert abs(got["loss"] - ref["loss"]) <= loss_tol * abs(ref["loss"])
 
     ref_g, got_g = dict(_flat(ref["grads"])), dict(_flat(got["grads"]))
     assert sorted(got_g) == sorted(ref_g)
@@ -249,11 +320,52 @@ def test_train_step_matches_jax(route):
         assert np.all(np.abs(got_s[path] - r)
                       <= tol * np.maximum(1.0, np.abs(r))), path
 
-    # the forced TPU route really ran the Pallas kernels
-    if route["name"] == "tpu":
-        assert sorted(route["calls"]) == ["conv3x3_fused_dw",
-                                          "conv3x3_fused_mats_m",
-                                          "warp_prep_pallas"]
-        assert all(n > 0 for n in route["calls"].values()), route["calls"]
+    # the forced TPU route really ran the Pallas kernels: the depth-direct
+    # warp without a patched mask, the grid route's two warps with one
+    calls = route["calls"]
+    if name == "tpu":
+        assert sorted(calls) == ["conv3x3_fused_dw", "conv3x3_fused_mats_m",
+                                 "warp_prep_pallas"]
+        assert all(n > 0 for n in calls.values()), calls
+    elif name == "mask_tpu":
+        assert sorted(calls) == ["conv3x3_fused_dw", "conv3x3_fused_mats_m",
+                                 "warp_prep_pallas", "warp_rows_pallas_dma",
+                                 "warp_rows_pallas_dma_fused"]
+        assert calls["warp_prep_pallas"] == 0, calls
+        assert all(n > 0 for k, n in calls.items()
+                   if k != "warp_prep_pallas"), calls
     else:
-        assert route["calls"] == {}
+        assert calls == {}
+    # the pose net's BN: one running-statistics update per source frame
+    assert route["pose_bn_updates"] == (2 if ROUTES[name][3] == "meta" else 0)
+
+
+def test_patched_mask_of_ones_takes_the_grid_route_to_the_same_loss():
+    """A batch with an all-ones ``patched_mask`` sends the flagship's loss
+    down the grid route (reproject, band warp of the grids, nearest/zeros
+    warp of the mask); without it the loss is depth-direct. The two
+    compute one function: losses within 1e-5 rel in float64, the port
+    alone."""
+    H, W = 64, 96
+    batch = _batch(H, W, np.float64, "ones")
+    routes = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(tc._DTYPES, torch.float64, -1)
+        mp.setattr(twd, "_DTYPES", (torch.float64,))
+        mp.setattr(twf, "_DTYPES", (torch.float64,))
+        for tag, b in (("grid", batch),
+                       ("depth", {k: v for k, v in batch.items()
+                                  if k != "patched_mask"})):
+            warps = []
+            for mod, fn in ((twd, "warp_depth_plain"),
+                            (twf, "grid_band_plain")):
+                mp.setattr(mod, fn, lambda *a, _o=getattr(mod, fn), _f=fn,
+                           **k: (warps.append(_f), _o(*a, **k))[1])
+            model = flagship_model(H, W, device="cpu").double()
+            opt, _ = flagship_optimizer(model)
+            met = make_train_step("cpu")(model, opt, b)
+            routes[tag] = (float(met["loss"]), sorted(set(warps)))
+    assert routes["grid"][1] == ["grid_band_plain"]
+    assert routes["depth"][1] == ["warp_depth_plain"]
+    assert abs(routes["grid"][0] - routes["depth"][0]) <= \
+        1e-5 * abs(routes["depth"][0])

@@ -117,3 +117,40 @@ def test_bridge_rejects_wrong_shape(variables, port):
     k["kernel"] = k["kernel"].transpose(3, 2, 0, 1)
     with pytest.raises(ValueError):
         flax_to_state_dict(port, v)
+
+
+def test_learned_pose_round_trip():
+    """``MonoDepthMeta``: the pose encoder (conv1 [7, 7, 6, 64]) and the
+    ``PoseDecoder``'s four convs with their biases map both ways; flax ->
+    port -> flax gives back every leaf bitwise, and no leaf is left out or
+    doubled."""
+    from test_torch_train_step import jax_init, jax_model
+
+    from fsnet_tpu_torch.entry import learned_pose_model
+    from fsnet_tpu_torch.models.flax_convert import to_flax
+
+    img = np.zeros((1, H, W, 3), np.float32)
+    v = _as_dicts(jax_init("meta", jax_model("meta", H, W), img))
+    rng = np.random.RandomState(0)
+    for c in v:
+        for path, a in _leaves(v[c]):
+            node = v[c]
+            for k in path[:-1]:
+                node = node[k]
+            node[path[-1]] = rng.rand(*a.shape).astype(np.float32)
+    assert v["params"]["pose_backbone"]["conv1"]["kernel"].shape == \
+        (7, 7, 6, 64)
+    dec = v["params"]["head"]["pose_decoder"]
+    assert sorted(dec) == ["pose_0", "pose_1", "pose_2", "squeeze"]
+    assert dec["pose_2"]["kernel"].shape == (1, 1, 256, 12)
+    model = learned_pose_model(H, W, device="cpu")
+    load_flax_variables(model, v)
+    np.testing.assert_array_equal(
+        model.head.pose_decoder.pose_0.weight.detach().numpy(),
+        dec["pose_0"]["kernel"].transpose(3, 2, 0, 1))
+    back = to_flax(model, model.state_dict())
+    flat_v = {(c,) + p: a for c in v for p, a in _leaves(v[c])}
+    flat_b = {(c,) + p: a for c in back for p, a in _leaves(back[c])}
+    assert sorted(flat_b) == sorted(flat_v)
+    for k, a in flat_v.items():
+        np.testing.assert_array_equal(flat_b[k], a, err_msg=str(k))
