@@ -84,7 +84,34 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 16. times both grid-route steps at batch 12 (images/s over 10 steps after
     warm-up, the batch on the card) and kernels E and F beside their plain
     versions and bounds (``F.grid_sample``, another function without the
-    band, is timed beside them as a yardstick only).
+    band, is timed beside them as a yardstick only);
+17. the KITTI-360 fisheye recipe (bs 16 @ 384x384, Mei camera, band 16):
+    holds kernels G (the norm-direct warp with its mask pass) and H (the
+    norm cotangent) against their plain versions on the fisheye batch's
+    rays, camera and poses at 128 warps against 32 sources and 16 masks
+    (max abs err <= 1e-6 for out, va and vb, the overlap equal, d norm rel
+    <= 1e-6), prints how many samples have a corner row outside the band
+    (all, and those with a valid ray), in how many rows the pixels outside
+    the fisheye disc pull the band start down, and how many samples the TPU
+    lane-window clamp would move (none can at W = 384), and holds the conv
+    kernels (forward, moments, dx, dw) against
+    their plain versions at the 14 decoder shapes of 384x384, batch 16;
+18. ``forward_test`` of ``fisheye_model`` at batch 16 through
+    ``make_eval_step``: 14 conv launches and no other kernel, finite
+    z-depth, norm and fisheye mask of the right shapes, the norm within
+    [0.1, 150] and the mask the ray map's;
+19. three fisheye train steps at batch 16, the counters set to 0 just
+    before: per step kernels G and H 1 launch each, A, B, E and F none, the
+    conv kernels as in phase 9; a finite loss and changed parameters and BN
+    statistics;
+20. one fisheye step at batch 2 on the card against the port on the CPU,
+    held to phase 10's gate; then one step at batch 16 from the same
+    weights on the norm-direct route (G, H) and one on the fisheye grid
+    route (F, E at band 16, forced by leaving out the marker of dataset
+    poses): loss rel <= 1e-4 and global gradient rel-L2 < 3e-2;
+21. times the fisheye step at batch 16 (images/s over 10 steps, the batch
+    on the card) and kernels G and H beside their plain versions and bounds
+    (``F.grid_sample`` at the Mei grid as a yardstick only).
 
 It prints the record and the kernel line as JSON lines and, last, the
 result line ``{"ok": true, "device": {...}}``. It imports nothing of JAX or
@@ -107,24 +134,27 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 
-# (name, H, W, input part channels, Co, padding) of the decoder's 3x3
-# convs at 192x640, in the order the main path runs them
-SHAPES = [
-    ("upconv_4_0", 6, 20, (512,), 256, "zeros"),
-    ("upconv_4_1", 12, 40, (256, 256), 256, "replicate"),
-    ("upconv_3_0", 12, 40, (256,), 128, "zeros"),
-    ("upconv_3_1", 24, 80, (128, 128), 128, "replicate"),
-    ("upconv_2_0", 24, 80, (128,), 64, "zeros"),
-    ("upconv_2_1", 48, 160, (64, 64), 64, "replicate"),
-    ("upconv_1_0", 48, 160, (64,), 32, "zeros"),
-    ("upconv_1_1", 96, 320, (32, 64), 32, "replicate"),
-    ("upconv_0_0", 96, 320, (32,), 16, "zeros"),
-    ("upconv_0_1", 192, 640, (16,), 16, "replicate"),
-    ("dispconv_0", 192, 640, (16,), 16, "replicate"),
-    ("dispconv_1", 96, 320, (32,), 16, "replicate"),
-    ("dispconv_2", 48, 160, (64,), 16, "replicate"),
-    ("dispconv_3", 24, 80, (128,), 16, "replicate"),
-]
+def decoder_shapes(H, W):
+    """(name, H, W, input part channels, Co, padding) of the decoder's 14
+    3x3 convs at an H x W input, in the order the main path runs them."""
+    ch, enc = (16, 32, 64, 128, 256), (64, 64, 128, 256, 512)
+    out = []
+    for i in range(4, -1, -1):
+        out.append((f"upconv_{i}_0", H >> (i + 1), W >> (i + 1),
+                    (enc[4] if i == 4 else ch[i + 1],), ch[i], "zeros"))
+        out.append((f"upconv_{i}_1", H >> i, W >> i,
+                    (ch[i], enc[i - 1]) if i else (ch[i],), ch[i],
+                    "replicate"))
+    for s in range(4):
+        out.append((f"dispconv_{s}", H >> s, W >> s, (ch[s],), 16,
+                    "replicate"))
+    return out
+
+
+SHAPES = decoder_shapes(HEIGHT, WIDTH)
+# the KITTI-360 fisheye recipe (configs/kitti360_fisheye_example.py)
+FISH_BATCH, FISH_H, FISH_W, FISH_BAND = 16, 384, 384, 16
+FISH_SHAPES = decoder_shapes(FISH_H, FISH_W)
 
 
 class SmokeFailure(RuntimeError):
@@ -187,13 +217,16 @@ def launch_counters():
     from fsnet_tpu_torch.ops import conv3x3 as tc
     from fsnet_tpu_torch.ops import warp_depth as twd
     from fsnet_tpu_torch.ops import warp_fast as twf
+    from fsnet_tpu_torch.ops import warp_mei as twm
 
     return {"conv3x3": tc.conv3x3, "conv3x3_bn": tc.conv3x3_bn,
             "conv3x3_dx": tc.conv3x3_dx, "conv3x3_dw": tc.conv3x3_dw,
             "warp_depth_fwd": twd.warp_depth_fwd,
             "warp_depth_bwd": twd.warp_depth_bwd,
             "warp_grid_fused": twf.grid_band_fused,
-            "warp_grid_fwd": twf.grid_band_fwd}
+            "warp_grid_fwd": twf.grid_band_fwd,
+            "warp_mei_fwd": twm.warp_mei_fwd,
+            "warp_mei_bwd": twm.warp_mei_bwd}
 
 
 def zero(counters) -> None:
@@ -269,23 +302,28 @@ def warp_scene(batch_np, seed=0):
     return image, depth, make_affine_rows(K, invert_K(K), Ts, S_SCALES)
 
 
-def check_training_kernels(batch_np, rows):
-    """Phase 8: each training kernel against its plain version, on the
-    card, at the train path's shapes. Returns per-kernel errors and the
-    inputs the timings reuse."""
+def check_conv_kernels(B, shapes, rows, forward=False):
+    """The conv kernels against their plain versions at ``shapes`` and
+    batch ``B``, float32: with ``forward`` the conv (rel <= 1e-4, as phase
+    4), the moments epilogue at the upconvs, the input and the weight
+    cotangent at all (rel <= 2e-5). Returns the max abs errors by kernel."""
     from fsnet_tpu_torch.ops import conv3x3 as tc
-    from fsnet_tpu_torch.ops import warp_depth as twd
-    from fsnet_tpu_torch.ops.geometry import project_rows
 
-    errs = {k: 0.0 for k in ("conv3x3_bn", "conv3x3_bn_mom", "conv3x3_dx",
-                             "conv3x3_dw", "warp_depth_fwd",
-                             "warp_depth_bwd")}
-    for i, (name, H, W, Cs, Co, pad) in enumerate(SHAPES):
-        parts, w, b = conv_inputs(BATCH, H, W, Cs, Co, torch.float32, seed=i)
-        gy = torch.randn(BATCH, H, W, Co, device="cuda",
+    errs = {k: 0.0 for k in ("conv3x3", "conv3x3_bn", "conv3x3_bn_mom",
+                             "conv3x3_dx", "conv3x3_dw")}
+    for i, (name, H, W, Cs, Co, pad) in enumerate(shapes):
+        parts, w, b = conv_inputs(B, H, W, Cs, Co, torch.float32, seed=i)
+        gy = torch.randn(B, H, W, Co, device="cuda",
                          generator=torch.Generator(device="cuda")
                          .manual_seed(100 + i))
         row = rows[i]
+        if forward:
+            out = tc.conv3x3(parts, w, b, pad)
+            torch.cuda.synchronize()
+            d, e = rel_err(out, tc.conv3x3_plain(parts, w, b, pad))
+            errs["conv3x3"] = max(errs["conv3x3"], d)
+            row["rel_err"] = e
+            check(e <= TOL[torch.float32], f"{name} conv: rel err {e:.2e}")
         if name.startswith("upconv_"):
             out, s1, s2 = tc.conv3x3_bn(parts, w, b, pad)
             torch.cuda.synchronize()
@@ -316,11 +354,22 @@ def check_training_kernels(batch_np, rows):
         row.update(dx_rel_err=e_dx, dw_rel_err=e_dw)
         check(e_dx <= 2e-5, f"{name} dx: rel err {e_dx:.2e} > 2e-5")
         check(e_dw <= 2e-5, f"{name} dw: rel err {e_dw:.2e} > 2e-5")
-        print(f"check {name:11s} train kernels: rel err "
+        print(f"check {name:11s} B{B} {H}x{W} conv kernels: rel err "
+              + (f"conv {row['rel_err']:.2e} " if forward else "")
               + (f"bn out {row['bn_rel_err']:.2e} s1 {row['s1_rel_err']:.2e} "
                  f"s2 {row['s2_rel_err']:.2e} " if "bn_rel_err" in row else "")
               + f"dx {e_dx:.2e} dw {e_dw:.2e}")
+    return errs
 
+
+def check_training_kernels(batch_np, rows):
+    """Phase 8: each training kernel against its plain version, on the
+    card, at the train path's shapes. Returns per-kernel errors and the
+    inputs the timings reuse."""
+    from fsnet_tpu_torch.ops import warp_depth as twd
+    from fsnet_tpu_torch.ops.geometry import project_rows
+
+    errs = check_conv_kernels(BATCH, SHAPES, rows)
     image, depth, arows = warp_scene(batch_np)
     got = twd.warp_depth_fwd(image, depth, arows, S_SCALES, F_FRAMES, BAND)
     gy = torch.randn(got[0].shape, device="cuda",
@@ -379,10 +428,10 @@ def grad_rel_l2(g_a, g_b):
     return (num / den) ** 0.5
 
 
-def card_vs_cpu(build, batch, what):
-    """One train step of ``build(...)`` on the card and through the port on
-    the CPU, from the same seeded weights and ``batch``, held to the JAX
-    package's own backward gate between two routes: loss rel <= 1e-4,
+def card_vs_cpu(build, batch, what, H=HEIGHT, W=WIDTH):
+    """One train step of ``build(H, W, ...)`` on the card and through the
+    port on the CPU, from the same seeded weights and ``batch``, held to the
+    JAX package's own backward gate between two routes: loss rel <= 1e-4,
     global gradient rel-L2 < 3e-2, every leaf < 0.5, Adam's first update
     off by more than lr / 2 on under 2% of the parameters."""
     from fsnet_tpu_torch.entry import flagship_optimizer
@@ -390,7 +439,7 @@ def card_vs_cpu(build, batch, what):
 
     res = {}
     for dev in ("cuda", "cpu"):
-        m = build(HEIGHT, WIDTH, device=dev, seed=0)
+        m = build(H, W, device=dev, seed=0)
         o, _ = flagship_optimizer(m)
         start = {k: p.detach().cpu().double()
                  for k, p in m.named_parameters()}
@@ -411,7 +460,7 @@ def card_vs_cpu(build, batch, what):
     upd_frac = sum(int(((u_card[k] - u_cpu[k]).abs() > lr / 2).sum())
                    for k in u_cpu) / n_upd
     bs = next(iter(batch.values())).shape[0]
-    print(f"card vs CPU port, {what} bs{bs}@{HEIGHT}x{WIDTH}: loss "
+    print(f"card vs CPU port, {what} bs{bs}@{H}x{W}: loss "
           f"{l_card:.6f} vs {l_cpu:.6f} (rel {loss_rel:.2e}), global grad "
           f"rel-L2 {grad_rel:.2e}, worst leaf {worst} {leaf[worst]:.2e}, "
           f"Adam updates differing by > lr/2: {upd_frac:.4%}")
@@ -427,8 +476,9 @@ def card_vs_cpu(build, batch, what):
                 worst_leaf_rel_l2=leaf[worst], adam_update_differs=upd_frac)
 
 
-def drive_steps(model, opt, batch, counters, want, what, steps=3):
-    """Phases 9, 13, 14: ``steps`` train steps through ``make_train_step``,
+def drive_steps(model, opt, batch, counters, want, what, steps=3,
+                size=f"bs{BATCH}@{HEIGHT}x{WIDTH}"):
+    """Phases 9, 13, 14, 19: ``steps`` train steps through ``make_train_step``,
     the launch counters set to 0 just before and read just after; checks
     the launches per step against ``want``, finite losses, and that the
     parameters and BN running variances changed."""
@@ -444,7 +494,7 @@ def drive_steps(model, opt, batch, counters, want, what, steps=3):
         losses.append(float(step(model, opt, batch)["loss"]))
     torch.cuda.synchronize()
     counts = read(counters)
-    print(f"{what}: {steps} steps bs{BATCH}@{HEIGHT}x{WIDTH} f32, "
+    print(f"{what}: {steps} steps {size} f32, "
           f"losses {losses}, launches {counts}")
     check(all(np.isfinite(losses)), f"{what}: non-finite loss {losses}")
     check(counts == {k: n * steps for k, n in want.items()},
@@ -487,7 +537,8 @@ def train_phases(counters, record):
     n_dx = sum(len(Cs) for _, _, _, Cs, _, _ in SHAPES)
     want = dict(conv3x3=4, conv3x3_bn=10, conv3x3_dx=n_dx,
                 conv3x3_dw=len(SHAPES), warp_depth_fwd=1, warp_depth_bwd=1,
-                warp_grid_fused=0, warp_grid_fwd=0)
+                warp_grid_fused=0, warp_grid_fwd=0, warp_mei_fwd=0,
+                warp_mei_bwd=0)
     record["train_path"] = drive_steps(model, opt, batch, counters, want,
                                        "train path")
     counts = record["train_path"]["launches"]
@@ -856,6 +907,267 @@ def grid_phases(counters, record, train):
     return kernels
 
 
+def mei_scene(batch_np, seed=0):
+    """Kernel G's and H's operands at the fisheye recipe: the 32 source
+    frames, the 16 validity masks (ray-map mask x patched mask) and the
+    fisheye batch's rays, camera and poses, with smooth per-scale norms of
+    5-40 m plus a little noise (S*B = 64 maps)."""
+    from fsnet_tpu_torch.ops.warp_mei import make_mei_rows
+
+    S, B, H, W = S_SCALES, FISH_BATCH, FISH_H, FISH_W
+    t = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    image = torch.cat([t[f"original_image/{f}"] for f in (1, -1)])
+    rays = t["fisheye_rays"]
+    mask = rays[..., 3] * t["patched_mask"]
+    i = torch.arange(H, device="cuda").view(1, H, 1) / H
+    j = torch.arange(W, device="cuda").view(1, 1, W) / W
+    base = 5.0 + 20.0 * torch.rand(S * B, 1, 1, generator=g, device="cuda")
+    norm = base * (1.0 + 0.3 * torch.sin(4.0 * j) * torch.cos(3.0 * i)) \
+        + 0.2 * torch.rand(S * B, H, W, generator=g, device="cuda")
+    Ts = torch.stack([t[f"relative_pose/{f}"] for f in (1, -1)])
+    rows = make_mei_rows(t["P2"], t["fisheye_params"], Ts, S)
+    return (image.contiguous(), mask.contiguous(), norm.contiguous(),
+            rays[..., :3].permute(0, 3, 1, 2).contiguous(), rows)
+
+
+def check_mei_kernels(scene):
+    """Phase 17: kernels G and H against their plain versions at the fisheye
+    recipe's shapes (128 warps, 32 sources, 16 masks, band 16). Returns
+    their max abs errors, the cotangent the timings reuse and the band and
+    lane-window counts."""
+    from fsnet_tpu_torch.ops import warp_fast as twf
+    from fsnet_tpu_torch.ops import warp_mei as twm
+
+    image, mask, norm, rays, rows = scene
+    S, F, H, W = S_SCALES, F_FRAMES, FISH_H, FISH_W
+    got = twm.warp_mei_fwd(image, mask, norm, rays, rows, S, F, FISH_BAND,
+                           True)
+    gy = torch.randn(got[0].shape, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(9))
+    dn = twm.warp_mei_bwd(norm, rays, gy, got[2], got[3], rows, S, F)
+    torch.cuda.synchronize()
+    ref = twm.warp_mei_plain(image, mask, norm, rays, rows, S, F, FISH_BAND,
+                             True)
+    dn_ref = twm.warp_mei_bwd_plain(norm, rays, gy, ref[2], ref[3], rows, S,
+                                    F)
+    fwd = max(rel_err(a, r)[0] for a, r in zip((got[0], got[2], got[3]),
+                                              (ref[0], ref[2], ref[3])))
+    ov_diff = int((got[1] != ref[1]).sum().item())
+    d_dn, e_dn = rel_err(dn, dn_ref)
+    # samples whose corner rows the band of 16 rows does not hold, over all
+    # samples and over those whose own ray is valid; rows whose band start
+    # the pixels outside the fisheye disc pull below the valid pixels' one
+    p = twm.mei_pix(norm, rays, rows, S, F)
+    xc, yc = twm._clamp(p["x"], W - 1), twm._clamp(p["y"], H - 1)
+    iw = twf.indices_and_weights(xc, yc, H, W, FISH_BAND)
+    y0 = torch.floor(yc).long()
+    miss = (y0 != iw["r0"]) | ((y0 + 1).clamp(max=H - 1) != iw["r1"])
+    valid = mask[torch.arange(rows.shape[0], device="cuda") % mask.shape[0]]
+    valid = valid > 0
+    out_of_band = int(miss.sum().item())
+    out_of_band_valid = int((miss & valid).sum().item())
+    pulled = int((y0.amin(2) < torch.where(valid, y0, H).amin(2)).sum().item())
+    moved = lane_window_moves(p["x"], W)
+    n_samples = p["x"].numel()
+    print(f"check Mei warp N={rows.shape[0]} {H}x{W} band {FISH_BAND}: "
+          f"kernel G max abs err {fwd:.2e} (out, va, vb), overlap mismatches "
+          f"{ov_diff} ({int(got[1].sum().item())} of {n_samples} samples "
+          f"overlap); kernel H d norm rel err {e_dn:.2e}; corner rows outside "
+          f"the band: {out_of_band} of {n_samples} samples, "
+          f"{out_of_band_valid} of the {int(valid.sum().item())} with a valid "
+          f"ray; band start pulled down by pixels outside the disc in "
+          f"{pulled} of {y0.shape[0] * H} rows; TPU lane-window clamp would "
+          f"move {moved}")
+    check(fwd <= 1e-6 and ov_diff == 0,
+          f"kernel G: max abs err {fwd:.2e}, {ov_diff} overlap mismatches")
+    check(e_dn <= 1e-6, f"kernel H: rel err {e_dn:.2e} > 1e-6")
+    return (dict(warp_mei_fwd=fwd, warp_mei_bwd=d_dn), gy, got,
+            dict(out_of_band=out_of_band, out_of_band_valid=out_of_band_valid,
+                 rows_pulled=pulled, lane_window_moves=moved,
+                 samples=n_samples))
+
+
+def fisheye_phases(counters, record, train):
+    """Phases 17-21. Returns the kernel line's entries of kernels G and H."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from fsnet_tpu_torch.entry import (fisheye_batch, fisheye_model,
+                                       flagship_optimizer)
+    from fsnet_tpu_torch.ops import warp_mei as twm
+    from fsnet_tpu_torch.runtime.state import make_eval_step, make_train_step
+
+    B, H, W = FISH_BATCH, FISH_H, FISH_W
+    size = f"bs{B}@{H}x{W}"
+    fb = fisheye_batch(B, H, W)
+
+    # 17. kernels G and H, and the conv kernels at the fisheye shapes
+    scene = mei_scene(fb)
+    errs, gy, fwd_out, band = check_mei_kernels(scene)
+    record["fisheye_band"] = band
+    conv_rows = [dict(name=n) for n, *_ in FISH_SHAPES]
+    record["fisheye_conv_errs"] = check_conv_kernels(B, FISH_SHAPES,
+                                                     conv_rows, forward=True)
+
+    # 18. forward_test of the fisheye model
+    model = fisheye_model(H, W, device="cuda", seed=0)
+    zero(counters)
+    pred = make_eval_step("cuda")(model, fb)
+    torch.cuda.synchronize()
+    counts = read(counters)
+    check(counts["conv3x3"] == len(FISH_SHAPES)
+          and all(n == 0 for k, n in counts.items() if k != "conv3x3"),
+          f"fisheye forward_test launches {counts}")
+    check(sorted(pred) == ["depth", "fisheye_mask", "norm"],
+          f"fisheye prediction keys {sorted(pred)}")
+    check(tuple(pred["depth"].shape) == tuple(pred["norm"].shape)
+          == (B, H, W, 1) and tuple(pred["fisheye_mask"].shape) == (B, H, W),
+          "fisheye prediction shapes")
+    check(all(bool(torch.isfinite(v).all()) for v in pred.values()),
+          "fisheye prediction has non-finite values")
+    nmin, nmax = pred["norm"].min().item(), pred["norm"].max().item()
+    check(0.1 <= nmin and nmax <= 150.0, f"norm range [{nmin}, {nmax}]")
+    check(torch.equal(pred["fisheye_mask"].cpu(),
+                      torch.from_numpy(fb["fisheye_rays"][..., 3])),
+          "fisheye_mask is not the ray map's mask")
+    print(f"fisheye path: forward_test {size} f32, {counts['conv3x3']} "
+          f"conv3x3 launches, norm in [{nmin:.4f}, {nmax:.4f}], z-depth in "
+          f"[{pred['depth'].min().item():.4f}, "
+          f"{pred['depth'].max().item():.4f}]")
+    record["fisheye_forward_test"] = dict(launches=counts["conv3x3"],
+                                          norm_min=nmin, norm_max=nmax)
+
+    # 19. the fisheye train path, three steps
+    opt, _ = flagship_optimizer(model)
+    want = dict(train["want"], warp_depth_fwd=0, warp_depth_bwd=0,
+                warp_mei_fwd=1, warp_mei_bwd=1)
+    record["fisheye_path"] = drive_steps(model, opt, fb, counters, want,
+                                         "fisheye path", size=size)
+
+    # 20. the card against the CPU port at bs2; the norm-direct route
+    # against the grid route on the card, from the same weights
+    record["fisheye_card_vs_cpu"] = card_vs_cpu(
+        fisheye_model, fisheye_batch(2, H, W), "fisheye train step", H, W)
+    state = copy.deepcopy(model.state_dict())
+    warp_all = model.head._warp_all
+    route = {}
+    for tag in ("norm-direct", "grid"):
+        model.load_state_dict(state)
+        if tag == "grid":       # without the marker of dataset poses
+            model.head._warp_all = lambda i, o: (o.pop("pose_is_const"),
+                                                 warp_all(i, o))[1]
+        o, _ = flagship_optimizer(model)
+        zero(counters)
+        met = make_train_step("cuda", with_grads=True)(model, o, fb)
+        torch.cuda.synchronize()
+        route[tag] = (float(met["loss"]), {k: g.detach() for k, g in
+                                           met["_grads"].items()},
+                      read(counters))
+    del model.head._warp_all
+    model.load_state_dict(state)
+    ran = {t: {k: route[t][2][k] for k in ("warp_mei_fwd", "warp_mei_bwd",
+                                           "warp_grid_fused",
+                                           "warp_grid_fwd")}
+           for t in route}
+    loss_rel = abs(route["grid"][0] - route["norm-direct"][0]) / \
+        abs(route["norm-direct"][0])
+    grad_rel = grad_rel_l2(route["grid"][1], route["norm-direct"][1])
+    print(f"fisheye grid route vs norm-direct route, one step {size} from "
+          f"the same weights: loss {route['grid'][0]:.6f} vs "
+          f"{route['norm-direct'][0]:.6f} (rel {loss_rel:.2e}), global grad "
+          f"rel-L2 {grad_rel:.2e}; launches {ran}")
+    check(ran["norm-direct"] == dict(warp_mei_fwd=1, warp_mei_bwd=1,
+                                     warp_grid_fused=0, warp_grid_fwd=0)
+          and ran["grid"] == dict(warp_mei_fwd=0, warp_mei_bwd=0,
+                                  warp_grid_fused=1, warp_grid_fwd=1),
+          f"fisheye routes launched {ran}")
+    check(loss_rel <= 1e-4, f"fisheye grid vs norm-direct route: loss rel "
+          f"{loss_rel:.2e} > 1e-4")
+    check(grad_rel < 3e-2, f"fisheye grid vs norm-direct route: grad rel-L2 "
+          f"{grad_rel:.2e} >= 3e-2")
+    record["fisheye_grid_vs_direct"] = dict(loss_rel=loss_rel,
+                                            grad_rel_l2=grad_rel)
+
+    # 21. timings: the fisheye step, then kernels G and H
+    step = make_train_step("cuda")
+    on_card = {k: torch.from_numpy(v).cuda() for k, v in fb.items()}
+    n_steps = 10
+    for _ in range(2):
+        step(model, opt, on_card)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        step(model, opt, on_card)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_steps * 1e3
+    record["fisheye_step"] = dict(bs=B, ms=ms, imgs_per_s=B / ms * 1e3)
+    print(f"fisheye_step {size} f32 (mean of {n_steps}, batch on the card): "
+          f"{ms:.3f} ms = {B / ms * 1e3:.2f} imgs/s")
+
+    image, mask, norm, rays, rows = scene
+    S, Fr, N, C = S_SCALES, F_FRAMES, rows.shape[0], image.shape[-1]
+    px, plane = N * H * W, H * W
+    SB, FB = norm.shape[0], image.shape[0]
+    p = twm.mei_pix(norm, rays, rows, S, Fr)
+    grid = torch.stack([p["x"] / (W - 1) * 2.0 - 1.0,
+                        p["y"] / (H - 1) * 2.0 - 1.0], dim=-1).contiguous()
+    src = image.permute(0, 3, 1, 2).repeat(N // FB, 1, 1, 1)
+    del p
+    _, _, va, vb = fwd_out
+    # operations per sample: the projection 51, corners and fractions 10,
+    # 15 per channel, the mask and the overlap 19; the cotangent: the
+    # projection and its derivative 89, 4 per channel, masks and sum 12
+    timed = {
+        "warp_mei_fwd": (
+            lambda: twm.warp_mei_fwd(image, mask, norm, rays, rows, S, Fr,
+                                     FISH_BAND, True),
+            lambda: twm.warp_mei_plain(image, mask, norm, rays, rows, S, Fr,
+                                       FISH_BAND, True),
+            (px * (80.0 + 15.0 * C),
+             4.0 * (SB * plane + 3 * FB // Fr * plane + FB * plane * C
+                    + mask.numel() + N * 24) + px * (3 * 4.0 * C + 1)),
+            "fsnet_tpu/ops/pallas/mei_prep_kernel.py:99 + "
+            "fsnet_tpu/ops/pallas/warp_kernel.py:1022 (both sweeps of "
+            "fsnet_tpu/ops/warp_mei.py:115-141)"),
+        "warp_mei_bwd": (
+            lambda: twm.warp_mei_bwd(norm, rays, gy, va, vb, rows, S, Fr),
+            lambda: twm.warp_mei_bwd_plain(norm, rays, gy, va, vb, rows, S,
+                                           Fr),
+            (px * (101.0 + 4.0 * C),
+             4.0 * (2 * SB * plane + 3 * FB // Fr * plane + 3 * px * C
+                    + N * 24)),
+            "fsnet_tpu/ops/pallas/mei_prep_kernel.py:209"),
+    }
+    kernels = []
+    launches = record["fisheye_path"]["launches"]
+    for k, (fn, plain, ob, replaces) in timed.items():
+        b_ms, b_by = ms_bound(*ob)
+        kernels.append(dict(
+            name=k, route="cuda", source="fsnet_tpu_torch/csrc/warp_mei.cu",
+            replaces=replaces, launches=launches[k], max_abs_err=errs[k],
+            ms=cuda_ms(fn, iters=10), plain_ms=cuda_ms(plain, iters=3,
+                                                       warmup=1),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            note=f"N={N} warps of {H}x{W}x{C} (S={S}, F={Fr}, B={B}), band "
+                 f"{FISH_BAND}, float32; launches: 3 steps of the fisheye "
+                 "path (phase 19)"))
+    kernels[0]["grid_sample_ms"] = cuda_ms(lambda: F.grid_sample(
+        src, grid, mode="bilinear", padding_mode="border",
+        align_corners=True), iters=10)
+    kernels[0]["note"] += ("; grid_sample_ms: F.grid_sample (exact, no band, "
+                           "no va/vb, no mask) of the sources tiled to N at "
+                           "the Mei grid, a yardstick only")
+    for e in kernels:
+        print(f"time  {e['name']:15s} kernel {e['ms']:.4f} ms  plain "
+              f"{e['plain_ms']:.4f} ms  bound {e['bound_ms']:.4f} ms "
+              f"({e['bound_by']})"
+              + (f"  F.grid_sample {e['grid_sample_ms']:.4f} ms"
+                 if "grid_sample_ms" in e else "") + "  library none")
+    return kernels, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -1024,8 +1336,16 @@ def main() -> int:
     # 12-16. the grid route: patched-mask batches and learned poses
     grid_kernels = grid_phases(counters, record, train)
 
+    # 17-21. the KITTI-360 fisheye recipe: Mei camera, norm-direct warp
+    mei_kernels, fish_counts = fisheye_phases(counters, record, train)
+    kernel["launches_fisheye_path"] = fish_counts["conv3x3"]
+    for e in train["kernels"]:
+        if e["name"].startswith("conv3x3"):
+            e["launches_fisheye_path"] = fish_counts[e["name"]]
+
     print(json.dumps(record))
-    print(json.dumps({"kernels": [kernel] + train["kernels"] + grid_kernels}))
+    print(json.dumps({"kernels": [kernel] + train["kernels"] + grid_kernels
+                      + mei_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

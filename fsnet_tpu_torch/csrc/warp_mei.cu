@@ -1,0 +1,304 @@
+// Norm-direct fisheye (Mei camera) photometric warp for Hopper (sm_90a),
+// bound through a plain C interface (ctypes): the forward (kernel G) and
+// the norm cotangent (kernel H) of
+// fsnet_tpu_torch.ops.warp_mei.warp_mei_fused.
+//
+// Layouts: image [F*B, H, W, C] NHWC f32 (the source frames), mask
+// [B, H, W] f32 (source validity), norm [S*B, H, W] f32 (per-scale norm
+// at full resolution), rays [B, 3, H, W] f32 (channel-leading ray field),
+// mrows [N, 24] f32 with N = S*F*B in (s, f, b) order (cols 0-8 the
+// row-major R, 9-11 t, 12-14 xi, k1, k2, 15-18 gamma1, gamma2, u0, v0).
+// Warp n = (s*F + f)*B + b reads norm row s*B + b, rays b, mrows row n,
+// source image f*B + b and mask b: nothing is tiled S-fold.
+//
+// Projection, per pixel, in the order of the plain version in
+// ops/warp_mei.py (fsnet_tpu/ops/pallas/mei_prep_kernel.py _mei_pix), one
+// rounding per operation:
+//   g = R r,  p = norm * g + t,  nn = sqrt(p.p),  inv_e = 1 / (nn + 1e-6),
+//   (xh, yh, zh) = p * inv_e,  inv_d = 1 / (zh + xi + 1e-6),
+//   a = xh * inv_d,  b = yh * inv_d,  rho2 = a*a + b*b,
+//   fac = 1 + k1*rho2 + k2*rho2*rho2,  x = g1*a*fac + u0,  y = g2*b*fac + v0.
+// nvcc would contract a*b + c into one FMA, and floor() of a coordinate
+// one ulp off picks another corner; so this arithmetic uses the _rn
+// intrinsics, which are never contracted.
+//
+// Kernel G replaces fsnet_tpu/ops/pallas/mei_prep_kernel.py mei_prep_pallas
+// and both sweeps of fsnet_tpu/ops/pallas/warp_kernel.py
+// warp_rows_pallas_dma_fused that fsnet_tpu/ops/warp_mei.py runs on its
+// operands (the images and the validity mask), fused into one pass. One
+// block per (warp n, output row): it projects the row, clamps the
+// coordinates to the border (fminf/fmaxf: a NaN becomes 0, +-inf an edge;
+// the corners are clamped again as integers, so no read leaves the image
+// whatever the coordinate), and reduces min floor(y) over the row; the band
+// start ymin is that minimum clipped to [0, H-band] and rounded down to
+// even, and each sample's two rows are clamped into [ymin, ymin+band). It
+// gathers the four corners and writes out, va = d out/d fx, vb = d out/d fy
+// (NHWC f32). With the mask it warps mask b at the same corners with the
+// fractions rounded to {0, 1}, and writes overlap = (that value == 1) AND
+// the in-bounds test -0.5 <= x < W-0.5, -0.5 <= y < H-0.5 of the unclamped
+// coordinates (uint8). The TPU kernels also clamped the corner columns into
+// a 3-tile window of 384 columns around each 128-lane output tile, which
+// can only fire at W > 384; this kernel does not.
+// What bounds it on an H100: bytes. It reads norm and rays once per
+// warp row and ~4 source rows per output row (L1/L2 resident), and writes
+// three NHWC f32 tensors and a byte mask, about 12x the image bytes; about
+// 80 operations per output pixel.
+//
+// Kernel H replaces fsnet_tpu/ops/pallas/mei_prep_kernel.py
+// mei_prep_bwd_pallas, with the channel contraction of warp_mei.py:176-183
+// (gfx = sum_c g*va, gfy = sum_c g*vb) fused in. One thread per norm pixel
+// (s*B + b, i, j): for each of the F frames it recomputes the projection
+// and its closed-form derivative d(x, y)/d norm (guard max(nn, 1e-12)),
+// masks with the strict border test 0 < x < W-1, 0 < y < H-1, and sums the
+// F frames into d norm in registers, without atomics. Bound by bytes: it
+// reads g, va and vb once.
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cstddef>
+#include <cstdint>
+
+namespace {
+
+constexpr float kEps = 1e-6f;
+constexpr int kThreadsG = 128;
+constexpr int kThreadsH = 256;
+
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+
+struct Mei {
+  float x, y;
+  // intermediates of the backward
+  float gx, gy, gz, px, py, pz, nn, inv_e, xh, yh, zh, inv_d, a, b, rho2, fac;
+};
+
+// `m` points at the 24 floats of one mrows row; (n, rx, ry, rz) the norm
+// and the ray of one pixel
+__device__ __forceinline__ Mei mei_pix(const float* __restrict__ m, float n,
+                                       float rx, float ry, float rz) {
+  Mei q;
+  q.gx = add(add(mul(m[0], rx), mul(m[1], ry)), mul(m[2], rz));
+  q.gy = add(add(mul(m[3], rx), mul(m[4], ry)), mul(m[5], rz));
+  q.gz = add(add(mul(m[6], rx), mul(m[7], ry)), mul(m[8], rz));
+  q.px = add(mul(n, q.gx), m[9]);
+  q.py = add(mul(n, q.gy), m[10]);
+  q.pz = add(mul(n, q.gz), m[11]);
+  q.nn = __fsqrt_rn(add(add(mul(q.px, q.px), mul(q.py, q.py)),
+                        mul(q.pz, q.pz)));
+  q.inv_e = __fdiv_rn(1.f, add(q.nn, kEps));
+  q.xh = mul(q.px, q.inv_e);
+  q.yh = mul(q.py, q.inv_e);
+  q.zh = mul(q.pz, q.inv_e);
+  q.inv_d = __fdiv_rn(1.f, add(add(q.zh, m[12]), kEps));
+  q.a = mul(q.xh, q.inv_d);
+  q.b = mul(q.yh, q.inv_d);
+  q.rho2 = add(mul(q.a, q.a), mul(q.b, q.b));
+  q.fac = add(add(1.f, mul(m[13], q.rho2)), mul(mul(m[14], q.rho2), q.rho2));
+  q.x = add(mul(mul(m[15], q.a), q.fac), m[17]);
+  q.y = add(mul(mul(m[16], q.b), q.fac), m[18]);
+  return q;
+}
+
+__device__ __forceinline__ float clampf(float v, float hi) {
+  return fminf(fmaxf(v, 0.f), hi);   // NaN -> 0
+}
+
+__device__ __forceinline__ int clampi(int v, int hi) {
+  return min(max(v, 0), hi);
+}
+
+__global__ void __launch_bounds__(kThreadsG)
+warp_mei_fwd_kernel(const float* __restrict__ image,
+                    const float* __restrict__ mask,
+                    const float* __restrict__ norm,
+                    const float* __restrict__ rays,
+                    const float* __restrict__ mrows, float* __restrict__ out,
+                    float* __restrict__ va, float* __restrict__ vb,
+                    uint8_t* __restrict__ overlap, int S, int F, int B, int H,
+                    int W, int C, int band, int with_mask) {
+  __shared__ float s_m[24];
+  __shared__ int s_min[kThreadsG / 32];
+  const int i = blockIdx.x;                // output row
+  const int n = blockIdx.y;                // warp (s, f, b)
+  const int b = n % B;
+  const int f = (n / B) % F;
+  const int s = n / (F * B);
+  if (threadIdx.x < 24) s_m[threadIdx.x] = mrows[(size_t)n * 24 + threadIdx.x];
+  __syncthreads();
+  const float* nrow = norm + ((size_t)(s * B + b) * H + i) * W;
+  const size_t plane = (size_t)H * W;
+  const float* rrow = rays + (size_t)b * 3 * plane + (size_t)i * W;
+  const float wmax = (float)(W - 1);
+  const float hmax = (float)(H - 1);
+
+  // pass 1: the row's band start, min floor(clamped y) over the row
+  int lo = INT_MAX;
+  for (int j = threadIdx.x; j < W; j += kThreadsG) {
+    const Mei q = mei_pix(s_m, nrow[j], rrow[j], rrow[plane + j],
+                          rrow[2 * plane + j]);
+    lo = min(lo, clampi((int)floorf(clampf(q.y, hmax)), H - 1));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+  if ((threadIdx.x & 31) == 0) s_min[threadIdx.x >> 5] = lo;
+  __syncthreads();
+  int ymin = s_min[0];
+#pragma unroll
+  for (int k = 1; k < kThreadsG / 32; ++k) ymin = min(ymin, s_min[k]);
+  ymin = min(max(ymin, 0), max(H - band, 0));
+  ymin -= ymin & 1;
+
+  // pass 2: corners, fractions, the three outputs and the overlap
+  const float* src = image + (size_t)(f * B + b) * plane * C;
+  const float* msk = mask + (size_t)b * plane;
+  for (int j = threadIdx.x; j < W; j += kThreadsG) {
+    const Mei q = mei_pix(s_m, nrow[j], rrow[j], rrow[plane + j],
+                          rrow[2 * plane + j]);
+    const size_t o = ((size_t)n * H + i) * W + j;
+    const float xb = clampf(q.x, wmax);
+    const float yb = clampf(q.y, hmax);
+    const float x0f = floorf(xb);
+    const float y0f = floorf(yb);
+    const float fx = sub(xb, x0f);
+    const float fy = sub(yb, y0f);
+    const int x0 = clampi((int)x0f, W - 1);
+    const int y0 = clampi((int)y0f, H - 1);
+    const int x1 = min(x0 + 1, W - 1);
+    const int y1 = min(y0 + 1, H - 1);
+    const int r0 = ymin + clampi(y0 - ymin, band - 1);
+    const int r1 = ymin + clampi(y1 - ymin, band - 1);
+    const size_t q00 = (size_t)r0 * W + x0, q01 = (size_t)r0 * W + x1;
+    const size_t q10 = (size_t)r1 * W + x0, q11 = (size_t)r1 * W + x1;
+    const float wx0 = sub(1.f, fx);
+    const float wy0 = sub(1.f, fy);
+    float* po = out + o * C;
+    float* pa = va + o * C;
+    float* pb = vb + o * C;
+    for (int c = 0; c < C; ++c) {
+      const float i00 = __ldg(src + q00 * C + c), i01 = __ldg(src + q01 * C + c);
+      const float i10 = __ldg(src + q10 * C + c), i11 = __ldg(src + q11 * C + c);
+      const float h0 = add(mul(i00, wx0), mul(i01, fx));
+      const float h1 = add(mul(i10, wx0), mul(i11, fx));
+      po[c] = add(mul(h0, wy0), mul(h1, fy));
+      pa[c] = add(mul(sub(i01, i00), wy0), mul(sub(i11, i10), fy));
+      pb[c] = sub(h1, h0);
+    }
+    if (with_mask) {
+      const float ex = fx >= 0.5f ? 1.f : 0.f;
+      const float ey = fy >= 0.5f ? 1.f : 0.f;
+      const float ex0 = sub(1.f, ex), ey0 = sub(1.f, ey);
+      const float h0 = add(mul(__ldg(msk + q00), ex0), mul(__ldg(msk + q01), ex));
+      const float h1 = add(mul(__ldg(msk + q10), ex0), mul(__ldg(msk + q11), ex));
+      const float mv = add(mul(h0, ey0), mul(h1, ey));
+      const bool inb = (q.x >= -0.5f) & (q.x < (float)W - 0.5f) &
+                       (q.y >= -0.5f) & (q.y < (float)H - 0.5f);
+      overlap[o] = (mv == 1.f) & inb;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreadsH)
+warp_mei_bwd_kernel(const float* __restrict__ norm,
+                    const float* __restrict__ rays,
+                    const float* __restrict__ g, const float* __restrict__ va,
+                    const float* __restrict__ vb,
+                    const float* __restrict__ mrows,
+                    float* __restrict__ dnorm, int S, int F, int B, int H,
+                    int W, int C) {
+  const size_t plane = (size_t)H * W;
+  const size_t idx = (size_t)blockIdx.x * kThreadsH + threadIdx.x;
+  if (idx >= (size_t)S * B * plane) return;
+  const size_t pix = idx % plane;          // i * W + j
+  const int j = (int)(pix % W);
+  const int i = (int)(pix / W);
+  const int mi = (int)(idx / plane);       // s*B + b
+  const int s = mi / B;
+  const int b = mi % B;
+  const float nv = norm[idx];
+  const float* r = rays + (size_t)b * 3 * plane + pix;
+  const float rx = r[0], ry = r[plane], rz = r[2 * plane];
+  float acc = 0.f;
+  for (int f = 0; f < F; ++f) {
+    const int n = (s * F + f) * B + b;
+    const float* m = mrows + (size_t)n * 24;
+    const Mei q = mei_pix(m, nv, rx, ry, rz);
+    const float dnn =
+        __fdiv_rn(add(add(mul(q.px, q.gx), mul(q.py, q.gy)), mul(q.pz, q.gz)),
+                  fmaxf(q.nn, 1e-12f));
+    const float dxh = mul(sub(q.gx, mul(q.xh, dnn)), q.inv_e);
+    const float dyh = mul(sub(q.gy, mul(q.yh, dnn)), q.inv_e);
+    const float dzh = mul(sub(q.gz, mul(q.zh, dnn)), q.inv_e);
+    const float da = mul(sub(dxh, mul(q.a, dzh)), q.inv_d);
+    const float db = mul(sub(dyh, mul(q.b, dzh)), q.inv_d);
+    const float k = add(m[13], mul(mul(2.f, m[14]), q.rho2));
+    const float common = mul(mul(2.f, k), add(mul(q.a, da), mul(q.b, db)));
+    const float dux = mul(m[15], add(mul(q.fac, da), mul(q.a, common)));
+    const float dvy = mul(m[16], add(mul(q.fac, db), mul(q.b, common)));
+    const size_t o = ((size_t)n * plane + pix) * C;
+    float gfx = 0.f, gfy = 0.f;
+    for (int c = 0; c < C; ++c) {
+      const float gc = g[o + c];
+      gfx = add(gfx, mul(gc, va[o + c]));
+      gfy = add(gfy, mul(gc, vb[o + c]));
+    }
+    const float mx = (q.x > 0.f && q.x < (float)(W - 1)) ? 1.f : 0.f;
+    const float my = (q.y > 0.f && q.y < (float)(H - 1)) ? 1.f : 0.f;
+    acc = add(acc, add(mul(mul(gfx, mx), dux), mul(mul(gfy, my), dvy)));
+  }
+  dnorm[idx] = acc;
+}
+
+bool bad_dims(int S, int F, int B, int H, int W, int C) {
+  return S <= 0 || F <= 0 || B <= 0 || H <= 0 || W <= 0 || C <= 0;
+}
+
+}  // namespace
+
+// Kernel G. image [F*B,H,W,C], mask [B,H,W], norm [S*B,H,W], rays
+// [B,3,H,W], mrows [S*F*B,24] f32; writes out, va, vb [S*F*B,H,W,C] f32
+// and, when with_mask, overlap [S*F*B,H,W] uint8 (may be null otherwise).
+// All contiguous. Launches on `stream` and returns cudaGetLastError() (0 on
+// success); never synchronises.
+extern "C" int fsnet_warp_mei_fwd(const void* image, const void* mask,
+                                  const void* norm, const void* rays,
+                                  const void* mrows, void* out, void* va,
+                                  void* vb, void* overlap, int S, int F, int B,
+                                  int H, int W, int C, int band, int with_mask,
+                                  void* stream) {
+  if (bad_dims(S, F, B, H, W, C) || band <= 0 ||
+      (long long)S * F * B > 65535 || (with_mask && overlap == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)H, (unsigned)(S * F * B));
+  warp_mei_fwd_kernel<<<grid, kThreadsG, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(image), static_cast<const float*>(mask),
+      static_cast<const float*>(norm), static_cast<const float*>(rays),
+      static_cast<const float*>(mrows), static_cast<float*>(out),
+      static_cast<float*>(va), static_cast<float*>(vb),
+      static_cast<uint8_t*>(overlap), S, F, B, H, W, C, band, with_mask);
+  return (int)cudaGetLastError();
+}
+
+// Kernel H. norm [S*B,H,W], rays [B,3,H,W], g/va/vb [S*F*B,H,W,C], mrows
+// [S*F*B,24] f32; writes dnorm [S*B,H,W] f32. All contiguous. Launches on
+// `stream` and returns cudaGetLastError(); never synchronises.
+extern "C" int fsnet_warp_mei_bwd(const void* norm, const void* rays,
+                                  const void* g, const void* va,
+                                  const void* vb, const void* mrows,
+                                  void* dnorm, int S, int F, int B, int H,
+                                  int W, int C, void* stream) {
+  if (bad_dims(S, F, B, H, W, C)) return (int)cudaErrorInvalidValue;
+  const long long total = (long long)S * B * H * W;
+  const long long blocks = (total + kThreadsH - 1) / kThreadsH;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  warp_mei_bwd_kernel<<<(unsigned)blocks, kThreadsH, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(norm), static_cast<const float*>(rays),
+      static_cast<const float*>(g), static_cast<const float*>(va),
+      static_cast<const float*>(vb), static_cast<const float*>(mrows),
+      static_cast<float*>(dnorm), S, F, B, H, W, C);
+  return (int)cudaGetLastError();
+}

@@ -1,16 +1,19 @@
-"""The flagship depth model of the port, its learned-pose baseline, its
-export-style forward, the synthetic KITTI-like training batch and the
-training recipe's optimizer (counterpart of
-``__graft_entry__._flagship_model``, ``_synthetic_batch``, ``entry()`` and
-the optimizer of ``bench.py``).
+"""The flagship depth model of the port, its learned-pose baseline, the
+KITTI-360 fisheye model, its export-style forward, the synthetic training
+batches and the training recipe's optimizer (counterpart of
+``__graft_entry__._flagship_model``, ``_synthetic_batch``, ``entry()``, the
+optimizer of ``bench.py`` and the fisheye batch of
+``scripts/tpu_fisheye_bench.py``).
 
 The flagship's configuration is the JAX flagship's with ``fsnet_tpu_torch``
 names: a ResNet-18 encoder with ``out_indices=(-1, 0, 1, 2, 3)`` and a
 ``MultiChannelDepthDecoder`` with 16 bins, scales 0-3 and depth 0.5-100,
 under ``MonoDepthWPose``. The learned-pose baseline is ``MonoDepthMeta``
 with the same depth net, a ResNet-18 pose encoder over frame pairs (six
-input channels) and a ``PoseDecoder`` for two frames. Both are built
-through the builder.
+input channels) and a ``PoseDecoder`` for two frames. The fisheye model is
+the flagship with the ``FishEyeDecoder`` head of
+``configs/kitti360_fisheye_example.py`` (depth 0.1-150, band 16). All are
+built through the builder.
 """
 from __future__ import annotations
 
@@ -82,6 +85,28 @@ def learned_pose_model(height: int, width: int, device: DeviceLike = "cuda",
     ``device``."""
     return build(**learned_pose_config(height, width), device=device,
                  seed=seed)
+
+
+def fisheye_config(height: int, width: int) -> Dict:
+    """``MonoDepthWPose`` of ``configs/kitti360_fisheye_example.py``
+    (``configs/common.py:102-142``): the flagship's ResNet-18 and 16-bin
+    ``MultiChannelDepthDecoder`` under the Mei-camera ``FishEyeDecoder``,
+    depth 0.1-150, overlap mask, no image logging. The head's band is its
+    default, 16."""
+    cfg = flagship_config(height, width)
+    head = cfg["head_cfg"]
+    head["name"] = \
+        "fsnet_tpu_torch.models.heads.fisheye_decoder.FishEyeDecoder"
+    head["min_depth"], head["max_depth"] = 0.1, 150.0
+    head["depth_decoder_cfg"].update(min_depth=0.1, max_depth=150.0)
+    return cfg
+
+
+def fisheye_model(height: int, width: int, device: DeviceLike = "cuda",
+                  seed: int = 0):
+    """The fisheye ``MonoDepthWPose`` with seeded random weights on
+    ``device``."""
+    return build(**fisheye_config(height, width), device=device, seed=seed)
 
 
 def entry(device: DeviceLike = "cuda") -> Tuple[Callable, Tuple[torch.Tensor]]:
@@ -158,6 +183,55 @@ def synthetic_batch(batch: int, height: int, width: int,
             raise ValueError(f"patched_mask {patched_mask!r}: None, 'ones' "
                              "or 'nuscenes'")
         data["patched_mask"] = mask
+    return encode_batch(data)
+
+
+def fisheye_batch(batch: int, height: int, width: int) -> Dict:
+    """KITTI-360-like fisheye training batch, string-keyed numpy arrays (the
+    numbers of ``scripts/tpu_fisheye_bench.py:31-66``, from the same
+    ``RandomState(0)``): a Mei camera with (xi, k1, k2) = (2.2, 0.2, 0.1)
+    and focal 1.3 W, side-camera motion (forward translation of 0.55-0.8 m
+    along x, +-0.3 deg rotations), one pose for both source frames, the
+    camera's backtracked ray map (``'fisheye_rays'`` [B, H, W, 4]),
+    ``'fisheye_params'`` [B, 3], white-noise images in [0, 1) and an
+    all-ones ``patched_mask``."""
+    from scipy.spatial.transform import Rotation
+
+    from .ops.fisheye import MeiCameraProjection
+
+    xi, k1, k2 = 2.2, 0.2, 0.1
+    H, W = height, width
+    P_np = np.zeros((3, 4), np.float32)
+    P_np[0, 0] = P_np[1, 1] = 1.3 * W
+    P_np[0, 2], P_np[1, 2], P_np[2, 2] = W / 2.0, H / 2.0, 1.0
+    rng = np.random.RandomState(0)
+    P = np.tile(P_np[None], (batch, 1, 1))
+    pose = np.tile(np.eye(4, dtype=np.float32), (batch, 1, 1))
+    for b in range(batch):
+        pose[b, :3, :3] = Rotation.from_euler(
+            "xyz", rng.uniform(-0.3, 0.3, 3), degrees=True).as_matrix()
+        pose[b, :3, 3] = [rng.uniform(0.55, 0.8), rng.uniform(-0.02, 0.02),
+                          rng.uniform(-0.05, 0.05)]
+    X, Y, Z, mask = MeiCameraProjection().get_ray_map(
+        H, W, P_np, {"mirror_parameters": {"xi": xi},
+                     "distortion_parameters": {"k1": k1, "k2": k2}})
+    rays = np.stack([X[0], Y[0], Z[0], mask[0]], axis=-1)
+
+    def img():
+        return rng.rand(batch, H, W, 3).astype(np.float32)
+
+    data = {
+        ("image", 0): img(), ("image", 1): img(), ("image", -1): img(),
+        ("original_image", 0): img(), ("original_image", 1): img(),
+        ("original_image", -1): img(),
+        ("relative_pose", 1): pose, ("relative_pose", -1): pose.copy(),
+        "P2": P.astype(np.float32),
+        "fisheye_rays": np.tile(rays[None], (batch, 1, 1, 1)).astype(
+            np.float32),
+        "fisheye_params": np.tile(np.array([[xi, k1, k2]], np.float32),
+                                  (batch, 1)),
+        "patched_mask": np.ones((batch, H, W), np.float32),
+    }
     return encode_batch(data)
 
 

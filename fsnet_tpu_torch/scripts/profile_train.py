@@ -1,18 +1,22 @@
 """Where the time of a train step goes on the card.
 
     python -m fsnet_tpu_torch.scripts.profile_train [--batch 12] [--iters 5]
-        [--model {wpose,learned_pose}] [--route {depth,grid}] [--host-batch]
+        [--model {wpose,learned_pose,fisheye}] [--route {depth,grid}]
+        [--host-batch]
 
 Builds the model (seeded random weights) and the ``bench.py`` recipe (Adam
 lr 1e-4, clip 1.0, StepLR) on the CUDA device with TF32 off: the flagship
 ``MonoDepthWPose`` (``--model wpose``) or the learned-pose
-``MonoDepthMeta`` (``--model learned_pose``, always the grid route). The
-flagship's loss takes the depth-direct route on the synthetic KITTI-like
-batch (``--route depth``) and the grid route when the batch carries an
-all-ones ``patched_mask``, as every dataset batch does (``--route grid``).
-Puts the batch on the card (as ``bench.py`` does for the JAX step;
-``--host-batch`` passes numpy arrays, so each step copies them), warms up,
-then runs ``--iters`` train steps at 192x640 float32 under
+``MonoDepthMeta`` (``--model learned_pose``, always the grid route), or the
+KITTI-360 fisheye ``MonoDepthWPose`` (``--model fisheye``: ``FishEyeDecoder``
+at 384x384 on the fisheye batch, always its norm-direct route; the recipe's
+batch is 16). The flagship's loss takes the depth-direct route on the
+synthetic KITTI-like batch (``--route depth``) and the grid route when the
+batch carries an all-ones ``patched_mask``, as every dataset batch does
+(``--route grid``). Puts the batch on the card (as ``bench.py`` does for the
+JAX step; ``--host-batch`` passes numpy arrays, so each step copies them),
+warms up, then runs ``--iters`` train steps (192x640, or 384x384 for the
+fisheye model) in float32 under
 ``torch.profiler`` and prints: the wall time per step and images/s, the
 device's busy and idle share of that window, device time by group (each of
 the port's kernels, cuDNN/cuBLAS, the optimizer's multi-tensor updates,
@@ -35,6 +39,8 @@ _GROUPS = (
     ("warp_depth_bwd_kernel", "warp backward (kernel B)"),
     ("warp_grid_kernel<true>", "grid warp + va, vb (kernel F)"),
     ("warp_grid_kernel<false>", "grid warp forward (kernel E)"),
+    ("warp_mei_fwd_kernel", "Mei warp + va, vb + overlap (kernel G)"),
+    ("warp_mei_bwd_kernel", "Mei norm cotangent (kernel H)"),
 )
 
 
@@ -61,27 +67,34 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=12)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--host-batch", action="store_true")
-    ap.add_argument("--model", choices=("wpose", "learned_pose"),
+    ap.add_argument("--model", choices=("wpose", "learned_pose", "fisheye"),
                     default="wpose")
     ap.add_argument("--route", choices=("depth", "grid"), default="depth")
     args = ap.parse_args(argv)
     if args.model == "learned_pose" and args.route != "grid":
         ap.error("learned poses take the grid route: pass --route grid")
+    if args.model == "fisheye" and args.route != "depth":
+        ap.error("the fisheye model takes its norm-direct route: leave "
+                 "--route out")
 
-    from ..entry import (flagship_model, flagship_optimizer,
-                         learned_pose_model, synthetic_batch)
+    from ..entry import (fisheye_batch, fisheye_model, flagship_model,
+                         flagship_optimizer, learned_pose_model,
+                         synthetic_batch)
     from ..runtime.state import make_train_step
 
     # full float32, as chip_smoke.py measures it: no TF32 in cuDNN/cuBLAS
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    H, W, B = 192, 640, args.batch
-    build = flagship_model if args.model == "wpose" else learned_pose_model
+    fisheye = args.model == "fisheye"
+    H, W, B = (384, 384, args.batch) if fisheye else (192, 640, args.batch)
+    build = dict(wpose=flagship_model, learned_pose=learned_pose_model,
+                 fisheye=fisheye_model)[args.model]
     model = build(H, W, device="cuda", seed=0)
     opt, _ = flagship_optimizer(model)
     step = make_train_step("cuda")
     mask = "ones" if args.model == "wpose" and args.route == "grid" else None
-    batch = synthetic_batch(B, H, W, patched_mask=mask)
+    batch = (fisheye_batch(B, H, W) if fisheye
+             else synthetic_batch(B, H, W, patched_mask=mask))
     if not args.host_batch:
         batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
     for _ in range(3):
@@ -109,7 +122,9 @@ def main(argv=None) -> None:
     n = args.iters
     where = "from host numpy" if args.host_batch else "on the card"
     lines = [f"{card}; torch {torch.__version__}; train step of "
-             f"{args.model}, {args.route} route, bs{B}@{H}x{W} float32, "
+             f"{args.model}, "
+             f"{'norm-direct' if fisheye else args.route} route, "
+             f"bs{B}@{H}x{W} float32, "
              f"batch {where}, {n} steps under torch.profiler",
              f"wall per step {wall_ms / n:.3f} ms ({B * n / wall_ms * 1e3:.2f}"
              f" imgs/s); device busy per step {busy_ms / n:.3f} ms; idle "

@@ -339,3 +339,90 @@ def test_grid_route_train_step_on_card_matches_cpu(cuda, kind):
               for k in keys)
     den = sum(float((res["cpu"][1][k] ** 2).sum()) for k in keys)
     assert (num / den) ** 0.5 < 3e-2
+
+
+def _mei_scene(g, S, F, B, H, W, C):
+    """The fisheye batch's rays, camera and poses with random frames and
+    norms of 2-40 m."""
+    from fsnet_tpu_torch.entry import fisheye_batch
+    from fsnet_tpu_torch.ops.warp_mei import make_mei_rows
+
+    t = {k: torch.from_numpy(v).cuda() for k, v in
+         fisheye_batch(B, H, W).items()}
+    image = torch.rand(F * B, H, W, C, generator=g, device="cuda")
+    norm = 2.0 + 38.0 * torch.rand(S * B, H, W, generator=g, device="cuda")
+    Ts = torch.stack([t[f"relative_pose/{f}"] for f in (1, -1)][:F])
+    rays = t["fisheye_rays"]
+    return (image, rays[..., 3].contiguous(), norm,
+            rays[..., :3].permute(0, 3, 1, 2).contiguous(),
+            make_mei_rows(t["P2"], t["fisheye_params"], Ts, S))
+
+
+@pytest.mark.parametrize("dims", [(2, 2, 2, 16, 128, 3, 16, None),
+                                  (4, 2, 3, 24, 200, 3, 8, None),
+                                  (1, 1, 2, 7, 33, 2, 4, None),
+                                  (2, 2, 1, 16, 64, 3, 16, -1.0)])
+def test_mei_warp_kernels_match_plain(cuda, dims):
+    """Kernels G and H against their plain versions on the card: one
+    rounding per operation on both, so the corners agree and the values
+    bitwise. xi = -1 sends zh + xi + eps through 0: the coordinates that
+    come out non-finite read inside the image on both."""
+    from fsnet_tpu_torch.ops import warp_mei as twm
+
+    S, F, B, H, W, C, band, xi = dims
+    g = torch.Generator(device=cuda).manual_seed(6)
+    image, mask, norm, rays, rows = _mei_scene(g, S, F, B, H, W, C)
+    if xi is not None:
+        rows[:, 12] = xi
+    n0, n1 = twm.warp_mei_fwd.launches, twm.warp_mei_bwd.launches
+    got = twm.warp_mei_fwd(image, mask, norm, rays, rows, S, F, band, True)
+    ref = twm.warp_mei_plain(image, mask, norm, rays, rows, S, F, band, True)
+    gy = torch.randn(got[0].shape, generator=g, device=cuda)
+    dn = twm.warp_mei_bwd(norm, rays, gy, got[2], got[3], rows, S, F)
+    dn_ref = twm.warp_mei_bwd_plain(norm, rays, gy, ref[2], ref[3], rows, S,
+                                    F)
+    torch.cuda.synchronize()
+    assert twm.warp_mei_fwd.launches == n0 + 1
+    assert twm.warp_mei_bwd.launches == n1 + 1
+    assert torch.equal(got[1], ref[1])
+    for a, r in zip((got[0], got[2], got[3]), (ref[0], ref[2], ref[3])):
+        assert a.shape == r.shape and bool(torch.isfinite(a).all())
+        assert (a - r).abs().max() <= 1e-6
+    if xi is None:
+        assert (dn - dn_ref).abs().max() <= 1e-6 * dn_ref.abs().max()
+    else:
+        assert torch.equal(torch.isfinite(dn), torch.isfinite(dn_ref))
+
+
+def test_fisheye_train_step_on_card_matches_cpu(cuda):
+    """The fisheye train step at a small size, on the card through kernels
+    G and H, against the port on the CPU (the fisheye batch's images are
+    white noise)."""
+    from fsnet_tpu_torch.entry import (fisheye_batch, fisheye_model,
+                                       flagship_optimizer)
+    from fsnet_tpu_torch.ops import warp_depth as twd
+    from fsnet_tpu_torch.ops import warp_fast as twf
+    from fsnet_tpu_torch.ops import warp_mei as twm
+    from fsnet_tpu_torch.runtime.state import make_train_step
+
+    H, W, B = 64, 128, 2
+    batch = fisheye_batch(B, H, W)
+    counters = (twm.warp_mei_fwd, twm.warp_mei_bwd, twf.grid_band_fused,
+                twd.warp_depth_fwd)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = fisheye_model(H, W, device=dev, seed=0)
+        opt, _ = flagship_optimizer(model)
+        before = [f.launches for f in counters]
+        met = make_train_step(dev, with_grads=True)(model, opt, batch)
+        ran = [f.launches - n for f, n in zip(counters, before)]
+        res[dev] = (float(met["loss"]), met["_grads"], ran)
+    assert res["cuda"][2] == [1, 1, 0, 0]
+    assert res["cpu"][2] == [0, 0, 0, 0]
+    assert abs(res["cuda"][0] - res["cpu"][0]) <= 1e-4 * abs(res["cpu"][0])
+    keys = [k for k in res["cpu"][1]
+            if not (".upconv_" in k and k.endswith(".conv.bias"))]
+    num = sum(float(((res["cuda"][1][k].cpu() - res["cpu"][1][k]) ** 2).sum())
+              for k in keys)
+    den = sum(float((res["cpu"][1][k] ** 2).sum()) for k in keys)
+    assert (num / den) ** 0.5 < 3e-2

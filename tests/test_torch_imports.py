@@ -57,6 +57,14 @@ def test_model_without_device_raises():
         flagship_model(64, 96)
 
 
+def test_fisheye_model_without_device_raises():
+    _no_cuda()
+    from fsnet_tpu_torch.entry import fisheye_model
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fisheye_model(64, 128)
+
+
 def test_eval_step_without_device_raises():
     _no_cuda()
     from fsnet_tpu_torch.runtime.state import make_eval_step
