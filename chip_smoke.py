@@ -111,7 +111,24 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     poses): loss rel <= 1e-4 and global gradient rel-L2 < 3e-2;
 21. times the fisheye step at batch 16 (images/s over 10 steps, the batch
     on the card) and kernels G and H beside their plain versions and bounds
-    (``F.grid_sample`` at the Mei grid as a yardstick only).
+    (``F.grid_sample`` at the Mei grid as a yardstick only);
+22. holds the photometric loss kernels (``csrc/photo_loss.cu``: the
+    forward, kernel I, and the prediction cotangent, kernel J) against their
+    plain versions on the loss's own operands at both recipes: the warped
+    stack (phase 8's depth-direct warp of the synthetic batch's clipped
+    textures, 96 warps @192x640; kernel G's 128 warps @384x384) and the
+    identity stack (24 and 32 sources) against the 12 and 16 targets. The
+    forward within 1e-6 of the largest loss (the share of bitwise-equal
+    pixels printed), the cotangent of the warped stack within 1e-5 of its
+    largest entry against the plain cotangent and against autograd of the
+    plain forward on the card; prints the exact ties each stack holds (zero
+    variance, SSIM dissimilarity at 0 and at 1, pred == target), and times
+    both kernels beside their plain versions and bounds, summed over one
+    step's launches at each recipe.
+
+Every train step (phases 9, 13, 14, 19) launches the forward kernel twice
+(the warped stack and the identity stack) and the cotangent kernel once;
+``forward_test`` launches neither.
 
 It prints the record and the kernel line as JSON lines and, last, the
 result line ``{"ok": true, "device": {...}}``. It imports nothing of JAX or
@@ -215,6 +232,7 @@ def flagship_batch(batch: int, seed: int = 0):
 def launch_counters():
     """The launch counter of every kernel wrapper, by kernel name."""
     from fsnet_tpu_torch.ops import conv3x3 as tc
+    from fsnet_tpu_torch.ops import photo_loss as tpl
     from fsnet_tpu_torch.ops import warp_depth as twd
     from fsnet_tpu_torch.ops import warp_fast as twf
     from fsnet_tpu_torch.ops import warp_mei as twm
@@ -226,7 +244,9 @@ def launch_counters():
             "warp_grid_fused": twf.grid_band_fused,
             "warp_grid_fwd": twf.grid_band_fwd,
             "warp_mei_fwd": twm.warp_mei_fwd,
-            "warp_mei_bwd": twm.warp_mei_bwd}
+            "warp_mei_bwd": twm.warp_mei_bwd,
+            "photo_loss_fwd": tpl.photo_loss_fwd,
+            "photo_loss_bwd": tpl.photo_loss_bwd}
 
 
 def zero(counters) -> None:
@@ -538,7 +558,7 @@ def train_phases(counters, record):
     want = dict(conv3x3=4, conv3x3_bn=10, conv3x3_dx=n_dx,
                 conv3x3_dw=len(SHAPES), warp_depth_fwd=1, warp_depth_bwd=1,
                 warp_grid_fused=0, warp_grid_fwd=0, warp_mei_fwd=0,
-                warp_mei_bwd=0)
+                warp_mei_bwd=0, photo_loss_fwd=2, photo_loss_bwd=1)
     record["train_path"] = drive_steps(model, opt, batch, counters, want,
                                        "train path")
     counts = record["train_path"]["launches"]
@@ -564,16 +584,18 @@ def train_phases(counters, record):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / n_steps * 1e3
 
-    ms_card, ms_host = step_ms(on_card), step_ms(batch)
+    torch.cuda.reset_peak_memory_stats()
+    ms_card = step_ms(on_card)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms_host = step_ms(batch)
     record["train_step"] = dict(bs=BATCH, ms=ms_card,
                                 imgs_per_s=BATCH / ms_card * 1e3,
-                                ms_from_host=ms_host,
-                                peak_mem_gb=torch.cuda.max_memory_allocated()
-                                / 1e9)
+                                ms_from_host=ms_host, peak_mem_gb=peak)
     print(f"train step bs{BATCH}@{HEIGHT}x{WIDTH} f32 (mean of {n_steps}): "
           f"batch on the card {ms_card:.3f} ms = "
-          f"{BATCH / ms_card * 1e3:.2f} imgs/s; from host numpy "
-          f"{ms_host:.3f} ms = {BATCH / ms_host * 1e3:.2f} imgs/s")
+          f"{BATCH / ms_card * 1e3:.2f} imgs/s (peak memory {peak:.3f} GB); "
+          f"from host numpy {ms_host:.3f} ms = "
+          f"{BATCH / ms_host * 1e3:.2f} imgs/s")
 
     torch.backends.cudnn.benchmark = True      # the yardstick's best
     tot = {k: dict(ms=0.0, plain_ms=0.0, items=[], lib_ms=0.0,
@@ -837,6 +859,7 @@ def grid_phases(counters, record, train):
                          ("grid_step_learned_pose", meta, meta_opt,
                           train["batch"])):
         on_card = {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+        torch.cuda.reset_peak_memory_stats()
         for _ in range(2):
             step(m, o, on_card)
         torch.cuda.synchronize()
@@ -845,10 +868,12 @@ def grid_phases(counters, record, train):
             step(m, o, on_card)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / n_steps * 1e3
-        record[key] = dict(bs=BATCH, ms=ms, imgs_per_s=BATCH / ms * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        record[key] = dict(bs=BATCH, ms=ms, imgs_per_s=BATCH / ms * 1e3,
+                           peak_mem_gb=peak)
         print(f"{key} bs{BATCH}@{HEIGHT}x{WIDTH} f32 (mean of {n_steps}, "
               f"batch on the card): {ms:.3f} ms = {BATCH / ms * 1e3:.2f} "
-              "imgs/s")
+              f"imgs/s (peak memory {peak:.3f} GB)")
 
     image, mask, grid = scene
     N, H, W, _ = grid.shape
@@ -1094,6 +1119,7 @@ def fisheye_phases(counters, record, train):
     step = make_train_step("cuda")
     on_card = {k: torch.from_numpy(v).cuda() for k, v in fb.items()}
     n_steps = 10
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         step(model, opt, on_card)
     torch.cuda.synchronize()
@@ -1102,9 +1128,12 @@ def fisheye_phases(counters, record, train):
         step(model, opt, on_card)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / n_steps * 1e3
-    record["fisheye_step"] = dict(bs=B, ms=ms, imgs_per_s=B / ms * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    record["fisheye_step"] = dict(bs=B, ms=ms, imgs_per_s=B / ms * 1e3,
+                                  peak_mem_gb=peak)
     print(f"fisheye_step {size} f32 (mean of {n_steps}, batch on the card): "
-          f"{ms:.3f} ms = {B / ms * 1e3:.2f} imgs/s")
+          f"{ms:.3f} ms = {B / ms * 1e3:.2f} imgs/s (peak memory "
+          f"{peak:.3f} GB)")
 
     image, mask, norm, rays, rows = scene
     S, Fr, N, C = S_SCALES, F_FRAMES, rows.shape[0], image.shape[-1]
@@ -1165,7 +1194,161 @@ def fisheye_phases(counters, record, train):
               f"({e['bound_by']})"
               + (f"  F.grid_sample {e['grid_sample_ms']:.4f} ms"
                  if "grid_sample_ms" in e else "") + "  library none")
-    return kernels, launches
+    return kernels, launches, dict(scene=scene, batch=fb)
+
+
+# operations per pixel-channel of the photometric loss: the forward pools
+# three quantities (54), the SSIM terms (17), the clip, L1 and channel sums
+# (about 9); the cotangent adds the partials (35) and the adjoint of three
+# pools (about 60)
+PHOTO_OPS = dict(fwd=80.0, bwd=150.0)
+
+
+def photo_ties(pred, target, muy, sy):
+    """Exact ties of the loss's gates over the pixel-channels of ``pred``:
+    zero variance (the clamp), SSIM dissimilarity at 0 and at 1 (the clip),
+    and pred == target (the L1 sign)."""
+    from fsnet_tpu_torch.ops import photo_loss as tpl
+
+    t = tpl._terms(pred, target, muy, sy)
+    return dict(variance=int((t["sx_raw"] == 0).sum()),
+                clip0=int((t["val"] == 0).sum()),
+                clip1=int((t["val"] == 1).sum()),
+                equal=int((t["x"] == target).sum()), values=pred.numel())
+
+
+def check_photo_kernels(recipe, stacks, target, seed):
+    """Phase 22 at one recipe: the photometric kernels against their plain
+    versions on the loss's own operands, the warped stack and the identity
+    stack against ``target`` (n mod B): the forward within 1e-6 of the
+    largest loss (and the share of bitwise-equal pixels), the cotangent of
+    the warped stack within 1e-5 of its largest entry against the plain
+    cotangent and against autograd of the plain forward on the card; the
+    ties each stack holds. Returns the max abs errors, the ties and the
+    kernels' timings."""
+    from fsnet_tpu_torch.ops import photo_loss as tpl
+    from fsnet_tpu_torch.ops.ssim import ssim_target_stats
+
+    muy, sy = ssim_target_stats(target)
+    B = target.shape[0]
+    errs = dict(photo_loss_fwd=0.0, photo_loss_bwd=0.0)
+    ties, timed = {}, dict(fwd=[], bwd=[])
+    for kind, pred in stacks.items():
+        N, H, W, C = pred.shape
+        got = tpl.photo_loss_fwd(pred, target, muy, sy)
+        torch.cuda.synchronize()
+        ref = tpl.photo_loss_plain(pred, target, muy, sy)
+        d, e = rel_err(got, ref)
+        equal = float((got == ref).double().mean())
+        errs["photo_loss_fwd"] = max(errs["photo_loss_fwd"], d)
+        ties[kind] = photo_ties(pred, target, muy, sy)
+        line = (f"check photometric loss, {recipe} {kind} stack N={N} "
+                f"{H}x{W}x{C} against B={B}: forward max abs err {d:.2e} "
+                f"(rel {e:.2e}), bitwise-equal pixels {equal:.6f}")
+        check(e <= 1e-6, f"photo_loss_fwd {recipe} {kind}: rel err {e:.2e} "
+              "> 1e-6")
+        px = N * H * W * C
+        nbytes = 4.0 * (px + 3 * B * H * W * C + N * H * W)
+        timed["fwd"].append(
+            (lambda p=pred: tpl.photo_loss_fwd(p, target, muy, sy),
+             lambda p=pred: tpl.photo_loss_plain(p, target, muy, sy),
+             (PHOTO_OPS["fwd"] * px, nbytes)))
+        if kind == "warped":
+            g = torch.randn(N, H, W, device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(seed))
+            dx = tpl.photo_loss_bwd(pred, target, muy, sy, g)
+            torch.cuda.synchronize()
+            ref_dx = tpl.photo_loss_bwd_plain(pred, target, muy, sy, g)
+            xr = pred.clone().requires_grad_(True)
+            tpl.photo_loss_plain(xr, target, muy, sy).backward(g)
+            d_b, e_b = rel_err(dx, ref_dx)
+            d_a, e_a = rel_err(dx, xr.grad)
+            del xr
+            errs["photo_loss_bwd"] = max(errs["photo_loss_bwd"], d_b)
+            line += (f"; cotangent rel err {e_b:.2e} against the plain "
+                     f"cotangent, {e_a:.2e} against autograd of the plain "
+                     "forward")
+            check(e_b <= 1e-5 and e_a <= 1e-5,
+                  f"photo_loss_bwd {recipe}: rel err {e_b:.2e} (plain), "
+                  f"{e_a:.2e} (autograd) > 1e-5")
+            timed["bwd"].append(
+                (lambda p=pred: tpl.photo_loss_bwd(p, target, muy, sy, g),
+                 lambda p=pred: tpl.photo_loss_bwd_plain(p, target, muy, sy,
+                                                         g),
+                 (PHOTO_OPS["bwd"] * px, nbytes + 4.0 * px)))
+        print(line + f"; ties {ties[kind]}")
+    times = {}
+    for k, items in timed.items():
+        b_ms, b_by = sum_bounds([ob for _, _, ob in items])
+        times[k] = dict(ms=sum(cuda_ms(fn, iters=10) for fn, _, _ in items),
+                        plain_ms=sum(cuda_ms(pl, iters=3, warmup=1)
+                                     for _, pl, _ in items),
+                        bound_ms=b_ms, bound_by=b_by)
+    return errs, ties, times
+
+
+def photo_phases(record, train, fish):
+    """Phase 22. Returns the kernel line's entries of the photometric
+    kernels."""
+    from fsnet_tpu_torch.ops import warp_depth as twd
+    from fsnet_tpu_torch.ops import warp_mei as twm
+
+    # the flagship: the warped stack of phase 8's scene (the synthetic
+    # batch's clipped textures) and its 24 sources, against its 12 targets
+    wi = train["warp_in"]
+    warped = twd.warp_depth_fwd(wi["image"], wi["depth"], wi["arows"],
+                                S_SCALES, F_FRAMES, BAND)[0]
+    target = torch.from_numpy(train["batch"]["original_image/0"]).cuda()
+    flag = check_photo_kernels(f"bs{BATCH}@{HEIGHT}x{WIDTH}",
+                               dict(warped=warped, identity=wi["image"]),
+                               target, seed=11)
+    del warped
+    # the fisheye recipe: kernel G's warped stack of phase 17's scene
+    image, mask, norm, rays, rows = fish["scene"]
+    warped = twm.warp_mei_fwd(image, mask, norm, rays, rows, S_SCALES,
+                              F_FRAMES, FISH_BAND, True)[0]
+    target = torch.from_numpy(fish["batch"]["original_image/0"]).cuda()
+    fisheye = check_photo_kernels(
+        f"bs{FISH_BATCH}@{FISH_H}x{FISH_W}",
+        dict(warped=warped, identity=image), target, seed=12)
+    del warped
+    record["photo_ties"] = dict(flagship=flag[1], fisheye=fisheye[1])
+
+    paths = dict(train_path="depth-direct", grid_path_mask="grid (mask)",
+                 grid_path_learned_pose="learned pose",
+                 fisheye_path="fisheye")
+    kernels = []
+    for k, tag, replaces in (
+            ("photo_loss_fwd", "fwd",
+             "fsnet_tpu/ops/pallas/photo_kernel.py:324"),
+            ("photo_loss_bwd", "bwd",
+             "fsnet_tpu/ops/pallas/photo_kernel.py:370")):
+        t, tf = flag[2][tag], fisheye[2][tag]
+        kernels.append(dict(
+            name=k, route="cuda", source="fsnet_tpu_torch/csrc/photo_loss.cu",
+            replaces=replaces, launches=record["train_path"]["launches"][k],
+            launches_by_path={name: record[key]["launches"][k]
+                              for key, name in paths.items()},
+            max_abs_err=max(flag[0][k], fisheye[0][k]), ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=None,
+            fisheye_ms=tf["ms"], fisheye_plain_ms=tf["plain_ms"],
+            fisheye_bound_ms=tf["bound_ms"], fisheye_bound_by=tf["bound_by"],
+            note=("ms, plain_ms, bound_ms: the launches of one bs12 @192x640 "
+                  "step (" + ("the warped stack N=96 and the identity stack "
+                              "N=24" if tag == "fwd" else "the warped stack "
+                              "N=96") + " against 12 targets), float32; "
+                  "fisheye_*: the same at bs16 @384x384 (N=128"
+                  + (" and 32" if tag == "fwd" else "") + " against 16); "
+                  "launches: 3 steps of the depth-direct path (phase 9), "
+                  "launches_by_path: 3 steps of each path")))
+    for e in kernels:
+        print(f"time  {e['name']:15s} kernel {e['ms']:.4f} ms  plain "
+              f"{e['plain_ms']:.4f} ms  bound {e['bound_ms']:.4f} ms "
+              f"({e['bound_by']}); fisheye kernel {e['fisheye_ms']:.4f} ms  "
+              f"plain {e['fisheye_plain_ms']:.4f} ms  bound "
+              f"{e['fisheye_bound_ms']:.4f} ms  library none")
+    return kernels
 
 
 def main() -> int:
@@ -1337,15 +1520,18 @@ def main() -> int:
     grid_kernels = grid_phases(counters, record, train)
 
     # 17-21. the KITTI-360 fisheye recipe: Mei camera, norm-direct warp
-    mei_kernels, fish_counts = fisheye_phases(counters, record, train)
+    mei_kernels, fish_counts, fish = fisheye_phases(counters, record, train)
     kernel["launches_fisheye_path"] = fish_counts["conv3x3"]
     for e in train["kernels"]:
         if e["name"].startswith("conv3x3"):
             e["launches_fisheye_path"] = fish_counts[e["name"]]
 
+    # 22. the photometric loss kernels at both recipes
+    photo_kernels = photo_phases(record, train, fish)
+
     print(json.dumps(record))
     print(json.dumps({"kernels": [kernel] + train["kernels"] + grid_kernels
-                      + mei_kernels}))
+                      + mei_kernels + photo_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,12 +16,14 @@ in one pass, on one of the JAX package's two routes:
   or with a mask its nearest/zeros warp tested ``== 1.0``. Gradients reach
   depth and poses through the grid.
 
-Then 0.85 SSIM + 0.15 L1 per pixel, the overlap mask, the identity automask
+Then 0.85 SSIM + 0.15 L1 per pixel
+(:func:`~fsnet_tpu_torch.ops.photo_loss.reprojection_loss_fused`, against
+target n mod B), the overlap mask, the identity automask
 with the identity candidates pre-minned over the frames, the patched mask,
 and edge-aware smoothness over a dyadic color pyramid. Other branches
 (residual poses or flow, motion masks, light compensation, SSIM weights,
-distillation, depth monitors) raise. On a CUDA device the warps are the
-Hopper kernels.
+distillation, depth monitors) raise. On a CUDA device the warps and the
+photometric loss are the Hopper kernels.
 
 The identity tie-break noise is an input: ``noise`` [F, B, H, W] standard
 normal values, scaled by 1e-5 as in the JAX package; without it no noise is
@@ -39,6 +41,7 @@ from torch import nn
 
 from ...ops.geometry import (abs_, get_smooth_loss, invert_K, make_K44,
                              reproject)
+from ...ops.photo_loss import reprojection_loss_fused
 from ...ops.ssim import ssim, ssim_target_stats
 from ...ops.warp_depth import make_affine_rows, warp_depth_fused
 from ...ops.warp_fast import grid_sample, unnormalize
@@ -49,7 +52,10 @@ from ..blocks import adaptive_avg_pool2d, interpolate_bilinear
 def reprojection_loss(pred: torch.Tensor, target: torch.Tensor,
                       ssim_weight: float = 0.85,
                       target_stats=None) -> torch.Tensor:
-    """0.85 SSIM + 0.15 L1, mean over channels -> [..., H, W, 1]."""
+    """0.85 SSIM + 0.15 L1, mean over channels -> [..., H, W, 1]: the
+    photometric loss in its reference form, on shape-matched operands (the
+    head's loss runs
+    :func:`~fsnet_tpu_torch.ops.photo_loss.reprojection_loss_fused`)."""
     l1 = abs_(target - pred).mean(dim=-1, keepdim=True)
     s = ssim(pred, target, y_stats=target_stats).mean(dim=-1, keepdim=True)
     return ssim_weight * s + (1.0 - ssim_weight) * l1
@@ -225,15 +231,13 @@ class MonoDepth2Decoder(nn.Module):
 
         target = input_dict[("original_image", 0)]
         B, C = target.shape[0], target.shape[-1]
-        t_stats = ssim_target_stats(target)
-
-        def sf_tile(t):
-            return t[None].expand(S * F, *t.shape).reshape(-1, *t.shape[1:])
-
-        proj_loss = reprojection_loss(
-            preds.reshape(-1, H, W, C), sf_tile(target),
-            target_stats=tuple(sf_tile(t) for t in t_stats)
-        ).reshape(S, F, B, H, W)
+        # the photometric loss of every warp against target n mod B, and of
+        # the stacked sources for the automask, with the target's pooled
+        # stats taken once; on a CUDA device each is one kernel pass
+        tgt = target.to(preds.dtype).contiguous()
+        t_stats = ssim_target_stats(tgt)
+        proj_loss = reprojection_loss_fused(
+            preds.reshape(-1, H, W, C), tgt, *t_stats).reshape(S, F, B, H, W)
         if overlap is not None:
             # a large constant blocks gradients and loses the min
             proj_loss = torch.where(overlap, proj_loss,
@@ -248,10 +252,11 @@ class MonoDepth2Decoder(nn.Module):
 
         # identity automask, with the identity candidates pre-minned over
         # the frames (scale-independent)
-        identity = torch.stack([
-            reprojection_loss(input_dict[("original_image", f)], target,
-                              target_stats=t_stats)
-            for f in frames], dim=0)[..., 0]                 # [F, B, H, W]
+        sources = torch.stack([input_dict[("original_image", f)]
+                               for f in frames]).to(tgt.dtype)
+        identity = reprojection_loss_fused(
+            sources.reshape(F * B, H, W, C), tgt, *t_stats
+        ).reshape(F, B, H, W)
         if noise is not None:
             identity = identity + noise.to(identity) * 1e-5
         identity_min = torch.amin(identity, dim=0)

@@ -21,7 +21,8 @@ from typing import Dict, Iterable
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("conv3x3", "conv3x3_dw", "warp_depth", "warp_grid", "warp_mei")
+SOURCES = ("conv3x3", "conv3x3_dw", "warp_depth", "warp_grid", "warp_mei",
+           "photo_loss")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

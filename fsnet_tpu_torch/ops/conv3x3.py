@@ -179,17 +179,20 @@ def _fold_halo(e: torch.Tensor, pad_mode: str) -> torch.Tensor:
 
 # ------------------------------------------------------------------ kernels
 
-def _entry(lib: str, fn: str, pointers: Sequence[int], nargs: int):
+def _entry(lib: str, fn: str, pointers: Sequence[int], nargs: int,
+           floats: Sequence[int] = ()):
     """The C entry point ``fn`` of ``csrc/<lib>.cu``, built and loaded on
     first use, with its argument types declared (without them ctypes cuts
     pointers to 32 bits). ``pointers``: positions of pointer arguments;
-    the last argument (the stream) is a pointer too; the rest are ints."""
+    the last argument (the stream) is a pointer too; ``floats``: positions
+    of float arguments; the rest are ints."""
     from . import _build
 
     f = getattr(_build.load(lib), fn)
     if f.argtypes is None:
         ptrs = set(pointers) | {nargs - 1}
-        f.argtypes = [ctypes.c_void_p if i in ptrs else ctypes.c_int
+        f.argtypes = [ctypes.c_void_p if i in ptrs else
+                      ctypes.c_float if i in floats else ctypes.c_int
                       for i in range(nargs)]
         f.restype = ctypes.c_int
     return f

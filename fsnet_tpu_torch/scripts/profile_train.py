@@ -19,9 +19,11 @@ warms up, then runs ``--iters`` train steps (192x640, or 384x384 for the
 fisheye model) in float32 under
 ``torch.profiler`` and prints: the wall time per step and images/s, the
 device's busy and idle share of that window, device time by group (each of
-the port's kernels, cuDNN/cuBLAS, the optimizer's multi-tensor updates,
-copies, everything else: the loss, the grid's reprojection, BN, ReLU and
-their gradients) and the kernels with the most device time.
+the port's kernels, the photometric loss's two among them, cuDNN/cuBLAS,
+the optimizer's multi-tensor updates, copies, everything else: the rest of
+the loss, the target's SSIM stats, the grid's reprojection, BN, ReLU and
+their gradients), the peak device memory of a step and the kernels with the
+most device time.
 """
 from __future__ import annotations
 
@@ -41,6 +43,8 @@ _GROUPS = (
     ("warp_grid_kernel<false>", "grid warp forward (kernel E)"),
     ("warp_mei_fwd_kernel", "Mei warp + va, vb + overlap (kernel G)"),
     ("warp_mei_bwd_kernel", "Mei norm cotangent (kernel H)"),
+    ("photo_loss_fwd_kernel", "photometric loss forward (kernel I)"),
+    ("photo_loss_bwd_kernel", "photometric loss cotangent (kernel J)"),
 )
 
 
@@ -59,7 +63,7 @@ def _group(name: str) -> str:
         return "cuDNN/cuBLAS (encoder convs, small matmuls)"
     if "memcpy" in low or "memset" in low:
         return "copies"
-    return "elementwise/reduce/other (loss, BN, ReLU, gradients)"
+    return "elementwise/reduce/other (rest of the loss, BN, ReLU, gradients)"
 
 
 def main(argv=None) -> None:
@@ -100,6 +104,10 @@ def main(argv=None) -> None:
     for _ in range(3):
         step(model, opt, batch)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(model, opt, batch)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -128,7 +136,8 @@ def main(argv=None) -> None:
              f"batch {where}, {n} steps under torch.profiler",
              f"wall per step {wall_ms / n:.3f} ms ({B * n / wall_ms * 1e3:.2f}"
              f" imgs/s); device busy per step {busy_ms / n:.3f} ms; idle "
-             f"share {1 - busy_ms / wall_ms:.3f}",
+             f"share {1 - busy_ms / wall_ms:.3f}; peak memory of a step "
+             f"{peak_gb:.3f} GB",
              "device time per step by group:"]
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         lines.append(f"  {ms / n:9.3f} ms  {100 * ms / busy_ms:5.1f}%  {g}")

@@ -195,6 +195,7 @@ def test_train_step_on_card_matches_cpu(cuda):
     from fsnet_tpu_torch.entry import (flagship_model, flagship_optimizer,
                                        synthetic_batch)
     from fsnet_tpu_torch.ops import conv3x3 as tc
+    from fsnet_tpu_torch.ops import photo_loss as tpl
     from fsnet_tpu_torch.ops import warp_depth as twd
     from fsnet_tpu_torch.runtime.state import make_train_step
 
@@ -205,7 +206,8 @@ def test_train_step_on_card_matches_cpu(cuda):
         if key.startswith(("image/", "original_image/")):
             batch[key] = rng.rand(*batch[key].shape).astype(np.float32)
     counters = (tc.conv3x3, tc.conv3x3_bn, tc.conv3x3_dx, tc.conv3x3_dw,
-                twd.warp_depth_fwd, twd.warp_depth_bwd)
+                twd.warp_depth_fwd, twd.warp_depth_bwd, tpl.photo_loss_fwd,
+                tpl.photo_loss_bwd)
     res = {}
     for dev in ("cuda", "cpu"):
         model = flagship_model(H, W, device=dev, seed=0)
@@ -214,8 +216,8 @@ def test_train_step_on_card_matches_cpu(cuda):
         met = make_train_step(dev, with_grads=True)(model, opt, batch)
         ran = [f.launches - n for f, n in zip(counters, before)]
         res[dev] = (float(met["loss"]), met["_grads"], ran)
-    assert res["cuda"][2] == [4, 10, 18, 14, 1, 1]
-    assert res["cpu"][2] == [0] * 6
+    assert res["cuda"][2] == [4, 10, 18, 14, 1, 1, 2, 1]
+    assert res["cpu"][2] == [0] * 8
     assert abs(res["cuda"][0] - res["cpu"][0]) <= 1e-4 * abs(res["cpu"][0])
     keys = [k for k in res["cpu"][1]
             if not (".upconv_" in k and k.endswith(".conv.bias"))]
@@ -400,6 +402,7 @@ def test_fisheye_train_step_on_card_matches_cpu(cuda):
     white noise)."""
     from fsnet_tpu_torch.entry import (fisheye_batch, fisheye_model,
                                        flagship_optimizer)
+    from fsnet_tpu_torch.ops import photo_loss as tpl
     from fsnet_tpu_torch.ops import warp_depth as twd
     from fsnet_tpu_torch.ops import warp_fast as twf
     from fsnet_tpu_torch.ops import warp_mei as twm
@@ -408,7 +411,7 @@ def test_fisheye_train_step_on_card_matches_cpu(cuda):
     H, W, B = 64, 128, 2
     batch = fisheye_batch(B, H, W)
     counters = (twm.warp_mei_fwd, twm.warp_mei_bwd, twf.grid_band_fused,
-                twd.warp_depth_fwd)
+                twd.warp_depth_fwd, tpl.photo_loss_fwd, tpl.photo_loss_bwd)
     res = {}
     for dev in ("cuda", "cpu"):
         model = fisheye_model(H, W, device=dev, seed=0)
@@ -417,8 +420,8 @@ def test_fisheye_train_step_on_card_matches_cpu(cuda):
         met = make_train_step(dev, with_grads=True)(model, opt, batch)
         ran = [f.launches - n for f, n in zip(counters, before)]
         res[dev] = (float(met["loss"]), met["_grads"], ran)
-    assert res["cuda"][2] == [1, 1, 0, 0]
-    assert res["cpu"][2] == [0, 0, 0, 0]
+    assert res["cuda"][2] == [1, 1, 0, 0, 2, 1]
+    assert res["cpu"][2] == [0] * 6
     assert abs(res["cuda"][0] - res["cpu"][0]) <= 1e-4 * abs(res["cpu"][0])
     keys = [k for k in res["cpu"][1]
             if not (".upconv_" in k and k.endswith(".conv.bias"))]
@@ -426,3 +429,88 @@ def test_fisheye_train_step_on_card_matches_cpu(cuda):
               for k in keys)
     den = sum(float((res["cpu"][1][k] ** 2).sum()) for k in keys)
     assert (num / den) ** 0.5 < 3e-2
+
+
+def _photo_scene(g, N, B, H, W, C):
+    """Predictions and targets in [0, 1) with exact ties: a flat black patch
+    in all of them (zero variance), prediction 0 equal to target 0 (pred ==
+    target, SSIM dissimilarity 0)."""
+    pred = torch.rand(N, H, W, C, generator=g, device="cuda")
+    target = torch.rand(B, H, W, C, generator=g, device="cuda")
+    target[:, :3, :3] = 0.0
+    pred[:, :3, :3] = 0.0
+    pred[0] = target[0]
+    return pred, target
+
+
+@pytest.mark.parametrize("dims", [(4, 2, 16, 64, 3), (6, 3, 9, 33, 3),
+                                  (2, 1, 2, 5, 1), (3, 3, 5, 2, 2),
+                                  (4, 2, 40, 70, 3)])
+def test_photo_loss_kernels_match_plain(cuda, dims):
+    """The photometric kernels against their plain versions on the card, at
+    ragged tiles, images of height or width 2 (every row or column an edge)
+    and 1-3 channels, with exact ties: the forward bitwise but for rounding
+    (within 1e-6 of the largest loss), the cotangent within 1e-5 of its
+    largest entry against the plain cotangent and against autograd of the
+    plain forward."""
+    from fsnet_tpu_torch.ops import photo_loss as tpl
+    from fsnet_tpu_torch.ops.ssim import ssim_target_stats
+
+    N, B, H, W, C = dims
+    g = torch.Generator(device=cuda).manual_seed(8)
+    pred, target = _photo_scene(g, N, B, H, W, C)
+    muy, sy = ssim_target_stats(target)
+    cot = torch.randn(N, H, W, generator=g, device=cuda)
+    n0 = tpl.photo_loss_fwd.launches, tpl.photo_loss_bwd.launches
+    got = tpl.photo_loss_fwd(pred, target, muy, sy)
+    dx = tpl.photo_loss_bwd(pred, target, muy, sy, cot)
+    torch.cuda.synchronize()
+    assert (tpl.photo_loss_fwd.launches, tpl.photo_loss_bwd.launches) == \
+        (n0[0] + 1, n0[1] + 1)
+    ref = tpl.photo_loss_plain(pred, target, muy, sy)
+    assert got.shape == ref.shape == (N, H, W)
+    assert (got - ref).abs().max() <= 1e-6 * ref.abs().max()
+    xr = pred.clone().requires_grad_(True)
+    tpl.photo_loss_plain(xr, target, muy, sy).backward(cot)
+    for r in (tpl.photo_loss_bwd_plain(pred, target, muy, sy, cot), xr.grad):
+        assert dx.shape == r.shape
+        assert (dx - r).abs().max() <= 1e-5 * r.abs().max()
+
+
+def test_photo_loss_autograd_on_card_matches_cpu(cuda):
+    """``reprojection_loss_fused`` under autograd: on the card through the
+    kernels, on the CPU through the plain versions, from the same inputs."""
+    from fsnet_tpu_torch.ops import photo_loss as tpl
+    from fsnet_tpu_torch.ops.ssim import ssim_target_stats
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    pred, target = _photo_scene(g, 8, 2, 24, 80, 3)
+    cot = torch.randn(8, 24, 80, generator=g, device=cuda)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        x = pred.detach().to(dev).requires_grad_(True)
+        t = target.to(dev)
+        n0 = tpl.photo_loss_fwd.launches, tpl.photo_loss_bwd.launches
+        loss = tpl.reprojection_loss_fused(x, t, *ssim_target_stats(t))
+        loss.backward(cot.to(dev))
+        ran = (tpl.photo_loss_fwd.launches - n0[0],
+               tpl.photo_loss_bwd.launches - n0[1])
+        res[dev] = (loss.detach().cpu(), x.grad.cpu(), ran)
+    assert res["cuda"][2] == (1, 1) and res["cpu"][2] == (0, 0)
+    ref_l, ref_g = res["cpu"][0], res["cpu"][1]
+    assert (res["cuda"][0] - ref_l).abs().max() <= 1e-6 * ref_l.abs().max()
+    assert (res["cuda"][1] - ref_g).abs().max() <= 1e-5 * ref_g.abs().max()
+
+
+def test_photo_loss_rejects_what_it_does_not_take(cuda):
+    from fsnet_tpu_torch.ops import photo_loss as tpl
+
+    pred = torch.rand(4, 8, 16, 3, device=cuda)
+    target = torch.rand(2, 8, 16, 3, device=cuda)
+    with pytest.raises(TypeError):
+        tpl.photo_loss_fwd(pred.double(), target.double(), target.double(),
+                           target.double())
+    with pytest.raises(TypeError):
+        tpl.photo_loss_fwd(pred, target.cpu(), target, target)
+    with pytest.raises(ValueError):
+        tpl.photo_loss_fwd(pred[:3], target, target, target)

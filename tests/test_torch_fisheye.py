@@ -39,6 +39,7 @@ from fsnet_tpu.models.heads.fisheye_decoder import _mei_project as jax_project
 from fsnet_tpu.ops.warp_fast import grid_sample_band
 from fsnet_tpu_torch.models.heads.fisheye_decoder import _mei_project
 from fsnet_tpu_torch.ops import fisheye as tfe
+from fsnet_tpu_torch.ops import photo_loss as tpl
 from fsnet_tpu_torch.ops import warp_fast as twf
 from fsnet_tpu_torch.ops import warp_mei as twm
 
@@ -495,6 +496,7 @@ def test_grid_route_matches_norm_direct_loss(monkeypatch):
     monkeypatch.setitem(tc._DTYPES, torch.float64, -1)
     monkeypatch.setattr(twm, "_DTYPES", (torch.float64,))
     monkeypatch.setattr(twf, "_DTYPES", (torch.float64,))
+    monkeypatch.setattr(tpl, "_DTYPES", (torch.float64,))
     warps = []
     for mod, fn in ((twm, "warp_mei_plain"), (twf, "grid_band_plain")):
         monkeypatch.setattr(mod, fn, lambda *a, _o=getattr(mod, fn), _f=fn,

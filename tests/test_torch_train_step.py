@@ -34,7 +34,14 @@ batch, with no tie-break noise on either side. Routes:
   the port its norm-direct route; on ``fisheye_tpu`` (float32) both take
   the norm-direct route, and the test proves that ``mei_prep_pallas``,
   ``warp_rows_pallas_dma_fused`` and ``mei_prep_bwd_pallas`` ran and
-  ``photo_loss_pallas`` did not.
+  ``photo_loss_pallas`` did not;
+* ``photo_tpu``: ``mask_tpu`` with the JAX side's photometric kernel forced
+  on (``fsnet_tpu.ops.photo_loss.PHOTO_KERNEL``), so the loss of the warped
+  stack and of the identity stack runs ``photo_loss_pallas`` (interpreted)
+  and its cotangent ``photo_loss_bwd_pallas``; the test proves that they ran,
+  twice and once. On the port's side the photometric loss is always its
+  fused op (``ops/photo_loss.py``: on the CPU the plain versions of its two
+  kernels).
 
 The JAX side runs ``model.apply(..., mutable=["batch_stats"])`` under
 ``jax.value_and_grad`` at matmul precision "highest", then the optax chain
@@ -48,25 +55,25 @@ stencil) then differ by 8.6e-3 in rel-L2 of d loss / d depth.
 Bounds, with the values measured when this test was written:
 
 * float64: loss rel <= 1e-5 on ``xla`` and ``fisheye_xla``, where the two
-  packages take different warp routes (4.3e-16; 1.5e-16), and
-  <= 1e-10 where both take the grid route (2.9e-16 ``mask_xla``, 6.8e-16
-  ``meta_xla``); gradients per leaf
-  rel-L2 <= 1e-4 (6e-14; 9.3e-13 on ``meta_xla``, 4.6e-14 at worst over
-  its 68 pose leaves; 1.6e-13 on ``fisheye_xla``); parameters after the
-  Adam step within 1e-6 (2e-13); BN running statistics within 1e-6
-  (7e-15).
-* float32 (``tpu``, ``mask_tpu``): rounding flips discrete choices (a
-  bilinear corner where a coordinate lies within an ulp of an integer, the
-  reprojection min at near ties), each of which moves the gradient of one
-  pixel by O(1). The JAX package's own XLA and TPU routes differ by 1.2e-3
-  in global gradient rel-L2 on this batch (worst leaf 2.8e-3, dispconv_1).
-  So: loss rel <= 1e-5 (1.6e-7 on both); global gradient rel-L2 <= 1e-2
-  (2.3e-3; 2.9e-3 on ``mask_tpu``), per leaf <= 2e-2 (5.4e-3; 9.1e-3);
-  Adam's first step is about lr * sign(g), so
+  packages take different warp routes (4.3e-16; 2.9e-16), and <= 1e-10 where
+  both take the grid route (1.4e-16 ``mask_xla``, 5.4e-16 ``meta_xla``);
+  gradients per leaf rel-L2 <= 1e-4 (6.1e-14; 9.4e-13 on ``meta_xla``;
+  1.6e-13 on ``fisheye_xla``; with the port's photometric cotangent in
+  closed form); parameters after the Adam step within 1e-6 (2e-13); BN
+  running statistics within 1e-6 (7e-15).
+* float32 (``tpu``, ``mask_tpu``, ``photo_tpu``): rounding flips discrete
+  choices (a bilinear corner where a coordinate lies within an ulp of an
+  integer, the reprojection min at near ties), each of which moves the
+  gradient of one pixel by O(1). The JAX package's own XLA and TPU routes
+  differ by 1.2e-3 in global gradient rel-L2 on this batch (worst leaf
+  2.8e-3, dispconv_1). So: loss rel <= 1e-5 (1.6e-7 on both; on
+  ``photo_tpu`` within 2e-5 absolute, the JAX package's own gate between its
+  photometric kernel and its XLA route: 6.0e-8); global gradient rel-L2 <=
+  1e-2 (2.3e-3; 2.9e-3 on ``mask_tpu`` and on ``photo_tpu``), per leaf <=
+  2e-2 (5.4e-3; 9.1e-3 on both); Adam's first step is about lr * sign(g), so
   every parameter is within 2 lr (1 + 1e-6) of JAX's and at least 97% of
-  them within 1e-6 (98.7%); BN running statistics within
-  1e-5 * max(1, |ref|) (2.7e-6: the batch variance E[x^2] - mean^2
-  cancels, in float32).
+  them within 1e-6 (98.7%); BN running statistics within 1e-5 * max(1,
+  |ref|) (2.7e-6: the batch variance E[x^2] - mean^2 cancels, in float32).
 * ``fisheye_tpu`` (float32): the same bounds, except per leaf <= 3e-2.
   Against the exact float64 gradient of this step, the JAX TPU route's own
   float32 gradient is off by 2.1e-2 on the BN bias of ``layer4_0.bn1`` (a
@@ -97,6 +104,7 @@ from fsnet_tpu_torch.entry import (fisheye_batch, fisheye_config,
                                    learned_pose_model, synthetic_batch)
 from fsnet_tpu_torch.models.flax_convert import load_flax_variables, to_flax
 from fsnet_tpu_torch.ops import conv3x3 as tc
+from fsnet_tpu_torch.ops import photo_loss as tpl
 from fsnet_tpu_torch.ops import warp_depth as twd
 from fsnet_tpu_torch.ops import warp_fast as twf
 from fsnet_tpu_torch.ops import warp_mei as twm
@@ -113,6 +121,7 @@ ROUTES = {
     "meta_xla": (64, 96, np.float64, "meta", None),
     "fisheye_xla": (64, 128, np.float64, "fisheye", None),
     "fisheye_tpu": (64, 128, np.float32, "fisheye", None),
+    "photo_tpu": (64, 128, np.float32, "wpose", "nuscenes"),
 }
 B = 2
 LR = 1e-4
@@ -266,6 +275,10 @@ def _run(name):
             if mask is not None:
                 counted_fns += [((wk,), "warp_rows_pallas_dma_fused"),
                                 ((wk,), "warp_rows_pallas_dma")]
+            if name == "photo_tpu":
+                mp.setattr(jpl, "PHOTO_KERNEL", True)
+                counted_fns += [((phk, jpl), "photo_loss_pallas"),
+                                ((phk, jpl), "photo_loss_bwd_pallas")]
             if kind == "fisheye":
                 counted_fns += [((mpk, jwm), "mei_prep_pallas"),
                                 ((mpk, jwm), "mei_prep_bwd_pallas"),
@@ -304,6 +317,7 @@ def _run(name):
             mp.setattr(twd, "_DTYPES", (torch.float64,))
             mp.setattr(twf, "_DTYPES", (torch.float64,))
             mp.setattr(twm, "_DTYPES", (torch.float64,))
+            mp.setattr(tpl, "_DTYPES", (torch.float64,))
         if kind == "meta":
             bn = port.pose_backbone.bn1
             mp.setattr(bn, "update_stats", lambda m, v, _orig=bn.update_stats:
@@ -340,7 +354,12 @@ def test_train_step_matches_jax(route):
     name = route["name"]
     f64 = ROUTES[name][2] == np.float64
     loss_tol = 1e-10 if f64 and name not in ("xla", "fisheye_xla") else 1e-5
-    assert abs(got["loss"] - ref["loss"]) <= loss_tol * abs(ref["loss"])
+    if name == "photo_tpu":
+        # the JAX package's own gate between its photometric kernel (one
+        # 1/9 pooling scale) and its XLA route (tests/test_photo_kernel.py)
+        assert abs(got["loss"] - ref["loss"]) <= 2e-5
+    else:
+        assert abs(got["loss"] - ref["loss"]) <= loss_tol * abs(ref["loss"])
 
     ref_g, got_g = dict(_flat(ref["grads"])), dict(_flat(got["grads"]))
     assert sorted(got_g) == sorted(ref_g)
@@ -390,13 +409,19 @@ def test_train_step_matches_jax(route):
         assert sorted(calls) == ["conv3x3_fused_dw", "conv3x3_fused_mats_m",
                                  "warp_prep_pallas"]
         assert all(n > 0 for n in calls.values()), calls
-    elif name == "mask_tpu":
-        assert sorted(calls) == ["conv3x3_fused_dw", "conv3x3_fused_mats_m",
-                                 "warp_prep_pallas", "warp_rows_pallas_dma",
-                                 "warp_rows_pallas_dma_fused"]
+    elif name in ("mask_tpu", "photo_tpu"):
+        photo = (["photo_loss_bwd_pallas", "photo_loss_pallas"]
+                 if name == "photo_tpu" else [])
+        assert sorted(calls) == sorted(
+            ["conv3x3_fused_dw", "conv3x3_fused_mats_m", "warp_prep_pallas",
+             "warp_rows_pallas_dma", "warp_rows_pallas_dma_fused"] + photo)
         assert calls["warp_prep_pallas"] == 0, calls
         assert all(n > 0 for k, n in calls.items()
                    if k != "warp_prep_pallas"), calls
+        if photo:
+            # the warped stack and the identity stack; one cotangent
+            assert (calls["photo_loss_pallas"],
+                    calls["photo_loss_bwd_pallas"]) == (2, 1), calls
     elif name == "fisheye_tpu":
         assert sorted(calls) == ["conv3x3_fused_dw", "conv3x3_fused_mats_m",
                                  "mei_prep_bwd_pallas", "mei_prep_pallas",
@@ -425,6 +450,7 @@ def test_patched_mask_of_ones_takes_the_grid_route_to_the_same_loss():
         mp.setitem(tc._DTYPES, torch.float64, -1)
         mp.setattr(twd, "_DTYPES", (torch.float64,))
         mp.setattr(twf, "_DTYPES", (torch.float64,))
+        mp.setattr(tpl, "_DTYPES", (torch.float64,))
         for tag, b in (("grid", batch),
                        ("depth", {k: v for k, v in batch.items()
                                   if k != "patched_mask"})):
