@@ -126,6 +126,34 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     both kernels beside their plain versions and bounds, summed over one
     step's launches at each recipe.
 
+23. the DLA path: ``dla_model`` (``dlanet(34)`` under ``DLASegUpsample``,
+    seeded weights, every offset conv perturbed so that the offsets spread
+    by about 1.5 px) at batch 12 x 192x640: at each of its 16 deformable
+    convs, the input and the 9-tap grid of a train-mode forward, kernel E
+    (bilinear, zeros, band 8) against its plain version (max abs err
+    <= 1e-6) and kernel K (``csrc/warp_grad.cu``: gfx, gfy and the image
+    cotangent) against its plain version (within 1e-5 of each one's largest
+    entry); prints how many samples fall outside the band of 8 rows;
+24. the DLA serving forward (``train=False``) through ``make_eval_step``,
+    the counters set to 0 just before: E 16 launches (one per DCN, its
+    taps batched), K and every other kernel none; the output
+    [12, 48, 160, 64] finite;
+25. three DLA train steps (the loss ``sum(out * target_weight)``, the
+    ``bench.py`` recipe), the counters set to 0 just before: per step E 16
+    and K 16, nothing else; a finite loss and changed parameters and BN
+    statistics; then one step at batch 2 on the card against the CPU port
+    with every BN on its init statistics (``dla_model(norm_frozen=True)``),
+    held to phase 10's gate; and, as a reading with only the loss held to
+    1e-4, the train-mode step at batch 2 on the card against the CPU port
+    and the CPU port's float32 step against its float64 step (float32
+    rounding alone moves that gradient by several percent:
+    ``scripts/dla_conditioning.py``);
+26. times E and K summed over the 16 DCNs of one step beside their plain
+    versions, bounds and yardsticks (``F.grid_sample`` and
+    ``grid_sampler_2d_backward``, exact, without the band), then the DLA
+    step at batch 12 (10 steps, the batch on the card; its peak memory)
+    and its forward.
+
 Every train step (phases 9, 13, 14, 19) launches the forward kernel twice
 (the warped stack and the identity stack) and the cotangent kernel once;
 ``forward_test`` launches neither.
@@ -136,6 +164,7 @@ of the JAX package.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -243,6 +272,7 @@ def launch_counters():
             "warp_depth_bwd": twd.warp_depth_bwd,
             "warp_grid_fused": twf.grid_band_fused,
             "warp_grid_fwd": twf.grid_band_fwd,
+            "warp_grid_bwd": twf.grid_band_bwd,
             "warp_mei_fwd": twm.warp_mei_fwd,
             "warp_mei_bwd": twm.warp_mei_bwd,
             "photo_loss_fwd": tpl.photo_loss_fwd,
@@ -433,9 +463,11 @@ def white_noise_images(batch_np, seed=7):
 
 
 def bn_cancelled(name):
-    """Conv biases of the decoder's ConvBnReLU blocks: train-mode BN removes
-    them, so their exact gradient is 0 and both sides hold rounding noise."""
-    return ".upconv_" in name and name.endswith(".conv.bias")
+    """Conv biases right before train-mode BN (the decoder's ConvBnReLU
+    blocks, the DLA head's deformable convs): BN removes them, so their
+    exact gradient is 0 and both sides hold rounding noise."""
+    return name.endswith(".conv.bias") and any(
+        k in name for k in (".upconv_", ".proj_", ".node_"))
 
 
 def grad_rel_l2(g_a, g_b):
@@ -448,32 +480,46 @@ def grad_rel_l2(g_a, g_b):
     return (num / den) ** 0.5
 
 
+def one_step(build, batch, dev, H, W, dtype=torch.float32):
+    """(loss, gradients, first Adam updates) of one train step of
+    ``build(H, W, ...)`` from its seeded weights, on ``dev`` in ``dtype``
+    (float64 only on the CPU, through the plain versions)."""
+    from fsnet_tpu_torch.entry import flagship_optimizer
+    from fsnet_tpu_torch.ops import warp_fast as twf
+    from fsnet_tpu_torch.runtime.state import make_train_step
+
+    m = build(H, W, device=dev, seed=0).to(dtype)
+    o, _ = flagship_optimizer(m)
+    start = {k: p.detach().cpu().double().clone()
+             for k, p in m.named_parameters()}
+    if dtype == torch.float64:
+        batch = {k: v.astype(np.float64) for k, v in batch.items()}
+    dtypes, twf._DTYPES = twf._DTYPES, (dtype,)
+    try:
+        met = make_train_step(dev, with_grads=True)(m, o, batch)
+    finally:
+        twf._DTYPES = dtypes
+    return (float(met["loss"]),
+            {k: g.detach().cpu().double() for k, g in met["_grads"].items()},
+            {k: p.detach().cpu().double() - start[k]
+             for k, p in m.named_parameters()})
+
+
 def card_vs_cpu(build, batch, what, H=HEIGHT, W=WIDTH):
     """One train step of ``build(H, W, ...)`` on the card and through the
     port on the CPU, from the same seeded weights and ``batch``, held to the
     JAX package's own backward gate between two routes: loss rel <= 1e-4,
     global gradient rel-L2 < 3e-2, every leaf < 0.5, Adam's first update
     off by more than lr / 2 on under 2% of the parameters."""
-    from fsnet_tpu_torch.entry import flagship_optimizer
-    from fsnet_tpu_torch.runtime.state import make_train_step
-
-    res = {}
-    for dev in ("cuda", "cpu"):
-        m = build(H, W, device=dev, seed=0)
-        o, _ = flagship_optimizer(m)
-        start = {k: p.detach().cpu().double()
-                 for k, p in m.named_parameters()}
-        met = make_train_step(dev, with_grads=True)(m, o, batch)
-        res[dev] = (float(met["loss"]),
-                    {k: g.detach().cpu().double()
-                     for k, g in met["_grads"].items()},
-                    {k: p.detach().cpu().double() - start[k]
-                     for k, p in m.named_parameters()})
-    (l_card, g_card, u_card), (l_cpu, g_cpu, u_cpu) = res["cuda"], res["cpu"]
+    (l_card, g_card, u_card) = one_step(build, batch, "cuda", H, W)
+    (l_cpu, g_cpu, u_cpu) = one_step(build, batch, "cpu", H, W)
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
     grad_rel = grad_rel_l2(g_card, g_cpu)
+    zero = [k for k in g_cpu if not bool(g_cpu[k].any())]
+    check(all(not bool(g_card[k].any()) for k in zero),
+          f"{what}: gradients zero on the CPU but not on the card: {zero}")
     leaf = {k: float((g_card[k] - g_cpu[k]).norm() / g_cpu[k].norm())
-            for k in g_cpu if not bn_cancelled(k)}
+            for k in g_cpu if not bn_cancelled(k) and k not in zero}
     worst = max(leaf, key=leaf.get)
     lr = 1e-4
     n_upd = sum(u.numel() for u in u_cpu.values())
@@ -493,7 +539,8 @@ def card_vs_cpu(build, batch, what, H=HEIGHT, W=WIDTH):
     check(upd_frac < 0.02, f"{what}: card vs CPU Adam updates differ on "
           f"{upd_frac:.2%} of the parameters")
     return dict(loss_rel=loss_rel, grad_rel_l2=grad_rel, worst_leaf=worst,
-                worst_leaf_rel_l2=leaf[worst], adam_update_differs=upd_frac)
+                worst_leaf_rel_l2=leaf[worst], adam_update_differs=upd_frac,
+                zero_gradient_leaves=zero)
 
 
 def drive_steps(model, opt, batch, counters, want, what, steps=3,
@@ -557,7 +604,8 @@ def train_phases(counters, record):
     n_dx = sum(len(Cs) for _, _, _, Cs, _, _ in SHAPES)
     want = dict(conv3x3=4, conv3x3_bn=10, conv3x3_dx=n_dx,
                 conv3x3_dw=len(SHAPES), warp_depth_fwd=1, warp_depth_bwd=1,
-                warp_grid_fused=0, warp_grid_fwd=0, warp_mei_fwd=0,
+                warp_grid_fused=0, warp_grid_fwd=0, warp_grid_bwd=0,
+                warp_mei_fwd=0,
                 warp_mei_bwd=0, photo_loss_fwd=2, photo_loss_bwd=1)
     record["train_path"] = drive_steps(model, opt, batch, counters, want,
                                        "train path")
@@ -1197,6 +1245,283 @@ def fisheye_phases(counters, record, train):
     return kernels, launches, dict(scene=scene, batch=fb)
 
 
+DLA_BAND = 8
+
+
+def dcn_scene(model, x):
+    """(module, input, grid) of each deformable conv of ``model`` in a
+    train-mode forward of ``x`` without grad (the BN statistics restored
+    after), the grid from the module's own (perturbed) offset conv: the
+    operands the main path gives kernels E and K."""
+    import copy
+
+    from fsnet_tpu_torch.models.backbones.dla_utils import \
+        ModulatedDeformConvPack
+    from fsnet_tpu_torch.ops.dcn import tap_grid
+
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a: seen.append((m, a[0].contiguous())))
+        for m in model.modules() if isinstance(m, ModulatedDeformConvPack)]
+    state = copy.deepcopy(model.state_dict())
+    with torch.no_grad():
+        model.dummy_forward(x, train=True)
+        out = []
+        for m, inp in seen:
+            K = m.weight.shape[0]
+            off = m.conv_offset(inp)[..., :2 * K * K]
+            out.append((m, inp, tap_grid(off, inp.shape[1], inp.shape[2], K,
+                                         m.stride, m.padding, m.dilation)))
+    model.load_state_dict(state)
+    for h in hooks:
+        h.remove()
+    return out
+
+
+def band_misses(grid, H, W, band):
+    """Samples of a bilinear zeros-padded warp with a weighted corner row
+    that the band of ``band`` rows does not hold (it reads the band's edge
+    row instead)."""
+    from fsnet_tpu_torch.ops import warp_fast as twf
+
+    x, y = twf.unnormalize(grid[..., 0], W), twf.unnormalize(grid[..., 1], H)
+    iw = twf.indices_and_weights(x, y, H, W, band, "bilinear", "zeros")
+    y0 = torch.floor(y)
+    miss = (((iw["r0"] != y0.clamp(0, H - 1)) & (iw["wy0"] != 0))
+            | ((iw["r1"] != (y0 + 1).clamp(0, H - 1)) & (iw["wy1"] != 0)))
+    return int(miss.sum().item())
+
+
+def check_dcn_kernels(scene):
+    """Phase 23: kernels E and K against their plain versions at the 16 DCN
+    shapes. Returns the max errors, per-shape rows and the cotangents the
+    timings reuse."""
+    from fsnet_tpu_torch.ops import warp_fast as twf
+
+    errs = dict(warp_grid_fwd=0.0, warp_grid_bwd=0.0)
+    rows, cots = [], []
+    tot = dict(samples=0, misses=0)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    for i, (m, x, grid) in enumerate(scene):
+        _, H, W, C = x.shape
+        band = min(DLA_BAND, H)
+        out = twf.grid_band_fwd(x, grid, "bilinear", "zeros", band)
+        g = torch.randn(out.shape, device="cuda", generator=gen)
+        got = twf.grid_band_bwd(x, grid, g, "bilinear", "zeros", band)
+        torch.cuda.synchronize()
+        ref = twf.grid_band_plain(x, grid, "bilinear", "zeros", band,
+                                  False)[0]
+        e_fwd = rel_err(out, ref)[0]
+        del ref
+        refs = twf.grid_band_bwd_plain(x, grid, g, "bilinear", "zeros", band)
+        e_bwd = [rel_err(a, r) for a, r in zip(got, refs)]
+        del refs, got
+        misses = band_misses(grid, H, W, band)
+        tot["samples"] += grid[..., 0].numel()
+        tot["misses"] += misses
+        row = dict(input=list(x.shape), cout=m.weight.shape[-1],
+                   grid=list(grid.shape), band=band,
+                   fwd_max_abs_err=e_fwd,
+                   bwd_rel_err=[e[1] for e in e_bwd], band_misses=misses,
+                   samples=grid[..., 0].numel())
+        rows.append(row)
+        errs["warp_grid_fwd"] = max(errs["warp_grid_fwd"], e_fwd)
+        errs["warp_grid_bwd"] = max(errs["warp_grid_bwd"],
+                                    *(e[0] for e in e_bwd))
+        print(f"check DCN {i:2d} {tuple(x.shape)} -> {row['cout']}: kernel E "
+              f"max abs err {e_fwd:.2e}; kernel K rel err gfx "
+              f"{e_bwd[0][1]:.2e} gfy {e_bwd[1][1]:.2e} dimage "
+              f"{e_bwd[2][1]:.2e}; {misses} of {row['samples']} samples "
+              f"outside the band of {band}")
+        check(e_fwd <= 1e-6, f"DCN {i}: kernel E max abs err {e_fwd:.2e}")
+        check(all(e[1] <= 1e-5 for e in e_bwd),
+              f"DCN {i}: kernel K rel errs {[e[1] for e in e_bwd]} > 1e-5")
+        cots.append(g)
+    share = tot["misses"] / tot["samples"]
+    print(f"DCN samples outside the band of {DLA_BAND} rows: {tot['misses']}"
+          f" of {tot['samples']} ({share:.4%})")
+    return errs, rows, cots, dict(tot, share=share)
+
+
+def train_mode_spread(batch, H=HEIGHT, W=WIDTH):
+    """A reading, not a gate: the train-mode DLA step (batch statistics) on
+    the card against the CPU port, and the CPU port's float32 step against
+    its float64 step. At random init float32 rounding alone moves this
+    step's gradient by several percent (the bilinear warp's and ReLU's
+    kinks, where float32 and float64 pick different sides;
+    ``scripts/dla_conditioning.py``), so only the loss is held, to 1e-4."""
+    from fsnet_tpu_torch.entry import dla_model
+
+    l_card, g_card, _ = one_step(dla_model, batch, "cuda", H, W)
+    l_cpu, g_cpu, _ = one_step(dla_model, batch, "cpu", H, W)
+    l64, g64, _ = one_step(dla_model, batch, "cpu", H, W, torch.float64)
+    out = dict(loss_rel=abs(l_card - l_cpu) / abs(l_cpu),
+               grad_rel_l2=grad_rel_l2(g_card, g_cpu),
+               card_vs_f64_grad_rel_l2=grad_rel_l2(g_card, g64),
+               cpu_f32_vs_f64_loss_rel=abs(l_cpu - l64) / abs(l64),
+               cpu_f32_vs_f64_grad_rel_l2=grad_rel_l2(g_cpu, g64))
+    print(f"reading: DLA train step in train mode bs2@{H}x{W}, card vs CPU "
+          f"port: loss rel {out['loss_rel']:.2e}, global grad rel-L2 "
+          f"{out['grad_rel_l2']:.2e}; card vs CPU float64 "
+          f"{out['card_vs_f64_grad_rel_l2']:.2e}; CPU float32 vs float64: "
+          f"loss rel {out['cpu_f32_vs_f64_loss_rel']:.2e}, global grad rel-L2"
+          f" {out['cpu_f32_vs_f64_grad_rel_l2']:.2e}")
+    check(out["loss_rel"] <= 1e-4, f"DLA train mode: card vs CPU loss rel "
+          f"{out['loss_rel']:.2e} > 1e-4")
+    return out
+
+
+def dla_phases(counters, record):
+    """Phases 23-26. Returns the kernel line's entry of kernel K and E's
+    numbers on the DLA path."""
+    import torch.nn.functional as F
+
+    from fsnet_tpu_torch.entry import (dla_batch, dla_model,
+                                       flagship_optimizer)
+    from fsnet_tpu_torch.ops import warp_fast as twf
+    from fsnet_tpu_torch.runtime.state import make_eval_step, make_train_step
+
+    B, H, W = BATCH, HEIGHT, WIDTH
+    size = f"bs{B}@{H}x{W}"
+    batch = dla_batch(B, H, W)
+    on_card = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    model = dla_model(H, W, device="cuda", seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+
+    # 23. kernels E and K against their plain versions at the DCN shapes
+    scene = dcn_scene(model, on_card["image/0"])
+    check(len(scene) == 16, f"{len(scene)} deformable convs, expected 16")
+    errs, rows, cots, band = check_dcn_kernels(scene)
+    record["dla_dcn_shapes"] = rows
+    record["dla_band"] = band
+
+    # 24. serving: the train=False forward
+    eval_step = make_eval_step("cuda")
+    zero(counters)
+    pred = eval_step(model, batch)["features"]
+    torch.cuda.synchronize()
+    counts = read(counters)
+    want_eval = {k: 0 for k in counts}
+    want_eval["warp_grid_fwd"] = len(scene)
+    check(counts == want_eval, f"DLA forward launches {counts}, expected "
+          f"{want_eval}")
+    check(tuple(pred.shape) == (B, H // 4, W // 4, 64)
+          and bool(torch.isfinite(pred).all()),
+          f"DLA output {tuple(pred.shape)}, finite "
+          f"{bool(torch.isfinite(pred).all())}")
+    print(f"DLA path: forward {size} f32 ({n_params} parameters), launches "
+          f"{counts}, output {tuple(pred.shape)} in "
+          f"[{pred.min().item():.4f}, {pred.max().item():.4f}]")
+    record["dla_forward"] = dict(launches=counts, params=n_params)
+
+    # 25. three train steps, then one at bs2 on the card against the CPU
+    opt, _ = flagship_optimizer(model)
+    want = dict(want_eval, warp_grid_bwd=len(scene))
+    record["dla_path"] = drive_steps(model, opt, batch, counters, want,
+                                     "DLA train path", size=size)
+    small = {k: v[:2] for k, v in batch.items()}
+    record["dla_card_vs_cpu"] = card_vs_cpu(
+        functools.partial(dla_model, norm_frozen=True), small,
+        "DLA train step, BN on its init statistics")
+    record["dla_train_mode_spread"] = train_mode_spread(small)
+
+    # 26. timings: kernels E and K per step, then (the scene freed, so the
+    # peak is the step's own) the step and the forward
+    t = {k: dict(ms=0.0, plain_ms=0.0, ops=0.0, nbytes=0.0, yard_ms=0.0)
+         for k in ("warp_grid_fwd", "warp_grid_bwd")}
+    for (m, x, grid), g in zip(scene, cots):
+        _, Hi, Wi, C = x.shape
+        band = min(DLA_BAND, Hi)
+        N = grid.shape[0]
+        px = grid[..., 0].numel()
+        src = x.permute(0, 3, 1, 2).repeat(N // x.shape[0], 1, 1, 1)
+        gc = g.permute(0, 3, 1, 2)
+        # operations per sample: corners and weights 20; per channel the
+        # blend 6 (E), and 10 for va and vb, 4 for the sums against g and
+        # 6 for the four scattered products (K)
+        for k, fn, plain, ops, nbytes, yard in (
+                ("warp_grid_fwd",
+                 lambda: twf.grid_band_fwd(x, grid, "bilinear", "zeros", band),
+                 lambda: twf.grid_band_plain(x, grid, "bilinear", "zeros",
+                                             band, False),
+                 px * (20.0 + 6.0 * C),
+                 4.0 * (x.numel() + grid.numel() + px * C),
+                 lambda: F.grid_sample(src, grid, mode="bilinear",
+                                       padding_mode="zeros",
+                                       align_corners=True)),
+                ("warp_grid_bwd",
+                 lambda: twf.grid_band_bwd(x, grid, g, "bilinear", "zeros",
+                                           band),
+                 lambda: twf.grid_band_bwd_plain(x, grid, g, "bilinear",
+                                                 "zeros", band),
+                 px * (20.0 + 20.0 * C),
+                 4.0 * (2 * x.numel() + grid.numel() + px * C + 2 * px),
+                 lambda: torch.ops.aten.grid_sampler_2d_backward(
+                     gc, src, grid, 0, 0, True, [True, True]))):
+            t[k]["ms"] += cuda_ms(fn, iters=10)
+            t[k]["plain_ms"] += cuda_ms(plain, iters=2, warmup=1)
+            t[k]["yard_ms"] += cuda_ms(yard, iters=10)
+            t[k]["ops"] += ops
+            t[k]["nbytes"] += nbytes
+        del src, gc
+    del scene, cots, m, x, grid, g, pred
+    step = make_train_step("cuda")
+    n_steps = 10
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 1e9
+    for _ in range(2):
+        step(model, opt, on_card)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        step(model, opt, on_card)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_steps * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    fwd = cuda_ms(lambda: eval_step(model, on_card), iters=10)
+    record["dla_step"] = dict(bs=B, ms=ms, imgs_per_s=B / ms * 1e3,
+                              peak_mem_gb=peak, held_before_gb=held,
+                              forward_ms=fwd,
+                              forward_imgs_per_s=B / fwd * 1e3)
+    print(f"dla_step {size} f32 (mean of {n_steps}, batch on the card): "
+          f"{ms:.3f} ms = {B / ms * 1e3:.2f} imgs/s (peak memory "
+          f"{peak:.3f} GB, {held:.3f} GB of it allocated before the first "
+          "step: the model, its optimizer state, the batch and what earlier "
+          f"phases hold); forward {fwd:.3f} ms = {B / fwd * 1e3:.2f} imgs/s")
+
+    for k in t:
+        t[k]["bound_ms"], t[k]["bound_by"] = ms_bound(t[k]["ops"],
+                                                      t[k]["nbytes"])
+    launches = record["dla_path"]["launches"]
+    tk = t["warp_grid_bwd"]
+    kernel_k = dict(
+        name="warp_grid_bwd", route="cuda",
+        source="fsnet_tpu_torch/csrc/warp_grad.cu",
+        replaces="fsnet_tpu/ops/pallas/warp_kernel.py:815 + "
+                 "warp_kernel.py:1169",
+        launches=launches["warp_grid_bwd"],
+        max_abs_err=errs["warp_grid_bwd"], ms=tk["ms"],
+        plain_ms=tk["plain_ms"], bound_ms=tk["bound_ms"],
+        bound_by=tk["bound_by"], library_ms=None,
+        grid_sampler_2d_backward_ms=tk["yard_ms"],
+        note=f"sums over the 16 DCNs of one {size} step (9 taps each as one "
+             f"grid batch of 9 x {B}), bilinear, zeros, band {DLA_BAND}, "
+             "float32; launches: 3 steps of the DLA path (phase 25); "
+             "grid_sampler_2d_backward_ms: torch's exact backward (no band) "
+             "on the inputs tiled to the grid batch, a yardstick only")
+    te = t["warp_grid_fwd"]
+    e_dla = dict(dla_launches=launches["warp_grid_fwd"],
+                 dla_max_abs_err=errs["warp_grid_fwd"], dla_ms=te["ms"],
+                 dla_plain_ms=te["plain_ms"], dla_bound_ms=te["bound_ms"],
+                 dla_bound_by=te["bound_by"], dla_grid_sample_ms=te["yard_ms"])
+    for name, e in (("K (bwd)", tk), ("E (fwd)", te)):
+        print(f"time  DLA kernel {name} summed over 16 DCNs: {e['ms']:.4f} ms"
+              f"  plain {e['plain_ms']:.4f} ms  bound {e['bound_ms']:.4f} ms"
+              f" ({e['bound_by']})  yardstick {e['yard_ms']:.4f} ms  "
+              "library none")
+    return kernel_k, e_dla
+
+
 # operations per pixel-channel of the photometric loss: the forward pools
 # three quantities (54), the SSIM terms (17), the clip, L1 and channel sums
 # (about 9); the cotangent adds the partials (35) and the adjoint of three
@@ -1529,9 +1854,17 @@ def main() -> int:
     # 22. the photometric loss kernels at both recipes
     photo_kernels = photo_phases(record, train, fish)
 
+    # 23-26. the DLA-34 + DLASegUpsample path: deformable convs (E, K)
+    kernel_k, e_dla = dla_phases(counters, record)
+    for e in grid_kernels:
+        if e["name"] == "warp_grid_fwd":
+            e.update(e_dla)
+            e["note"] += ("; dla_*: the 16 DCNs of one bs12 @192x640 DLA "
+                          "step (phases 23-26), launches over its 3 steps")
+
     print(json.dumps(record))
     print(json.dumps({"kernels": [kernel] + train["kernels"] + grid_kernels
-                      + mei_kernels + photo_kernels}))
+                      + mei_kernels + photo_kernels + [kernel_k]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

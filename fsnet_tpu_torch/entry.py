@@ -13,7 +13,9 @@ with the same depth net, a ResNet-18 pose encoder over frame pairs (six
 input channels) and a ``PoseDecoder`` for two frames. The fisheye model is
 the flagship with the ``FishEyeDecoder`` head of
 ``configs/kitti360_fisheye_example.py`` (depth 0.1-150, band 16). All are
-built through the builder.
+built through the builder. The DLA model is ``dlanet(34)`` under
+``DLASegUpsample`` (the composition of ``tests/test_backbones.py:114-125``),
+trained on the sum of its output weighted by a seeded tensor.
 """
 from __future__ import annotations
 
@@ -22,6 +24,9 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .models.backbones.dla_utils import ModulatedDeformConvPack
+from .models.blocks import init_params
+from .models.meta_archs.base_meta import BaseMetaArch
 from .utils.builder import build
 from .utils.device import DeviceLike, resolve_device
 from .utils.keys import encode_batch
@@ -246,3 +251,90 @@ def flagship_optimizer(model: torch.nn.Module, steps_per_epoch: int = 1000):
                            dict(name="StepLR", step_size=8),
                            steps_per_epoch=steps_per_epoch,
                            clip_gradients=1.0)
+
+
+DLA_CHANNELS = (16, 32, 64, 128, 256, 512)
+
+
+class DLAUpsampleNet(BaseMetaArch):
+    """A DLA trunk under ``DLASegUpsample`` (NHWC image in, the head's map at
+    1/``down_ratio`` resolution out). Training minimises
+    ``sum(out * batch['target_weight'])`` with BN in train mode; serving
+    returns ``{'features': out}``."""
+
+    def __init__(self, trunk_cfg: Dict, head_cfg: Dict):
+        super().__init__()
+        self.trunk = build(**dict(trunk_cfg))
+        self.head = build(**dict(head_cfg))
+
+    def dummy_forward(self, image: torch.Tensor,
+                      train: bool = False) -> torch.Tensor:
+        return self.head(self.trunk(image, train=train), train=train)
+
+    def forward_train(self, data: Dict, meta: Dict,
+                      noise: Optional[torch.Tensor] = None) -> Dict:
+        out = self.dummy_forward(data["image/0"], train=True)
+        return dict(loss=(out * data["target_weight"]).sum(), loss_dict={})
+
+    def forward_test(self, data: Dict, meta: Dict) -> Dict:
+        return dict(features=self.dummy_forward(data["image/0"]))
+
+
+def dla_config(norm_frozen: bool = False) -> Dict:
+    """``dlanet(34, out_indices=(0, ..., 5))`` and
+    ``DLASegUpsample(input_channels=(16, 32, 64, 128, 256, 512),
+    down_ratio=4, last_level=5)``: 16 deformable convs, all 3x3, stride 1,
+    band 8, zeros padding. ``norm_frozen`` keeps every BN on its running
+    statistics in training too (the trunk's ``norm_eval``, the head's
+    ``norm_frozen``)."""
+    return dict(
+        trunk_cfg=dict(name="fsnet_tpu_torch.models.backbones.dla.dlanet",
+                       depth=34, out_indices=(0, 1, 2, 3, 4, 5),
+                       norm_eval=norm_frozen),
+        head_cfg=dict(
+            name="fsnet_tpu_torch.models.backbones.dla_utils.DLASegUpsample",
+            input_channels=DLA_CHANNELS, down_ratio=4, last_level=5,
+            norm_frozen=norm_frozen),
+    )
+
+
+def perturb_offsets(model: torch.nn.Module, std: float, seed: int) -> None:
+    """Overwrite the kernel of every deformable conv's ``conv_offset`` (in
+    module order) with numpy ``RandomState(seed)`` normals scaled by
+    ``std / sqrt(fan_in)``: the offset conv is zero at init, so every DCN
+    would be a plain conv at integer positions with masks of 0.5. With
+    this, on the DLA's train-mode activations (mean square 0.5 to 1.2), the
+    offsets spread by 0.6 to 1.1 ``std`` pixels and the masks move off
+    0.5."""
+    rng = np.random.RandomState(seed)
+    for m in model.modules():
+        if isinstance(m, ModulatedDeformConvPack):
+            w = m.conv_offset.weight
+            scale = std / np.sqrt(w[0].numel())
+            with torch.no_grad():
+                w.copy_(torch.from_numpy(rng.randn(*w.shape) * scale))
+
+
+def dla_model(height: int, width: int, device: DeviceLike = "cuda",
+              seed: int = 0, offset_std: float = 1.5,
+              norm_frozen: bool = False) -> DLAUpsampleNet:
+    """The DLA model of :func:`dla_config` with seeded random weights and
+    the offset convs perturbed (:func:`perturb_offsets`) on ``device``. The
+    size is the batch's; the model takes any input whose sides divide by
+    32."""
+    dev = resolve_device(device)
+    model = DLAUpsampleNet(**dla_config(norm_frozen))
+    init_params(model, torch.Generator().manual_seed(seed))
+    perturb_offsets(model, offset_std, seed)
+    return model.to(dev)
+
+
+def dla_batch(batch: int, height: int, width: int) -> Dict:
+    """The DLA model's batch, float32 numpy from ``RandomState(0)``:
+    ``'image/0'`` [batch, height, width, 3] and ``'target_weight'``
+    [batch, height/4, width/4, 64] (the loss's weights), both uniform in
+    [0, 1)."""
+    rng = np.random.RandomState(0)
+    return {"image/0": rng.rand(batch, height, width, 3).astype(np.float32),
+            "target_weight": rng.rand(batch, height // 4, width // 4,
+                                      DLA_CHANNELS[2]).astype(np.float32)}

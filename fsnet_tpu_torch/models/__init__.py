@@ -1,4 +1,5 @@
 from . import blocks
+from .backbones.dla import DLA, dlanet
 from .backbones.resnet import ResNet, resnet
 from .heads.depth_decoder import DepthDecoder, MultiChannelDepthDecoder
 from .heads.fisheye_decoder import FishEyeDecoder
@@ -9,7 +10,7 @@ from .meta_archs.monodepth2_model import (MonoDepthInference, MonoDepthMeta,
                                           MonoDepthWPose)
 
 __all__ = [
-    "blocks", "ResNet", "resnet", "DepthDecoder", "MultiChannelDepthDecoder",
+    "blocks", "DLA", "dlanet", "ResNet", "resnet", "DepthDecoder", "MultiChannelDepthDecoder",
     "FishEyeDecoder", "MonoDepth2Decoder", "PoseDecoder", "BaseMetaArch",
     "MonoDepthInference", "MonoDepthMeta", "MonoDepthWPose",
 ]

@@ -65,22 +65,23 @@ class BatchNorm(nn.Module):
 
 class Conv(nn.Module):
     """Convolution on NHWC tensors (counterpart of the flax ``nn.Conv`` the
-    JAX encoder and pose decoder use), bias-free unless ``bias``. The weight
-    is OIHW, PyTorch's layout; the call runs ``F.conv2d`` on a channels-last
-    view, so no copy is made."""
+    JAX encoder and pose decoder use), bias-free unless ``bias``, grouped
+    with ``groups``. The weight is OIHW, PyTorch's layout; the call runs
+    ``F.conv2d`` on a channels-last view, so no copy is made."""
 
     def __init__(self, in_features: int, out_features: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, dilation: int = 1,
-                 bias: bool = False):
+                 bias: bool = False, groups: int = 1):
         super().__init__()
         self.stride, self.padding, self.dilation = stride, padding, dilation
-        self.weight = nn.Parameter(torch.empty(out_features, in_features,
-                                               kernel_size, kernel_size))
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(
+            out_features, in_features // groups, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
-                     self.stride, self.padding, self.dilation)
+                     self.stride, self.padding, self.dilation, self.groups)
         return y.permute(0, 2, 3, 1)
 
 
@@ -208,7 +209,9 @@ def _lecun_normal_(t: torch.Tensor, fan_in: int,
 
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
     """Initialise every conv and BatchNorm under ``module`` as flax's
-    defaults would, drawing only from ``generator``."""
+    defaults would, then every module with its own initialiser
+    (``init_own_params``, as a JAX module with its own initializers), drawing
+    only from ``generator``."""
     for m in module.modules():
         if isinstance(m, Conv):
             _lecun_normal_(m.weight, m.weight[0].numel(), generator)
@@ -222,3 +225,6 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
             nn.init.zeros_(m.bias)
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
+    for m in module.modules():
+        if hasattr(m, "init_own_params"):
+            m.init_own_params(generator)

@@ -8,8 +8,12 @@ takes); no JAX import is needed. Names map one to one:
 * a module scope ``a/b/c`` is the submodule ``a.b.c``; the inner ``bn``
   scope of the JAX ``BatchNorm`` wrapper is dropped;
 * ``kernel`` -> ``weight``, transposed HWIO -> OIHW where the port's module
-  is a :class:`~fsnet_tpu_torch.models.blocks.Conv` (the decoder's
-  ``Conv3x3`` keeps HWIO, the layout its kernel reads);
+  is a :class:`~fsnet_tpu_torch.models.blocks.Conv` (grouped and dilated
+  ones too; the decoder's ``Conv3x3`` keeps HWIO, the layout its kernel
+  reads, and the DLA head's grouped deconv its [k, k, 1, C]);
+* a module whose flax leaf keeps another name than ``kernel`` says so in
+  its ``flax_leaves`` (the deformable conv's own ``weight`` [K, K, Cin,
+  Cout] stays ``weight``, HWIO);
 * BN ``scale``/``bias`` -> ``weight``/``bias``, ``mean``/``var`` ->
   ``running_mean``/``running_var``.
 
@@ -30,6 +34,7 @@ from .blocks import BatchNorm, Conv
 
 _LEAF = {
     ("params", "kernel"): "weight",
+    ("params", "weight"): "weight",
     ("params", "bias"): "bias",
     ("params", "scale"): "weight",
     ("batch_stats", "mean"): "running_mean",
@@ -105,8 +110,10 @@ _INVERSE = {
 def flax_path(model: nn.Module, key: str) -> Tuple[str, Tuple[str, ...]]:
     """(collection, path) of the flax leaf of the port tensor ``key``."""
     scope, leaf = key.rsplit(".", 1)
-    is_bn = isinstance(model.get_submodule(scope), BatchNorm)
+    module = model.get_submodule(scope)
+    is_bn = isinstance(module, BatchNorm)
     collection, name = _INVERSE[is_bn][leaf]
+    name = getattr(module, "flax_leaves", {}).get(leaf, name)
     return collection, tuple(scope.split(".")) + (("bn",) if is_bn else ()) \
         + (name,)
 

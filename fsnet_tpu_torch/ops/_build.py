@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library under ``build/kernels/``
 at the root of the checkout (git-ignored). The library's file name carries a
-hash of the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded. :func:`build_all` compiles every missing library
-with one ``nvcc`` process per source, all started together; :func:`load`
-builds on first use. Nothing here runs at import time.
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header is rebuilt and a stale library is never loaded.
+:func:`build_all` compiles every missing library with one ``nvcc`` process
+per source, all started together; :func:`load` builds on first use.
+Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -21,8 +22,8 @@ from typing import Dict, Iterable
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("conv3x3", "conv3x3_dw", "warp_depth", "warp_grid", "warp_mei",
-           "photo_loss")
+SOURCES = ("conv3x3", "conv3x3_dw", "warp_depth", "warp_grid", "warp_grad",
+           "warp_mei", "photo_loss")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,8 +46,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for src in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 

@@ -10,15 +10,20 @@ source rows are clamped into the band. This is the band-4 warp that the JAX
 flagship trains with, not an exact ``grid_sample``: a sample whose rows
 leave the band reads the band's edge row.
 
-:func:`grid_sample` (``impl='band'``) is differentiable in the grid only,
-as in the JAX package: the image cotangent is zero, a nearest warp's grid
-cotangent is zero, and a bilinear warp's comes from ``va = d out/d fx`` and
+:func:`grid_sample` (``impl='band'``) is differentiable in the grid, and
+with ``image_grad`` in the image too, as in the JAX package. Without
+``image_grad`` the image cotangent is zero, a nearest warp's grid cotangent
+is zero, and a bilinear warp's comes from ``va = d out/d fx`` and
 ``vb = d out/d fy``, which the forward emits. On a CUDA device the forward
 is ``csrc/warp_grid.cu`` (kernel E, :func:`grid_band_fwd`; under grad a
 bilinear warp takes kernel F, :func:`grid_band_fused`, which also writes
 ``va`` and ``vb``); on the CPU their plain versions, :func:`grid_band_plain`.
-Warp ``n`` of a grid batch ``N`` reads image ``n mod M`` of an image batch
-``M`` that divides it; nothing is tiled.
+With ``image_grad`` (the deformable conv) the forward is kernel E and the
+backward recomputes both cotangents from the image: ``csrc/warp_grad.cu``
+(kernel K, :func:`grid_band_bwd`; plain version
+:func:`grid_band_bwd_plain`). Warp ``n`` of a grid batch ``N`` reads image
+``n mod M`` of an image batch ``M`` that divides it, and its image
+cotangent goes to image ``n mod M``; nothing is tiled.
 """
 from __future__ import annotations
 
@@ -133,15 +138,16 @@ def grid_band_plain(image: torch.Tensor, grid: torch.Tensor, mode: str,
     return band_sample(image, src, iw, with_vjp)
 
 
-def _launch(fn: str, image, grid, outs, band, flags):
+def _launch(lib: str, fn: str, image, grid, tensors, band, flags):
     M, H, W, C = image.shape
     N, Ho, Wo, _ = grid.shape
-    n_ptr = 2 + len(outs)
+    n_ptr = 2 + len(tensors)
     with torch.cuda.device(image.device):
-        err = _entry("warp_grid", fn, tuple(range(n_ptr)),
+        err = _entry(lib, fn, tuple(range(n_ptr)),
                      n_ptr + 8 + len(flags) + 1)(
-            image.data_ptr(), grid.data_ptr(), *(t.data_ptr() for t in outs),
-            M, N, H, W, C, Ho, Wo, band, *flags, _stream(image))
+            image.data_ptr(), grid.data_ptr(),
+            *(t.data_ptr() for t in tensors), M, N, H, W, C, Ho, Wo, band,
+            *flags, _stream(image))
     _raise_on(err, fn)
 
 
@@ -153,7 +159,7 @@ def grid_band_fwd(image: torch.Tensor, grid: torch.Tensor, mode: str,
         return grid_band_plain(image, grid, mode, padding, band, False)[0]
     out = torch.empty((*grid.shape[:3], image.shape[3]), dtype=torch.float32,
                       device=image.device)
-    _launch("fsnet_warp_grid_fwd", image, grid, (out,), band,
+    _launch("warp_grid", "fsnet_warp_grid_fwd", image, grid, (out,), band,
             (int(mode == "nearest"), int(padding == "zeros")))
     grid_band_fwd.launches += 1
     return out
@@ -169,10 +175,58 @@ def grid_band_fused(image: torch.Tensor, grid: torch.Tensor, padding: str,
     out, va, vb = (torch.empty((*grid.shape[:3], image.shape[3]),
                                dtype=torch.float32, device=image.device)
                    for _ in range(3))
-    _launch("fsnet_warp_grid_fused", image, grid, (out, va, vb), band,
-            (int(padding == "zeros"),))
+    _launch("warp_grid", "fsnet_warp_grid_fused", image, grid, (out, va, vb),
+            band, (int(padding == "zeros"),))
     grid_band_fused.launches += 1
     return out, va, vb
+
+
+def grid_band_bwd_plain(image: torch.Tensor, grid: torch.Tensor,
+                        g: torch.Tensor, mode: str, padding: str, band: int):
+    """Plain version of kernel K: the cotangents of the warp for the output
+    cotangent ``g`` [N, Ho, Wo, C]. Returns (gfx, gfy, dimage): gfx =
+    sum_c g va and gfy = sum_c g vb [N, Ho, Wo] (``va``, ``vb`` recomputed
+    from the image as :func:`band_sample` blends them), and dimage
+    [M, H, W, C], the transpose of the forward: ``(g wy) wx`` added into
+    the four band-clamped corners of image ``n mod M``."""
+    M, H, W, C = image.shape
+    iw = indices_and_weights(unnormalize(grid[..., 0], W),
+                             unnormalize(grid[..., 1], H), H, W, band, mode,
+                             padding)
+    src = torch.arange(grid.shape[0], device=image.device) % M
+    _, va, vb = band_sample(image, src, iw)
+    dimage = torch.zeros_like(image)
+    flat = dimage.view(M * H * W, C)
+    base = src.view(-1, 1, 1) * H
+    for r, wy in ((iw["r0"], iw["wy0"]), (iw["r1"], iw["wy1"])):
+        gy = g * wy[..., None].to(g.dtype)
+        for c, wx in ((iw["x0c"], iw["wx0"]), (iw["x1c"], iw["wx1"])):
+            flat.index_add_(0, ((base + r) * W + c).reshape(-1),
+                            (gy * wx[..., None].to(g.dtype)).reshape(-1, C))
+    return (g * va).sum(-1), (g * vb).sum(-1), dimage
+
+
+def grid_band_bwd(image: torch.Tensor, grid: torch.Tensor, g: torch.Tensor,
+                  mode: str, padding: str, band: int):
+    """Both cotangents of the warp (kernel K on a CUDA device): (gfx, gfy,
+    dimage) as :func:`grid_band_bwd_plain` gives them."""
+    _check(image, grid, mode, padding, band)
+    if g.shape != (*grid.shape[:3], image.shape[3]) or \
+            g.dtype != image.dtype or g.device != image.device or \
+            not g.is_contiguous():
+        raise ValueError(f"grid warp backward: cotangent {tuple(g.shape)} "
+                         f"{g.dtype} does not fit the warp of image "
+                         f"{tuple(image.shape)} by grid {tuple(grid.shape)}")
+    if not _route(image, "grid_band_bwd"):
+        return grid_band_bwd_plain(image, grid, g, mode, padding, band)
+    gfx, gfy = (torch.empty(grid.shape[:3], dtype=torch.float32,
+                            device=image.device) for _ in range(2))
+    dimage = torch.zeros_like(image)
+    _launch("warp_grad", "fsnet_warp_grid_bwd", image, grid,
+            (g, gfx, gfy, dimage), band,
+            (int(mode == "nearest"), int(padding == "zeros")))
+    grid_band_bwd.launches += 1
+    return gfx, gfy, dimage
 
 
 def _chain_to_grid(grid: torch.Tensor, gfx: torch.Tensor, gfy: torch.Tensor,
@@ -190,47 +244,66 @@ def _chain_to_grid(grid: torch.Tensor, gfx: torch.Tensor, gfy: torch.Tensor,
 
 
 class GridSampleBand(torch.autograd.Function):
-    """Forward: the warp (kernel F when the grid needs a bilinear
-    cotangent, else kernel E). Backward: the grid cotangent only."""
+    """Forward: the warp (kernel F when the grid needs a bilinear cotangent
+    and the image none, else kernel E). Backward: the grid cotangent from
+    F's va/vb, or with ``image_grad`` both cotangents from kernel K."""
 
     @staticmethod
-    def forward(ctx, image, grid, mode, padding, band):
-        ctx.mode, ctx.padding = mode, padding
+    def forward(ctx, image, grid, mode, padding, band, image_grad):
+        ctx.mode, ctx.padding, ctx.band = mode, padding, band
+        ctx.image_grad = image_grad
         ctx.hw = image.shape[1:3]
-        if mode == "bilinear" and ctx.needs_input_grad[1]:
+        if image_grad:
+            ctx.save_for_backward(image, grid)
+        elif mode == "bilinear" and ctx.needs_input_grad[1]:
             out, va, vb = grid_band_fused(image, grid, padding, band)
             ctx.save_for_backward(grid, va, vb)
             return out
-        ctx.save_for_backward(grid)
+        else:
+            ctx.save_for_backward(grid)
         return grid_band_fwd(image, grid, mode, padding, band)
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.mode == "nearest":
-            (grid,) = ctx.saved_tensors
-            return None, torch.zeros_like(grid), None, None, None
-        grid, va, vb = ctx.saved_tensors
+        if not (ctx.image_grad or ctx.needs_input_grad[1]):
+            return (None,) * 6
         H, W = ctx.hw
-        gfx = (g * va).sum(-1)
-        gfy = (g * vb).sum(-1)
-        return (None, _chain_to_grid(grid, gfx, gfy, H, W, ctx.padding),
-                None, None, None)
+        dimage = None
+        if ctx.image_grad:
+            image, grid = ctx.saved_tensors
+            gfx, gfy, dimage = grid_band_bwd(image, grid, g.contiguous(),
+                                             ctx.mode, ctx.padding, ctx.band)
+        elif ctx.mode == "bilinear":
+            grid, va, vb = ctx.saved_tensors
+            gfx = (g * va).sum(-1)
+            gfy = (g * vb).sum(-1)
+        else:
+            (grid,) = ctx.saved_tensors
+        dgrid = (torch.zeros_like(grid) if ctx.mode == "nearest" else
+                 _chain_to_grid(grid, gfx, gfy, H, W, ctx.padding))
+        return dimage, dgrid, None, None, None, None
 
 
 def grid_sample(image: torch.Tensor, grid: torch.Tensor,
                 mode: str = "bilinear", padding_mode: str = "border",
-                impl: str = "band", band: int = 16) -> torch.Tensor:
+                impl: str = "band", band: int = 16,
+                image_grad: bool = False) -> torch.Tensor:
     """Band warp of ``image`` [M, H, W, C] by ``grid`` [N, Ho, Wo, 2]
     (``N % M == 0``, align_corners) -> [N, Ho, Wo, C], differentiable in
-    the grid (the image is a constant): the dispatcher of
-    ``warp_fast.grid_sample`` with ``impl='band'``. The exact
-    ``impl='gather'`` warp comes with a later slice."""
+    the grid, and in the image with ``image_grad`` (else the image is a
+    constant): the dispatcher of ``warp_fast.grid_sample`` with
+    ``impl='band'``. The JAX package asserts N == M under ``image_grad``;
+    the port takes any N that M divides (the deformable conv warps its
+    K*K taps as one grid batch), and warp n's image cotangent goes to
+    image n mod M. The exact ``impl='gather'`` warp comes with a later
+    slice."""
     if impl != "band":
         raise NotImplementedError(f"the port's grid_sample runs impl='band', "
                                   f"not {impl!r}")
     return GridSampleBand.apply(image, grid, mode, padding_mode,
-                                min(band, image.shape[1]))
+                                min(band, image.shape[1]), image_grad)
 
 
 grid_band_fwd.launches = 0
 grid_band_fused.launches = 0
+grid_band_bwd.launches = 0

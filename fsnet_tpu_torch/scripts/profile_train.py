@@ -1,7 +1,7 @@
 """Where the time of a train step goes on the card.
 
     python -m fsnet_tpu_torch.scripts.profile_train [--batch 12] [--iters 5]
-        [--model {wpose,learned_pose,fisheye}] [--route {depth,grid}]
+        [--model {wpose,learned_pose,fisheye,dla}] [--route {depth,grid}]
         [--host-batch]
 
 Builds the model (seeded random weights) and the ``bench.py`` recipe (Adam
@@ -10,7 +10,8 @@ lr 1e-4, clip 1.0, StepLR) on the CUDA device with TF32 off: the flagship
 ``MonoDepthMeta`` (``--model learned_pose``, always the grid route), or the
 KITTI-360 fisheye ``MonoDepthWPose`` (``--model fisheye``: ``FishEyeDecoder``
 at 384x384 on the fisheye batch, always its norm-direct route; the recipe's
-batch is 16). The flagship's loss takes the depth-direct route on the
+batch is 16), or ``dlanet(34)`` under ``DLASegUpsample`` (``--model dla``:
+16 deformable convs, kernels E and K, on ``entry.dla_batch``). The flagship's loss takes the depth-direct route on the
 synthetic KITTI-like batch (``--route depth``) and the grid route when the
 batch carries an all-ones ``patched_mask``, as every dataset batch does
 (``--route grid``). Puts the batch on the card (as ``bench.py`` does for the
@@ -20,6 +21,7 @@ fisheye model) in float32 under
 ``torch.profiler`` and prints: the wall time per step and images/s, the
 device's busy and idle share of that window, device time by group (each of
 the port's kernels, the photometric loss's two among them, cuDNN/cuBLAS,
+the deformable convs' image cotangent (kernel K),
 the optimizer's multi-tensor updates, copies, everything else: the rest of
 the loss, the target's SSIM stats, the grid's reprojection, BN, ReLU and
 their gradients), the peak device memory of a step and the kernels with the
@@ -41,6 +43,7 @@ _GROUPS = (
     ("warp_depth_bwd_kernel", "warp backward (kernel B)"),
     ("warp_grid_kernel<true>", "grid warp + va, vb (kernel F)"),
     ("warp_grid_kernel<false>", "grid warp forward (kernel E)"),
+    ("warp_grid_bwd_kernel", "grid warp backward (kernel K)"),
     ("warp_mei_fwd_kernel", "Mei warp + va, vb + overlap (kernel G)"),
     ("warp_mei_bwd_kernel", "Mei norm cotangent (kernel H)"),
     ("photo_loss_fwd_kernel", "photometric loss forward (kernel I)"),
@@ -71,19 +74,18 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=12)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--host-batch", action="store_true")
-    ap.add_argument("--model", choices=("wpose", "learned_pose", "fisheye"),
-                    default="wpose")
+    ap.add_argument("--model", choices=("wpose", "learned_pose", "fisheye",
+                                        "dla"), default="wpose")
     ap.add_argument("--route", choices=("depth", "grid"), default="depth")
     args = ap.parse_args(argv)
     if args.model == "learned_pose" and args.route != "grid":
         ap.error("learned poses take the grid route: pass --route grid")
-    if args.model == "fisheye" and args.route != "depth":
-        ap.error("the fisheye model takes its norm-direct route: leave "
-                 "--route out")
+    if args.model in ("fisheye", "dla") and args.route != "depth":
+        ap.error(f"the {args.model} model has one route: leave --route out")
 
-    from ..entry import (fisheye_batch, fisheye_model, flagship_model,
-                         flagship_optimizer, learned_pose_model,
-                         synthetic_batch)
+    from ..entry import (dla_batch, dla_model, fisheye_batch, fisheye_model,
+                         flagship_model, flagship_optimizer,
+                         learned_pose_model, synthetic_batch)
     from ..runtime.state import make_train_step
 
     # full float32, as chip_smoke.py measures it: no TF32 in cuDNN/cuBLAS
@@ -92,12 +94,13 @@ def main(argv=None) -> None:
     fisheye = args.model == "fisheye"
     H, W, B = (384, 384, args.batch) if fisheye else (192, 640, args.batch)
     build = dict(wpose=flagship_model, learned_pose=learned_pose_model,
-                 fisheye=fisheye_model)[args.model]
+                 fisheye=fisheye_model, dla=dla_model)[args.model]
     model = build(H, W, device="cuda", seed=0)
     opt, _ = flagship_optimizer(model)
     step = make_train_step("cuda")
     mask = "ones" if args.model == "wpose" and args.route == "grid" else None
-    batch = (fisheye_batch(B, H, W) if fisheye
+    batch = (fisheye_batch(B, H, W) if fisheye else dla_batch(B, H, W)
+             if args.model == "dla"
              else synthetic_batch(B, H, W, patched_mask=mask))
     if not args.host_batch:
         batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
@@ -131,7 +134,8 @@ def main(argv=None) -> None:
     where = "from host numpy" if args.host_batch else "on the card"
     lines = [f"{card}; torch {torch.__version__}; train step of "
              f"{args.model}, "
-             f"{'norm-direct' if fisheye else args.route} route, "
+             + ("" if args.model == "dla" else
+                f"{'norm-direct' if fisheye else args.route} route, ") +
              f"bs{B}@{H}x{W} float32, "
              f"batch {where}, {n} steps under torch.profiler",
              f"wall per step {wall_ms / n:.3f} ms ({B * n / wall_ms * 1e3:.2f}"

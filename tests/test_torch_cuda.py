@@ -514,3 +514,123 @@ def test_photo_loss_rejects_what_it_does_not_take(cuda):
         tpl.photo_loss_fwd(pred, target.cpu(), target, target)
     with pytest.raises(ValueError):
         tpl.photo_loss_fwd(pred[:3], target, target, target)
+
+
+@pytest.mark.parametrize("case", [
+    # (M, N, H, W, Ho, Wo, C, mode, padding, band): a DCN's 9 taps against
+    # its inputs (C = 64, 512), ragged shapes, every mode and padding
+    (2, 18, 12, 40, 12, 40, 64, "bilinear", "zeros", 8),
+    (1, 9, 6, 20, 6, 20, 512, "bilinear", "zeros", 6),
+    (2, 4, 16, 128, 12, 100, 3, "bilinear", "border", 4),
+    (3, 6, 9, 33, 9, 33, 2, "nearest", "zeros", 4),
+], ids=lambda c: "-".join(map(str, c)))
+def test_grid_bwd_kernel_matches_plain(cuda, case):
+    """Kernel K against its plain version on the card (gfx, gfy and the
+    image cotangent within 1e-5 of their largest entries: the channel sums
+    and the atomic adds run in other orders), and kernel E on the same
+    image grads' forward (within 1e-6)."""
+    from fsnet_tpu_torch.ops import warp_fast as twf
+
+    M, N, H, W, Ho, Wo, C, mode, padding, band = case
+    g = torch.Generator(device=cuda).manual_seed(10)
+    image, grid = _grid_scene(g, M, N, Ho, Wo, C)
+    image = torch.rand(M, H, W, C, generator=g, device=cuda)
+    cot = torch.randn(N, Ho, Wo, C, generator=g, device=cuda)
+    n_e, n_k = twf.grid_band_fwd.launches, twf.grid_band_bwd.launches
+    out = twf.grid_band_fwd(image, grid, mode, padding, band)
+    got = twf.grid_band_bwd(image, grid, cot, mode, padding, band)
+    torch.cuda.synchronize()
+    assert (twf.grid_band_fwd.launches, twf.grid_band_bwd.launches) == \
+        (n_e + 1, n_k + 1)
+    ref_out = twf.grid_band_plain(image, grid, mode, padding, band, False)[0]
+    assert (out - ref_out).abs().max() <= 1e-6
+    ref = twf.grid_band_bwd_plain(image, grid, cot, mode, padding, band)
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape and a.dtype == r.dtype
+        assert (a - r).abs().max() <= 1e-5 * r.abs().max()
+
+
+def test_grid_bwd_kernel_rejects_what_it_does_not_take(cuda):
+    from fsnet_tpu_torch.ops import warp_fast as twf
+
+    image = torch.rand(2, 8, 16, 3, device=cuda)
+    grid = torch.zeros(4, 8, 16, 2, device=cuda)
+    cot = torch.rand(4, 8, 16, 3, device=cuda)
+    with pytest.raises(TypeError):
+        twf.grid_band_bwd(image.double(), grid.double(), cot.double(),
+                          "bilinear", "zeros", 4)
+    with pytest.raises(ValueError):
+        twf.grid_band_bwd(image, grid, cot.cpu(), "bilinear", "zeros", 4)
+    with pytest.raises(ValueError):
+        twf.grid_band_bwd(image, grid[:3], cot[:3], "bilinear", "zeros", 4)
+
+
+def test_dcn_on_card_matches_cpu(cuda):
+    """One deformable conv (``ModulatedDeformConvPack``, offsets of about
+    1.5 px) forward and backward on the card, through kernels E and K once
+    each, against the port on the CPU from the same weights."""
+    from fsnet_tpu_torch.entry import perturb_offsets
+    from fsnet_tpu_torch.models.backbones.dla_utils import DeformConv
+    from fsnet_tpu_torch.models.blocks import init_params
+    from fsnet_tpu_torch.ops import warp_fast as twf
+
+    x = torch.rand(2, 12, 40, 64, generator=torch.Generator().manual_seed(3))
+    r = torch.rand(2, 12, 40, 32, generator=torch.Generator().manual_seed(4))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        m = DeformConv(64, 32)
+        init_params(m, torch.Generator().manual_seed(0))
+        perturb_offsets(m, 1.5, 0)
+        m.to(dev)
+        xd = x.to(dev).requires_grad_(True)
+        n0 = twf.grid_band_fwd.launches, twf.grid_band_bwd.launches
+        out = m(xd, train=True)
+        (out * r.to(dev)).sum().backward()
+        ran = (twf.grid_band_fwd.launches - n0[0],
+               twf.grid_band_bwd.launches - n0[1])
+        grads = {k: p.grad.cpu() for k, p in m.named_parameters()}
+        grads["x"] = xd.grad.cpu()
+        res[dev] = (out.detach().cpu(), grads, ran)
+    assert res["cuda"][2] == (1, 1) and res["cpu"][2] == (0, 0)
+    a, b = res["cuda"][0], res["cpu"][0]
+    assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+    for k, ref in res["cpu"][1].items():
+        if k == "conv.bias":        # BN cancels it: rounding noise both sides
+            continue
+        got = res["cuda"][1][k]
+        assert (got - ref).norm() <= 1e-4 * ref.norm(), k
+
+
+def test_dla_train_step_on_card_matches_cpu(cuda):
+    """The DLA step at a small size on the card (16 launches of E and 16 of
+    K, nothing else of the port's kernels) against the CPU port, every BN
+    on its init statistics, held to the JAX package's gate between two
+    routes: loss rel 1e-4, global gradient rel-L2 3e-2, every leaf 0.5.
+    (With batch statistics float32 rounding alone moves this gradient by
+    several percent: ``scripts/dla_conditioning.py``.)"""
+    from fsnet_tpu_torch.entry import dla_batch, dla_model
+    from fsnet_tpu_torch.ops import warp_fast as twf
+
+    batch = dla_batch(2, 64, 128)
+    counters = (twf.grid_band_fwd, twf.grid_band_bwd, twf.grid_band_fused)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = dla_model(64, 128, device=dev, seed=0, norm_frozen=True)
+        before = [f.launches for f in counters]
+        data = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        loss = model.forward_train(data, {})["loss"]
+        grads = torch.autograd.grad(loss, list(model.parameters()),
+                                    allow_unused=True)
+        ran = [f.launches - n for f, n in zip(counters, before)]
+        names = [k for k, _ in model.named_parameters()]
+        res[dev] = (loss.item(), {
+            k: g.detach().cpu().double() for k, g in zip(names, grads)
+            if g is not None}, ran)
+    card, cpu = res["cuda"], res["cpu"]
+    assert card[2] == [16, 16, 0] and cpu[2] == [0, 0, 0]
+    assert abs(card[0] - cpu[0]) <= 1e-4 * abs(cpu[0])
+    num = sum(float(((card[1][k] - cpu[1][k]) ** 2).sum()) for k in cpu[1])
+    den = sum(float((cpu[1][k] ** 2).sum()) for k in cpu[1])
+    assert (num / den) ** 0.5 < 3e-2
+    for k, ref in cpu[1].items():
+        assert (card[1][k] - ref).norm() <= 0.5 * ref.norm(), k

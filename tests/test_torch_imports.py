@@ -65,6 +65,14 @@ def test_fisheye_model_without_device_raises():
         fisheye_model(64, 128)
 
 
+def test_dla_model_without_device_raises():
+    _no_cuda()
+    from fsnet_tpu_torch.entry import dla_model
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dla_model(64, 128)
+
+
 def test_eval_step_without_device_raises():
     _no_cuda()
     from fsnet_tpu_torch.runtime.state import make_eval_step
