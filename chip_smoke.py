@@ -3,19 +3,25 @@
 GPU and checks it: the quickest proof that the port starts on the card.
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
+    python3 chip_smoke.py --conv-repeats 500   # phases 8, 17 launch each
+                                               # conv kernel 500 times
 
 Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. builds the kernels from ``fsnet_tpu_torch/csrc`` (nvcc, sm_90a, one
    process per source, all together) and prints the build time and the
-   compiler's register/spill report;
+   compiler's register/spill report; checks that the SASS of both conv
+   libraries holds tensor-core (``HMMA``) and asynchronous-copy
+   (``LDGSTS``) instructions (``cuobjdump -sass``; the run fails where the
+   toolkit has no cuobjdump);
 3. turns TF32 off for matrix products and cuDNN convolutions, so every
    float32 number on the card (the encoder's convs included) is full
    float32;
 4. holds the conv3x3 kernel against its plain version at each of the
    decoder's 14 conv shapes at batch 12 x 192x640, in float32 and bfloat16
-   (max |kernel - plain| / max |plain| <= 1e-4 and 2e-2);
+   (max |kernel - plain| / max |plain| <= 1e-4 and 2e-2), and its bfloat16
+   input cotangent (<= 2e-2);
 5. the eval path: builds the flagship ``MonoDepthWPose`` (ResNet-18 +
    16-bin MultiChannelDepthDecoder, seeded random weights) on the card and
    runs one ``forward_test`` through ``make_eval_step`` at batch 12 x
@@ -26,24 +32,32 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 6. runs the same weights and input at batch 2 on the card and through the
    port on the CPU (plain versions) and compares depth (rel-max <= 1e-3);
 7. times, with CUDA events after warm-up, ``forward_test`` at batch 1
-   (latency) and batch 12 (images/s), and at each conv shape the kernel,
-   its plain version and ``F.conv2d`` (a yardstick only; the port never
-   calls it for these convs);
+   (latency) and batch 12 (images/s), and at each conv shape the kernel
+   beside its two bounds (float32 CUDA cores; 3xTF32 tensor cores, the
+   kernel's route), its plain version and ``F.conv2d`` (cuDNN, the same
+   function at the 5 one-part zero-padded shapes; a yardstick only, the
+   port never calls it for these convs);
 8. holds the training kernels against their plain versions at the shapes
    the train step gives them at batch 12 x 192x640: the conv's moments
-   epilogue at the 10 upconv shapes, the input cotangent (the conv kernel
-   on the flipped weight) and the weight cotangent at all 14 (max error /
+   epilogue at the 10 upconv shapes, the input cotangent (the conv
+   kernel's cotangent mode) and the weight cotangent at all 14 (max error /
    max |plain| <= 2e-5 for out, s2, dx and dw; s1 against the sum of
-   |out|), and the depth-direct warp forward (max abs err <= 1e-6, the
-   overlap equal) and backward (<= 1e-6 relative) at 96 warps (4 scales x
-   2 frames x 12); prints how many samples the TPU kernel's lane-window
-   clamp would have moved there;
+   |out|), each kernel launched 4 times per shape (``--conv-repeats``),
+   the outputs that no atomic add touches (the stored out, dx) bitwise
+   equal launch to launch; a miss saves its inputs and worst elements
+   beside a float64 reference under ``build/conv_faults/`` and prints
+   where it lies; then the depth-direct warp forward (max abs err <= 1e-6,
+   the overlap equal) and backward (<= 1e-6 relative) at 96 warps (4
+   scales x 2 frames x 12); prints how many samples the TPU kernel's
+   lane-window clamp would have moved there;
 9. the train path: ``flagship_model(..., device="cuda")`` with the
    ``bench.py`` recipe (Adam lr 1e-4, clip 1.0, StepLR) and
    ``make_train_step("cuda")``, three steps at batch 12 x 192x640 on the
    synthetic KITTI-like batch, the launch counters set to 0 just before;
-   checks the launches of every kernel per step, a finite loss, and that
-   parameters and BN running statistics changed;
+   checks the launches of every kernel per step (the conv kernel 4 times
+   forward, 10 with moments and 14 times for the input cotangents, one
+   launch per conv for both parts; the weight-cotangent kernel 14), a
+   finite loss, and that parameters and BN running statistics changed;
 10. one train step at batch 2 x 192x640 on the card against the port on the
     CPU from the same weights and batch, held to the JAX package's own
     backward gate between two routes (``scripts/tpu_smoke.py``): loss rel
@@ -56,10 +70,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     by O(1);
 11. times the train step at batch 12 (images/s over 10 steps after
     warm-up; the batch on the card, as ``bench.py`` times the JAX step, and
-    again from host numpy arrays) and each training kernel at its shapes beside its plain
-    version, its bound and, where one PyTorch call computes the same
-    function, that call (cuDNN's conv backward for the single-part
-    zero-padded convs; a yardstick only);
+    again from host numpy arrays) and each training kernel at its shapes
+    beside its plain version, its bound (the conv kernels: both bounds, as
+    phase 7) and, where one PyTorch call computes the same function, that
+    call (cuDNN's conv backward for the single-part zero-padded convs; a
+    yardstick only);
 12. holds the grid warp's kernels against their plain versions at the grid
     route's shapes at batch 12: 96 reprojection grids @192x640 (4 scales x
     2 frames x 12) against the 24 source frames for kernel F (bilinear,
@@ -94,8 +109,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     (all, and those with a valid ray), in how many rows the pixels outside
     the fisheye disc pull the band start down, and how many samples the TPU
     lane-window clamp would move (none can at W = 384), and holds the conv
-    kernels (forward, moments, dx, dw) against
-    their plain versions at the 14 decoder shapes of 384x384, batch 16;
+    kernels (forward, moments, dx, dw) against their plain versions at the
+    14 decoder shapes of 384x384, batch 16, repeated as in phase 8;
 18. ``forward_test`` of ``fisheye_model`` at batch 16 through
     ``make_eval_step``: 14 conv launches and no other kernel, finite
     z-depth, norm and fisheye mask of the right shapes, the norm within
@@ -169,6 +184,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -179,6 +195,10 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # cores, bf16 dense tensor cores, HBM3 bandwidth
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
+# the conv kernels' own route: TF32 dense tensor cores, three products per
+# float32 product (3xTF32), one per bfloat16 product
+PEAK_TF32 = 495e12
+TF32_PRODUCTS = {torch.float32: 3, torch.bfloat16: 1}
 
 def decoder_shapes(H, W):
     """(name, H, W, input part channels, Co, padding) of the decoder's 14
@@ -230,13 +250,54 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 def bound(B, H, W, Cs, Co, dtype):
     """Least time for one conv: max(operations / peak, bytes / bandwidth),
     each input read once and the output written once."""
-    cin = sum(Cs)
-    ops = 2.0 * 9 * B * H * W * cin * Co
-    nbytes = torch.finfo(dtype).bits // 8 * (
-        B * H * W * cin + 9 * cin * Co + Co + B * H * W * Co)
+    ops, nbytes = conv_work(B, H, W, Cs, Co, dtype)
     t_ops, t_bytes = ops / PEAK_OPS[dtype], nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes
             else "bytes", t_ops * 1e3, t_bytes * 1e3)
+
+
+def conv_work(B, H, W, Cs, Co, dtype=torch.float32):
+    """(operations, bytes) of one conv pass: each input read once, the
+    output written once."""
+    cin = sum(Cs)
+    return (2.0 * 9 * B * H * W * cin * Co,
+            torch.finfo(dtype).bits // 8 * (B * H * W * cin + 9 * cin * Co
+                                             + Co + B * H * W * Co))
+
+
+def conv_sass(build):
+    """Phase 2: the conv kernels' SASS must hold tensor-core (HMMA or HGMMA)
+    and asynchronous-copy (LDGSTS or UTMALDG) instructions; counts by
+    library. Fails where the toolkit has no cuobjdump beside nvcc."""
+    import os
+
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    check(os.path.isfile(cuobjdump), f"no cuobjdump beside nvcc "
+          f"({cuobjdump}): the conv kernels' SASS cannot be checked")
+    found = {}
+    for name in ("conv3x3", "conv3x3_dw"):
+        sass = subprocess.run([cuobjdump, "-sass",
+                               str(build.library_path(name))],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        found[name] = {op: sass.count(op) for op in
+                       ("HMMA", "HGMMA", "LDGSTS", "UTMALDG", "FFMA")}
+        print(f"SASS {name}: {found[name]}")
+        check(found[name]["HMMA"] + found[name]["HGMMA"] > 0,
+              f"{name}: no tensor-core instruction in its SASS")
+        check(found[name]["LDGSTS"] + found[name]["UTMALDG"] > 0,
+              f"{name}: no asynchronous copy in its SASS")
+    return found
+
+
+def tc_bound(ops, nbytes, dtype=torch.float32):
+    """(bound ms, what bounds it) of a conv pass on the conv kernels' route:
+    its TF32 tensor-core products at 495 TFLOP/s (three per float32
+    product) against its bytes at the HBM rate."""
+    t_ops = TF32_PRODUCTS[dtype] * ops / PEAK_TF32
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 def conv_inputs(B, H, W, Cs, Co, dtype, seed):
@@ -352,11 +413,77 @@ def warp_scene(batch_np, seed=0):
     return image, depth, make_affine_rows(K, invert_K(K), Ts, S_SCALES)
 
 
-def check_conv_kernels(B, shapes, rows, forward=False):
+# phases 8 and 17 launch each conv kernel this many times per shape
+# (``--conv-repeats``): the outputs no atomic add touches (forward, the
+# moments kernel's stored output, dx) must equal the first launch's bit for
+# bit, and every launch must meet its gate
+REPEATS = 4
+# where a conv kernel's miss leaves its inputs and worst elements (git-ignored)
+FAULT_DIR = Path(__file__).resolve().parent / "build" / "conv_faults"
+
+
+def save_fault(tag, what, inputs, got, first, ref, ref64, gate_abs):
+    """Writes a conv kernel's miss to ``FAULT_DIR/<tag>.pt``: the inputs
+    (when they take under 64 MB), and the 4096 worst elements of ``got``
+    with their indices beside the first launch's (``first``, or None), the
+    float32 plain version and a float64 reference; prints where the worst element lies and which of the two
+    float32 results the float64 one sides with."""
+    d = (got.double() - ref.double()).abs().flatten()
+    worst = d.topk(min(4096, d.numel())).indices
+    r64 = ref64.flatten()[worst]
+    e_got = (got.double().flatten()[worst] - r64).abs().max().item()
+    e_ref = (ref.double().flatten()[worst] - r64).abs().max().item()
+    at = np.unravel_index(int(worst[0]), tuple(got.shape))
+    nbad = int((d > gate_abs).sum().item())
+    print(f"FAULT {tag}: {what}; {nbad} elements over the gate, the worst at "
+          f"{tuple(int(i) for i in at)} of {tuple(got.shape)}; against "
+          f"float64 there: kernel {e_got:.3e}, plain {e_ref:.3e}")
+    rec = dict(what=what, shape=tuple(got.shape), nbad=nbad,
+               index=worst.cpu(), got=got.flatten()[worst].cpu(),
+               ref=ref.flatten()[worst].cpu(), ref64=r64.cpu())
+    if first is not None:
+        rec["first"] = first.flatten()[worst].cpu()
+    if sum(t.numel() * t.element_size() for t in inputs.values()) < 64e6:
+        rec["inputs"] = {k: v.cpu() for k, v in inputs.items()}
+    FAULT_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save(rec, FAULT_DIR / f"{tag}.pt")
+
+
+class Held:
+    """One output of a conv kernel held over repeated launches: each launch
+    against the plain ``ref`` (max |got - ref| over ``scale``, default max
+    |ref|, within ``gate``) and, with ``exact``, bitwise against the first
+    launch. A miss is saved (:func:`save_fault`; ``ref64()`` gives the
+    float64 reference) before the run fails."""
+
+    def __init__(self, tag, ref, gate, exact, inputs, ref64, scale=None):
+        self.tag, self.ref, self.gate, self.exact = tag, ref, gate, exact
+        self.inputs, self.ref64 = inputs, ref64
+        self.den = ref.double().abs().max().item() if scale is None else scale
+        self.first, self.n, self.d, self.e = None, 0, 0.0, 0.0
+
+    def __call__(self, got):
+        self.n += 1
+        d, e = rel_err(got, self.ref, self.den)
+        self.d, self.e = max(self.d, d), max(self.e, e)
+        if self.exact and self.first is None:
+            self.first = got
+        same = not self.exact or torch.equal(got, self.first)
+        if e > self.gate or not same:
+            what = (f"launch {self.n}: rel err {e:.2e} (gate {self.gate:.0e})"
+                    + ("" if same else ", not bitwise equal to launch 1"))
+            save_fault(f"{self.tag}_launch{self.n}", what, self.inputs, got,
+                       self.first, self.ref, self.ref64(),
+                       self.gate * self.den)
+            check(False, f"{self.tag}: {what}")
+
+
+def check_conv_kernels(B, shapes, rows, tag, forward=False):
     """The conv kernels against their plain versions at ``shapes`` and
-    batch ``B``, float32: with ``forward`` the conv (rel <= 1e-4, as phase
-    4), the moments epilogue at the upconvs, the input and the weight
-    cotangent at all (rel <= 2e-5). Returns the max abs errors by kernel."""
+    batch ``B``, float32, each launched :data:`REPEATS` times (see there):
+    with ``forward`` the conv (rel <= 1e-4, as phase 4), the moments
+    epilogue at the upconvs, the input and the weight cotangent at all (rel
+    <= 2e-5). Returns the max abs errors by kernel."""
     from fsnet_tpu_torch.ops import conv3x3 as tc
 
     errs = {k: 0.0 for k in ("conv3x3", "conv3x3_bn", "conv3x3_bn_mom",
@@ -366,49 +493,73 @@ def check_conv_kernels(B, shapes, rows, forward=False):
         gy = torch.randn(B, H, W, Co, device="cuda",
                          generator=torch.Generator(device="cuda")
                          .manual_seed(100 + i))
-        row = rows[i]
+        inputs = {f"x{j}": p for j, p in enumerate(parts)}
+        inputs.update(w=w, b=b, gy=gy)
+        at = f"{tag}_{name}"
+
+        def conv64():
+            return tc._conv_core([p.double() for p in parts], w.double(),
+                                 b.double(), pad)
+
+        ref = tc.conv3x3_plain(parts, w, b, pad)
+        bn = name.startswith("upconv_")
+        held = {}
         if forward:
-            out = tc.conv3x3(parts, w, b, pad)
-            torch.cuda.synchronize()
-            d, e = rel_err(out, tc.conv3x3_plain(parts, w, b, pad))
-            errs["conv3x3"] = max(errs["conv3x3"], d)
-            row["rel_err"] = e
-            check(e <= TOL[torch.float32], f"{name} conv: rel err {e:.2e}")
-        if name.startswith("upconv_"):
-            out, s1, s2 = tc.conv3x3_bn(parts, w, b, pad)
-            torch.cuda.synchronize()
-            ref = tc.conv3x3_plain(parts, w, b, pad)
+            held["conv"] = Held(f"{at}_conv", ref, TOL[torch.float32], True,
+                                inputs, conv64)
+        if bn:
             r1, r2 = tc.moments_plain(ref)
-            d_out, e_out = rel_err(out, ref)
+            held["bn"] = Held(f"{at}_bn_out", ref, 2e-5, True, inputs, conv64)
             # s1 sums values of both signs: its scale is the sum of |out|
-            d1, e1 = rel_err(s1, r1, ref.abs().sum((0, 1, 2)).max().item())
-            d2, e2 = rel_err(s2, r2)
-            row.update(bn_rel_err=e_out, s1_rel_err=e1, s2_rel_err=e2)
-            errs["conv3x3_bn"] = max(errs["conv3x3_bn"], d_out)
-            errs["conv3x3_bn_mom"] = max(errs["conv3x3_bn_mom"], d1, d2)
-            check(e_out <= 2e-5 and e1 <= 2e-5 and e2 <= 2e-5,
-                  f"{name} moments kernel: rel err out {e_out:.2e} s1 "
-                  f"{e1:.2e} s2 {e2:.2e} > 2e-5")
-        dxs = tc.conv3x3_dx(gy, w, pad, Cs)
-        dw = tc.conv3x3_dw(parts, gy, pad)
-        torch.cuda.synchronize()
-        ref_dxs = tc.conv3x3_dx_plain(gy, w, pad, Cs)
-        ref_dw = tc.conv3x3_dw_plain(parts, gy, pad)
-        e_dx = 0.0
-        for a, r in zip(dxs, ref_dxs):
-            d, e = rel_err(a, r)
-            errs["conv3x3_dx"] = max(errs["conv3x3_dx"], d)
-            e_dx = max(e_dx, e)
-        d, e_dw = rel_err(dw, ref_dw)
-        errs["conv3x3_dw"] = max(errs["conv3x3_dw"], d)
-        row.update(dx_rel_err=e_dx, dw_rel_err=e_dw)
-        check(e_dx <= 2e-5, f"{name} dx: rel err {e_dx:.2e} > 2e-5")
-        check(e_dw <= 2e-5, f"{name} dw: rel err {e_dw:.2e} > 2e-5")
-        print(f"check {name:11s} B{B} {H}x{W} conv kernels: rel err "
-              + (f"conv {row['rel_err']:.2e} " if forward else "")
-              + (f"bn out {row['bn_rel_err']:.2e} s1 {row['s1_rel_err']:.2e} "
-                 f"s2 {row['s2_rel_err']:.2e} " if "bn_rel_err" in row else "")
-              + f"dx {e_dx:.2e} dw {e_dw:.2e}")
+            held["s1"] = Held(f"{at}_bn_s1", r1, 2e-5, False, inputs,
+                              lambda: tc.moments_plain(conv64())[0],
+                              ref.abs().sum((0, 1, 2)).max().item())
+            held["s2"] = Held(f"{at}_bn_s2", r2, 2e-5, False, inputs,
+                              lambda: tc.moments_plain(conv64())[1])
+        for j, r in enumerate(tc.conv3x3_dx_plain(gy, w, pad, Cs)):
+            held[f"dx{j}"] = Held(
+                f"{at}_dx{j}", r, 2e-5, True, inputs,
+                lambda j=j: tc.conv3x3_dx_plain(gy.double(), w.double(), pad,
+                                                Cs)[j])
+        held["dw"] = Held(f"{at}_dw", tc.conv3x3_dw_plain(parts, gy, pad),
+                          2e-5, False, inputs,
+                          lambda: tc.conv3x3_dw_plain(
+                              [p.double() for p in parts], gy.double(), pad))
+        del ref
+        for _ in range(REPEATS):
+            got = {}
+            if forward:
+                got["conv"] = tc.conv3x3(parts, w, b, pad)
+            if bn:
+                got["bn"], got["s1"], got["s2"] = tc.conv3x3_bn(parts, w, b,
+                                                                pad)
+            for j, dx in enumerate(tc.conv3x3_dx(gy, w, pad, Cs)):
+                got[f"dx{j}"] = dx
+            got["dw"] = tc.conv3x3_dw(parts, gy, pad)
+            torch.cuda.synchronize()
+            for k, v in got.items():
+                held[k](v)
+        dx = [h for k, h in held.items() if k.startswith("dx")]
+        e_dx = max(h.e for h in dx)
+        errs["conv3x3_dx"] = max([errs["conv3x3_dx"]] + [h.d for h in dx])
+        errs["conv3x3_dw"] = max(errs["conv3x3_dw"], held["dw"].d)
+        row = rows[i]
+        row.update(dx_rel_err=e_dx, dw_rel_err=held["dw"].e)
+        line = ""
+        if forward:
+            row["rel_err"] = held["conv"].e
+            errs["conv3x3"] = max(errs["conv3x3"], held["conv"].d)
+            line += f"conv {row['rel_err']:.2e} "
+        if bn:
+            row.update(bn_rel_err=held["bn"].e, s1_rel_err=held["s1"].e,
+                       s2_rel_err=held["s2"].e)
+            errs["conv3x3_bn"] = max(errs["conv3x3_bn"], held["bn"].d)
+            errs["conv3x3_bn_mom"] = max(errs["conv3x3_bn_mom"],
+                                         held["s1"].d, held["s2"].d)
+            line += (f"bn out {row['bn_rel_err']:.2e} s1 "
+                     f"{row['s1_rel_err']:.2e} s2 {row['s2_rel_err']:.2e} ")
+        print(f"check {name:11s} B{B} {H}x{W} conv kernels x{REPEATS}: rel err "
+              f"{line}dx {e_dx:.2e} dw {row['dw_rel_err']:.2e}")
     return errs
 
 
@@ -419,7 +570,7 @@ def check_training_kernels(batch_np, rows):
     from fsnet_tpu_torch.ops import warp_depth as twd
     from fsnet_tpu_torch.ops.geometry import project_rows
 
-    errs = check_conv_kernels(BATCH, SHAPES, rows)
+    errs = check_conv_kernels(BATCH, SHAPES, rows, tag="flagship")
     image, depth, arows = warp_scene(batch_np)
     got = twd.warp_depth_fwd(image, depth, arows, S_SCALES, F_FRAMES, BAND)
     gy = torch.randn(got[0].shape, device="cuda",
@@ -601,8 +752,7 @@ def train_phases(counters, record):
     model = flagship_model(HEIGHT, WIDTH, device="cuda", seed=0)
     opt, _ = flagship_optimizer(model)
     step = make_train_step("cuda")
-    n_dx = sum(len(Cs) for _, _, _, Cs, _, _ in SHAPES)
-    want = dict(conv3x3=4, conv3x3_bn=10, conv3x3_dx=n_dx,
+    want = dict(conv3x3=4, conv3x3_bn=10, conv3x3_dx=len(SHAPES),
                 conv3x3_dw=len(SHAPES), warp_depth_fwd=1, warp_depth_bwd=1,
                 warp_grid_fused=0, warp_grid_fwd=0, warp_grid_bwd=0,
                 warp_mei_fwd=0,
@@ -687,14 +837,19 @@ def train_phases(counters, record):
             t["items"].append(ob)
             row[f"{k}_ms"] = ms
             row[f"{k}_bound_ms"] = ms_bound(*ob)[0]
+            row[f"{k}_tc_bound_ms"] = tc_bound(*ob)[0]
             if library is not None:
                 row[f"{k}_library_ms"] = cuda_ms(library, iters=10)
                 t["lib_ms"] += row[f"{k}_library_ms"]
                 t["lib_kernel_ms"] += ms
                 t["lib_shapes"].append(name)
         print(f"time  {name:11s} "
-              + " ".join(f"{k[8:]} {row[f'{k}_ms']:.4f} ms (bound "
-                         f"{row[f'{k}_bound_ms']:.4f})" for k in timed))
+              + "  ".join(f"{k[8:]} {row[f'{k}_ms']:.4f} ms (bound f32 "
+                          f"{row[f'{k}_bound_ms']:.4f}, 3xTF32 "
+                          f"{row[f'{k}_tc_bound_ms']:.4f}"
+                          + (f"; cuDNN {row[f'{k}_library_ms']:.4f}"
+                             if f"{k}_library_ms" in row else "") + ")"
+                          for k in timed))
     torch.backends.cudnn.benchmark = False
     record["train_shapes"] = rows
 
@@ -736,10 +891,13 @@ def train_phases(counters, record):
     }
     for k, t in tot.items():
         b_ms, b_by = sum_bounds(t["items"])
+        tc_ms, tc_by = tc_bound(sum(o for o, _ in t["items"]),
+                                sum(b for _, b in t["items"]))
         entry = dict(name=k, route="cuda", source=meta[k][0],
                      replaces=meta[k][1], launches=counts[k],
                      max_abs_err=errs[k], ms=t["ms"], plain_ms=t["plain_ms"],
-                     bound_ms=b_ms, bound_by=b_by,
+                     bound_ms=b_ms, bound_by=b_by, tc_bound_ms=tc_ms,
+                     tc_bound_by=tc_by,
                      library_ms=t["lib_ms"] if t["lib_shapes"] else None)
         if k == "conv3x3_bn":
             entry["max_abs_err_moments"] = errs["conv3x3_bn_mom"]
@@ -747,7 +905,9 @@ def train_phases(counters, record):
             entry["library_shapes"] = t["lib_shapes"]
             entry["ms_library_shapes"] = t["lib_kernel_ms"]
         entry["note"] = ("sums over the shapes of one bs12 train step, "
-                         "float32" + ("; library_ms: cuDNN conv backward "
+                         "float32; bound_ms on the float32 CUDA cores, "
+                         "tc_bound_ms on the 3xTF32 tensor cores"
+                         + ("; library_ms: cuDNN conv backward "
                                       "(torch.nn.grad) at library_shapes, "
                                       "ms_library_shapes the kernel there"
                                       if t["lib_shapes"] else ""))
@@ -765,7 +925,10 @@ def train_phases(counters, record):
     for e in kernels:
         print(f"time  {e['name']:15s} kernel {e['ms']:.4f} ms  plain "
               f"{e['plain_ms']:.4f} ms  bound {e['bound_ms']:.4f} ms "
-              f"({e['bound_by']})  library "
+              f"({e['bound_by']})"
+              + (f"  3xTF32 bound {e['tc_bound_ms']:.4f} ms "
+                 f"({e['tc_bound_by']})" if "tc_bound_ms" in e else "")
+              + "  library "
               + ("none" if e["library_ms"] is None else
                  f"{e['library_ms']:.4f} ms vs kernel "
                  f"{e['ms_library_shapes']:.4f} ms at "
@@ -1082,7 +1245,8 @@ def fisheye_phases(counters, record, train):
     record["fisheye_band"] = band
     conv_rows = [dict(name=n) for n, *_ in FISH_SHAPES]
     record["fisheye_conv_errs"] = check_conv_kernels(B, FISH_SHAPES,
-                                                     conv_rows, forward=True)
+                                                     conv_rows, forward=True,
+                                                     tag="fisheye")
 
     # 18. forward_test of the fisheye model
     model = fisheye_model(H, W, device="cuda", seed=0)
@@ -1677,6 +1841,14 @@ def photo_phases(record, train, fish):
 
 
 def main() -> int:
+    global REPEATS
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--conv-repeats", type=int, default=REPEATS,
+                    help="launches of each conv kernel per shape in phases "
+                         "8 and 17 (default %(default)s)")
+    REPEATS = max(1, ap.parse_args().conv_repeats)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
@@ -1686,7 +1858,8 @@ def main() -> int:
     from fsnet_tpu_torch.entry import flagship_model
     from fsnet_tpu_torch.models.blocks import Conv3x3
     from fsnet_tpu_torch.ops import _build
-    from fsnet_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
+    from fsnet_tpu_torch.ops.conv3x3 import (conv3x3, conv3x3_dx,
+                                             conv3x3_dx_plain, conv3x3_plain)
     from fsnet_tpu_torch.runtime.state import make_eval_step
 
     counters = launch_counters()
@@ -1711,12 +1884,15 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    record["conv_sass"] = conv_sass(_build)
 
     # 3. full float32 references
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # 4. kernel against its plain version at the main path's shapes
+    # 4. kernel against its plain version at the main path's shapes: the
+    # forward in both dtypes, and the bfloat16 input cotangent (the float32
+    # one is phase 8's)
     shapes = []
     for i, (name, H, W, Cs, Co, pad) in enumerate(SHAPES):
         row = dict(name=name, B=BATCH, H=H, W=W, Cs=list(Cs), Co=Co, pad=pad)
@@ -1732,9 +1908,21 @@ def main() -> int:
                   f"{name} {tag}: bad output")
             check(rel <= TOL[dtype], f"{name} {tag}: rel err {rel:.3e} > "
                   f"{TOL[dtype]:.0e}")
+            if dtype == torch.bfloat16:
+                gy = torch.randn(BATCH, H, W, Co, device="cuda",
+                                 generator=torch.Generator(device="cuda")
+                                 .manual_seed(100 + i)).to(dtype)
+                dxs = conv3x3_dx(gy, w, pad, Cs)
+                torch.cuda.synchronize()
+                rel = max(rel_err(a, r)[1] for a, r in
+                          zip(dxs, conv3x3_dx_plain(gy, w, pad, Cs)))
+                row["dx_rel_err_bf16"] = rel
+                check(rel <= TOL[dtype], f"{name} bf16 dx: rel err "
+                      f"{rel:.3e} > {TOL[dtype]:.0e}")
         print(f"check {name:11s} B{BATCH} {H}x{W} {'+'.join(map(str, Cs))}"
               f"->{Co} {pad:9s} rel err f32 {row['rel_err_f32']:.2e} "
-              f"bf16 {row['rel_err_bf16']:.2e}")
+              f"bf16 {row['rel_err_bf16']:.2e} bf16 dx "
+              f"{row['dx_rel_err_bf16']:.2e}")
         shapes.append(row)
 
     # 5. the main path, through the entry points a user calls
@@ -1793,7 +1981,8 @@ def main() -> int:
     print(f"forward_test bs1 latency {lat:.3f} ms; bs12 {fwd12:.3f} ms = "
           f"{BATCH / fwd12 * 1e3:.1f} imgs/s")
     tot = dict(ms=0.0, plain_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
-               conv2d_ms=0.0)
+               conv2d_ms=0.0, ops=0.0, nbytes=0.0, lib_ms=0.0,
+               lib_kernel_ms=0.0, lib_shapes=[])
     # the yardstick gets cuDNN's fastest algorithm: its first (warm-up)
     # call autotunes
     torch.backends.cudnn.benchmark = True
@@ -1813,16 +2002,28 @@ def main() -> int:
         (row["bound_ms"], row["bound_by"], ops_ms,
          bytes_ms) = bound(BATCH, H, W, Cs, Co, torch.float32)
         row["bf16_bound_ms"] = bound(BATCH, H, W, Cs, Co, torch.bfloat16)[0]
+        ops, nbytes = conv_work(BATCH, H, W, Cs, Co)
+        row["tc_bound_ms"], row["tc_bound_by"] = tc_bound(ops, nbytes)
         for k in ("ms", "plain_ms", "conv2d_ms"):
             tot[k] += row[k]
         tot["ops_ms"] += ops_ms
         tot["bytes_ms"] += bytes_ms
+        tot["ops"] += ops
+        tot["nbytes"] += nbytes
+        if row["library_ms"] is not None:
+            tot["lib_ms"] += row["library_ms"]
+            tot["lib_kernel_ms"] += row["ms"]
+            tot["lib_shapes"].append(name)
         print(f"time  {name:11s} kernel {row['ms']:.4f} ms  plain "
               f"{row['plain_ms']:.4f} ms  F.conv2d {row['conv2d_ms']:.4f} ms"
-              f"  bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+              + ("" if row["library_ms"] is None else " (cuDNN, the same "
+                 "function)")
+              + f"  bound f32 {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"3xTF32 {row['tc_bound_ms']:.4f} ms ({row['tc_bound_by']})")
     torch.backends.cudnn.benchmark = False
     record["shapes"] = shapes
 
+    tc_ms, tc_by = tc_bound(tot["ops"], tot["nbytes"])
     kernel = dict(
         name="conv3x3", route="cuda", source="fsnet_tpu_torch/csrc/conv3x3.cu",
         replaces="fsnet_tpu/ops/pallas/conv_kernel.py:210",
@@ -1832,10 +2033,22 @@ def main() -> int:
         ms=tot["ms"], plain_ms=tot["plain_ms"],
         bound_ms=max(tot["ops_ms"], tot["bytes_ms"]),
         bound_by="operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes",
-        library_ms=None, conv2d_ms=tot["conv2d_ms"],
-        note="eval path (forward_test): ms, plain_ms, bound_ms, conv2d_ms "
-             "are sums over the 14 decoder convs of one bs12 forward, "
-             "float32")
+        tc_bound_ms=tc_ms, tc_bound_by=tc_by,
+        library_ms=tot["lib_ms"], library_shapes=tot["lib_shapes"],
+        ms_library_shapes=tot["lib_kernel_ms"], conv2d_ms=tot["conv2d_ms"],
+        note="eval path (forward_test): ms, plain_ms, bound_ms (float32 "
+             "CUDA cores), tc_bound_ms (3xTF32 tensor cores), conv2d_ms are "
+             "sums over the 14 decoder convs of one bs12 forward, float32; "
+             "library_ms: F.conv2d (cuDNN) at library_shapes, "
+             "ms_library_shapes the kernel there")
+
+    print(f"time  conv3x3 (eval, 14 convs) kernel {kernel['ms']:.4f} ms  "
+          f"plain {kernel['plain_ms']:.4f} ms  bound f32 "
+          f"{kernel['bound_ms']:.4f} ms ({kernel['bound_by']})  3xTF32 bound "
+          f"{kernel['tc_bound_ms']:.4f} ms ({kernel['tc_bound_by']})  cuDNN "
+          f"{kernel['library_ms']:.4f} ms vs kernel "
+          f"{kernel['ms_library_shapes']:.4f} ms at "
+          f"{len(kernel['library_shapes'])} shapes")
 
     # 8-11. the train path
     train = train_phases(counters, record)

@@ -1,182 +1,334 @@
 // Weight cotangent of the 3x3 stride-1 "same" convolution on NHWC tensors
-// with one or two input parts, for Hopper (sm_90a), bound through a plain C
-// interface (ctypes):
+// with one or two input parts, for Hopper (sm_90a), as a split-K GEMM on the
+// tensor cores, bound through a plain C interface (ctypes):
 //
 //   dW[dy,dx,ci,co] = sum_{b,h,w} pad(x)[b,h+dy,w+dx,ci] * g[b,h,w,co]
 //
 // with pad = zeros or replicate, as in the forward (csrc/conv3x3.cu); a
 // two-part input is the channel concat of its parts, never materialised.
 //
-// Replaces: fsnet_tpu/ops/pallas/conv_kernel.py conv3x3_fused_dw (+ the
-// fold_dw of its banded-matrix accumulators). On the TPU one kernel walks a
-// sequential grid and carries the sum in VMEM; blocks on Hopper run in
-// parallel, so the pixel reduction is split over blocks and combined with
-// atomics.
+// Replaces: fsnet_tpu/ops/pallas/conv_kernel.py conv3x3_fused_dw (:351,
+// with the fold_dw of its banded-matrix accumulators). On the TPU one kernel
+// walks a sequential grid and carries the sum in VMEM; blocks on Hopper run
+// in parallel, so the pixel reduction is split over blocks.
 //
 // What bounds it on an H100: 2*9*Cin*Co operations per pixel against one
-// read of x and g, so the f32 FMA rate (67 TFLOP/s) at the decoder's shapes.
-// The two regimes of the decoder are far apart: 16->16 over 1.47 M pixels
-// (a tiny output, a huge reduction) and 512->256 over 1,440 pixels (1.18 M
-// weights, a short reduction). One design covers both: a block owns a
-// 16-input x 16-output channel tile for all nine taps, and walks a strided
-// share of the 4x32-pixel tiles of the batch; the number of blocks per
-// channel tile (the pixel split) grows as the channel tiles get fewer.
+// read of x and g, so operations at the decoder's shapes; in float32 the
+// products run as 3xTF32 on the tensor cores (csrc/mma_tf32.cuh), 3 x ops at
+// 495 TFLOP/s. The decoder's two regimes are far apart: 16->16 over 1.47 M
+// pixels (a tiny output, a huge reduction) and 512->256 over 1,440 (1.18 M
+// weights, a short reduction).
 //
-// Per pixel tile the block stages the (4+2) x (32+2) input halo (padding
-// applied at load) and the 4x32 cotangent tile in shared memory. A thread
-// owns 2 input x 4 output channels x 9 taps = 72 f32 accumulators; a warp
-// owns one row and half the columns of the tile, taken 4 pixels at a time,
-// so each step reads 18 float2 of x and 4 float4 of g for 288 FMAs. At the
-// end the block's eight warps reduce through shared-memory atomics and the
-// block adds its tile into dW with one global atomicAdd per weight. The
-// order of the atomics varies, so dW is not bitwise run-to-run
-// deterministic (f32 rounding of the partial sums only). Ragged tiles and
-// channel counts are masked by loading zeros. Simple first kernel: no
-// tensor cores, no TMA, no double buffering.
+// Design: the GEMM M = 9 taps x CI_T input channels of one channel tile,
+// N = CO_T output channels (CI_T, CO_T = 16 or 32, chosen per shape from
+// the host for the fewest padded channels; a channel tile never straddles
+// the two parts), K = pixels, taken as 64-pixel tiles (TH x TW, TW = 8, 16
+// or 32 by the least padded area). A block owns one channel tile and a
+// strided share of the pixel tiles; the share (the split over pixels) is
+// sized from the grid per shape, so that channel tiles x split fills one
+// wave of resident blocks: 264 blocks of one channel tile at 16->16, 2 per
+// channel tile at 512->256. Per pixel tile the block stages the (TH+2) x
+// (TW+2) x CI_T input halo (padding applied at load) and the TH x TW x CO_T
+// cotangent tile through a ring of NS = 3 stages filled with 16-byte
+// cp.async copies along channels, so the next tiles' copies overlap this
+// tile's MMAs. Neither operand is K-major in NHWC: the mma.sync.m16n8k8
+// fragments are gathered from shared memory (A[ci][pixel] from the halo,
+// B[pixel][co] from the cotangent tile; row strides of 8 or 24 mod 32 words
+// keep both free of bank conflicts), not transposed while staging. Six
+// warps: warp (dy, ci fragment, pixel half) holds the three dx taps of its
+// row against all CO_T channels. At the end the pixel halves are summed
+// through shared memory in a fixed order and the block adds its tile into
+// dW with one global atomicAdd per weight: the order of those atomics
+// varies, so dW is not bitwise run-to-run deterministic (f32 rounding of
+// the partial sums only). Ragged tiles and channel counts are masked by
+// zero fill.
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstddef>
+#include <cstdint>
+#include <initializer_list>
+
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int TH = 4;               // pixel tile rows
-constexpr int TW = 32;              // pixel tile columns
-constexpr int CI_T = 16;            // input channels per block
-constexpr int CO_T = 16;            // output channels per block
-constexpr int PX = 4;               // pixels per thread step
-constexpr int NT = 256;             // threads per block (8 warps)
-constexpr int HALO_H = TH + 2;
-constexpr int HALO_W = TW + 2;
+constexpr int TPX = 64;        // pixels per tile (TH x TW): 8 k8 steps
+constexpr int NS = 3;          // cp.async ring stages
+constexpr int MAX_HALO = 136;  // (TH+2) x (TW+2) for TW = 8, 16, 32
 
-__global__ void __launch_bounds__(NT)
-conv3x3_dw_kernel(const float* __restrict__ x0, int C0,
-                  const float* __restrict__ x1, int C1,
-                  const float* __restrict__ g, float* __restrict__ dw, int B,
-                  int H, int W, int Co, int tiles_w, int tiles_h,
-                  int co_tiles, int replicate) {
-  __shared__ __align__(16) float s_x[HALO_H][HALO_W][CI_T];
-  __shared__ __align__(16) float s_g[TH][TW][CO_T];
-  __shared__ float s_red[9][CI_T][CO_T];
+template <int CI_T, int CO_T>
+struct DwCfg {
+  static constexpr int MI = CI_T / 16;        // m16 fragments of channels
+  static constexpr int KG = 2 / MI;           // warps splitting the pixels
+  static constexpr int NT = 32 * 3 * MI * KG; // six warps
+  static constexpr int NF = CO_T / 8;         // n8 fragments
+  static constexpr int SX = CI_T + 8;         // floats per halo pixel
+  static constexpr int SG = CO_T + 8;         // floats per cotangent pixel
+  static constexpr int X_BYTES = MAX_HALO * SX * 4;
+  static constexpr int G_BYTES = TPX * SG * 4;
+  static constexpr int STAGE = X_BYTES + G_BYTES;
+  static constexpr int ACC = 3 * NF * 4;      // accumulators per thread
+  static constexpr int RED = 3 * MI * 32 * ACC * 4;
+  static constexpr int SMEM = NS * STAGE > RED ? NS * STAGE : RED;
+};
+
+struct DwArgs {
+  const float* x0;
+  const float* x1;
+  int C0, C1;
+  const float* g;
+  float* dw;
+  int B, H, W, Co;
+  int TW, TH, tiles_w, tiles_h;
+  int cit0;       // input channel tiles of part 0
+  int co_tiles;
+  int tw_shift;    // log2(TW)
+  int hw_magic;    // px / (TW + 2) == (px * hw_magic) >> 16
+  int replicate;
+  int vec;        // 16-byte copies allowed (host only)
+};
+
+// one copy unit: a 16-byte cp.async (VEC) or one float by a plain load and
+// store; zeros where !ok
+template <bool VEC>
+__device__ __forceinline__ void copy_unit(char* dst, const float* base,
+                                          size_t off, bool ok) {
+  if constexpr (VEC)
+    cp_async16(dst, ok ? base + off : base, ok);
+  else
+    *reinterpret_cast<float*>(dst) = ok ? base[off] : 0.f;
+}
+
+template <int CI_T, int CO_T, bool VEC>
+__device__ __forceinline__ void load_tile(const DwArgs& p, char* stage, int t,
+                                          const float* x, int Cp, int ci0,
+                                          int co0, int tid) {
+  using C = DwCfg<CI_T, CO_T>;
+  constexpr int UE = VEC ? 4 : 1;           // floats per copy unit
+  const int tw_i = t % p.tiles_w;
+  t /= p.tiles_w;
+  const int th_i = t % p.tiles_h;
+  const int b = t / p.tiles_h;
+  const int h0 = th_i * p.TH;
+  const int w0 = tw_i * p.TW;
+  const int hw = p.TW + 2;
+  const int npx = (p.TH + 2) * hw;
+  char* sx = stage;
+  char* sg = stage + C::X_BYTES;
+
+  // input halo: rows h0-1 .. h0+TH, columns w0-1 .. w0+TW
+  constexpr int XU = CI_T / UE;
+  for (int i = tid; i < npx * XU; i += C::NT) {
+    const int e = i % XU;
+    const int px = i / XU;
+    const int yy = (px * p.hw_magic) >> 16;   // px / hw
+    int gy = h0 - 1 + yy;
+    int gx = w0 - 1 + px - yy * hw;
+    if (p.replicate) {
+      gy = min(max(gy, 0), p.H - 1);
+      gx = min(max(gx, 0), p.W - 1);
+    }
+    const int c = ci0 + e * UE;
+    copy_unit<VEC>(sx + (px * C::SX + e * UE) * 4, x,
+                   (((size_t)b * p.H + gy) * p.W + gx) * Cp + c,
+                   c < Cp && gy >= 0 && gy < p.H && gx >= 0 && gx < p.W);
+  }
+  // cotangent tile; pixels outside the image contribute nothing
+  constexpr int GU = CO_T / UE;
+  for (int i = tid; i < TPX * GU; i += C::NT) {
+    const int e = i % GU;
+    const int px = i / GU;
+    const int gy = h0 + (px >> p.tw_shift);
+    const int gx = w0 + (px & (p.TW - 1));
+    const int c = co0 + e * UE;
+    copy_unit<VEC>(sg + (px * C::SG + e * UE) * 4, p.g,
+                   (((size_t)b * p.H + gy) * p.W + gx) * p.Co + c,
+                   c < p.Co && gy < p.H && gx < p.W);
+  }
+}
+
+template <int CI_T, int CO_T, bool VEC>
+__global__ void __launch_bounds__(DwCfg<CI_T, CO_T>::NT, 2)
+conv3x3_dw_kernel(const DwArgs p) {
+  using C = DwCfg<CI_T, CO_T>;
+  extern __shared__ __align__(16) char smem[];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int cp = lane & 7;          // input channel pair 2cp, 2cp+1
-  const int cq = lane >> 3;         // output channel quad 4cq..4cq+3
-  const int row = warp & 3;         // tile row of this warp
-  const int col_base = (warp >> 2) * (TW / 2);
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int dy = warp % 3;                  // kernel row of this warp
+  const int mi = (warp / 3) % C::MI;        // its 16 input channels
+  const int kg = warp / (3 * C::MI);        // its share of the pixels
 
-  const int ci0 = (blockIdx.y / co_tiles) * CI_T;
-  const int co0 = (blockIdx.y % co_tiles) * CO_T;
-  const int Cin = C0 + C1;
-  const int ntiles = B * tiles_h * tiles_w;
+  const int ct = blockIdx.y / p.co_tiles;
+  const int co0 = (blockIdx.y % p.co_tiles) * CO_T;
+  const int part = ct < p.cit0 ? 0 : 1;
+  const int ci0 = (ct - (part ? p.cit0 : 0)) * CI_T;
+  const float* x = part ? p.x1 : p.x0;
+  const int Cp = part ? p.C1 : p.C0;
+  const int ntiles = p.B * p.tiles_h * p.tiles_w;
+  const int mine = (int)blockIdx.x < ntiles
+                       ? (ntiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+                       : 0;
 
-  for (int i = tid; i < 9 * CI_T * CO_T; i += NT) (&s_red[0][0][0])[i] = 0.f;
-
-  float acc[2][4][9];
+  float acc[3][C::NF][4];
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
+  for (int a = 0; a < 3; ++a)
 #pragma unroll
-    for (int o = 0; o < 4; ++o)
+    for (int j = 0; j < C::NF; ++j)
 #pragma unroll
-      for (int t = 0; t < 9; ++t) acc[a][o][t] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[a][j][e] = 0.f;
 
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int tw_i = t % tiles_w;
-    const int th_i = (t / tiles_w) % tiles_h;
-    const int b = t / (tiles_w * tiles_h);
-    const int h0 = th_i * TH;
-    const int w0 = tw_i * TW;
+  auto fetch = [&](int j) {
+    if (j < mine)
+      load_tile<CI_T, CO_T, VEC>(p, smem + (j % NS) * C::STAGE,
+                                 (int)blockIdx.x + j * (int)gridDim.x, x, Cp,
+                                 ci0, co0, tid);
+    cp_async_commit();                // empty groups keep the count even
+  };
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) fetch(s);
 
-    __syncthreads();                // the previous tile's reads are done
-    for (int i = tid; i < HALO_H * HALO_W * CI_T; i += NT) {
-      const int ci = i % CI_T;
-      const int r = i / CI_T;
-      const int xx = r % HALO_W;
-      const int yy = r / HALO_W;
-      int gy = h0 + yy - 1;
-      int gx = w0 + xx - 1;
-      if (replicate) {
-        gy = min(max(gy, 0), H - 1);
-        gx = min(max(gx, 0), W - 1);
+  const int spr_shift = p.tw_shift - 3;  // log2(k8 steps per tile row)
+  for (int j = 0; j < mine; ++j) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();
+    fetch(j + NS - 1);
+    const float* sx =
+        reinterpret_cast<const float*>(smem + (j % NS) * C::STAGE);
+    const float* sg = reinterpret_cast<const float*>(
+        smem + (j % NS) * C::STAGE + C::X_BYTES);
+    // this tile's products summed on the tensor cores from zero, then added
+    // to acc in float32 (csrc/mma_tf32.cuh)
+    float tacc[3][C::NF][4];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int n = 0; n < C::NF; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tacc[a][n][e] = 0.f;
+#pragma unroll 2
+    for (int s = kg; s < TPX / 8; s += C::KG) {
+      const int ty = s >> spr_shift;
+      const int tx0 = (s & ((1 << spr_shift) - 1)) * 8;
+      // B[k = pixel][n = co] from the cotangent tile
+      const float* gp = sg + (ty * p.TW + tx0 + tig) * C::SG + gid;
+      unsigned bh[C::NF][2], bl[C::NF][2];
+#pragma unroll
+      for (int n = 0; n < C::NF; ++n) {
+        split_tf32(gp[n * 8], bh[n][0], bl[n][0]);
+        split_tf32(gp[4 * C::SG + n * 8], bh[n][1], bl[n][1]);
       }
-      const int c = ci0 + ci;
-      float v = 0.f;
-      if (c < Cin && gy >= 0 && gy < H && gx >= 0 && gx < W) {
-        const size_t pix = ((size_t)b * H + gy) * W + gx;
-        v = c < C0 ? x0[pix * C0 + c] : x1[pix * C1 + (c - C0)];
+      // A[m = ci][k = pixel] from the halo, shifted by the tap
+      const float* xp =
+          sx + ((ty + dy) * (p.TW + 2) + tx0 + tig) * C::SX + mi * 16 + gid;
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const float* q = xp + dx * C::SX;
+        unsigned ah[4], al[4];
+        split_tf32(q[0], ah[0], al[0]);
+        split_tf32(q[8], ah[1], al[1]);
+        split_tf32(q[4 * C::SX], ah[2], al[2]);
+        split_tf32(q[4 * C::SX + 8], ah[3], al[3]);
+#pragma unroll
+        for (int n = 0; n < C::NF; ++n)
+          mma_3xtf32(tacc[dx][n], ah, al, bh[n], bl[n]);
       }
-      s_x[yy][xx][ci] = v;
     }
-    for (int i = tid; i < TH * TW * CO_T; i += NT) {
-      const int co = i % CO_T;
-      const int r = i / CO_T;
-      const int cc = r % TW;
-      const int rr = r / TW;
-      const int gy = h0 + rr;
-      const int gx = w0 + cc;
-      float v = 0.f;                // masked pixels contribute nothing
-      if (gy < H && gx < W && co0 + co < Co)
-        v = g[(((size_t)b * H + gy) * W + gx) * Co + co0 + co];
-      s_g[rr][cc][co] = v;
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int n = 0; n < C::NF; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[a][n][e] += tacc[a][n][e];
+  }
+
+  cp_async_wait<0>();
+  if (C::KG > 1) {
+    // the second pixel half adds into the first, in a fixed order
+    __syncthreads();                  // every warp is done with the stages
+    float* red = reinterpret_cast<float*>(smem);
+    const int slot = (warp - 3 * C::MI * kg) * 32 + lane;
+    if (kg == 1) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int n = 0; n < C::NF; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            red[slot * C::ACC + (a * C::NF + n) * 4 + e] = acc[a][n][e];
     }
     __syncthreads();
-
-#pragma unroll 1
-    for (int step = 0; step < TW / 2 / PX; ++step) {
-      const int c0 = col_base + step * PX;
-      float gv[PX][4];
+    if (kg == 0) {
 #pragma unroll
-      for (int k = 0; k < PX; ++k) {
-        const float4 q =
-            *reinterpret_cast<const float4*>(&s_g[row][c0 + k][cq * 4]);
-        gv[k][0] = q.x;
-        gv[k][1] = q.y;
-        gv[k][2] = q.z;
-        gv[k][3] = q.w;
-      }
+      for (int a = 0; a < 3; ++a)
 #pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-        float xv[PX + 2][2];
+        for (int n = 0; n < C::NF; ++n)
 #pragma unroll
-        for (int j = 0; j < PX + 2; ++j) {
-          const float2 p =
-              *reinterpret_cast<const float2*>(&s_x[row + dy][c0 + j][cp * 2]);
-          xv[j][0] = p.x;
-          xv[j][1] = p.y;
-        }
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx)
-#pragma unroll
-          for (int k = 0; k < PX; ++k)
-#pragma unroll
-            for (int a = 0; a < 2; ++a)
-#pragma unroll
-              for (int o = 0; o < 4; ++o)
-                acc[a][o][dy * 3 + dx] =
-                    fmaf(xv[k + dx][a], gv[k][o], acc[a][o][dy * 3 + dx]);
-      }
+          for (int e = 0; e < 4; ++e)
+            acc[a][n][e] += red[slot * C::ACC + (a * C::NF + n) * 4 + e];
     }
   }
-
-  // block reduction over the eight warps, then one global add per weight
+  if (kg == 0) {
+    const int Cin = p.C0 + p.C1;
+    const int coff = part ? p.C0 : 0;
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
+    for (int a = 0; a < 3; ++a)
 #pragma unroll
-    for (int o = 0; o < 4; ++o)
+      for (int n = 0; n < C::NF; ++n)
 #pragma unroll
-      for (int t = 0; t < 9; ++t)
-        atomicAdd(&s_red[t][cp * 2 + a][cq * 4 + o], acc[a][o][t]);
-  __syncthreads();
-  for (int i = tid; i < 9 * CI_T * CO_T; i += NT) {
-    const int co = i % CO_T;
-    const int ci = (i / CO_T) % CI_T;
-    const int tap = i / (CO_T * CI_T);
-    if (ci0 + ci < Cin && co0 + co < Co)
-      atomicAdd(&dw[((size_t)tap * Cin + ci0 + ci) * Co + co0 + co],
-                s_red[tap][ci][co]);
+        for (int e = 0; e < 4; ++e) {
+          const int ci = ci0 + mi * 16 + gid + (e >> 1) * 8;
+          const int co = co0 + n * 8 + 2 * tig + (e & 1);
+          if (ci < Cp && co < p.Co)
+            atomicAdd(&p.dw[((size_t)(dy * 3 + a) * Cin + coff + ci) * p.Co +
+                            co],
+                      acc[a][n][e]);
+        }
   }
+}
+
+// ------------------------------------------------------------------- host
+
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
+}
+
+// the channel tile (16 or 32) of the fewest padded channels, a tile costing
+// T + 8; ties go to 32
+int pick_ct(int Ca, int Cb) {
+  int best = 32;
+  long long cost = LLONG_MAX;
+  for (int t : {32, 16}) {
+    const long long c = (long long)(cdiv(Ca, t) + cdiv(Cb, t)) * (t + 8);
+    if (c < cost) {
+      cost = c;
+      best = t;
+    }
+  }
+  return best;
+}
+
+template <int CI_T, int CO_T, bool VEC>
+int launch(const DwArgs& a, dim3 grid, cudaStream_t s) {
+  using C = DwCfg<CI_T, CO_T>;
+  auto kern = conv3x3_dw_kernel<CI_T, CO_T, VEC>;
+  static unsigned attr_set = 0;       // one bit per device
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 32 || !((attr_set >> dev) & 1u)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 32) attr_set |= 1u << dev;
+  }
+  kern<<<grid, C::NT, C::SMEM, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -192,20 +344,65 @@ extern "C" int fsnet_conv3x3_dw_nhwc(const void* x0, int C0, const void* x1,
   if (B <= 0 || H <= 0 || W <= 0 || Co <= 0 || C0 <= 0 || C1 < 0 ||
       (C1 > 0 && x1 == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int tiles_w = (W + TW - 1) / TW;
-  const int tiles_h = (H + TH - 1) / TH;
-  const long long ntiles = (long long)B * tiles_h * tiles_w;
-  const int ci_tiles = (C0 + C1 + CI_T - 1) / CI_T;
-  const int co_tiles = (Co + CO_T - 1) / CO_T;
-  const long long nct = (long long)ci_tiles * co_tiles;
+  DwArgs a{};
+  a.x0 = static_cast<const float*>(x0);
+  a.x1 = static_cast<const float*>(x1);
+  a.C0 = C0;
+  a.C1 = C1;
+  a.g = static_cast<const float*>(g);
+  a.dw = static_cast<float*>(dw);
+  a.B = B;
+  a.H = H;
+  a.W = W;
+  a.Co = Co;
+  a.replicate = replicate;
+  a.vec = C0 % 4 == 0 && C1 % 4 == 0 && Co % 4 == 0 && aligned16(x0) &&
+          (C1 == 0 || aligned16(x1)) && aligned16(g);
+  // the pixel tile of least padded area
+  long long best = LLONG_MAX;
+  for (int tw : {32, 16, 8}) {
+    const int th = TPX / tw;
+    const int nh = cdiv(H, th), nw = cdiv(W, tw);
+    const long long cells = (long long)nh * th * nw * tw;
+    if (cells < best) {
+      best = cells;
+      a.TW = tw;
+      a.TH = th;
+      a.tiles_h = nh;
+      a.tiles_w = nw;
+    }
+  }
+  a.tw_shift = a.TW == 32 ? 5 : a.TW == 16 ? 4 : 3;
+  a.hw_magic = (65536 + a.TW + 1) / (a.TW + 2);   // exact for px < 4096
+  const int ci_t = pick_ct(C0, C1);
+  const int co_t = pick_ct(Co, 0);
+  a.cit0 = cdiv(C0, ci_t);
+  a.co_tiles = cdiv(Co, co_t);
+  const long long ntiles = (long long)B * a.tiles_h * a.tiles_w;
+  const long long nct = (long long)(a.cit0 + cdiv(C1, ci_t)) * a.co_tiles;
   if (ntiles > INT_MAX || nct > 65535) return (int)cudaErrorInvalidValue;
-  // about 2048 blocks in all: few channel tiles get a wide pixel split
-  long long split = (2048 + nct - 1) / nct;
+  // the split over pixels: channel tiles x split fills whole waves of
+  // resident blocks (two per SM)
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long resident = 2LL * sms;
+  const long long waves = (nct + resident - 1) / resident;
+  long long split = waves * resident / nct;
+  if (split < 1) split = 1;
   if (split > ntiles) split = ntiles;
   const dim3 grid((unsigned)split, (unsigned)nct);
-  conv3x3_dw_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x0), C0, static_cast<const float*>(x1), C1,
-      static_cast<const float*>(g), static_cast<float*>(dw), B, H, W, Co,
-      tiles_w, tiles_h, co_tiles, replicate);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.vec) {
+    if (ci_t == 16)
+      return co_t == 16 ? launch<16, 16, true>(a, grid, s)
+                        : launch<16, 32, true>(a, grid, s);
+    return co_t == 16 ? launch<32, 16, true>(a, grid, s)
+                      : launch<32, 32, true>(a, grid, s);
+  }
+  if (ci_t == 16)
+    return co_t == 16 ? launch<16, 16, false>(a, grid, s)
+                      : launch<16, 32, false>(a, grid, s);
+  return co_t == 16 ? launch<32, 16, false>(a, grid, s)
+                    : launch<32, 32, false>(a, grid, s);
 }

@@ -19,11 +19,17 @@ kernel's launches in ``<function>.launches``:
 * :func:`conv3x3`: ``csrc/conv3x3.cu`` (forward, TPU ``conv3x3_fused_mats``);
 * :func:`conv3x3_bn`: the same kernel with its moments epilogue (TPU
   ``conv3x3_fused_mats_m``), float32;
-* :func:`conv3x3_dx`: the same kernel on the zero-padded output cotangent
-  with the flipped, io-transposed weight, one launch per input part (TPU
-  ``conv3x3_fused_mats`` on transposed mats), float32 or bfloat16;
+* :func:`conv3x3_dx`: the same kernel in its input-cotangent mode (TPU
+  ``conv3x3_fused_mats`` on transposed mats): the output cotangent's zero
+  halo, the weight's flip and the replicate halo's fold happen inside the
+  kernel, and both parts' cotangents come from one launch per conv; float32
+  or bfloat16;
 * :func:`conv3x3_dw`: ``csrc/conv3x3_dw.cu`` (TPU ``conv3x3_fused_dw``),
   float32.
+
+Both kernels are implicit GEMMs on the tensor cores (``mma.sync`` m16n8k8
+TF32 fed by a ``cp.async`` ring): float32 runs as 3xTF32 (three products of
+split operands, as accurate as float32 FMA), bfloat16 as one product.
 """
 from __future__ import annotations
 
@@ -255,8 +261,10 @@ def _forward_bn(parts, w, bias, pad_mode):
     return out, mom[0], mom[1]
 
 
-def _dx(g, w, pad_mode, Cs, conv) -> Tuple[torch.Tensor, ...]:
-    """The conv ``conv`` on the zero-padded output cotangent ``g``
+def conv3x3_dx_plain(g: torch.Tensor, w: torch.Tensor, pad_mode: str,
+                     Cs: Sequence[int]) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the input cotangents, one per input part of ``Cs``
+    channels: the conv of the zero-padded output cotangent ``g``
     [B, H, W, Co] with the flipped, io-transposed weight slice of each part
     gives the cotangent of the padded input [B, H+2, W+2, C], which
     :func:`_fold_halo` folds to [B, H, W, C]."""
@@ -265,34 +273,49 @@ def _dx(g, w, pad_mode, Cs, conv) -> Tuple[torch.Tensor, ...]:
     dxs = []
     off = 0
     for c in Cs:
-        dxs.append(_fold_halo(conv(gp, wf[..., off:off + c].contiguous()),
-                              pad_mode))
+        e = _conv_core((gp,), wf[..., off:off + c].contiguous(), None, "zeros")
+        dxs.append(_fold_halo(e, pad_mode))
         off += c
     return tuple(dxs)
 
 
-def conv3x3_dx_plain(g: torch.Tensor, w: torch.Tensor, pad_mode: str,
-                     Cs: Sequence[int]) -> Tuple[torch.Tensor, ...]:
-    """Plain version of the input cotangents, one per input part of ``Cs``
-    channels."""
-    return _dx(g, w, pad_mode, Cs,
-               lambda gp, wc: _conv_core((gp,), wc, None, "zeros"))
+def _dx_weight(w: torch.Tensor) -> torch.Tensor:
+    """The weight as the input-cotangent kernel reads it: ``[3, 3, Co, C]``,
+    channel axes swapped but not flipped (one copy of the small weight); the
+    kernel takes tap ``8 - t`` of it, which is tap ``t`` of
+    :func:`_flip_w`."""
+    return w.transpose(2, 3).contiguous()
 
 
 def conv3x3_dx(g: torch.Tensor, w: torch.Tensor, pad_mode: str,
                Cs: Sequence[int]) -> Tuple[torch.Tensor, ...]:
     """Input cotangents of the conv, one per input part of ``Cs`` channels:
-    on a CUDA device the conv kernel, one launch per part, on the zero-padded
-    output cotangent with the flipped, io-transposed weight slice."""
+    on a CUDA device one launch of the conv kernel's input-cotangent mode
+    for all parts."""
     if not _route(g, "conv3x3_dx"):
         return conv3x3_dx_plain(g, w, pad_mode, Cs)
-
-    def conv(gp, wc):
-        e = _launch_conv((gp,), wc, None, "zeros")
-        conv3x3_dx.launches += 1
-        return e
-
-    return _dx(g, w, pad_mode, Cs, conv)
+    if g.dtype not in _DTYPES or w.dtype != g.dtype or \
+            w.device != g.device or not g.is_contiguous() or g.dim() != 4:
+        raise TypeError("conv3x3_dx takes a contiguous NHWC cotangent and a "
+                        f"weight of one dtype of {sorted(map(str, _DTYPES))} "
+                        "on one device")
+    Cs = tuple(int(c) for c in Cs)
+    B, H, W, Co = g.shape
+    if not 1 <= len(Cs) <= 2 or tuple(w.shape) != (3, 3, sum(Cs), Co):
+        raise ValueError(f"weight {tuple(w.shape)} does not match parts {Cs} "
+                         f"and the cotangent's {Co} channels")
+    wt = _dx_weight(w)
+    dxs = tuple(torch.empty((B, H, W, c), dtype=g.dtype, device=g.device)
+                for c in Cs)
+    with torch.cuda.device(g.device):
+        err = _entry("conv3x3", "fsnet_conv3x3_dx_nhwc", (0, 2, 3, 5), 13)(
+            g.data_ptr(), Co, wt.data_ptr(), dxs[0].data_ptr(), Cs[0],
+            dxs[1].data_ptr() if len(Cs) == 2 else None,
+            Cs[1] if len(Cs) == 2 else 0, B, H, W,
+            int(pad_mode == "replicate"), _DTYPES[g.dtype], _stream(g))
+    _raise_on(err, "conv3x3_dx")
+    conv3x3_dx.launches += 1
+    return dxs
 
 
 def conv3x3_dw(x: Parts, g: torch.Tensor, pad_mode: str = "zeros"
@@ -329,7 +352,7 @@ class Conv3x3Function(torch.autograd.Function):
     per-channel sum and sum of squares (``moments=True``). Backward
     (``fast_conv._pallas_cvjp_bwd`` / ``_pallas_bn_cvjp_bwd``): the moment
     cotangents fold into the output cotangent as ``g + gs1 + 2*out*gs2``,
-    then dx per part (:func:`conv3x3_dx`), dw (:func:`conv3x3_dw`) and
+    then dx of every part (:func:`conv3x3_dx`), dw (:func:`conv3x3_dw`) and
     dbias ``g.sum((0, 1, 2))``."""
 
     @staticmethod

@@ -22,7 +22,7 @@ from torch.profiler import ProfilerActivity, profile
 
 
 def _group(name: str) -> str:
-    if "conv3x3_nhwc" in name:
+    if "conv3x3_mma_kernel" in name:
         return "conv3x3 kernel (decoder)"
     low = name.lower()
     if any(k in low for k in ("conv", "implicit", "wgrad", "dgrad", "sm90_",

@@ -30,6 +30,7 @@ most device time.
 from __future__ import annotations
 
 import argparse
+import re
 import subprocess
 import time
 from collections import defaultdict
@@ -52,9 +53,11 @@ _GROUPS = (
 
 
 def _group(name: str) -> str:
-    if "conv3x3_nhwc_kernel" in name:      # <T, TCO, MOM>: the epilogue flag
-        return ("conv3x3 + BN moments (kernel C)" if "true>" in name
-                else "conv3x3: dispconvs and input cotangents")
+    conv = re.search(r"conv3x3_mma_kernel<[^,]+, \d+, (\d)", name)
+    if conv:                               # <T, TN, MODE, VEC>
+        return {"0": "conv3x3 forward (dispconvs)",
+                "1": "conv3x3 + BN moments (kernel C)",
+                "2": "conv3x3 input cotangent"}[conv.group(1)]
     for key, group in _GROUPS:
         if key in name:
             return group

@@ -162,6 +162,7 @@ def test_fold_halo_replicate_corners():
 @pytest.mark.parametrize("entry,lib,nargs,pointers", [
     ("fsnet_conv3x3_bn_nhwc", "conv3x3", 14, [0, 2, 4, 5, 6, 7, 13]),
     ("fsnet_conv3x3_dw_nhwc", "conv3x3_dw", 12, [0, 2, 4, 5, 11]),
+    ("fsnet_conv3x3_dx_nhwc", "conv3x3", 13, [0, 2, 3, 5, 12]),
 ])
 def test_train_entry_points_declare_their_arguments(monkeypatch, entry, lib,
                                                     nargs, pointers):
