@@ -14,7 +14,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    compiler's register/spill report; checks that the SASS of both conv
    libraries holds tensor-core (``HMMA``) and asynchronous-copy
    (``LDGSTS``) instructions (``cuobjdump -sass``; the run fails where the
-   toolkit has no cuobjdump);
+   toolkit has no cuobjdump), that kernel E's library holds 16-byte global
+   loads and stores and kernel K's vector float reductions (``RED`` of 4
+   floats), the instructions of their channel-wide routes;
 3. turns TF32 off for matrix products and cuDNN convolutions, so every
    float32 number on the card (the encoder's convs included) is full
    float32;
@@ -85,7 +87,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 13. the grid route of the flagship: three train steps at batch 12 x
     192x640 on the synthetic batch with an all-ones ``patched_mask`` (as
     every dataset batch carries one), the launch counters set to 0 just
-    before; checks per step kernel F 1 launch, kernel E 1, the depth-direct
+    before; checks per step kernel F 1 launch, kernel E 1 (on the narrow
+    route: the mask has one channel), the depth-direct
     kernels 0 and the conv kernels as in phase 9, a finite loss and changed
     parameters and BN statistics; then one step from the same weights with
     and one without the mask (the depth-direct route): loss rel <= 1e-4 and
@@ -146,16 +149,20 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     by about 1.5 px) at batch 12 x 192x640: at each of its 16 deformable
     convs, the input and the 9-tap grid of a train-mode forward, kernel E
     (bilinear, zeros, band 8) against its plain version (max abs err
-    <= 1e-6) and kernel K (``csrc/warp_grad.cu``: gfx, gfy and the image
-    cotangent) against its plain version (within 1e-5 of each one's largest
-    entry); prints how many samples fall outside the band of 8 rows;
+    <= 1e-6, and bitwise equal) and kernel K (``csrc/warp_grad.cu``: gfx,
+    gfy and the image cotangent) against its plain version (within 1e-5 of
+    each one's largest entry), each launched 4 times: E bitwise and K's
+    gfx, gfy bitwise launch to launch; prints the route each took (both
+    must take the channel-wide one) and how many samples fall outside the
+    band of 8 rows;
 24. the DLA serving forward (``train=False``) through ``make_eval_step``,
     the counters set to 0 just before: E 16 launches (one per DCN, its
-    taps batched), K and every other kernel none; the output
-    [12, 48, 160, 64] finite;
+    taps batched), all on the channel-wide route, K and every other kernel
+    none; the output [12, 48, 160, 64] finite;
 25. three DLA train steps (the loss ``sum(out * target_weight)``, the
     ``bench.py`` recipe), the counters set to 0 just before: per step E 16
-    and K 16, nothing else; a finite loss and changed parameters and BN
+    and K 16, all on the channel-wide route, nothing else; a finite loss
+    and changed parameters and BN
     statistics; then one step at batch 2 on the card against the CPU port
     with every BN on its init statistics (``dla_model(norm_frozen=True)``),
     held to phase 10's gate; and, as a reading with only the loss held to
@@ -163,8 +170,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     and the CPU port's float32 step against its float64 step (float32
     rounding alone moves that gradient by several percent:
     ``scripts/dla_conditioning.py``);
-26. times E and K summed over the 16 DCNs of one step beside their plain
-    versions, bounds and yardsticks (``F.grid_sample`` and
+26. times E and K at each of the 16 DCN shapes (by CUDA events over 10
+    back-to-back calls, beside the host's time to issue one call and the
+    shape's bound) and summed over the 16 DCNs of one step beside their
+    plain versions, bounds and yardsticks (``F.grid_sample`` and
     ``grid_sampler_2d_backward``, exact, without the band), then the DLA
     step at batch 12 (10 steps, the batch on the card; its peak memory)
     and its forward.
@@ -247,6 +256,26 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_host_ms(fn, iters: int, warmup: int = 2):
+    """(mean time of ``fn`` over ``iters`` back-to-back calls by CUDA events,
+    mean host time to issue one call): where the second comes near the
+    first, the host, not the card, sets the pace of the back-to-back
+    calls."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) / iters * 1e3
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters, host
+
+
 def bound(B, H, W, Cs, Co, dtype):
     """Least time for one conv: max(operations / peak, bytes / bandwidth),
     each input read once and the output written once."""
@@ -287,6 +316,42 @@ def conv_sass(build):
               f"{name}: no tensor-core instruction in its SASS")
         check(found[name]["LDGSTS"] + found[name]["UTMALDG"] > 0,
               f"{name}: no asynchronous copy in its SASS")
+    return found
+
+
+def warp_sass(build):
+    """Phase 2: the band warps' channel-wide routes in SASS. Kernel E's
+    library must hold 16-byte global loads and stores (``LDG...128``,
+    ``STG...128``) and kernel K's vector float reductions into global memory
+    (a ``RED`` of 4 floats: ``atomicAdd(float4*, float4)``). Returns the
+    counts of the global memory opcodes by library."""
+    import os
+    import re
+    from collections import Counter
+
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    found = {}
+    for name in ("warp_grid", "warp_grad"):
+        sass = subprocess.run([cuobjdump, "-sass",
+                               str(build.library_path(name))],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        ops = Counter(re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?((?:LDG|STG|RED|ATOM)"
+            r"[\w.]*)", sass))
+        found[name] = dict(ops)
+        print(f"SASS {name}: {dict(ops)}")
+    wide = {n: {k: sum(c for op, c in found[n].items()
+                       if op.startswith(k) and ".128" in op)
+                for k in ("LDG", "STG")} for n in found}
+    vec_red = sum(c for op, c in found["warp_grad"].items()
+                  if op.startswith(("RED", "ATOM")) and
+                  re.search(r"F32x4|\.128|\.V4", op))
+    check(wide["warp_grid"]["LDG"] > 0 and wide["warp_grid"]["STG"] > 0,
+          f"warp_grid: no 16-byte global load or store in its SASS ({wide})")
+    check(wide["warp_grad"]["LDG"] > 0 and vec_red > 0,
+          f"warp_grad: no 16-byte load ({wide}) or vector float reduction "
+          f"({vec_red}) in its SASS")
     return found
 
 
@@ -343,10 +408,23 @@ def launch_counters():
 def zero(counters) -> None:
     for fn in counters.values():
         fn.launches = 0
+        if hasattr(fn, "routes"):
+            fn.routes = dict.fromkeys(fn.routes, 0)
+
+
+def routes(counters):
+    """Launches by route of the kernels that have two (E and K)."""
+    return {k: dict(fn.routes) for k, fn in counters.items()
+            if hasattr(fn, "routes")}
 
 
 def read(counters):
     return {k: fn.launches for k, fn in counters.items()}
+
+
+def taken(counts) -> str:
+    """The routes that launched, from a kernel's launches by route."""
+    return "+".join(k for k, n in counts.items() if n) or "none"
 
 
 def rel_err(got, ref, scale=None):
@@ -725,6 +803,7 @@ def drive_steps(model, opt, batch, counters, want, what, steps=3,
           f"{what}: {len(changed)} of {len(p0)} parameters and {stats_moved} "
           f"of {len(s0)} BN variances changed")
     return dict(steps=steps, losses=losses, launches=counts,
+                routes=routes(counters),
                 launches_per_step=want, params_changed=len(changed),
                 params=len(p0), unchanged=sorted(set(p0) - changed))
 
@@ -1021,6 +1100,9 @@ def grid_phases(counters, record, train):
     opt, _ = flagship_optimizer(model)
     record["grid_path_mask"] = drive_steps(model, opt, masked, counters,
                                            want_mask, "grid path (mask)")
+    got = record["grid_path_mask"]["routes"]["warp_grid_fwd"]
+    check(got == dict(narrow=3, vector=0), f"grid path (mask): kernel E "
+          f"routes {got}; the mask (C=1) takes the narrow one")
     state = copy.deepcopy(model.state_dict())
     route = {}
     for tag, b in (("grid", masked), ("depth-direct", train["batch"])):
@@ -1124,7 +1206,10 @@ def grid_phases(counters, record, train):
         b_ms, b_by = ms_bound(*ob)
         kernels.append(dict(
             name=k, route="cuda", source="fsnet_tpu_torch/csrc/warp_grid.cu",
-            replaces=replaces, launches=launches[k], max_abs_err=errs[k],
+            replaces=replaces, launches=launches[k],
+            warp_route=("narrow" if k == "warp_grid_fused" else taken(
+                record["grid_path_mask"]["routes"][k])),
+            max_abs_err=errs[k],
             ms=cuda_ms(fn, iters=10), plain_ms=cuda_ms(plain, iters=3,
                                                        warmup=1),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -1456,10 +1541,17 @@ def band_misses(grid, H, W, band):
     return int(miss.sum().item())
 
 
+# phase 23 launches kernels E and K this many times per DCN shape
+WARP_REPEATS = 4
+
+
 def check_dcn_kernels(scene):
     """Phase 23: kernels E and K against their plain versions at the 16 DCN
-    shapes. Returns the max errors, per-shape rows and the cotangents the
-    timings reuse."""
+    shapes, each launched :data:`WARP_REPEATS` times: E bitwise equal to
+    its plain version (and so launch to launch), K within 1e-5 of each
+    output's largest entry at every launch and its gfx, gfy bitwise equal
+    launch to launch (dimage's atomic sums run in no fixed order). Returns
+    the max errors, per-shape rows and the cotangents the timings reuse."""
     from fsnet_tpu_torch.ops import warp_fast as twf
 
     errs = dict(warp_grid_fwd=0.0, warp_grid_bwd=0.0)
@@ -1469,37 +1561,55 @@ def check_dcn_kernels(scene):
     for i, (m, x, grid) in enumerate(scene):
         _, H, W, C = x.shape
         band = min(DLA_BAND, H)
-        out = twf.grid_band_fwd(x, grid, "bilinear", "zeros", band)
-        g = torch.randn(out.shape, device="cuda", generator=gen)
-        got = twf.grid_band_bwd(x, grid, g, "bilinear", "zeros", band)
-        torch.cuda.synchronize()
         ref = twf.grid_band_plain(x, grid, "bilinear", "zeros", band,
                                   False)[0]
-        e_fwd = rel_err(out, ref)[0]
-        del ref
+        g = torch.randn(ref.shape, device="cuda", generator=gen)
         refs = twf.grid_band_bwd_plain(x, grid, g, "bilinear", "zeros", band)
-        e_bwd = [rel_err(a, r) for a, r in zip(got, refs)]
-        del refs, got
+        before = (dict(twf.grid_band_fwd.routes),
+                  dict(twf.grid_band_bwd.routes))
+        e_fwd, first, bitwise = 0.0, None, True
+        e_bwd, d_bwd = [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]  # relative, abs
+        for _ in range(WARP_REPEATS):
+            out = twf.grid_band_fwd(x, grid, "bilinear", "zeros", band)
+            got = twf.grid_band_bwd(x, grid, g, "bilinear", "zeros", band)
+            torch.cuda.synchronize()
+            e_fwd = max(e_fwd, rel_err(out, ref)[0])
+            bitwise = bitwise and torch.equal(out, ref)
+            for k, (a, r) in enumerate(zip(got, refs)):
+                d, e = rel_err(a, r)
+                d_bwd[k], e_bwd[k] = max(d_bwd[k], d), max(e_bwd[k], e)
+            if first is None:
+                first = got[:2]
+            check(all(torch.equal(a, b) for a, b in zip(got[:2], first)),
+                  f"DCN {i}: kernel K's gfx, gfy differ launch to launch")
+            del out, got
+        route = [next(k for k, n in fn.routes.items() if n != was[k])
+                 for fn, was in zip((twf.grid_band_fwd, twf.grid_band_bwd),
+                                    before)]
+        del ref, refs, first
         misses = band_misses(grid, H, W, band)
         tot["samples"] += grid[..., 0].numel()
         tot["misses"] += misses
         row = dict(input=list(x.shape), cout=m.weight.shape[-1],
-                   grid=list(grid.shape), band=band,
-                   fwd_max_abs_err=e_fwd,
-                   bwd_rel_err=[e[1] for e in e_bwd], band_misses=misses,
+                   grid=list(grid.shape), band=band, routes=route,
+                   fwd_max_abs_err=e_fwd, fwd_bitwise=bitwise,
+                   bwd_rel_err=e_bwd, band_misses=misses,
                    samples=grid[..., 0].numel())
         rows.append(row)
         errs["warp_grid_fwd"] = max(errs["warp_grid_fwd"], e_fwd)
-        errs["warp_grid_bwd"] = max(errs["warp_grid_bwd"],
-                                    *(e[0] for e in e_bwd))
+        errs["warp_grid_bwd"] = max(errs["warp_grid_bwd"], *d_bwd)
         print(f"check DCN {i:2d} {tuple(x.shape)} -> {row['cout']}: kernel E "
-              f"max abs err {e_fwd:.2e}; kernel K rel err gfx "
-              f"{e_bwd[0][1]:.2e} gfy {e_bwd[1][1]:.2e} dimage "
-              f"{e_bwd[2][1]:.2e}; {misses} of {row['samples']} samples "
-              f"outside the band of {band}")
-        check(e_fwd <= 1e-6, f"DCN {i}: kernel E max abs err {e_fwd:.2e}")
-        check(all(e[1] <= 1e-5 for e in e_bwd),
-              f"DCN {i}: kernel K rel errs {[e[1] for e in e_bwd]} > 1e-5")
+              f"({route[0]} route) max abs err {e_fwd:.2e}, bitwise "
+              f"{bitwise}; kernel K ({route[1]} route) rel err gfx "
+              f"{e_bwd[0]:.2e} gfy {e_bwd[1]:.2e} dimage {e_bwd[2]:.2e}; "
+              f"x{WARP_REPEATS} launches; {misses} of {row['samples']} "
+              f"samples outside the band of {band}")
+        check(e_fwd <= 1e-6 and bitwise,
+              f"DCN {i}: kernel E max abs err {e_fwd:.2e}, bitwise {bitwise}")
+        check(all(e <= 1e-5 for e in e_bwd),
+              f"DCN {i}: kernel K rel errs {e_bwd} > 1e-5")
+        check(route == ["vector", "vector"], f"DCN {i}: kernels E and K took "
+              f"the {route} routes, not the channel-wide one")
         cots.append(g)
     share = tot["misses"] / tot["samples"]
     print(f"DCN samples outside the band of {DLA_BAND} rows: {tot['misses']}"
@@ -1569,6 +1679,9 @@ def dla_phases(counters, record):
     want_eval["warp_grid_fwd"] = len(scene)
     check(counts == want_eval, f"DLA forward launches {counts}, expected "
           f"{want_eval}")
+    got = routes(counters)["warp_grid_fwd"]
+    check(got == dict(narrow=0, vector=len(scene)), f"DLA forward: kernel E "
+          f"routes {got}, expected all {len(scene)} channel-wide")
     check(tuple(pred.shape) == (B, H // 4, W // 4, 64)
           and bool(torch.isfinite(pred).all()),
           f"DLA output {tuple(pred.shape)}, finite "
@@ -1576,13 +1689,18 @@ def dla_phases(counters, record):
     print(f"DLA path: forward {size} f32 ({n_params} parameters), launches "
           f"{counts}, output {tuple(pred.shape)} in "
           f"[{pred.min().item():.4f}, {pred.max().item():.4f}]")
-    record["dla_forward"] = dict(launches=counts, params=n_params)
+    record["dla_forward"] = dict(launches=counts, routes=routes(counters),
+                                 params=n_params)
 
     # 25. three train steps, then one at bs2 on the card against the CPU
     opt, _ = flagship_optimizer(model)
     want = dict(want_eval, warp_grid_bwd=len(scene))
     record["dla_path"] = drive_steps(model, opt, batch, counters, want,
                                      "DLA train path", size=size)
+    for k in ("warp_grid_fwd", "warp_grid_bwd"):
+        got = record["dla_path"]["routes"][k]
+        check(got == dict(narrow=0, vector=3 * len(scene)), f"DLA train "
+              f"path: {k} routes {got}, expected all channel-wide")
     small = {k: v[:2] for k, v in batch.items()}
     record["dla_card_vs_cpu"] = card_vs_cpu(
         functools.partial(dla_model, norm_frozen=True), small,
@@ -1593,7 +1711,7 @@ def dla_phases(counters, record):
     # peak is the step's own) the step and the forward
     t = {k: dict(ms=0.0, plain_ms=0.0, ops=0.0, nbytes=0.0, yard_ms=0.0)
          for k in ("warp_grid_fwd", "warp_grid_bwd")}
-    for (m, x, grid), g in zip(scene, cots):
+    for i, ((m, x, grid), g) in enumerate(zip(scene, cots)):
         _, Hi, Wi, C = x.shape
         band = min(DLA_BAND, Hi)
         N = grid.shape[0]
@@ -1622,11 +1740,21 @@ def dla_phases(counters, record):
                  4.0 * (2 * x.numel() + grid.numel() + px * C + 2 * px),
                  lambda: torch.ops.aten.grid_sampler_2d_backward(
                      gc, src, grid, 0, 0, True, [True, True]))):
-            t[k]["ms"] += cuda_ms(fn, iters=10)
+            ms, host = cuda_host_ms(fn, iters=10)
+            b_ms, b_by = ms_bound(ops, nbytes)
+            rows[i][k] = dict(ms=ms, host_ms=host, bound_ms=b_ms,
+                              bound_by=b_by)
+            t[k]["ms"] += ms
             t[k]["plain_ms"] += cuda_ms(plain, iters=2, warmup=1)
             t[k]["yard_ms"] += cuda_ms(yard, iters=10)
             t[k]["ops"] += ops
             t[k]["nbytes"] += nbytes
+        ei, ki = rows[i]["warp_grid_fwd"], rows[i]["warp_grid_bwd"]
+        print(f"time  DCN {i:2d} {tuple(x.shape)} x{N // x.shape[0]} taps: "
+              f"kernel E {ei['ms']:.4f} ms (host {ei['host_ms']:.4f} ms a "
+              f"call, bound {ei['bound_ms']:.4f}), kernel K "
+              f"{ki['ms']:.4f} ms (host {ki['host_ms']:.4f}, bound "
+              f"{ki['bound_ms']:.4f})")
         del src, gc
     del scene, cots, m, x, grid, g, pred
     step = make_train_step("cuda")
@@ -1664,6 +1792,7 @@ def dla_phases(counters, record):
         replaces="fsnet_tpu/ops/pallas/warp_kernel.py:815 + "
                  "warp_kernel.py:1169",
         launches=launches["warp_grid_bwd"],
+        warp_route=taken(record["dla_path"]["routes"]["warp_grid_bwd"]),
         max_abs_err=errs["warp_grid_bwd"], ms=tk["ms"],
         plain_ms=tk["plain_ms"], bound_ms=tk["bound_ms"],
         bound_by=tk["bound_by"], library_ms=None,
@@ -1671,10 +1800,14 @@ def dla_phases(counters, record):
         note=f"sums over the 16 DCNs of one {size} step (9 taps each as one "
              f"grid batch of 9 x {B}), bilinear, zeros, band {DLA_BAND}, "
              "float32; launches: 3 steps of the DLA path (phase 25); "
+             "warp_route: the route those launches took (channel-wide: "
+             "float4 lanes, vector atomics; narrow: scalar); "
              "grid_sampler_2d_backward_ms: torch's exact backward (no band) "
              "on the inputs tiled to the grid batch, a yardstick only")
     te = t["warp_grid_fwd"]
     e_dla = dict(dla_launches=launches["warp_grid_fwd"],
+                 dla_warp_route=taken(
+                     record["dla_path"]["routes"]["warp_grid_fwd"]),
                  dla_max_abs_err=errs["warp_grid_fwd"], dla_ms=te["ms"],
                  dla_plain_ms=te["plain_ms"], dla_bound_ms=te["bound_ms"],
                  dla_bound_by=te["bound_by"], dla_grid_sample_ms=te["yard_ms"])
@@ -1885,6 +2018,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     record["conv_sass"] = conv_sass(_build)
+    record["warp_sass"] = warp_sass(_build)
 
     # 3. full float32 references
     torch.backends.cuda.matmul.allow_tf32 = False

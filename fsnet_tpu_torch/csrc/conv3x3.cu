@@ -76,6 +76,7 @@
 #include <cstdint>
 #include <initializer_list>
 
+#include "launch.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -386,17 +387,6 @@ conv3x3_mma_kernel(const ConvArgs<T> p) {
 // ------------------------------------------------------------------- host
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-bool aligned16(const void* ptr) {
-  return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
-}
-
-int sm_count() {
-  int dev = 0, n = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n;
-}
 
 // the pixel tile of least padded area; under the fold the tiles cover rows
 // -1..H and columns -1..W, started one earlier where a boundary would split

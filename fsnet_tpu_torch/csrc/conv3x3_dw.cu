@@ -49,6 +49,7 @@
 #include <cstdint>
 #include <initializer_list>
 
+#include "launch.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -295,10 +296,6 @@ conv3x3_dw_kernel(const DwArgs p) {
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-bool aligned16(const void* ptr) {
-  return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
-}
-
 // the channel tile (16 or 32) of the fewest padded channels, a tile costing
 // T + 8; ties go to 32
 int pick_ct(int Ca, int Cb) {
@@ -383,10 +380,7 @@ extern "C" int fsnet_conv3x3_dw_nhwc(const void* x0, int C0, const void* x1,
   if (ntiles > INT_MAX || nct > 65535) return (int)cudaErrorInvalidValue;
   // the split over pixels: channel tiles x split fills whole waves of
   // resident blocks (two per SM)
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long resident = 2LL * sms;
+  const long long resident = 2LL * sm_count();
   const long long waves = (nct + resident - 1) / resident;
   long long split = waves * resident / nct;
   if (split < 1) split = 1;

@@ -30,15 +30,32 @@
 // Kernel E replaces fsnet_tpu/ops/pallas/warp_kernel.py warp_rows_pallas_dma
 // and its twin on materialized bands, warp_rows_pallas; kernel F replaces
 // warp_rows_pallas_dma_fused and warp_rows_pallas_fused on the grid route
-// (grid_sample_band_pallas_fused). One block per (warp n, output row): pass
-// 1 reduces min y0c over the row, pass 2 gathers the corners of image
-// n mod M in the band's rows and writes the outputs. The TPU kernels also
-// clamped x0/x1 into a 3-tile window of 384 columns per 128-lane output
-// tile, an artifact of their lane tiling that fires only at W > 384; these
-// kernels do not.
-// What bounds them on an H100: bytes. They read the grid (twice; the second
-// read hits L1/L2) and ~4 source rows per output row, and write C (E) or
-// 3C (F) floats per sample; about 30 operations per output value.
+// (grid_sample_band_pallas_fused). The TPU kernels also clamped x0/x1 into
+// a 3-tile window of 384 columns per 128-lane output tile, an artifact of
+// their lane tiling that fires only at W > 384; these kernels do not.
+//
+// Two routes, chosen on the host from C and the pointers' alignment
+// (ops/warp_fast.py warp_route), never one after the other fails:
+// - narrow (kernels E and F, C <= 3 or C not a multiple of 4, or a pointer
+//   not 16-byte aligned: the grid route's mask, C = 1, and F's frames,
+//   C = 3): one block per (warp n, output row); pass 1 reduces min y0c over
+//   the row, pass 2 gives each thread one output sample and loops over its
+//   C channels.
+// - channel-wide (kernel E at C a multiple of 4: the deformable convs'
+//   taps, C = 64-512): the layout of warp_band.cuh, L <= 32 lanes per
+//   sample with a float4 of channels each, so a warp's corner loads and
+//   its store are 16 bytes a lane on consecutive addresses. The loads go
+//   through the read-only path (__ldg): the image is read by 9 taps and
+//   stays in L2 (at most 23.6 MB at the DLA's shapes). The output is
+//   written once and never read here, so it goes out as streaming stores
+//   (__stcs) that do not push the image out of L2. Each warp reduces its
+//   row's band start itself, so a row can be split among warps and every
+//   DCN shape fills the SMs (vec_parts).
+// What bounds them on an H100: bytes. They read the grid and ~4 source rows
+// per output row (L1/L2 resident), and write C (E) or 3C (F) floats per
+// sample; about 30 operations per output value. The channel-wide route
+// moves 4 L2 reads of 16 bytes and one 16-byte write per 4 output values;
+// the write of the output to HBM is its floor.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -60,13 +77,12 @@ warp_grid_kernel(const float* __restrict__ image,
   const int ymin = band_start(grow, Wo, H, band, nearest, zeros);
   const float* src = image + (size_t)(n % M) * H * W * C;
   for (int j = threadIdx.x; j < Wo; j += kThreads) {
-    const Corners k = corners(grow + 2 * j, H, W, nearest, zeros);
-    const int r0 = ymin + min(max(k.y0 - ymin, 0), band - 1);
-    const int r1 = ymin + min(max(k.y1 - ymin, 0), band - 1);
-    const float* p00 = src + ((size_t)r0 * W + k.x0) * C;
-    const float* p01 = src + ((size_t)r0 * W + k.x1) * C;
-    const float* p10 = src + ((size_t)r1 * W + k.x0) * C;
-    const float* p11 = src + ((size_t)r1 * W + k.x1) * C;
+    const Corners k =
+        band_corners(grow, j, Wo, H, W, ymin, band, nearest, zeros);
+    const float* p00 = src + ((size_t)k.y0 * W + k.x0) * C;
+    const float* p01 = src + ((size_t)k.y0 * W + k.x1) * C;
+    const float* p10 = src + ((size_t)k.y1 * W + k.x0) * C;
+    const float* p11 = src + ((size_t)k.y1 * W + k.x1) * C;
     const size_t o = (((size_t)n * Ho + i) * Wo + j) * C;
     for (int c = 0; c < C; ++c) {
       const float i00 = __ldg(p00 + c), i01 = __ldg(p01 + c);
@@ -86,11 +102,46 @@ warp_grid_kernel(const float* __restrict__ image,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+warp_grid_vec_kernel(const float4* __restrict__ image,
+                     const float* __restrict__ grid, float4* __restrict__ out,
+                     int M, int H, int W, int Q, int Ho, int Wo, int band,
+                     int lanes_log2, int parts, int rows, bool nearest,
+                     bool zeros) {
+  const VecTask t = vec_task(parts);
+  if (t.row >= rows) return;               // whole warps: tasks are warps
+  const float* grow = grid + (size_t)t.row * Wo * 2;
+  const int ymin = band_start_warp(grow, Wo, H, band, nearest, zeros);
+  const int lane = threadIdx.x & 31, L = 1 << lanes_log2;
+  const float4* src = image + (size_t)(t.row / Ho % M) * H * W * Q;
+  float4* dst = out + (size_t)t.row * Wo * Q;
+  const int groups = (Wo + (32 >> lanes_log2) - 1) >> (5 - lanes_log2);
+  const int iters = (groups - t.part + parts - 1) / parts;
+  for (int m = 0; m < iters; ++m) {
+    const int j = vec_sample_index(m, t.part, parts, lanes_log2, lane);
+    const Corners k =
+        band_corners(grow, j, Wo, H, W, ymin, band, nearest, zeros);
+    if (j >= Wo) continue;
+    const float4* p00 = src + ((size_t)k.y0 * W + k.x0) * Q;
+    const float4* p01 = src + ((size_t)k.y0 * W + k.x1) * Q;
+    const float4* p10 = src + ((size_t)k.y1 * W + k.x0) * Q;
+    const float4* p11 = src + ((size_t)k.y1 * W + k.x1) * Q;
+    float4* o = dst + (size_t)j * Q;
+    for (int q = lane & (L - 1); q < Q; q += L) {
+      const float4 a = __ldg(p00 + q), b = __ldg(p01 + q);
+      const float4 c = __ldg(p10 + q), d = __ldg(p11 + q);
+      __stcs(o + q, make_float4(blend(a.x, b.x, c.x, d.x, k),
+                                blend(a.y, b.y, c.y, d.y, k),
+                                blend(a.z, b.z, c.z, d.z, k),
+                                blend(a.w, b.w, c.w, d.w, k)));
+    }
+  }
+}
+
 int launch(bool fused, const void* image, const void* grid, void* out,
            void* va, void* vb, int M, int N, int H, int W, int C, int Ho,
            int Wo, int band, int nearest, int zeros, void* stream) {
-  if (M <= 0 || N <= 0 || N % M || H <= 0 || W <= 0 || C <= 0 || Ho <= 0 ||
-      Wo <= 0 || band <= 0 || band > H || N > 65535)
+  if (bad_dims(M, N, H, W, C, Ho, Wo, band) || N > 65535)
     return (int)cudaErrorInvalidValue;
   const dim3 blocks((unsigned)Ho, (unsigned)N);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -109,16 +160,37 @@ int launch(bool fused, const void* image, const void* grid, void* out,
 
 }  // namespace
 
-// Kernel E. image [M,H,W,C], grid [N,Ho,Wo,2] f32 (N % M == 0); writes out
-// [N,Ho,Wo,C] f32. nearest: 0 bilinear, 1 nearest; zeros: 0 border, 1 zeros
-// padding. All contiguous. Launches on `stream` and returns
-// cudaGetLastError() (0 on success); never synchronises.
+// Kernel E, the narrow route. image [M,H,W,C], grid [N,Ho,Wo,2] f32
+// (N % M == 0); writes out [N,Ho,Wo,C] f32. nearest: 0 bilinear, 1
+// nearest; zeros: 0 border, 1 zeros padding. All contiguous. Launches on
+// `stream` and returns cudaGetLastError() (0 on success); never
+// synchronises.
 extern "C" int fsnet_warp_grid_fwd(const void* image, const void* grid,
                                    void* out, int M, int N, int H, int W,
                                    int C, int Ho, int Wo, int band,
                                    int nearest, int zeros, void* stream) {
   return launch(false, image, grid, out, nullptr, nullptr, M, N, H, W, C, Ho,
                 Wo, band, nearest, zeros, stream);
+}
+
+// Kernel E, the channel-wide route: as fsnet_warp_grid_fwd, for C a
+// multiple of 4 with image and out 16-byte aligned (else
+// cudaErrorInvalidValue, nothing launched).
+extern "C" int fsnet_warp_grid_fwd_vec(const void* image, const void* grid,
+                                       void* out, int M, int N, int H, int W,
+                                       int C, int Ho, int Wo, int band,
+                                       int nearest, int zeros, void* stream) {
+  if (bad_dims(M, N, H, W, C, Ho, Wo, band) || C % 4 ||
+      !aligned16(image) || !aligned16(out))
+    return (int)cudaErrorInvalidValue;
+  VecLaunch v;
+  if (!vec_launch(C, N, Ho, Wo, v)) return (int)cudaErrorInvalidValue;
+  warp_grid_vec_kernel<<<v.blocks, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(image), static_cast<const float*>(grid),
+      static_cast<float4*>(out), M, H, W, C / 4, Ho, Wo, band, v.lanes_log2,
+      v.parts, v.rows, nearest != 0, zeros != 0);
+  return (int)cudaGetLastError();
 }
 
 // Kernel F, bilinear. As kernel E, and also writes va, vb [N,Ho,Wo,C] f32.

@@ -24,6 +24,14 @@ backward recomputes both cotangents from the image: ``csrc/warp_grad.cu``
 :func:`grid_band_bwd_plain`). Warp ``n`` of a grid batch ``N`` reads image
 ``n mod M`` of an image batch ``M`` that divides it, and its image
 cotangent goes to image ``n mod M``; nothing is tiled.
+
+Kernels E and K have two routes each, both hand-written: the narrow one
+(one thread per sample for E, scalar loads and atomics for K) and the
+channel-wide one (float4 lanes over the channels, vector atomics for K) for
+C a multiple of 4 with every pointer 16-byte aligned, the deformable convs'
+case. :func:`warp_route` picks it from the operands before the launch; a
+launch that fails raises. ``grid_band_fwd.routes`` and
+``grid_band_bwd.routes`` count the launches of each route.
 """
 from __future__ import annotations
 
@@ -138,6 +146,20 @@ def grid_band_plain(image: torch.Tensor, grid: torch.Tensor, mode: str,
     return band_sample(image, src, iw, with_vjp)
 
 
+ROUTES = ("narrow", "vector")
+_SUFFIX = dict(narrow="", vector="_vec")     # of the routes' C entry points
+
+
+def warp_route(*tensors: torch.Tensor) -> str:
+    """The route of kernels E and K for these operands: ``'vector'`` (the
+    channel-wide kernels) when the channels, the last dim of the first
+    tensor, are a multiple of 4 and every tensor's data is 16-byte aligned;
+    else ``'narrow'``."""
+    vec = tensors[0].shape[-1] % 4 == 0 and \
+        all(t.data_ptr() % 16 == 0 for t in tensors)
+    return "vector" if vec else "narrow"
+
+
 def _launch(lib: str, fn: str, image, grid, tensors, band, flags):
     M, H, W, C = image.shape
     N, Ho, Wo, _ = grid.shape
@@ -153,15 +175,18 @@ def _launch(lib: str, fn: str, image, grid, tensors, band, flags):
 
 def grid_band_fwd(image: torch.Tensor, grid: torch.Tensor, mode: str,
                   padding: str, band: int) -> torch.Tensor:
-    """The forward (kernel E on a CUDA device): out [N, Ho, Wo, C]."""
+    """The forward (kernel E on a CUDA device, on the route of
+    :func:`warp_route`): out [N, Ho, Wo, C]."""
     _check(image, grid, mode, padding, band)
     if not _route(image, "grid_band_fwd"):
         return grid_band_plain(image, grid, mode, padding, band, False)[0]
     out = torch.empty((*grid.shape[:3], image.shape[3]), dtype=torch.float32,
                       device=image.device)
-    _launch("warp_grid", "fsnet_warp_grid_fwd", image, grid, (out,), band,
-            (int(mode == "nearest"), int(padding == "zeros")))
+    route = warp_route(image, out)
+    _launch("warp_grid", "fsnet_warp_grid_fwd" + _SUFFIX[route], image, grid,
+            (out,), band, (int(mode == "nearest"), int(padding == "zeros")))
     grid_band_fwd.launches += 1
+    grid_band_fwd.routes[route] += 1
     return out
 
 
@@ -208,8 +233,9 @@ def grid_band_bwd_plain(image: torch.Tensor, grid: torch.Tensor,
 
 def grid_band_bwd(image: torch.Tensor, grid: torch.Tensor, g: torch.Tensor,
                   mode: str, padding: str, band: int):
-    """Both cotangents of the warp (kernel K on a CUDA device): (gfx, gfy,
-    dimage) as :func:`grid_band_bwd_plain` gives them."""
+    """Both cotangents of the warp (kernel K on a CUDA device, on the route
+    of :func:`warp_route`): (gfx, gfy, dimage) as
+    :func:`grid_band_bwd_plain` gives them."""
     _check(image, grid, mode, padding, band)
     if g.shape != (*grid.shape[:3], image.shape[3]) or \
             g.dtype != image.dtype or g.device != image.device or \
@@ -222,10 +248,12 @@ def grid_band_bwd(image: torch.Tensor, grid: torch.Tensor, g: torch.Tensor,
     gfx, gfy = (torch.empty(grid.shape[:3], dtype=torch.float32,
                             device=image.device) for _ in range(2))
     dimage = torch.zeros_like(image)
-    _launch("warp_grad", "fsnet_warp_grid_bwd", image, grid,
+    route = warp_route(image, g, dimage)
+    _launch("warp_grad", "fsnet_warp_grid_bwd" + _SUFFIX[route], image, grid,
             (g, gfx, gfy, dimage), band,
             (int(mode == "nearest"), int(padding == "zeros")))
     grid_band_bwd.launches += 1
+    grid_band_bwd.routes[route] += 1
     return gfx, gfy, dimage
 
 
@@ -307,3 +335,5 @@ def grid_sample(image: torch.Tensor, grid: torch.Tensor,
 grid_band_fwd.launches = 0
 grid_band_fused.launches = 0
 grid_band_bwd.launches = 0
+grid_band_fwd.routes = dict.fromkeys(ROUTES, 0)
+grid_band_bwd.routes = dict.fromkeys(ROUTES, 0)

@@ -44,7 +44,8 @@ _GROUPS = (
     ("warp_depth_bwd_kernel", "warp backward (kernel B)"),
     ("warp_grid_kernel<true>", "grid warp + va, vb (kernel F)"),
     ("warp_grid_kernel<false>", "grid warp forward (kernel E)"),
-    ("warp_grid_bwd_kernel", "grid warp backward (kernel K)"),
+    ("warp_grid_vec_kernel", "grid warp forward (kernel E)"),
+    ("warp_grid_bwd", "grid warp backward (kernel K)"),
     ("warp_mei_fwd_kernel", "Mei warp + va, vb + overlap (kernel G)"),
     ("warp_mei_bwd_kernel", "Mei norm cotangent (kernel H)"),
     ("photo_loss_fwd_kernel", "photometric loss forward (kernel I)"),

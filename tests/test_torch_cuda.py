@@ -529,34 +529,61 @@ def test_photo_loss_rejects_what_it_does_not_take(cuda):
         tpl.photo_loss_fwd(pred[:3], target, target, target)
 
 
+def _unaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return out.view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+@pytest.mark.parametrize("padding", ["border", "zeros"])
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
 @pytest.mark.parametrize("case", [
-    # (M, N, H, W, Ho, Wo, C, mode, padding, band): a DCN's 9 taps against
-    # its inputs (C = 64, 512), ragged shapes, every mode and padding
-    (2, 18, 12, 40, 12, 40, 64, "bilinear", "zeros", 8),
-    (1, 9, 6, 20, 6, 20, 512, "bilinear", "zeros", 6),
-    (2, 4, 16, 128, 12, 100, 3, "bilinear", "border", 4),
-    (3, 6, 9, 33, 9, 33, 2, "nearest", "zeros", 4),
+    # (M, N, H, W, Ho, Wo, C, band): a DCN's 9 taps against its inputs at
+    # C = 64 (2 samples a warp on the channel-wide route, Wo odd) and 512
+    # (4 slices of 128 channels); C = 128 (one sample a warp); C = 4 (32
+    # samples a warp, Wo = 21) and 12 (8 samples a warp, one lane of 4
+    # idle, Wo = 19); C = 1, 2, 3 and 67 (the narrow route)
+    (2, 18, 12, 41, 12, 41, 64, 8),
+    (1, 9, 6, 20, 6, 20, 512, 6),
+    (2, 4, 12, 37, 10, 29, 128, 8),
+    (2, 4, 9, 21, 9, 21, 4, 4),
+    (2, 6, 8, 19, 8, 19, 12, 4),
+    (1, 3, 7, 13, 7, 13, 1, 4),
+    (3, 6, 9, 33, 9, 33, 2, 4),
+    (2, 4, 16, 128, 12, 100, 3, 4),
+    (1, 3, 10, 23, 10, 23, 67, 8),
 ], ids=lambda c: "-".join(map(str, c)))
-def test_grid_bwd_kernel_matches_plain(cuda, case):
-    """Kernel K against its plain version on the card (gfx, gfy and the
-    image cotangent within 1e-5 of their largest entries: the channel sums
-    and the atomic adds run in other orders), and kernel E on the same
-    image grads' forward (within 1e-6)."""
+def test_grid_bwd_kernel_matches_plain(cuda, case, mode, padding, aligned):
+    """Kernels E and K on both routes against their plain versions on the
+    card: E bitwise, K's gfx, gfy and image cotangent within 1e-5 of their
+    largest entries (the channel sums and the atomic adds run in other
+    orders). C a multiple of 4 with aligned operands takes the channel-wide
+    route; C <= 3, a ragged C or an image and cotangent 4 bytes off a
+    16-byte boundary take the narrow one, and match all the same."""
     from fsnet_tpu_torch.ops import warp_fast as twf
 
-    M, N, H, W, Ho, Wo, C, mode, padding, band = case
+    M, N, H, W, Ho, Wo, C, band = case
     g = torch.Generator(device=cuda).manual_seed(10)
     image, grid = _grid_scene(g, M, N, Ho, Wo, C)
     image = torch.rand(M, H, W, C, generator=g, device=cuda)
     cot = torch.randn(N, Ho, Wo, C, generator=g, device=cuda)
+    if not aligned:
+        image, cot = _unaligned(image), _unaligned(cot)
+        assert image.is_contiguous() and image.data_ptr() % 16
+    want = "vector" if C % 4 == 0 and aligned else "narrow"
     n_e, n_k = twf.grid_band_fwd.launches, twf.grid_band_bwd.launches
+    r_e, r_k = twf.grid_band_fwd.routes[want], twf.grid_band_bwd.routes[want]
     out = twf.grid_band_fwd(image, grid, mode, padding, band)
     got = twf.grid_band_bwd(image, grid, cot, mode, padding, band)
     torch.cuda.synchronize()
     assert (twf.grid_band_fwd.launches, twf.grid_band_bwd.launches) == \
         (n_e + 1, n_k + 1)
+    assert (twf.grid_band_fwd.routes[want], twf.grid_band_bwd.routes[want]) \
+        == (r_e + 1, r_k + 1)
     ref_out = twf.grid_band_plain(image, grid, mode, padding, band, False)[0]
-    assert (out - ref_out).abs().max() <= 1e-6
+    assert torch.equal(out, ref_out)
     ref = twf.grid_band_bwd_plain(image, grid, cot, mode, padding, band)
     for a, r in zip(got, ref):
         assert a.shape == r.shape and a.dtype == r.dtype
