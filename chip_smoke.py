@@ -16,7 +16,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (``LDGSTS``) instructions (``cuobjdump -sass``; the run fails where the
    toolkit has no cuobjdump), that kernel E's library holds 16-byte global
    loads and stores and kernel K's vector float reductions (``RED`` of 4
-   floats), the instructions of their channel-wide routes;
+   floats), the instructions of their channel-wide routes, and that the
+   photometric kernels' vector route (I and J at C = 3) holds 16-byte
+   asynchronous copies (``LDGSTS``) and 128-bit global loads and stores;
+   prints each photometric kernel's registers and spills (ptxas) and its
+   counts of those instructions, shuffles and FP32 instructions, in all
+   and in each stretch of code after one of its barriers;
 3. turns TF32 off for matrix products and cuDNN convolutions, so every
    float32 number on the card (the encoder's convs included) is full
    float32;
@@ -130,19 +135,31 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 21. times the fisheye step at batch 16 (images/s over 10 steps, the batch
     on the card) and kernels G and H beside their plain versions and bounds
     (``F.grid_sample`` at the Mei grid as a yardstick only);
-22. holds the photometric loss kernels (``csrc/photo_loss.cu``: the
-    forward, kernel I, and the prediction cotangent, kernel J) against their
-    plain versions on the loss's own operands at both recipes: the warped
-    stack (phase 8's depth-direct warp of the synthetic batch's clipped
-    textures, 96 warps @192x640; kernel G's 128 warps @384x384) and the
-    identity stack (24 and 32 sources) against the 12 and 16 targets. The
-    forward within 1e-6 of the largest loss (the share of bitwise-equal
-    pixels printed), the cotangent of the warped stack within 1e-5 of its
-    largest entry against the plain cotangent and against autograd of the
-    plain forward on the card; prints the exact ties each stack holds (zero
-    variance, SSIM dissimilarity at 0 and at 1, pred == target), and times
-    both kernels beside their plain versions and bounds, summed over one
-    step's launches at each recipe.
+22. checks from the route counters that every photometric train path
+    (phases 9, 13, 14, 19) ran the forward, kernel I, twice and the
+    prediction cotangent, kernel J, once per step, all on the vector route
+    (``csrc/photo_loss.cu``); prints the vector route's dynamic shared
+    memory and resident blocks per SM (by the runtime's occupancy query);
+    holds both routes of I and J against their plain versions on the loss's
+    own operands at both recipes: the warped stack (phase 8's depth-direct
+    warp of the synthetic batch's clipped textures, 96 warps @192x640;
+    kernel G's 128 warps @384x384) and the identity stack (24 and 32
+    sources) against the 12 and 16 targets. The forward bitwise on the
+    vector route and within 1e-6 of the largest loss on the narrow one (the
+    share of bitwise-equal pixels printed), the cotangent of the warped
+    stack within 1e-5 of its largest entry against the plain cotangent (the
+    vector route bitwise) for each of 4 seeded loss cotangents, and against
+    autograd of the plain forward on the card at the first (the plain
+    cotangent and autograd round apart by about 1e-5 of the largest entry
+    themselves; every error printed);
+    prints the exact ties each stack holds (zero variance, SSIM
+    dissimilarity at 0 and at 1, pred == target), and times both routes of
+    both kernels in turns (vector, narrow, narrow, vector) beside their
+    plain versions, bounds and issue floors (FP32 instructions per
+    pixel-channel, worked out from phase 2's SASS of this run, over 128
+    lanes per SM at the SM's top clock), summed over one step's launches
+    at each recipe, and the host's time to issue one call of each public
+    wrapper (vector route) and of the narrow route's launcher.
 
 23. the DLA path: ``dla_model`` (``dlanet(34)`` under ``DLASegUpsample``,
     seeded weights, every offset conv perturbed so that the offsets spread
@@ -179,8 +196,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     and its forward.
 
 Every train step (phases 9, 13, 14, 19) launches the forward kernel twice
-(the warped stack and the identity stack) and the cotangent kernel once;
-``forward_test`` launches neither.
+(the warped stack and the identity stack) and the cotangent kernel once,
+on the vector route; ``forward_test`` launches neither.
 
 It prints the record and the kernel line as JSON lines and, last, the
 result line ``{"ok": true, "device": {...}}``. It imports nothing of JAX or
@@ -190,6 +207,7 @@ from __future__ import annotations
 
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -352,6 +370,81 @@ def warp_sass(build):
     check(wide["warp_grad"]["LDG"] > 0 and vec_red > 0,
           f"warp_grad: no 16-byte load ({wide}) or vector float reduction "
           f"({vec_red}) in its SASS")
+    return found
+
+
+# the FP32 pipe's opcodes, as photo_build counts them
+PHOTO_FP32 = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "MUFU",
+              "FCHK")
+
+
+def _photo_name(mangled):
+    """``photo_loss_fwd_vec_kernel<3>`` from a mangled kernel name."""
+    m = re.search(r"(photo_loss_(?:fwd|bwd)(?:_vec)?_kernel)(?:ILi(\d)E)?",
+                  mangled)
+    return mangled if m is None else m.group(1) + (
+        f"<{m.group(2)}>" if m.group(2) else "")
+
+
+def photo_build(build, log):
+    """Phase 2: the photometric kernels' compile report and SASS. Prints
+    ptxas's registers and spills per kernel, and per kernel of
+    ``csrc/photo_loss.cu`` the counts of asynchronous copies (``LDGSTS``,
+    ``UTMALDG``), 128-bit global and shared loads and stores, shuffles and
+    FP32 instructions in its SASS, and the (instructions, FP32
+    instructions) of each stretch of code that follows one of its barriers
+    (``BAR``), up to the next barrier or exit, in program order; the vector
+    route's kernels at C = 3 must hold asynchronous 16-byte copies and
+    128-bit global loads and stores. Returns the SASS counts and ptxas
+    lines by kernel."""
+    import os
+    from collections import Counter
+
+    name, ptxas = None, {}
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            name = _photo_name(m.group(1))
+        elif name and ("registers" in line or "spill" in line):
+            ptxas.setdefault(name, []).append(
+                line.split(':', 1)[-1].strip())
+            print(f"  ptxas {name}: {ptxas[name][-1]}")
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(build.library_path("photo_loss"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    found = {}
+    for part in sass.split("Function : ")[1:]:
+        kname = _photo_name(part.split("\n", 1)[0].strip())
+        ops = re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)", part)
+        base = Counter(o.split(".")[0] for o in ops)
+        wide = Counter(o.split(".")[0] for o in ops if ".128" in o)
+        # the code after each barrier up to the next barrier or exit, in
+        # program order: its instructions and FP32 instructions
+        after_bar = []
+        for i, o in enumerate(ops):
+            if o.startswith("BAR"):
+                end = next((k for k in range(i + 1, len(ops))
+                            if ops[k].startswith(("BAR", "EXIT"))), len(ops))
+                after_bar.append((end - i - 1, sum(
+                    1 for o in ops[i + 1:end]
+                    if o.split(".")[0] in PHOTO_FP32)))
+        found[kname] = dict(
+            LDGSTS=base["LDGSTS"], LDGSTS_128=wide["LDGSTS"],
+            UTMALDG=base["UTMALDG"], LDG_128=wide["LDG"], STG_128=wide["STG"],
+            LDS_128=wide["LDS"], STS_128=wide["STS"], SHFL=base["SHFL"],
+            fp32=sum(base[k] for k in PHOTO_FP32), after_bar=after_bar)
+        print(f"SASS {kname}: {found[kname]}")
+        found[kname]["ptxas"] = ptxas.get(kname, [])
+    for k in ("photo_loss_fwd_vec_kernel<3>", "photo_loss_bwd_vec_kernel<3>"):
+        f = found.get(k, {})
+        check(f.get("LDGSTS_128", 0) + f.get("UTMALDG", 0) > 0
+              and f.get("LDG_128", 0) > 0 and f.get("STG_128", 0) > 0,
+              f"{k}: its SASS lacks 16-byte asynchronous copies or 128-bit "
+              f"global loads and stores ({f})")
     return found
 
 
@@ -1824,6 +1917,16 @@ def dla_phases(counters, record):
 # (about 9); the cotangent adds the partials (35) and the adjoint of three
 # pools (about 60)
 PHOTO_OPS = dict(fwd=80.0, bwd=150.0)
+# the vector route's tiles (csrc/photo_loss.cu): a lane's 4 pixels of a
+# row; J computes its partials on 8 pooled rows for 6 output rows
+PHOTO_LANE_PIXELS = 4
+PHOTO_J_ROWS = (8, 6)
+PHOTO_ROUTES = ("vector", "narrow")
+# per step of each photometric train path (phases 9, 13, 14, 19): kernel I
+# twice, kernel J once, all on the vector route
+PHOTO_PATHS = dict(train_path="depth-direct", grid_path_mask="grid (mask)",
+                   grid_path_learned_pose="learned pose",
+                   fisheye_path="fisheye")
 
 
 def photo_ties(pred, target, muy, sy):
@@ -1840,73 +1943,165 @@ def photo_ties(pred, target, muy, sy):
 
 
 def check_photo_kernels(recipe, stacks, target, seed):
-    """Phase 22 at one recipe: the photometric kernels against their plain
-    versions on the loss's own operands, the warped stack and the identity
-    stack against ``target`` (n mod B): the forward within 1e-6 of the
-    largest loss (and the share of bitwise-equal pixels), the cotangent of
-    the warped stack within 1e-5 of its largest entry against the plain
-    cotangent and against autograd of the plain forward on the card; the
-    ties each stack holds. Returns the max abs errors, the ties and the
-    kernels' timings."""
+    """Phase 22 at one recipe: the photometric kernels of both routes
+    against their plain versions on the loss's own operands, the warped
+    stack and the identity stack against ``target`` (n mod B): the forward
+    bitwise equal on the vector route and within 1e-6 of the largest loss
+    on the narrow one (the share of bitwise-equal pixels printed), the
+    cotangent of the warped stack within 1e-5 of its largest entry against
+    the plain cotangent and against autograd of the plain forward on the
+    card, for each of 4 seeded loss cotangents (autograd held at the first
+    only, the vector route bitwise equal to the plain cotangent at each);
+    the ties each stack holds.
+    Returns the max abs errors by route, the ties, the timings by route
+    (with the plain versions', the bound and the host's time to issue one
+    call) and the cotangent's errors by route and seed."""
     from fsnet_tpu_torch.ops import photo_loss as tpl
     from fsnet_tpu_torch.ops.ssim import ssim_target_stats
 
     muy, sy = ssim_target_stats(target)
     B = target.shape[0]
-    errs = dict(photo_loss_fwd=0.0, photo_loss_bwd=0.0)
-    ties, timed = {}, dict(fwd=[], bwd=[])
+    errs = {r: dict(photo_loss_fwd=0.0, photo_loss_bwd=0.0)
+            for r in PHOTO_ROUTES}
+    ties, timed, elems = {}, dict(fwd=[], bwd=[]), dict(fwd=0, bwd=0)
+    bwd_errs = {r: [] for r in PHOTO_ROUTES}
     for kind, pred in stacks.items():
         N, H, W, C = pred.shape
-        got = tpl.photo_loss_fwd(pred, target, muy, sy)
-        torch.cuda.synchronize()
+        check(tpl.photo_route(pred, target, muy, sy) == "vector",
+              f"{recipe} {kind}: the main path's operands miss the vector "
+              "route")
         ref = tpl.photo_loss_plain(pred, target, muy, sy)
-        d, e = rel_err(got, ref)
-        equal = float((got == ref).double().mean())
-        errs["photo_loss_fwd"] = max(errs["photo_loss_fwd"], d)
         ties[kind] = photo_ties(pred, target, muy, sy)
         line = (f"check photometric loss, {recipe} {kind} stack N={N} "
-                f"{H}x{W}x{C} against B={B}: forward max abs err {d:.2e} "
-                f"(rel {e:.2e}), bitwise-equal pixels {equal:.6f}")
-        check(e <= 1e-6, f"photo_loss_fwd {recipe} {kind}: rel err {e:.2e} "
-              "> 1e-6")
-        px = N * H * W * C
-        nbytes = 4.0 * (px + 3 * B * H * W * C + N * H * W)
-        timed["fwd"].append(
-            (lambda p=pred: tpl.photo_loss_fwd(p, target, muy, sy),
-             lambda p=pred: tpl.photo_loss_plain(p, target, muy, sy),
-             (PHOTO_OPS["fwd"] * px, nbytes)))
-        if kind == "warped":
-            g = torch.randn(N, H, W, device="cuda", generator=torch.Generator(
-                device="cuda").manual_seed(seed))
-            dx = tpl.photo_loss_bwd(pred, target, muy, sy, g)
+                f"{H}x{W}x{C} against B={B}:")
+        for route in PHOTO_ROUTES:
+            got = tpl._launch_fwd(route, pred, target, muy, sy)
             torch.cuda.synchronize()
-            ref_dx = tpl.photo_loss_bwd_plain(pred, target, muy, sy, g)
-            xr = pred.clone().requires_grad_(True)
-            tpl.photo_loss_plain(xr, target, muy, sy).backward(g)
-            d_b, e_b = rel_err(dx, ref_dx)
-            d_a, e_a = rel_err(dx, xr.grad)
-            del xr
-            errs["photo_loss_bwd"] = max(errs["photo_loss_bwd"], d_b)
-            line += (f"; cotangent rel err {e_b:.2e} against the plain "
-                     f"cotangent, {e_a:.2e} against autograd of the plain "
-                     "forward")
-            check(e_b <= 1e-5 and e_a <= 1e-5,
-                  f"photo_loss_bwd {recipe}: rel err {e_b:.2e} (plain), "
-                  f"{e_a:.2e} (autograd) > 1e-5")
-            timed["bwd"].append(
-                (lambda p=pred: tpl.photo_loss_bwd(p, target, muy, sy, g),
-                 lambda p=pred: tpl.photo_loss_bwd_plain(p, target, muy, sy,
-                                                         g),
-                 (PHOTO_OPS["bwd"] * px, nbytes + 4.0 * px)))
-        print(line + f"; ties {ties[kind]}")
+            d, e = rel_err(got, ref)
+            equal = float((got == ref).double().mean())
+            errs[route]["photo_loss_fwd"] = max(
+                errs[route]["photo_loss_fwd"], d)
+            line += (f" {route} forward max abs err {d:.2e} (rel {e:.2e}), "
+                     f"bitwise-equal pixels {equal:.6f};")
+            check(e <= 1e-6 and (route != "vector" or equal == 1.0),
+                  f"photo_loss_fwd {route} {recipe} {kind}: rel err {e:.2e}"
+                  f", bitwise-equal share {equal} (the vector route must be "
+                  "bitwise, the narrow one within 1e-6)")
+        px = N * H * W * C
+        elems["fwd"] += px
+        nbytes = 4.0 * (px + 3 * B * H * W * C + N * H * W)
+        timed["fwd"].append(dict(
+            route={r: (lambda p=pred, r=r: tpl._launch_fwd(r, p, target, muy,
+                                                           sy))
+                   for r in PHOTO_ROUTES},
+            plain=lambda p=pred: tpl.photo_loss_plain(p, target, muy, sy),
+            wrapper=lambda p=pred: tpl.photo_loss_fwd(p, target, muy, sy),
+            work=(PHOTO_OPS["fwd"] * px, nbytes)))
+        if kind == "warped":
+            for k in range(4):
+                g = torch.randn(N, H, W, device="cuda",
+                                generator=torch.Generator(
+                                    device="cuda").manual_seed(seed + k))
+                ref_dx = tpl.photo_loss_bwd_plain(pred, target, muy, sy, g)
+                xr = pred.clone().requires_grad_(True)
+                tpl.photo_loss_plain(xr, target, muy, sy).backward(g)
+                for route in PHOTO_ROUTES:
+                    dx = tpl._launch_bwd(route, pred, target, muy, sy, g)
+                    torch.cuda.synchronize()
+                    d_b, e_b = rel_err(dx, ref_dx)
+                    e_a = rel_err(dx, xr.grad)[1]
+                    equal = float((dx == ref_dx).double().mean())
+                    errs[route]["photo_loss_bwd"] = max(
+                        errs[route]["photo_loss_bwd"], d_b)
+                    bwd_errs[route].append(dict(
+                        seed=seed + k, plain=e_b, autograd=e_a, equal=equal))
+                    line += (f" {route} cotangent (seed {seed + k}) rel err "
+                             f"{e_b:.2e} against the plain cotangent "
+                             f"(bitwise-equal share {equal:.6f}), {e_a:.2e} "
+                             "against autograd of the plain forward;")
+                    # the gate: the plain cotangent at every seed (the
+                    # vector route bitwise), autograd at the first seed;
+                    # at the others autograd is a reading, since the
+                    # plain cotangent and autograd, both float32, round
+                    # apart by about 1e-5 of the largest entry themselves
+                    check(e_b <= 1e-5 and (k > 0 or e_a <= 1e-5)
+                          and (route != "vector" or equal == 1.0),
+                          f"photo_loss_bwd {route} {recipe} seed {seed + k}: "
+                          f"rel err {e_b:.2e} (plain, bitwise-equal share "
+                          f"{equal}), {e_a:.2e} (autograd): > 1e-5, or the "
+                          "vector route not bitwise")
+                    del dx
+                del xr
+            elems["bwd"] += px
+            timed["bwd"].append(dict(
+                route={r: (lambda p=pred, r=r: tpl._launch_bwd(
+                    r, p, target, muy, sy, g)) for r in PHOTO_ROUTES},
+                plain=lambda p=pred: tpl.photo_loss_bwd_plain(
+                    p, target, muy, sy, g),
+                wrapper=lambda p=pred: tpl.photo_loss_bwd(p, target, muy, sy,
+                                                          g),
+                work=(PHOTO_OPS["bwd"] * px, nbytes + 4.0 * px)))
+        print(line + f" ties {ties[kind]}")
     times = {}
     for k, items in timed.items():
-        b_ms, b_by = sum_bounds([ob for _, _, ob in items])
-        times[k] = dict(ms=sum(cuda_ms(fn, iters=10) for fn, _, _ in items),
-                        plain_ms=sum(cuda_ms(pl, iters=3, warmup=1)
-                                     for _, pl, _ in items),
-                        bound_ms=b_ms, bound_by=b_by)
-    return errs, ties, times
+        b_ms, b_by = sum_bounds([it["work"] for it in items])
+        # the routes in turns: vector, narrow, narrow, vector
+        ms = {r: [] for r in PHOTO_ROUTES}
+        for r in PHOTO_ROUTES + PHOTO_ROUTES[::-1]:
+            ms[r].append(sum(cuda_ms(it["route"][r], iters=10)
+                             for it in items))
+        # the host's time to issue one call, at the warped stack (the
+        # first): the public wrapper (the main path's, vector route) and
+        # the narrow route's launcher
+        host_ms = dict(
+            wrapper=cuda_host_ms(items[0]["wrapper"], iters=20)[1],
+            narrow_launcher=cuda_host_ms(items[0]["route"]["narrow"],
+                                         iters=20)[1])
+        times[k] = dict(ms={r: v for r, v in ms.items()},
+                        plain_ms=sum(cuda_ms(it["plain"], iters=3, warmup=1)
+                                     for it in items),
+                        bound_ms=b_ms, bound_by=b_by, elems=elems[k],
+                        host_ms=host_ms)
+    return errs, ties, times, bwd_errs
+
+
+def photo_occupancy():
+    """Dynamic shared memory per block and resident blocks per SM of the
+    vector route's two kernels at C = 3, by the runtime."""
+    import ctypes
+
+    from fsnet_tpu_torch.ops import _build
+
+    fn = _build.load("photo_loss").fsnet_photo_loss_vec_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    occ = {}
+    for bwd, tag in ((0, "fwd"), (1, "bwd")):
+        smem = ctypes.c_int(0)
+        blocks = fn(bwd, 3, ctypes.byref(smem))
+        check(blocks > 0, f"occupancy of photo_loss_{tag}_vec_kernel<3>: "
+              f"{blocks}")
+        occ[tag] = dict(dynamic_smem=smem.value, blocks_per_sm=blocks)
+        print(f"kernel photo_loss_{tag}_vec_kernel<3>: {occ[tag]}")
+    return occ
+
+
+def photo_fp32_per_elem(sass, C=3):
+    """FP32 instructions per output pixel-channel of the vector route's
+    kernels at C channels, from this run's SASS (phase 2): I's stretch
+    after its one barrier (the loop body: a lane's row of 4 C elements for
+    one prediction); J's stretch after its first barrier (phase 1: a
+    pooled row) times 8 pooled rows over 6 output rows, plus its stretch
+    after the second (phase 2: an output row)."""
+    e = PHOTO_LANE_PIXELS * C
+    fwd = sass[f"photo_loss_fwd_vec_kernel<{C}>"]["after_bar"]
+    bwd = sass[f"photo_loss_bwd_vec_kernel<{C}>"]["after_bar"]
+    check(len(fwd) == 1 and len(bwd) == 3,
+          f"the vector kernels' SASS has {len(fwd)} and {len(bwd)} barriers, "
+          "not 1 and 3: their per-element FP32 counts need another reading")
+    pooled, rows = PHOTO_J_ROWS
+    return dict(fwd=fwd[0][1] / e,
+                bwd=bwd[0][1] / e * pooled / rows + bwd[1][1] / e)
 
 
 def photo_phases(record, train, fish):
@@ -1914,6 +2109,21 @@ def photo_phases(record, train, fish):
     kernels."""
     from fsnet_tpu_torch.ops import warp_depth as twd
     from fsnet_tpu_torch.ops import warp_mei as twm
+
+    # every photometric train path ran I 2 + J 1 per step, all on the
+    # vector route
+    for key, name in PHOTO_PATHS.items():
+        rec = record[key]
+        for k, per_step in (("photo_loss_fwd", 2), ("photo_loss_bwd", 1)):
+            got = rec["routes"][k]
+            check(got == dict(narrow=0, vector=per_step * rec["steps"]),
+                  f"{name} path: {k} routes {got}, expected {per_step} a "
+                  f"step on the vector route over {rec['steps']} steps")
+    print("routes: every photometric train path ran kernel I 2 + J 1 per "
+          "step on the vector route")
+    record["photo_occupancy"] = occ = photo_occupancy()
+    fp32 = photo_fp32_per_elem(record["photo_sass"])
+    record["photo_fp32_per_elem"] = fp32
 
     # the flagship: the warped stack of phase 8's scene (the synthetic
     # batch's clipped textures) and its 24 sources, against its 12 targets
@@ -1935,10 +2145,20 @@ def photo_phases(record, train, fish):
         dict(warped=warped, identity=image), target, seed=12)
     del warped
     record["photo_ties"] = dict(flagship=flag[1], fisheye=fisheye[1])
+    record["photo_bwd_errs"] = dict(flagship=flag[3], fisheye=fisheye[3])
+    for r in PHOTO_ROUTES:
+        worst = {k: max(max(e[k] for e in x[3][r]) for x in (flag, fisheye))
+                 for k in ("plain", "autograd")}
+        print(f"cotangent {r} route over 4 seeds at both recipes: largest "
+              f"rel err {worst['plain']:.2e} against the plain cotangent, "
+              f"{worst['autograd']:.2e} against autograd (gate 1e-5)")
 
-    paths = dict(train_path="depth-direct", grid_path_mask="grid (mask)",
-                 grid_path_learned_pose="learned pose",
-                 fisheye_path="fisheye")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.split("\n")[0].split(",")
+    clock_mhz, max_mhz = float(smi[0]), float(smi[1])
+    lanes = torch.cuda.get_device_properties(0).multi_processor_count * 128
     kernels = []
     for k, tag, replaces in (
             ("photo_loss_fwd", "fwd",
@@ -1946,30 +2166,70 @@ def photo_phases(record, train, fish):
             ("photo_loss_bwd", "bwd",
              "fsnet_tpu/ops/pallas/photo_kernel.py:370")):
         t, tf = flag[2][tag], fisheye[2][tag]
+        floor = {r: fp32[tag] * x[2][tag]["elems"]
+                 / (lanes * max_mhz * 1e6) * 1e3
+                 for r, x in (("flagship", flag), ("fisheye", fisheye))}
+        vec = "fwd_vec" if tag == "fwd" else "bwd_vec"
         kernels.append(dict(
             name=k, route="cuda", source="fsnet_tpu_torch/csrc/photo_loss.cu",
-            replaces=replaces, launches=record["train_path"]["launches"][k],
+            replaces=replaces, photo_route="vector",
+            launches=record["train_path"]["launches"][k],
             launches_by_path={name: record[key]["launches"][k]
-                              for key, name in paths.items()},
-            max_abs_err=max(flag[0][k], fisheye[0][k]), ms=t["ms"],
+                              for key, name in PHOTO_PATHS.items()},
+            max_abs_err=max(flag[0]["vector"][k], fisheye[0]["vector"][k]),
+            ms=min(t["ms"]["vector"]), ms_readings=t["ms"]["vector"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=None,
-            fisheye_ms=tf["ms"], fisheye_plain_ms=tf["plain_ms"],
+            fisheye_ms=min(tf["ms"]["vector"]),
+            fisheye_ms_readings=tf["ms"]["vector"],
+            fisheye_plain_ms=tf["plain_ms"],
             fisheye_bound_ms=tf["bound_ms"], fisheye_bound_by=tf["bound_by"],
+            fp32_instr_per_elem=fp32[tag],
+            issue_floor_ms=floor["flagship"],
+            fisheye_issue_floor_ms=floor["fisheye"],
+            sm_clock_mhz=clock_mhz, sm_max_clock_mhz=max_mhz,
+            ptxas=record["photo_sass"][f"photo_loss_{vec}_kernel<3>"]["ptxas"],
+            occupancy=occ[tag], host_ms=t["host_ms"],
+            routes=dict(narrow=dict(
+                launches=record["train_path"]["routes"][k]["narrow"],
+                max_abs_err=max(flag[0]["narrow"][k],
+                                fisheye[0]["narrow"][k]),
+                ms=min(t["ms"]["narrow"]), ms_readings=t["ms"]["narrow"],
+                fisheye_ms=min(tf["ms"]["narrow"]),
+                fisheye_ms_readings=tf["ms"]["narrow"],
+                ptxas=record["photo_sass"][f"photo_loss_{tag}_kernel"][
+                    "ptxas"])),
             note=("ms, plain_ms, bound_ms: the launches of one bs12 @192x640 "
                   "step (" + ("the warped stack N=96 and the identity stack "
                               "N=24" if tag == "fwd" else "the warped stack "
-                              "N=96") + " against 12 targets), float32; "
-                  "fisheye_*: the same at bs16 @384x384 (N=128"
+                              "N=96") + " against 12 targets), float32, on "
+                  "the vector route (the main path's), the least of two "
+                  "readings taken in turns with the narrow route (routes."
+                  "narrow: the same launches forced onto the narrow "
+                  "route); fisheye_*: the same at bs16 @384x384 (N=128"
                   + (" and 32" if tag == "fwd" else "") + " against 16); "
-                  "launches: 3 steps of the depth-direct path (phase 9), "
+                  "issue_floor_ms: fp32_instr_per_elem (from this run's "
+                  "SASS) over 128 lanes per SM at sm_max_clock_mhz; "
+                  "host_ms: the host's time to issue one call of the "
+                  "public wrapper and of the narrow launcher; launches: 3 "
+                  "steps of the depth-direct path (phase 9), "
                   "launches_by_path: 3 steps of each path")))
     for e in kernels:
-        print(f"time  {e['name']:15s} kernel {e['ms']:.4f} ms  plain "
-              f"{e['plain_ms']:.4f} ms  bound {e['bound_ms']:.4f} ms "
-              f"({e['bound_by']}); fisheye kernel {e['fisheye_ms']:.4f} ms  "
-              f"plain {e['fisheye_plain_ms']:.4f} ms  bound "
-              f"{e['fisheye_bound_ms']:.4f} ms  library none")
+        n = e["routes"]["narrow"]
+        print(f"time  {e['name']:15s} vector {e['ms']:.4f} ms "
+              f"{e['ms_readings']} (narrow {n['ms']:.4f} {n['ms_readings']})"
+              f"  plain {e['plain_ms']:.4f} ms  bound {e['bound_ms']:.4f} ms "
+              f"({e['bound_by']})  issue floor {e['issue_floor_ms']:.4f} ms "
+              f"({e['fp32_instr_per_elem']:.2f} FP32 a pixel-channel at "
+              f"{e['sm_max_clock_mhz']:.0f} MHz; SM clock read "
+              f"{e['sm_clock_mhz']:.0f}); fisheye vector "
+              f"{e['fisheye_ms']:.4f} ms {e['fisheye_ms_readings']} (narrow "
+              f"{n['fisheye_ms']:.4f} {n['fisheye_ms_readings']})  plain "
+              f"{e['fisheye_plain_ms']:.4f} ms  bound "
+              f"{e['fisheye_bound_ms']:.4f} ms  issue floor "
+              f"{e['fisheye_issue_floor_ms']:.4f} ms  library none; host "
+              f"ms per call: wrapper {e['host_ms']['wrapper']:.4f}, narrow "
+              f"launcher {e['host_ms']['narrow_launcher']:.4f}")
     return kernels
 
 
@@ -2015,10 +2275,12 @@ def main() -> int:
     print(f"kernels built in {record['build_s']:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if name != "photo_loss" and ("registers" in line
+                                         or "spill" in line):
                 print(f"  {name}: {line.strip()}")
     record["conv_sass"] = conv_sass(_build)
     record["warp_sass"] = warp_sass(_build)
+    record["photo_sass"] = photo_build(_build, logs.get("photo_loss", ""))
 
     # 3. full float32 references
     torch.backends.cuda.matmul.allow_tf32 = False

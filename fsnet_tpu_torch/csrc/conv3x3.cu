@@ -437,17 +437,11 @@ int pick_tn(int N0, int N1, long long mtiles) {
 template <typename T, int TN, int MODE, bool VEC>
 int launch_tn(const ConvArgs<T>& a, dim3 grid, cudaStream_t s) {
   using C = Cfg<T, TN>;
-  auto kern = conv3x3_mma_kernel<T, TN, MODE, VEC>;
-  static unsigned attr_set = 0;        // one bit per device
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= 32 || !((attr_set >> dev) & 1u)) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    if (dev < 32) attr_set |= 1u << dev;
-  }
-  kern<<<grid, C::NT, C::SMEM, s>>>(a);
+  static unsigned smem_set = 0;
+  const cudaError_t e =
+      allow_smem(conv3x3_mma_kernel<T, TN, MODE, VEC>, C::SMEM, smem_set);
+  if (e != cudaSuccess) return (int)e;
+  conv3x3_mma_kernel<T, TN, MODE, VEC><<<grid, C::NT, C::SMEM, s>>>(a);
   return (int)cudaGetLastError();
 }
 

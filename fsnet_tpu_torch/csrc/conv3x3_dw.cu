@@ -314,17 +314,11 @@ int pick_ct(int Ca, int Cb) {
 template <int CI_T, int CO_T, bool VEC>
 int launch(const DwArgs& a, dim3 grid, cudaStream_t s) {
   using C = DwCfg<CI_T, CO_T>;
-  auto kern = conv3x3_dw_kernel<CI_T, CO_T, VEC>;
-  static unsigned attr_set = 0;       // one bit per device
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= 32 || !((attr_set >> dev) & 1u)) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    if (dev < 32) attr_set |= 1u << dev;
-  }
-  kern<<<grid, C::NT, C::SMEM, s>>>(a);
+  static unsigned smem_set = 0;
+  const cudaError_t e =
+      allow_smem(conv3x3_dw_kernel<CI_T, CO_T, VEC>, C::SMEM, smem_set);
+  if (e != cudaSuccess) return (int)e;
+  conv3x3_dw_kernel<CI_T, CO_T, VEC><<<grid, C::NT, C::SMEM, s>>>(a);
   return (int)cudaGetLastError();
 }
 

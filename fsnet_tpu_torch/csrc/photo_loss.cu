@@ -34,27 +34,65 @@
 // image, then s[1] += a[0] and s[n-2] += a[n-1] (the reflected taps), times
 // f32(1/3); the W axis first, then the H axis.
 //
-// photo_loss_fwd_kernel replaces fsnet_tpu/ops/pallas/photo_kernel.py
-// photo_loss_pallas (_fwd_kernel). One thread per output pixel (all C
-// channels), one block per 8 x 32 pixel tile of one prediction; per channel
-// the block stages x and y (at n mod B) with a 1-pixel halo, reflected at
-// the image edge, in shared memory, and each thread pools its 3x3 window
-// from there. The H-pass sums are recomputed by the three threads that
-// share them rather than staged: about 80 operations per pixel-channel.
-// What bounds it on an H100: bytes (pred, target and the two stats read,
-// the loss written; ~20 operations per byte would be needed to be bound by
-// operations at the float32 peak).
+// Two routes, picked on the host (ops/photo_loss.photo_route), each with its
+// own entry points; an entry point refuses a shape or pointer outside its
+// route (cudaErrorInvalidValue) and never falls back.
 //
-// photo_loss_bwd_kernel replaces photo_kernel.py photo_loss_bwd_pallas
-// (_bwd_kernel). Same tiles; per channel the block stages x and y with a
-// 2-pixel halo, computes the three partials G dr/du, G dr/dv, G dr/dw at the
-// tile's pooled positions plus a 1-pixel ring (0 outside the image) into
-// shared memory, from the target stats the forward used, and then each
-// thread gathers P^T of them at its pixel. No atomics: deterministic. Bound
-// by bytes (pred, target, stats and g read, dpred written).
+// The vector route (C <= 4, W % 4 == 0, every operand 16-byte aligned: both
+// train recipes, C = 3 at W = 640 and 384). Kernels photo_loss_fwd_vec_kernel
+// (I) and photo_loss_bwd_vec_kernel (J) replace
+// fsnet_tpu/ops/pallas/photo_kernel.py photo_loss_pallas (_fwd_kernel) and
+// photo_loss_bwd_pallas (_bwd_kernel). What bounds them on an H100: I,
+// bytes (each input read once, each output written once); J, the issue of
+// its instructions (about 33.5 T a second: 132 SMs x 128 lanes x the SM
+// clock), since it is _rn intrinsics that never contract, on 8 pooled rows
+// for 6 output rows. The design does three things about the bytes:
+//  - A block owns one target b and one tile of 128 pixels (32 lanes x 4) by
+//    8 rows (I) or 6 rows (J). It stages y (with its halo) once, keeps muy
+//    and sy of its pixels in registers, and walks the predictions n = b,
+//    b + B, ... that compare with b; each prediction's x tile comes through
+//    a ring of cp.async copies (3 stages in I, 2 in J, with g's tile), so
+//    the next prediction's copy overlaps this one's arithmetic. HBM sees
+//    each target byte once; the grid is tiles x B blocks.
+//  - All channels at once: an NHWC row of the tile is 128 C contiguous
+//    floats, copied as 16-byte chunks (a lane's 4 pixels are C float4s, read
+//    back from shared memory as 128-bit loads without bank conflicts at
+//    C = 3); the loss and dpred are stored as float4s. The reflect-101 halo
+//    is fixed by the source address of each halo row and halo pixel (row -1
+//    <- row 1, column W <- W - 2, the first column past a ragged tile's
+//    last included), so no interior element computes a reflection.
+//  - Separable pooling with each H sum formed once: one warp per row; a
+//    lane forms x, x*x, x*y and their H sums for its 4 pixels, lanes 0 and
+//    31 also at the halo columns, and the W pass takes its neighbours' H
+//    sums by shuffles (the same rounding as avg_pool3: I stays bitwise).
+//    J computes the partials G dr/du, G dr/dv, G dr/dw once per pooled
+//    position of its tile and the 1-pixel ring (8 pooled rows, one per
+//    warp; lanes 0 and 31 the ring columns), applies the W adjoint in
+//    registers by shuffles, and the H adjoint from shared memory (6 output
+//    rows, 4 pixels a thread). No atomics: deterministic.
+// J rounds as the narrow route and the plain version do: sx_raw and val,
+// which decide the tie gates, exactly as in I, and past the gates the
+// partials (`partials`, shared by both routes: correctly rounded 1/d1 and
+// 1/d2) and the cotangent's sums are _rn intrinsics in the plain version's
+// order, never contracted.
+//
+// The narrow route (any C >= 1, H, W >= 2, any 4-byte alignment: the
+// shapes the vector route refuses). photo_loss_fwd_kernel: one thread per
+// output pixel (all C channels), one block per 8 x 32 pixel tile of one
+// prediction; per channel the block stages x and y (at n mod B) with a
+// 1-pixel halo, reflected at the image edge, in shared memory, and each
+// thread pools its 3x3 window from there, recomputing the H sums its
+// neighbours share. photo_loss_bwd_kernel: same tiles; per channel the
+// block stages x and y with a 2-pixel halo, computes the three partials at
+// the tile's pooled positions plus a 1-pixel ring into shared memory, and
+// each thread gathers P^T of them at its pixel. Both re-read the target and
+// its stats once per prediction.
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <initializer_list>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -181,6 +219,32 @@ photo_loss_fwd_kernel(const float* __restrict__ pred,
         add(mul(w_ssim, mul(dsum, inv_c)), mul(w_l1, mul(lsum, inv_c)));
 }
 
+// J's three partials G dr/du, G dr/dv, G dr/dw at one pooled position from
+// its pooled values, the target stats and g there: the plain version's
+// operations, each rounded once in its order (the reciprocals correctly
+// rounded), with the gates split at a tie as the file's head says
+__device__ __forceinline__ void partials(const Pooled& p, float my, float s_y,
+                                         float g, float k_ssim, float& a_u,
+                                         float& a_v, float& a_w) {
+  const Ssim t = ssim_terms(p, my, s_y);
+  const float gmax = t.sx_raw > 0.f ? 1.f : (t.sx_raw == 0.f ? 0.5f : 0.f);
+  const float gclip = (t.val > 0.f && t.val < 1.f)
+                          ? 1.f
+                          : ((t.val == 0.f || t.val == 1.f) ? 0.5f : 0.f);
+  const float G = mul(mul(g, k_ssim), gclip);
+  const float inv1 = dvd(1.f, t.d1), inv2 = dvd(1.f, t.d2);
+  const float dr_dsx = mul(-t.r, inv2);
+  const float dr_dw = mul(mul(mul(2.f, t.n1), inv1), inv2);
+  const float t1 = mul(mul(mul(mul(2.f, my), t.n2), inv1), inv2);
+  const float t2 = mul(mul(mul(2.f, p.u), t.r), inv1);
+  const float t3 = mul(mul(mul(2.f, p.u), gmax), dr_dsx);
+  const float t4 = mul(my, dr_dw);
+  const float dr_du = sub(sub(sub(t1, t2), t3), t4);
+  a_u = mul(G, dr_du);
+  a_v = mul(G, mul(dr_dsx, gmax));
+  a_w = mul(G, dr_dw);
+}
+
 // one axis of P^T at index p of an axis of length n: a_m1, a_0, a_p1 the
 // values at p-1, p, p+1 (0 outside the axis)
 __device__ __forceinline__ float adj3(float a_m1, float a_0, float a_p1, int p,
@@ -221,26 +285,9 @@ photo_loss_bwd_kernel(const float* __restrict__ pred,
       const int pi = i0 - 1 + pr, pj = j0 - 1 + pq;
       float a_u = 0.f, a_v = 0.f, a_w = 0.f;
       if (pi >= 0 && pi < H && pj >= 0 && pj < W) {
-        const Pooled p = pool3(xs, ys, XQ, pr, pq);
         const size_t at = (size_t)b * plane + ((size_t)pi * W + pj) * C + c;
-        const float my = muy[at];
-        const Ssim t = ssim_terms(p, my, sy[at]);
-        const float gmax = t.sx_raw > 0.f ? 1.f : (t.sx_raw == 0.f ? 0.5f : 0.f);
-        const float gclip = (t.val > 0.f && t.val < 1.f)
-                                ? 1.f
-                                : ((t.val == 0.f || t.val == 1.f) ? 0.5f : 0.f);
-        const float G = mul(mul(gn[(size_t)pi * W + pj], k_ssim), gclip);
-        const float inv1 = dvd(1.f, t.d1), inv2 = dvd(1.f, t.d2);
-        const float dr_dsx = mul(-t.r, inv2);
-        const float dr_dw = mul(mul(mul(2.f, t.n1), inv1), inv2);
-        const float t1 = mul(mul(mul(mul(2.f, my), t.n2), inv1), inv2);
-        const float t2 = mul(mul(mul(2.f, p.u), t.r), inv1);
-        const float t3 = mul(mul(mul(2.f, p.u), gmax), dr_dsx);
-        const float t4 = mul(my, dr_dw);
-        const float dr_du = sub(sub(sub(t1, t2), t3), t4);
-        a_u = mul(G, dr_du);
-        a_v = mul(G, mul(dr_dsx, gmax));
-        a_w = mul(G, dr_dw);
+        partials(pool3(xs, ys, XQ, pr, pq), muy[at], sy[at],
+                 gn[(size_t)pi * W + pj], k_ssim, a_u, a_v, a_w);
       }
       au[k] = a_u;
       av[k] = a_v;
@@ -270,6 +317,541 @@ photo_loss_bwd_kernel(const float* __restrict__ pred,
     }
     __syncthreads();
   }
+}
+
+// ------------------------------------------------------------- vector route
+
+constexpr int kVW = 128;              // tile pixels per row: 32 lanes x 4
+constexpr int kVThreads = 256;        // 8 warps
+constexpr int kFwdRows = 8;           // I: output rows per tile, one a warp
+constexpr int kBwdRows = 6;           // J: output rows per tile
+constexpr int kBwdPooled = kBwdRows + 2;   // J: pooled rows, one a warp
+constexpr int kFwdStages = 3;         // I: x tiles in flight
+constexpr int kBwdStages = 2;         // J: x (and g) tiles in flight
+constexpr unsigned kFull = 0xffffffffu;
+
+// A staged tile of an NHWC image in shared memory: rows of the tile's 128
+// pixels and `HALO` pixels on each side; the interior starts kPad floats
+// into a row, at a 16-byte boundary.
+template <int C, int HALO>
+struct Tile {
+  static constexpr int kPad = 4 * ((HALO * C + 3) / 4);
+  static constexpr int kPitch = 2 * kPad + kVW * C;
+};
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage ROWS rows of the tile at (i0, j0) of the image `img` [H, W, C] into
+// `dst`: tile row r holds image row i0 - HALO + r. The interior pixels j0 ..
+// j0 + 127 that lie in the image go as 16-byte copies (W % 4 == 0, so a
+// ragged tile ends on a whole chunk); then HALO pixels left of the interior
+// and HALO pixels from q_r = min(128, W - j0) on, the first column past the
+// tile's in-image part. Reflect-101 is applied to the source address of
+// each row and of each halo pixel (row -1 <- 1, row H <- H - 2, column -1
+// <- 1, column W <- W - 2; anything further out, which feeds only results
+// that are never stored, is clamped into the image), so no interior element
+// computes a reflection. Unstaged slots keep what they held.
+template <int C, int HALO, int ROWS>
+__device__ __forceinline__ void stage_tile(float* dst,
+                                           const float* __restrict__ img,
+                                           int i0, int j0, int H, int W) {
+  using T = Tile<C, HALO>;
+  constexpr int kChunks = kVW * C / 4;       // float4s of an interior row
+  const int qr = min(kVW, W - j0);
+  const int chunks = qr * C / 4;
+  for (int k = threadIdx.x; k < ROWS * kChunks; k += kVThreads) {
+    const int r = k / kChunks, f = k - r * kChunks;
+    if (f < chunks)
+      cp_async16(dst + r * T::kPitch + T::kPad + 4 * f,
+                 img + ((size_t)refl(i0 - HALO + r, H) * W + j0) * C + 4 * f);
+  }
+  constexpr int kRing = 2 * HALO * C;        // halo floats of a row
+  for (int k = threadIdx.x; k < ROWS * kRing; k += kVThreads) {
+    const int r = k / kRing, e = k - r * kRing;
+    const int side = e / (HALO * C), s = e - side * (HALO * C);
+    const int qq = s / C, c = s - qq * C;
+    const int q = side == 0 ? qq - HALO : qr + qq;
+    cp_async4(dst + r * T::kPitch + T::kPad + q * C + c,
+              img + ((size_t)refl(i0 - HALO + r, H) * W + refl(j0 + q, W)) *
+                        C + c);
+  }
+}
+
+// E consecutive floats (E % 4 == 0) from a 16-byte aligned address
+template <int E>
+__device__ __forceinline__ void ld4(float (&out)[E], const float* src) {
+#pragma unroll
+  for (int f = 0; f < E / 4; ++f) {
+    const float4 v = reinterpret_cast<const float4*>(src)[f];
+    out[4 * f] = v.x, out[4 * f + 1] = v.y, out[4 * f + 2] = v.z,
+    out[4 * f + 3] = v.w;
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void ldg4(float (&out)[E], const float* src) {
+#pragma unroll
+  for (int f = 0; f < E / 4; ++f) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(src) + f);
+    out[4 * f] = v.x, out[4 * f + 1] = v.y, out[4 * f + 2] = v.z,
+    out[4 * f + 3] = v.w;
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void st4(float* dst, const float (&v)[E]) {
+#pragma unroll
+  for (int f = 0; f < E / 4; ++f)
+    reinterpret_cast<float4*>(dst)[f] =
+        make_float4(v[4 * f], v[4 * f + 1], v[4 * f + 2], v[4 * f + 3]);
+}
+
+// H sums of x, x*x and x*y at E consecutive elements of the three staged
+// rows (row pitch `pitch`) of x and y, read as float4s; with L1, also
+// |y - x| on the middle row
+template <int E, bool L1>
+__device__ __forceinline__ void hsums4(const float* xt, const float* yt,
+                                       int pitch, float (&hu)[E],
+                                       float (&hv)[E], float (&hw)[E],
+                                       float (&l1)[E]) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    float x[E], y[E];
+    ld4<E>(x, xt + r * pitch);
+    ld4<E>(y, yt + r * pitch);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const float xx = mul(x[e], x[e]), xy = mul(x[e], y[e]);
+      if (r == 0) {
+        hu[e] = x[e], hv[e] = xx, hw[e] = xy;
+      } else if (r == 1) {
+        hu[e] = add(hu[e], x[e]), hv[e] = add(hv[e], xx),
+        hw[e] = add(hw[e], xy);
+        if (L1) l1[e] = fabsf(sub(y[e], x[e]));
+      } else {
+        hu[e] = mul(add(hu[e], x[e]), kThird);
+        hv[e] = mul(add(hv[e], xx), kThird);
+        hw[e] = mul(add(hw[e], xy), kThird);
+      }
+    }
+  }
+}
+
+// the same at one element of the three rows (a halo column)
+__device__ __forceinline__ Pooled hsum1(const float* xt, const float* yt,
+                                        int pitch) {
+  const float a0 = xt[0], a1 = xt[pitch], a2 = xt[2 * pitch];
+  const float b0 = yt[0], b1 = yt[pitch], b2 = yt[2 * pitch];
+  return {tap3(a0, a1, a2), tap3(mul(a0, a0), mul(a1, a1), mul(a2, a2)),
+          tap3(mul(a0, b0), mul(a1, b1), mul(a2, b2))};
+}
+
+// The W pass of channel c at a lane's 4 pixels from the H sums of its 4
+// pixels (elements p * C + c) and of the columns beside them: the lanes
+// left and right by shuffles, `edge` (the halo column's) at lanes 0 and 31.
+template <int C>
+__device__ __forceinline__ void wpool4(const float (&h)[4 * C], int c,
+                                       float edge, int lane,
+                                       float (&out)[4]) {
+  float l = __shfl_up_sync(kFull, h[3 * C + c], 1);
+  float r = __shfl_down_sync(kFull, h[c], 1);
+  if (lane == 0) l = edge;
+  if (lane == 31) r = edge;
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+    out[p] = tap3(p == 0 ? l : h[(p - 1) * C + c], h[p * C + c],
+                  p == 3 ? r : h[(p + 1) * C + c]);
+}
+
+constexpr int fwd_vec_smem_floats(int C) {
+  return (1 + kFwdStages) * (kFwdRows + 2) *
+         (2 * (4 * ((C + 3) / 4)) + kVW * C);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kVThreads, 2)
+photo_loss_fwd_vec_kernel(const float* __restrict__ pred,
+                          const float* __restrict__ target,
+                          const float* __restrict__ muy,
+                          const float* __restrict__ sy,
+                          float* __restrict__ loss, int B, int R, int H,
+                          int W, float w_ssim, float w_l1, float inv_c) {
+  using T = Tile<C, 1>;
+  constexpr int kRows = kFwdRows + 2, kSize = kRows * T::kPitch;
+  constexpr int E = 4 * C;                  // a lane's 4 pixels x C
+  extern __shared__ float4 smem4[];
+  float* ys = reinterpret_cast<float*>(smem4);
+  float* xs = ys + kSize;                   // kFwdStages tiles
+  const int b = blockIdx.z;
+  const int i0 = blockIdx.y * kFwdRows, j0 = blockIdx.x * kVW;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int i = i0 + warp, j = j0 + 4 * lane;
+  const bool row_live = i < H;              // warp-uniform
+  const bool live = row_live && j < W;
+  const size_t plane = (size_t)H * W * C;
+
+  stage_tile<C, 1, kRows>(ys, target + b * plane, i0, j0, H, W);
+  stage_tile<C, 1, kRows>(xs, pred + b * plane, i0, j0, H, W);
+  cp_async_commit();
+  if (R > 1)
+    stage_tile<C, 1, kRows>(xs + kSize, pred + (size_t)(b + B) * plane, i0,
+                            j0, H, W);
+  cp_async_commit();
+  float my[E], s_y[E];
+  if (live) {
+    const size_t at = b * plane + ((size_t)i * W + j) * C;
+    ldg4<E>(my, muy + at);
+    ldg4<E>(s_y, sy + at);
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e) my[e] = s_y[e] = 0.f;
+  }
+  // the halo column of lanes 0 and 31 (every lane pools one, the rest at
+  // column 128 without using it, so the warp never diverges)
+  const int qh = lane == 0 ? -1 : kVW;
+
+  for (int k = 0; k < R; ++k) {
+    cp_async_wait<1>();
+    __syncthreads();          // tile k staged; tile k - 1 read by all
+    if (k + 2 < R)
+      stage_tile<C, 1, kRows>(xs + ((k + 2) % kFwdStages) * kSize,
+                              pred + (size_t)(b + (k + 2) * B) * plane, i0,
+                              j0, H, W);
+    cp_async_commit();
+    if (!row_live) continue;
+    // image rows i - 1 .. i + 1 are tile rows warp .. warp + 2
+    const float* xt =
+        xs + (k % kFwdStages) * kSize + warp * T::kPitch + T::kPad;
+    const float* yt = ys + warp * T::kPitch + T::kPad;
+    float hu[E], hv[E], hw[E], l1[E];
+    hsums4<E, true>(xt + 4 * lane * C, yt + 4 * lane * C, T::kPitch, hu, hv,
+                    hw, l1);
+    float dsum[4], lsum[4];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const Pooled h = hsum1(xt + qh * C + c, yt + qh * C + c, T::kPitch);
+      float u[4], v[4], w[4];
+      wpool4<C>(hu, c, h.u, lane, u);
+      wpool4<C>(hv, c, h.v, lane, v);
+      wpool4<C>(hw, c, h.w, lane, w);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int e = p * C + c;
+        const Ssim t = ssim_terms({u[p], v[p], w[p]}, my[e], s_y[e]);
+        const float dis = fminf(fmaxf(t.val, 0.f), 1.f);
+        dsum[p] = c == 0 ? dis : add(dsum[p], dis);
+        lsum[p] = c == 0 ? l1[e] : add(lsum[p], l1[e]);
+      }
+    }
+    if (live) {
+      float out[4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        out[p] = add(mul(w_ssim, mul(dsum[p], inv_c)),
+                     mul(w_l1, mul(lsum[p], inv_c)));
+      st4<4>(loss + ((size_t)(b + k * B) * H + i) * W + j, out);
+    }
+  }
+}
+
+// J's partials where the pooled position lies in the image, else 0: a
+// select, never a product, so stale shared memory cannot reach a result
+__device__ __forceinline__ void partials_in(const Pooled& p, float my,
+                                            float s_y, float g, float k_ssim,
+                                            bool in, float& au, float& av,
+                                            float& aw) {
+  partials(p, my, s_y, g, k_ssim, au, av, aw);
+  au = in ? au : 0.f, av = in ? av : 0.f, aw = in ? aw : 0.f;
+}
+
+// adj3 with its reflected taps as multiply-adds by lo = (p == 1) and hi =
+// (p == n - 2), each 0 or 1: fma(1, a, s) rounds s + a once and fma(0, a,
+// s) is s for a finite a, so the sums are adj3's, in its order, without a
+// compare per tap
+__device__ __forceinline__ float adj3f(float a_m1, float a_0, float a_p1,
+                                       float lo, float hi) {
+  const float s = add(add(a_m1, a_0), a_p1);
+  return mul(__fmaf_rn(hi, a_p1, __fmaf_rn(lo, a_m1, s)), kThird);
+}
+
+// The W adjoint at a lane's 4 pixels from the partials there, the lanes
+// beside by shuffles and `ring` (the ring column's, 0 outside the image) at
+// lanes 0 and 31; lo, hi the reflected taps' factors of the 4 columns
+__device__ __forceinline__ float4 wadj4(const float (&a)[4], float ring,
+                                        int lane, const float (&lo)[4],
+                                        const float (&hi)[4]) {
+  float l = __shfl_up_sync(kFull, a[3], 1);
+  float r = __shfl_down_sync(kFull, a[0], 1);
+  if (lane == 0) l = ring;
+  if (lane == 31) r = ring;
+  return make_float4(adj3f(l, a[0], a[1], lo[0], hi[0]),
+                     adj3f(a[0], a[1], a[2], lo[1], hi[1]),
+                     adj3f(a[1], a[2], a[3], lo[2], hi[2]),
+                     adj3f(a[2], a[3], r, lo[3], hi[3]));
+}
+
+constexpr int bwd_vec_smem_floats(int C) {
+  return (1 + kBwdStages) * (kBwdRows + 4) *
+             (2 * (4 * ((2 * C + 3) / 4)) + kVW * C) +
+         kBwdStages * kBwdPooled * (2 * 4 + kVW) +
+         3 * C * kBwdPooled * kVW;
+}
+
+template <int C>
+__global__ void __launch_bounds__(kVThreads, 2)
+photo_loss_bwd_vec_kernel(const float* __restrict__ pred,
+                          const float* __restrict__ target,
+                          const float* __restrict__ muy,
+                          const float* __restrict__ sy,
+                          const float* __restrict__ g,
+                          float* __restrict__ dpred, int B, int R, int H,
+                          int W, float k_ssim, float k_l1) {
+  using T = Tile<C, 2>;                     // x, y: 2-pixel halo
+  using TG = Tile<1, 1>;                    // g: the 1-pixel ring
+  constexpr int kX = (kBwdRows + 4) * T::kPitch;
+  constexpr int kG = kBwdPooled * TG::kPitch;
+  constexpr int kB = kBwdPooled * kVW;      // one plane of W adjoints
+  constexpr int E = 4 * C;
+  extern __shared__ float4 smem4[];
+  float* ys = reinterpret_cast<float*>(smem4);
+  float* xs = ys + kX;                      // kBwdStages x tiles
+  float* gs = xs + kBwdStages * kX;         // kBwdStages g tiles
+  float* bs = gs + kBwdStages * kG;         // W adjoints [u,v,w][c][row][px]
+  const int b = blockIdx.z;
+  const int i0 = blockIdx.y * kBwdRows, j0 = blockIdx.x * kVW;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int pi = i0 - 1 + warp;             // this warp's pooled row
+  const bool prow = pi >= 0 && pi < H;      // warp-uniform
+  const int j = j0 + 4 * lane;
+  // the ring column q1 of lanes 0 and 31 and the halo column q2 beyond it
+  // (every lane computes them, the rest at columns 128, 129 without using
+  // them, so the warp never diverges)
+  const int q1 = lane == 0 ? -1 : kVW, q2 = lane == 0 ? -2 : kVW + 1;
+  const bool ring_in = (lane == 0 && j0 > 0) || (lane == 31 && j0 + kVW < W);
+  const size_t plane = (size_t)H * W * C, gplane = (size_t)H * W;
+  // the reflected taps of the W adjoint at the lane's 4 columns
+  float lo[4], hi[4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+    lo[p] = j + p == 1 ? 1.f : 0.f, hi[p] = j + p == W - 2 ? 1.f : 0.f;
+
+  stage_tile<C, 2, kBwdRows + 4>(ys, target + b * plane, i0, j0, H, W);
+  stage_tile<C, 2, kBwdRows + 4>(xs, pred + b * plane, i0, j0, H, W);
+  stage_tile<1, 1, kBwdPooled>(gs, g + b * gplane, i0, j0, H, W);
+  cp_async_commit();
+  float my[E], s_y[E], myr[C], syr[C];
+#pragma unroll
+  for (int e = 0; e < E; ++e) my[e] = s_y[e] = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) myr[c] = syr[c] = 0.f;
+  if (prow) {
+    const size_t row = b * plane + (size_t)pi * W * C;
+    if (j < W) {
+      ldg4<E>(my, muy + row + (size_t)j * C);
+      ldg4<E>(s_y, sy + row + (size_t)j * C);
+    }
+    if (ring_in) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        myr[c] = __ldg(muy + row + (size_t)(j0 + q1) * C + c);
+        syr[c] = __ldg(sy + row + (size_t)(j0 + q1) * C + c);
+      }
+    }
+  }
+
+  for (int k = 0; k < R; ++k) {
+    const int n = b + k * B;
+    if (k + 1 < R) {
+      const int s = (k + 1) % kBwdStages;
+      stage_tile<C, 2, kBwdRows + 4>(
+          xs + s * kX, pred + (size_t)(n + B) * plane, i0, j0, H, W);
+      stage_tile<1, 1, kBwdPooled>(gs + s * kG, g + (size_t)(n + B) * gplane,
+                                   i0, j0, H, W);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();          // the tiles of prediction k staged
+    const float* xk = xs + (k % kBwdStages) * kX;
+    const float* gk = gs + (k % kBwdStages) * kG;
+
+    // phase 1: warp `warp` at pooled row pi (x rows pi - 1 .. pi + 1 are
+    // tile rows warp .. warp + 2): the partials at its 4 pixels and the
+    // ring column, then the W adjoint at its 4 pixels into bs
+    float* brow = bs + warp * kVW + 4 * lane;
+    if (prow) {
+      const float* xt = xk + warp * T::kPitch + T::kPad;
+      const float* yt = ys + warp * T::kPitch + T::kPad;
+      const float* gt = gk + warp * TG::kPitch + TG::kPad;
+      float hu[E], hv[E], hw[E], unused[E];
+      hsums4<E, false>(xt + 4 * lane * C, yt + 4 * lane * C, T::kPitch, hu,
+                       hv, hw, unused);
+      float gv[4];
+      ld4<4>(gv, gt + 4 * lane);
+      const float gr = gt[q1];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const Pooled h1 = hsum1(xt + q1 * C + c, yt + q1 * C + c, T::kPitch);
+        const Pooled h2 = hsum1(xt + q2 * C + c, yt + q2 * C + c, T::kPitch);
+        float u[4], v[4], w[4];
+        wpool4<C>(hu, c, h1.u, lane, u);
+        wpool4<C>(hv, c, h1.v, lane, v);
+        wpool4<C>(hw, c, h1.w, lane, w);
+        float au[4], av[4], aw[4], ru, rv, rw;
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+          partials_in({u[p], v[p], w[p]}, my[p * C + c], s_y[p * C + c],
+                      gv[p], k_ssim, j + p < W, au[p], av[p], aw[p]);
+        {
+          // the ring column: lane 0 pools tile columns -2, -1, 0, lane 31
+          // columns 127, 128, 129
+          const bool l0 = lane == 0;
+          const int e0 = c, e3 = 3 * C + c;
+          const Pooled q = {
+              tap3(l0 ? h2.u : hu[e3], h1.u, l0 ? hu[e0] : h2.u),
+              tap3(l0 ? h2.v : hv[e3], h1.v, l0 ? hv[e0] : h2.v),
+              tap3(l0 ? h2.w : hw[e3], h1.w, l0 ? hw[e0] : h2.w)};
+          partials_in(q, myr[c], syr[c], gr, k_ssim, ring_in, ru, rv, rw);
+        }
+        *reinterpret_cast<float4*>(brow + c * kB) =
+            wadj4(au, ru, lane, lo, hi);
+        *reinterpret_cast<float4*>(brow + (C + c) * kB) =
+            wadj4(av, rv, lane, lo, hi);
+        *reinterpret_cast<float4*>(brow + (2 * C + c) * kB) =
+            wadj4(aw, rw, lane, lo, hi);
+      }
+    } else {
+#pragma unroll
+      for (int qc = 0; qc < 3 * C; ++qc)
+        *reinterpret_cast<float4*>(brow + qc * kB) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    __syncthreads();          // bs complete
+
+    // phase 2 (threads 0 .. 191): the H adjoint and the cotangent at output
+    // row i0 + o, pixels j0 + 4l .. + 3; pooled rows i - 1 .. i + 1 are bs
+    // rows o .. o + 2
+    if (threadIdx.x < kBwdRows * 32) {
+      const int o = threadIdx.x / 32, l = threadIdx.x % 32;
+      const int i = i0 + o, jo = j0 + 4 * l;
+      if (i < H && jo < W) {
+        const float rlo = i == 1 ? 1.f : 0.f, rhi = i == H - 2 ? 1.f : 0.f;
+        float xc[E], yc[E], gv[4], out[E];
+        ld4<E>(xc, xk + (o + 2) * T::kPitch + T::kPad + 4 * l * C);
+        ld4<E>(yc, ys + (o + 2) * T::kPitch + T::kPad + 4 * l * C);
+        ld4<4>(gv, gk + (o + 1) * TG::kPitch + TG::kPad + 4 * l);
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          float h[3][4];
+#pragma unroll
+          for (int qn = 0; qn < 3; ++qn) {
+            const float* col = bs + (qn * C + c) * kB + o * kVW + 4 * l;
+            float b0[4], b1[4], b2[4];
+            ld4<4>(b0, col);
+            ld4<4>(b1, col + kVW);
+            ld4<4>(b2, col + 2 * kVW);
+#pragma unroll
+            for (int p = 0; p < 4; ++p)
+              h[qn][p] = adj3f(b0[p], b1[p], b2[p], rlo, rhi);
+          }
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            const int e = p * C + c;
+            const float dl1 =
+                mul(mul(gv[p], k_l1), sub(yc[e], xc[e]) >= 0.f ? -1.f : 1.f);
+            out[e] = add(add(add(h[0][p], mul(mul(2.f, xc[e]), h[1][p])),
+                             mul(yc[e], h[2][p])),
+                         dl1);
+          }
+        }
+        st4<E>(dpred + ((size_t)n * H + i) * W * C + (size_t)jo * C, out);
+      }
+    }
+    __syncthreads();          // bs and the tiles of prediction k read by all
+  }
+}
+
+template <int C>
+int launch_fwd_vec(const float* pred, const float* target, const float* muy,
+                   const float* sy, float* loss, int N, int B, int H, int W,
+                   float w_ssim, float w_l1, float inv_c,
+                   cudaStream_t stream) {
+  const int smem = fwd_vec_smem_floats(C) * (int)sizeof(float);
+  static unsigned smem_set = 0;
+  const cudaError_t err =
+      allow_smem(photo_loss_fwd_vec_kernel<C>, smem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((W + kVW - 1) / kVW),
+                  (unsigned)((H + kFwdRows - 1) / kFwdRows), (unsigned)B);
+  photo_loss_fwd_vec_kernel<C><<<grid, kVThreads, smem, stream>>>(
+      pred, target, muy, sy, loss, B, N / B, H, W, w_ssim, w_l1, inv_c);
+  return (int)cudaGetLastError();
+}
+
+template <int C>
+int launch_bwd_vec(const float* pred, const float* target, const float* muy,
+                   const float* sy, const float* g, float* dpred, int N,
+                   int B, int H, int W, float k_ssim, float k_l1,
+                   cudaStream_t stream) {
+  const int smem = bwd_vec_smem_floats(C) * (int)sizeof(float);
+  static unsigned smem_set = 0;
+  const cudaError_t err =
+      allow_smem(photo_loss_bwd_vec_kernel<C>, smem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((W + kVW - 1) / kVW),
+                  (unsigned)((H + kBwdRows - 1) / kBwdRows), (unsigned)B);
+  photo_loss_bwd_vec_kernel<C><<<grid, kVThreads, smem, stream>>>(
+      pred, target, muy, sy, g, dpred, B, N / B, H, W, k_ssim, k_l1);
+  return (int)cudaGetLastError();
+}
+
+// the dynamic shared memory (bytes) and resident blocks per SM of the
+// vector route's forward or cotangent at C channels
+template <int C>
+cudaError_t vec_occupancy(bool bwd, int* blocks, int* smem) {
+  *smem = (bwd ? bwd_vec_smem_floats(C) : fwd_vec_smem_floats(C)) *
+          (int)sizeof(float);
+  static unsigned fwd_set = 0, bwd_set = 0;
+  const cudaError_t err =
+      bwd ? allow_smem(photo_loss_bwd_vec_kernel<C>, *smem, bwd_set)
+          : allow_smem(photo_loss_fwd_vec_kernel<C>, *smem, fwd_set);
+  if (err != cudaSuccess) return err;
+  return bwd ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   blocks, photo_loss_bwd_vec_kernel<C>, kVThreads, *smem)
+             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   blocks, photo_loss_fwd_vec_kernel<C>, kVThreads, *smem);
+}
+
+// the vector route's shapes and pointers: tile rows `rows`
+bool bad_vec(int N, int B, int H, int W, int C, int rows,
+             std::initializer_list<const void*> ptrs) {
+  if (N <= 0 || B <= 0 || N % B != 0 || B > 65535 || H < 2 || W < 4 ||
+      W % 4 != 0 || C < 1 || C > 4 || (H + rows - 1) / rows > 65535)
+    return true;
+  for (const void* p : ptrs)
+    if (!aligned16(p)) return true;
+  return false;
 }
 
 bool bad_dims(int N, int B, int H, int W, int C) {
@@ -319,4 +901,86 @@ extern "C" int fsnet_photo_loss_bwd(const void* pred, const void* target,
       static_cast<const float*>(g), static_cast<float*>(dpred), B, H, W, C,
       k_ssim, k_l1);
   return (int)cudaGetLastError();
+}
+
+// The vector route's forward: as fsnet_photo_loss_fwd, for C <= 4, W % 4 ==
+// 0 and every pointer 16-byte aligned; anything else is refused with
+// cudaErrorInvalidValue.
+extern "C" int fsnet_photo_loss_fwd_vec(const void* pred, const void* target,
+                                        const void* muy, const void* sy,
+                                        void* loss, int N, int B, int H,
+                                        int W, int C, float w_ssim,
+                                        float w_l1, float inv_c,
+                                        void* stream) {
+  if (bad_vec(N, B, H, W, C, kFwdRows, {pred, target, muy, sy, loss}))
+    return (int)cudaErrorInvalidValue;
+  const auto* x = static_cast<const float*>(pred);
+  const auto* y = static_cast<const float*>(target);
+  const auto* m = static_cast<const float*>(muy);
+  const auto* s = static_cast<const float*>(sy);
+  auto* out = static_cast<float*>(loss);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 1:
+      return launch_fwd_vec<1>(x, y, m, s, out, N, B, H, W, w_ssim, w_l1,
+                               inv_c, st);
+    case 2:
+      return launch_fwd_vec<2>(x, y, m, s, out, N, B, H, W, w_ssim, w_l1,
+                               inv_c, st);
+    case 3:
+      return launch_fwd_vec<3>(x, y, m, s, out, N, B, H, W, w_ssim, w_l1,
+                               inv_c, st);
+    default:
+      return launch_fwd_vec<4>(x, y, m, s, out, N, B, H, W, w_ssim, w_l1,
+                               inv_c, st);
+  }
+}
+
+// The vector route's prediction cotangent: as fsnet_photo_loss_bwd, for C
+// <= 4, W % 4 == 0 and every pointer 16-byte aligned; anything else is
+// refused with cudaErrorInvalidValue.
+extern "C" int fsnet_photo_loss_bwd_vec(const void* pred, const void* target,
+                                        const void* muy, const void* sy,
+                                        const void* g, void* dpred, int N,
+                                        int B, int H, int W, int C,
+                                        float k_ssim, float k_l1,
+                                        void* stream) {
+  if (bad_vec(N, B, H, W, C, kBwdRows, {pred, target, muy, sy, g, dpred}))
+    return (int)cudaErrorInvalidValue;
+  const auto* x = static_cast<const float*>(pred);
+  const auto* y = static_cast<const float*>(target);
+  const auto* m = static_cast<const float*>(muy);
+  const auto* s = static_cast<const float*>(sy);
+  const auto* gg = static_cast<const float*>(g);
+  auto* out = static_cast<float*>(dpred);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 1:
+      return launch_bwd_vec<1>(x, y, m, s, gg, out, N, B, H, W, k_ssim,
+                               k_l1, st);
+    case 2:
+      return launch_bwd_vec<2>(x, y, m, s, gg, out, N, B, H, W, k_ssim,
+                               k_l1, st);
+    case 3:
+      return launch_bwd_vec<3>(x, y, m, s, gg, out, N, B, H, W, k_ssim,
+                               k_l1, st);
+    default:
+      return launch_bwd_vec<4>(x, y, m, s, gg, out, N, B, H, W, k_ssim,
+                               k_l1, st);
+  }
+}
+
+// The occupancy of the vector route's forward (bwd = 0) or cotangent (bwd =
+// 1) at C <= 4 channels, for reports: writes its dynamic shared memory per
+// block (bytes) to `smem` and returns its resident blocks per SM, or minus
+// a CUDA error code.
+extern "C" int fsnet_photo_loss_vec_occupancy(int bwd, int C, int* smem) {
+  int blocks = 0;
+  const cudaError_t err =
+      C == 1   ? vec_occupancy<1>(bwd != 0, &blocks, smem)
+      : C == 2 ? vec_occupancy<2>(bwd != 0, &blocks, smem)
+      : C == 3 ? vec_occupancy<3>(bwd != 0, &blocks, smem)
+      : C == 4 ? vec_occupancy<4>(bwd != 0, &blocks, smem)
+               : cudaErrorInvalidValue;
+  return err == cudaSuccess ? blocks : -(int)err;
 }

@@ -11,9 +11,12 @@ is tiled to N. The result is [N, H, W]. It is the function of the head's
 the W pass, each ``((a + b) + c) * f32(1/3)``) with the channel mean taken
 as an in-order sum times ``1 / C``.
 
-On a CUDA device the forward and the prediction cotangent are the two
-kernels of ``csrc/photo_loss.cu`` (replacing the TPU kernels
-``photo_loss_pallas`` and ``photo_loss_bwd_pallas``); their plain versions
+On a CUDA device the forward and the prediction cotangent are kernels of
+``csrc/photo_loss.cu`` (replacing the TPU kernels ``photo_loss_pallas`` and
+``photo_loss_bwd_pallas``) on one of two routes, picked by
+:func:`photo_route`: the vector route (C <= 4, W % 4 == 0, every operand
+16-byte aligned; the target tile held on chip across its predictions) or
+the narrow route for every other shape. Their plain versions
 here are written for any float type and round once per operation in the
 kernels' order, so the forward kernel is bitwise equal to its plain version
 in float32. The cotangent is the closed-form pooled adjoint
@@ -28,8 +31,11 @@ y - x >= 0. (The TPU kernel's strict gates pass none at a tie.)
 
 Only ``pred`` gets a cotangent: the target and its stats are dataset
 constants, as in the JAX package. :func:`photo_loss_fwd` and
-:func:`photo_loss_bwd` pick their route from the device of the tensors they
-are given and count launches in ``<function>.launches``.
+:func:`photo_loss_bwd` pick the plain version or a kernel from the device
+of the tensors they are given, count launches in ``<function>.launches``
+and, by route, in ``<function>.routes``; :func:`_launch_fwd` and
+:func:`_launch_bwd` launch one route's kernel (tests and ``chip_smoke.py``
+hold both routes with them).
 """
 from __future__ import annotations
 
@@ -40,6 +46,23 @@ from .geometry import abs_
 from .ssim import _C1, _C2, _relu0, avg_pool3
 
 _DTYPES = (torch.float32,)
+ROUTES = ("narrow", "vector")
+_SUFFIX = dict(narrow="", vector="_vec")     # of the routes' C entry points
+
+
+def photo_route(pred: torch.Tensor, *others: torch.Tensor) -> str:
+    """The route of kernels I and J for these operands: ``'vector'`` when
+    ``pred`` [N, H, W, C] has C <= 4 and W % 4 == 0 and every tensor's data
+    is 16-byte aligned; else ``'narrow'``."""
+    vec = pred.shape[3] <= 4 and pred.shape[2] % 4 == 0 and \
+        all(t.data_ptr() % 16 == 0 for t in (pred, *others))
+    return "vector" if vec else "narrow"
+
+
+def _known(route):
+    if route not in ROUTES:
+        raise ValueError(f"photo_loss route must be one of {ROUTES}, got "
+                         f"{route!r}")
 
 
 def _check(pred, target, muy, sy, extra=()):
@@ -167,31 +190,65 @@ def photo_loss_bwd_plain(pred: torch.Tensor, target: torch.Tensor,
     return (hu + 2.0 * x * hv + target * hw + dl1).reshape(N, H, W, C)
 
 
-def photo_loss_fwd(pred: torch.Tensor, target: torch.Tensor,
-                   muy: torch.Tensor, sy: torch.Tensor,
-                   ssim_weight: float = 0.85) -> torch.Tensor:
-    """The forward (the kernel on a CUDA device): loss [N, H, W]."""
-    _check(pred, target, muy, sy)
-    if not _route(pred, "photo_loss_fwd"):
-        return photo_loss_plain(pred, target, muy, sy, ssim_weight)
+def _launch_fwd(route: str, pred: torch.Tensor, target: torch.Tensor,
+                muy: torch.Tensor, sy: torch.Tensor,
+                ssim_weight: float = 0.85) -> torch.Tensor:
+    """Kernel I on ``route`` for checked CUDA operands (the vector route's
+    entry point raises where they do not fit it): loss [N, H, W]."""
+    _known(route)
     N, H, W, C = pred.shape
     loss = torch.empty((N, H, W), dtype=torch.float32, device=pred.device)
+    fn = "fsnet_photo_loss_fwd" + _SUFFIX[route]
     with torch.cuda.device(pred.device):
-        err = _entry("photo_loss", "fsnet_photo_loss_fwd", range(5), 14,
-                     floats=(10, 11, 12))(
+        err = _entry("photo_loss", fn, range(5), 14, floats=(10, 11, 12))(
             pred.data_ptr(), target.data_ptr(), muy.data_ptr(), sy.data_ptr(),
             loss.data_ptr(), N, target.shape[0], H, W, C, float(ssim_weight),
             1.0 - ssim_weight, 1.0 / C, _stream(pred))
-    _raise_on(err, "photo_loss_fwd")
+    _raise_on(err, fn)
     photo_loss_fwd.launches += 1
+    photo_loss_fwd.routes[route] += 1
     return loss
+
+
+def _launch_bwd(route: str, pred: torch.Tensor, target: torch.Tensor,
+                muy: torch.Tensor, sy: torch.Tensor, g: torch.Tensor,
+                ssim_weight: float = 0.85) -> torch.Tensor:
+    """Kernel J on ``route`` for checked CUDA operands (the vector route's
+    entry point raises where they do not fit it): dpred [N, H, W, C]."""
+    _known(route)
+    N, H, W, C = pred.shape
+    dpred = torch.empty_like(pred)
+    fn = "fsnet_photo_loss_bwd" + _SUFFIX[route]
+    with torch.cuda.device(pred.device):
+        err = _entry("photo_loss", fn, range(6), 14, floats=(11, 12))(
+            pred.data_ptr(), target.data_ptr(), muy.data_ptr(), sy.data_ptr(),
+            g.data_ptr(), dpred.data_ptr(), N, target.shape[0], H, W, C,
+            -0.5 * ssim_weight / C, (1.0 - ssim_weight) / C, _stream(pred))
+    _raise_on(err, fn)
+    photo_loss_bwd.launches += 1
+    photo_loss_bwd.routes[route] += 1
+    return dpred
+
+
+def photo_loss_fwd(pred: torch.Tensor, target: torch.Tensor,
+                   muy: torch.Tensor, sy: torch.Tensor,
+                   ssim_weight: float = 0.85) -> torch.Tensor:
+    """The forward (kernel I on a CUDA device, on the route of
+    :func:`photo_route`): loss [N, H, W]."""
+    _check(pred, target, muy, sy)
+    if not _route(pred, "photo_loss_fwd"):
+        return photo_loss_plain(pred, target, muy, sy, ssim_weight)
+    # the route from the inputs: the output, a fresh CUDA allocation, is
+    # 16-byte aligned
+    return _launch_fwd(photo_route(pred, target, muy, sy), pred, target, muy,
+                       sy, ssim_weight)
 
 
 def photo_loss_bwd(pred: torch.Tensor, target: torch.Tensor,
                    muy: torch.Tensor, sy: torch.Tensor, g: torch.Tensor,
                    ssim_weight: float = 0.85) -> torch.Tensor:
-    """The prediction cotangent (the kernel on a CUDA device): dpred
-    [N, H, W, C]."""
+    """The prediction cotangent (kernel J on a CUDA device, on the route of
+    :func:`photo_route`): dpred [N, H, W, C]."""
     _check(pred, target, muy, sy, extra=(g,))
     N, H, W, C = pred.shape
     if tuple(g.shape) != (N, H, W):
@@ -199,16 +256,8 @@ def photo_loss_bwd(pred: torch.Tensor, target: torch.Tensor,
                          f"{(N, H, W)}")
     if not _route(pred, "photo_loss_bwd"):
         return photo_loss_bwd_plain(pred, target, muy, sy, g, ssim_weight)
-    dpred = torch.empty_like(pred)
-    with torch.cuda.device(pred.device):
-        err = _entry("photo_loss", "fsnet_photo_loss_bwd", range(6), 14,
-                     floats=(11, 12))(
-            pred.data_ptr(), target.data_ptr(), muy.data_ptr(), sy.data_ptr(),
-            g.data_ptr(), dpred.data_ptr(), N, target.shape[0], H, W, C,
-            -0.5 * ssim_weight / C, (1.0 - ssim_weight) / C, _stream(pred))
-    _raise_on(err, "photo_loss_bwd")
-    photo_loss_bwd.launches += 1
-    return dpred
+    return _launch_bwd(photo_route(pred, target, muy, sy, g), pred, target,
+                       muy, sy, g, ssim_weight)
 
 
 class PhotoLossFunction(torch.autograd.Function):
@@ -242,3 +291,5 @@ def reprojection_loss_fused(pred: torch.Tensor, target: torch.Tensor,
 
 photo_loss_fwd.launches = 0
 photo_loss_bwd.launches = 0
+photo_loss_fwd.routes = dict.fromkeys(ROUTES, 0)
+photo_loss_bwd.routes = dict.fromkeys(ROUTES, 0)

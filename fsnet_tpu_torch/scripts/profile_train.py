@@ -17,8 +17,9 @@ batch carries an all-ones ``patched_mask``, as every dataset batch does
 (``--route grid``). Puts the batch on the card (as ``bench.py`` does for the
 JAX step; ``--host-batch`` passes numpy arrays, so each step copies them),
 warms up, then runs ``--iters`` train steps (192x640, or 384x384 for the
-fisheye model) in float32 under
-``torch.profiler`` and prints: the wall time per step and images/s, the
+fisheye model) in float32 untraced, and ``--iters`` more under
+``torch.profiler``, and prints: the wall time per step of each window
+(the profiler adds host time to the second) and images/s, the
 device's busy and idle share of that window, device time by group (each of
 the port's kernels, the photometric loss's two among them, cuDNN/cuBLAS,
 the deformable convs' image cotangent (kernel K),
@@ -49,7 +50,9 @@ _GROUPS = (
     ("warp_mei_fwd_kernel", "Mei warp + va, vb + overlap (kernel G)"),
     ("warp_mei_bwd_kernel", "Mei norm cotangent (kernel H)"),
     ("photo_loss_fwd_kernel", "photometric loss forward (kernel I)"),
+    ("photo_loss_fwd_vec_kernel", "photometric loss forward (kernel I)"),
     ("photo_loss_bwd_kernel", "photometric loss cotangent (kernel J)"),
+    ("photo_loss_bwd_vec_kernel", "photometric loss cotangent (kernel J)"),
 )
 
 
@@ -116,6 +119,12 @@ def main(argv=None) -> None:
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
+    t0 = time.perf_counter()
+    for _ in range(args.iters):
+        step(model, opt, batch)
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - t0) * 1e3
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -141,10 +150,14 @@ def main(argv=None) -> None:
              + ("" if args.model == "dla" else
                 f"{'norm-direct' if fisheye else args.route} route, ") +
              f"bs{B}@{H}x{W} float32, "
-             f"batch {where}, {n} steps under torch.profiler",
-             f"wall per step {wall_ms / n:.3f} ms ({B * n / wall_ms * 1e3:.2f}"
-             f" imgs/s); device busy per step {busy_ms / n:.3f} ms; idle "
-             f"share {1 - busy_ms / wall_ms:.3f}; peak memory of a step "
+             f"batch {where}, {n} steps untraced, then {n} under "
+             "torch.profiler",
+             f"wall per step untraced {untraced_ms / n:.3f} ms "
+             f"({B * n / untraced_ms * 1e3:.2f} imgs/s)",
+             f"wall per step traced {wall_ms / n:.3f} ms "
+             f"({B * n / wall_ms * 1e3:.2f} imgs/s); device busy per step "
+             f"{busy_ms / n:.3f} ms; idle share {1 - busy_ms / wall_ms:.3f}; "
+             "peak memory of a step "
              f"{peak_gb:.3f} GB",
              "device time per step by group:"]
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):

@@ -456,16 +456,22 @@ def _photo_scene(g, N, B, H, W, C):
     return pred, target
 
 
+@pytest.mark.parametrize("route", ["auto", "narrow"])
 @pytest.mark.parametrize("dims", [(4, 2, 16, 64, 3), (6, 3, 9, 33, 3),
                                   (2, 1, 2, 5, 1), (3, 3, 5, 2, 2),
-                                  (4, 2, 40, 70, 3)])
-def test_photo_loss_kernels_match_plain(cuda, dims):
+                                  (4, 2, 40, 70, 3), (96, 12, 20, 136, 3),
+                                  (8, 2, 13, 64, 3), (6, 3, 2, 4, 3),
+                                  (4, 2, 11, 132, 4)])
+def test_photo_loss_kernels_match_plain(cuda, dims, route):
     """The photometric kernels against their plain versions on the card, at
     ragged tiles, images of height or width 2 (every row or column an edge)
-    and 1-3 channels, with exact ties: the forward bitwise but for rounding
-    (within 1e-6 of the largest loss), the cotangent within 1e-5 of its
-    largest entry against the plain cotangent and against autograd of the
-    plain forward."""
+    and 1-4 channels, with exact ties: the forward within 1e-6 of the
+    largest loss, the cotangent within 1e-5 of its largest entry against
+    the plain cotangent and against autograd of the plain forward. With
+    ``route="auto"`` the wrappers take :func:`photo_route`'s route: the
+    vector route (bitwise forward) wherever C <= 4 and W % 4 == 0, the
+    flagship's 96 predictions against 12 targets among them; with
+    ``"narrow"`` the launchers run the narrow route at every shape."""
     from fsnet_tpu_torch.ops import photo_loss as tpl
     from fsnet_tpu_torch.ops.ssim import ssim_target_stats
 
@@ -474,20 +480,60 @@ def test_photo_loss_kernels_match_plain(cuda, dims):
     pred, target = _photo_scene(g, N, B, H, W, C)
     muy, sy = ssim_target_stats(target)
     cot = torch.randn(N, H, W, generator=g, device=cuda)
+    want = tpl.photo_route(pred, target, muy, sy, cot) if route == "auto" \
+        else route
+    assert want == ("vector" if route == "auto" and C <= 4 and W % 4 == 0
+                    else "narrow")
     n0 = tpl.photo_loss_fwd.launches, tpl.photo_loss_bwd.launches
-    got = tpl.photo_loss_fwd(pred, target, muy, sy)
-    dx = tpl.photo_loss_bwd(pred, target, muy, sy, cot)
+    r0 = tpl.photo_loss_fwd.routes[want], tpl.photo_loss_bwd.routes[want]
+    if route == "auto":
+        got = tpl.photo_loss_fwd(pred, target, muy, sy)
+        dx = tpl.photo_loss_bwd(pred, target, muy, sy, cot)
+    else:
+        got = tpl._launch_fwd(route, pred, target, muy, sy)
+        dx = tpl._launch_bwd(route, pred, target, muy, sy, cot)
     torch.cuda.synchronize()
     assert (tpl.photo_loss_fwd.launches, tpl.photo_loss_bwd.launches) == \
         (n0[0] + 1, n0[1] + 1)
+    assert (tpl.photo_loss_fwd.routes[want],
+            tpl.photo_loss_bwd.routes[want]) == (r0[0] + 1, r0[1] + 1)
     ref = tpl.photo_loss_plain(pred, target, muy, sy)
     assert got.shape == ref.shape == (N, H, W)
     assert (got - ref).abs().max() <= 1e-6 * ref.abs().max()
+    if want == "vector":
+        assert torch.equal(got, ref)
     xr = pred.clone().requires_grad_(True)
     tpl.photo_loss_plain(xr, target, muy, sy).backward(cot)
     for r in (tpl.photo_loss_bwd_plain(pred, target, muy, sy, cot), xr.grad):
         assert dx.shape == r.shape
         assert (dx - r).abs().max() <= 1e-5 * r.abs().max()
+
+
+@pytest.mark.parametrize("what", ["offset", "width", "channels"])
+def test_photo_loss_vector_route_refuses_what_it_does_not_take(cuda, what):
+    """The vector route's entry points refuse an operand 4 bytes off a
+    16-byte boundary, W % 4 != 0 and C > 4 (a raised error, no fallback
+    to the narrow route)."""
+    from fsnet_tpu_torch.ops import photo_loss as tpl
+
+    N, B, H, W, C = 4, 2, 8, 16, 3
+    if what == "width":
+        W = 18
+    elif what == "channels":
+        C = 5
+    pred = torch.rand(N, H, W, C, device=cuda)
+    target = torch.rand(B, H, W, C, device=cuda)
+    if what == "offset":
+        pred = _unaligned(pred)
+        assert pred.is_contiguous() and pred.data_ptr() % 16
+    cot = torch.rand(N, H, W, device=cuda)
+    assert tpl.photo_route(pred, target, target, target, cot) == "narrow"
+    n0 = tpl.photo_loss_fwd.launches, tpl.photo_loss_bwd.launches
+    with pytest.raises(RuntimeError):
+        tpl._launch_fwd("vector", pred, target, target, target)
+    with pytest.raises(RuntimeError):
+        tpl._launch_bwd("vector", pred, target, target, target, cot)
+    assert (tpl.photo_loss_fwd.launches, tpl.photo_loss_bwd.launches) == n0
 
 
 def test_photo_loss_autograd_on_card_matches_cpu(cuda):

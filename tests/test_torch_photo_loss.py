@@ -276,13 +276,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take(what):
 @pytest.mark.parametrize("entry,pointers,floats", [
     ("fsnet_photo_loss_fwd", [0, 1, 2, 3, 4, 13], [10, 11, 12]),
     ("fsnet_photo_loss_bwd", [0, 1, 2, 3, 4, 5, 13], [11, 12]),
+    ("fsnet_photo_loss_fwd_vec", [0, 1, 2, 3, 4, 13], [10, 11, 12]),
+    ("fsnet_photo_loss_bwd_vec", [0, 1, 2, 3, 4, 5, 13], [11, 12]),
 ])
 def test_entry_points_declare_their_arguments(monkeypatch, entry, pointers,
                                               floats):
     """ctypes passes an undeclared argument as a 32-bit int: the wrappers
-    declare every pointer, int and float of each entry point and call it
-    with all 14 arguments (a stand-in C function, CPU tensors routed as if
-    on the card)."""
+    declare every pointer, int and float of each entry point of both routes
+    and call it with all 14 arguments (a stand-in C function, CPU tensors
+    routed as if on the card); aligned operands with C = 3 take the vector
+    route (``_vec``) at W = 8 and the narrow one at W = 6, and the launch
+    is counted under its route."""
     from fsnet_tpu_torch.ops import _build
 
     calls = []
@@ -302,28 +306,36 @@ def test_entry_points_declare_their_arguments(monkeypatch, entry, pointers,
     monkeypatch.setattr(tpl, "_stream", lambda t: 0)
     monkeypatch.setattr(tpl.torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
-    pred, target = torch.rand(4, 6, 8, 3), torch.rand(2, 6, 8, 3)
+    for f in (tpl.photo_loss_fwd, tpl.photo_loss_bwd):
+        monkeypatch.setattr(f, "routes", dict.fromkeys(tpl.ROUTES, 0))
+    route = "vector" if entry.endswith("_vec") else "narrow"
+    fwd = entry.startswith("fsnet_photo_loss_fwd")
+    W = 8 if route == "vector" else 6
+    pred, target = torch.rand(4, 6, W, 3), torch.rand(2, 6, W, 3)
+    assert tpl.photo_route(pred, target) == route
     n0 = tpl.photo_loss_fwd.launches, tpl.photo_loss_bwd.launches
     try:
-        if entry == "fsnet_photo_loss_fwd":
+        if fwd:
             tpl.photo_loss_fwd(pred, target, target, target, 0.85)
         else:
             tpl.photo_loss_bwd(pred, target, target, target,
-                               torch.rand(4, 6, 8), 0.85)
+                               torch.rand(4, 6, W), 0.85)
         assert (tpl.photo_loss_fwd.launches - n0[0],
                 tpl.photo_loss_bwd.launches - n0[1]) == \
-            ((1, 0) if entry == "fsnet_photo_loss_fwd" else (0, 1))
+            ((1, 0) if fwd else (0, 1))
     finally:
         tpl.photo_loss_fwd.launches, tpl.photo_loss_bwd.launches = n0
+    used = tpl.photo_loss_fwd if fwd else tpl.photo_loss_bwd
+    assert used.routes == dict(narrow=int(route == "narrow"),
+                               vector=int(route == "vector"))
     assert len(calls) == 1 and len(calls[0]) == 14
     assert fn.restype is ctypes.c_int and len(fn.argtypes) == 14
     assert [i for i, t in enumerate(fn.argtypes)
             if t is ctypes.c_void_p] == pointers
     assert [i for i, t in enumerate(fn.argtypes)
             if t is ctypes.c_float] == floats
-    n = 5 if entry == "fsnet_photo_loss_fwd" else 6
-    assert calls[0][n:n + 5] == (4, 2, 6, 8, 3)
+    n = 5 if fwd else 6
+    assert calls[0][n:n + 5] == (4, 2, 6, W, 3)
     weights = [calls[0][i] for i in floats]
     assert weights == pytest.approx(
-        [0.85, 0.15, 1 / 3] if entry == "fsnet_photo_loss_fwd"
-        else [-0.85 / 6, 0.05])
+        [0.85, 0.15, 1 / 3] if fwd else [-0.85 / 6, 0.05])
