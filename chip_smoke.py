@@ -16,8 +16,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (``LDGSTS``) instructions (``cuobjdump -sass``; the run fails where the
    toolkit has no cuobjdump), that kernel E's library holds 16-byte global
    loads and stores and kernel K's vector float reductions (``RED`` of 4
-   floats), the instructions of their channel-wide routes, and that the
-   photometric kernels' vector route (I and J at C = 3) holds 16-byte
+   floats), the instructions of their channel-wide routes, that the vector
+   routes of the projecting warps A and G at C = 3 hold 128-bit global
+   stores (``STG.E.EF.128``; their narrow kernels' stores are counted
+   beside them), and that the photometric kernels' vector route (I and J
+   at C = 3) holds 16-byte
    asynchronous copies (``LDGSTS``) and 128-bit global loads and stores;
    prints each photometric kernel's registers and spills (ptxas) and its
    counts of those instructions, shuffles and FP32 instructions, in all
@@ -53,18 +56,23 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the outputs that no atomic add touches (the stored out, dx) bitwise
    equal launch to launch; a miss saves its inputs and worst elements
    beside a float64 reference under ``build/conv_faults/`` and prints
-   where it lies; then the depth-direct warp forward (max abs err <= 1e-6,
-   the overlap equal) and backward (<= 1e-6 relative) at 96 warps (4
-   scales x 2 frames x 12); prints how many samples the TPU kernel's
-   lane-window clamp would have moved there;
+   where it lies; then the depth-direct warp forward through the public
+   wrapper (the vector route that ``proj_route`` picks there; out, va, vb
+   and the overlap bitwise equal to the plain version) and backward (<=
+   1e-6 relative) at 96 warps (4 scales x 2 frames x 12), and kernel A
+   launched 4 times on each route in turns (vector, narrow, narrow,
+   vector, ...), every launch bitwise equal to the plain version; prints
+   how many samples the TPU kernel's lane-window clamp would have moved
+   there;
 9. the train path: ``flagship_model(..., device="cuda")`` with the
    ``bench.py`` recipe (Adam lr 1e-4, clip 1.0, StepLR) and
    ``make_train_step("cuda")``, three steps at batch 12 x 192x640 on the
    synthetic KITTI-like batch, the launch counters set to 0 just before;
    checks the launches of every kernel per step (the conv kernel 4 times
    forward, 10 with moments and 14 times for the input cotangents, one
-   launch per conv for both parts; the weight-cotangent kernel 14), a
-   finite loss, and that parameters and BN running statistics changed;
+   launch per conv for both parts; the weight-cotangent kernel 14), kernel
+   A's 3 launches all on the vector route (route counters), a finite loss,
+   and that parameters and BN running statistics changed;
 10. one train step at batch 2 x 192x640 on the card against the port on the
     CPU from the same weights and batch, held to the JAX package's own
     backward gate between two routes (``scripts/tpu_smoke.py``): loss rel
@@ -78,6 +86,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 11. times the train step at batch 12 (images/s over 10 steps after
     warm-up; the batch on the card, as ``bench.py`` times the JAX step, and
     again from host numpy arrays) and each training kernel at its shapes
+    (kernel A on both routes in turns: vector, narrow, narrow, vector)
     beside its plain version, its bound (the conv kernels: both bounds, as
     phase 7) and, where one PyTorch call computes the same function, that
     call (cuDNN's conv backward for the single-part zero-padded convs; a
@@ -112,8 +121,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     holds kernels G (the norm-direct warp with its mask pass) and H (the
     norm cotangent) against their plain versions on the fisheye batch's
     rays, camera and poses at 128 warps against 32 sources and 16 masks
-    (max abs err <= 1e-6 for out, va and vb, the overlap equal, d norm rel
-    <= 1e-6), prints how many samples have a corner row outside the band
+    (out, va, vb and the overlap bitwise equal, on the vector route, d norm
+    rel <= 1e-6), then G launched 4 times on each route in turns, every
+    launch bitwise equal to the plain version; prints how many samples
+    have a corner row outside the band
     (all, and those with a valid ray), in how many rows the pixels outside
     the fisheye disc pull the band start down, and how many samples the TPU
     lane-window clamp would move (none can at W = 384), and holds the conv
@@ -124,16 +135,17 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     z-depth, norm and fisheye mask of the right shapes, the norm within
     [0.1, 150] and the mask the ray map's;
 19. three fisheye train steps at batch 16, the counters set to 0 just
-    before: per step kernels G and H 1 launch each, A, B, E and F none, the
-    conv kernels as in phase 9; a finite loss and changed parameters and BN
-    statistics;
+    before: per step kernels G and H 1 launch each (G on the vector route),
+    A, B, E and F none, the conv kernels as in phase 9; a finite loss and
+    changed parameters and BN statistics;
 20. one fisheye step at batch 2 on the card against the port on the CPU,
     held to phase 10's gate; then one step at batch 16 from the same
     weights on the norm-direct route (G, H) and one on the fisheye grid
     route (F, E at band 16, forced by leaving out the marker of dataset
     poses): loss rel <= 1e-4 and global gradient rel-L2 < 3e-2;
 21. times the fisheye step at batch 16 (images/s over 10 steps, the batch
-    on the card) and kernels G and H beside their plain versions and bounds
+    on the card) and kernels G (both routes in turns: vector, narrow,
+    narrow, vector) and H beside their plain versions and bounds
     (``F.grid_sample`` at the Mei grid as a yardstick only);
 22. checks from the route counters that every photometric train path
     (phases 9, 13, 14, 19) ran the forward, kernel I, twice and the
@@ -337,31 +349,50 @@ def conv_sass(build):
     return found
 
 
+# the projecting warps' kernels whose global memory opcodes phase 2 counts
+# one by one
+PROJ_KERNELS = ("warp_depth_fwd_kernel", "warp_depth_fwd_vec_kernel<3>",
+                "warp_mei_fwd_kernel", "warp_mei_fwd_vec_kernel<3>")
+
+
 def warp_sass(build):
-    """Phase 2: the band warps' channel-wide routes in SASS. Kernel E's
-    library must hold 16-byte global loads and stores (``LDG...128``,
-    ``STG...128``) and kernel K's vector float reductions into global memory
-    (a ``RED`` of 4 floats: ``atomicAdd(float4*, float4)``). Returns the
-    counts of the global memory opcodes by library."""
+    """Phase 2: the band warps' channel-wide routes and the projecting
+    warps' vector routes in SASS. Kernel E's library must hold 16-byte
+    global loads and stores (``LDG...128``, ``STG...128``), kernel K's
+    vector float reductions into global memory (a ``RED`` of 4 floats:
+    ``atomicAdd(float4*, float4)``), and the vector kernels of A and G at
+    C = 3 128-bit global stores (``STG.E.EF.128``, streaming). Returns the
+    counts of the global memory opcodes by library, and by kernel for A's
+    and G's forward kernels."""
     import os
     import re
     from collections import Counter
 
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    pat = (r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?((?:LDG|STG|RED|ATOM)"
+           r"[\w.]*)")
     found = {}
-    for name in ("warp_grid", "warp_grad"):
+    for name in ("warp_grid", "warp_grad", "warp_depth", "warp_mei"):
         sass = subprocess.run([cuobjdump, "-sass",
                                str(build.library_path(name))],
                               capture_output=True, text=True, check=True,
                               timeout=120).stdout
-        ops = Counter(re.findall(
-            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?((?:LDG|STG|RED|ATOM)"
-            r"[\w.]*)", sass))
+        if name in ("warp_depth", "warp_mei"):
+            for part in sass.split("Function : ")[1:]:
+                m = re.search(r"((?:warp_depth|warp_mei)_fwd(?:_vec)?_kernel)"
+                              r"(?:ILi(\d+)E)?", part.split("\n", 1)[0])
+                kname = m and m.group(1) + (f"<{m.group(2)}>" if m.group(2)
+                                            else "")
+                if kname in PROJ_KERNELS:
+                    found[kname] = dict(Counter(re.findall(pat, part)))
+                    print(f"SASS {kname}: {found[kname]}")
+            continue
+        ops = Counter(re.findall(pat, sass))
         found[name] = dict(ops)
         print(f"SASS {name}: {dict(ops)}")
     wide = {n: {k: sum(c for op, c in found[n].items()
                        if op.startswith(k) and ".128" in op)
-                for k in ("LDG", "STG")} for n in found}
+                for k in ("LDG", "STG")} for n in ("warp_grid", "warp_grad")}
     vec_red = sum(c for op, c in found["warp_grad"].items()
                   if op.startswith(("RED", "ATOM")) and
                   re.search(r"F32x4|\.128|\.V4", op))
@@ -370,6 +401,11 @@ def warp_sass(build):
     check(wide["warp_grad"]["LDG"] > 0 and vec_red > 0,
           f"warp_grad: no 16-byte load ({wide}) or vector float reduction "
           f"({vec_red}) in its SASS")
+    for k in PROJ_KERNELS[1::2]:
+        stg = sum(c for o, c in found.get(k, {}).items()
+                  if o.startswith("STG") and ".128" in o)
+        check(stg > 0, f"{k}: no 128-bit global store in its SASS "
+              f"({found.get(k)})")
     return found
 
 
@@ -734,6 +770,59 @@ def check_conv_kernels(B, shapes, rows, tag, forward=False):
     return errs
 
 
+# the routes of the projecting warps, kernels A and G; phases 8 and 17
+# launch each this many times at the recipe's shapes, in turns
+PROJ_ROUTES = ("vector", "narrow")
+PROJ_REPEATS = 4
+
+
+def check_proj_routes(what, launch, ref):
+    """Phases 8 and 17: ``launch(route)`` (kernel A or G) on each route
+    ``PROJ_REPEATS`` times in turns (vector, narrow, narrow, vector, ...);
+    every launch's out, overlap, va and vb must equal the plain version's
+    ``ref`` bit for bit, and so route to route and launch to launch."""
+    bad = dict.fromkeys(PROJ_ROUTES, 0)
+    for k in range(PROJ_REPEATS):
+        for r in PROJ_ROUTES if k % 2 == 0 else PROJ_ROUTES[::-1]:
+            got = launch(r)
+            torch.cuda.synchronize()
+            bad[r] += not all(torch.equal(a, b) for a, b in zip(got, ref))
+            del got
+    print(f"check {what}: {PROJ_REPEATS} launches on each route "
+          f"{PROJ_ROUTES}, launches not bitwise equal to the plain version "
+          f"(out, overlap, va, vb): {bad}")
+    check(not any(bad.values()), f"{what}: launches not bitwise equal to the "
+          f"plain version by route: {bad}")
+
+
+def time_proj_routes(entry, launch, routes_taken):
+    """Phases 11 and 21: kernel A or G timed on each route in turns
+    (vector, narrow, narrow, vector; CUDA events over 10 back-to-back
+    launches each), into its kernel line ``entry``: ``ms`` the vector
+    route's (the main path's) least reading, the narrow route's under
+    ``routes``; ``routes_taken`` the main path's launches by route."""
+    ms = {r: [] for r in PROJ_ROUTES}
+    for r in PROJ_ROUTES + PROJ_ROUTES[::-1]:
+        ms[r].append(cuda_ms(launch[r], iters=10))
+    entry.update(warp_route=taken(routes_taken), ms=min(ms["vector"]),
+                 ms_readings=ms["vector"],
+                 routes=dict(narrow=dict(launches=routes_taken["narrow"],
+                                         ms=min(ms["narrow"]),
+                                         ms_readings=ms["narrow"])))
+    entry["note"] += ("; ms: the vector route (the main path's), the least "
+                      "of two readings taken in turns with the narrow route "
+                      "(routes.narrow)")
+
+
+def proj_route_line(e):
+    """The routes' readings of a kernel line entry, for the printed line."""
+    if "ms_readings" not in e or "warp_route" not in e:
+        return ""
+    n = e["routes"]["narrow"]
+    return (f" {e['warp_route']} {e['ms_readings']} (narrow {n['ms']:.4f} "
+            f"{n['ms_readings']})")
+
+
 def check_training_kernels(batch_np, rows):
     """Phase 8: each training kernel against its plain version, on the
     card, at the train path's shapes. Returns per-kernel errors and the
@@ -743,6 +832,8 @@ def check_training_kernels(batch_np, rows):
 
     errs = check_conv_kernels(BATCH, SHAPES, rows, tag="flagship")
     image, depth, arows = warp_scene(batch_np)
+    route = twd.proj_route(image, depth, arows)
+    check(route == "vector", f"kernel A at the recipe: route {route}")
     got = twd.warp_depth_fwd(image, depth, arows, S_SCALES, F_FRAMES, BAND)
     gy = torch.randn(got[0].shape, device="cuda",
                      generator=torch.Generator(device="cuda").manual_seed(7))
@@ -761,11 +852,15 @@ def check_training_kernels(batch_np, rows):
                      arows)["x"]
     moved = lane_window_moves(x, WIDTH)
     print(f"check warp N={arows.shape[0]} {HEIGHT}x{WIDTH} band {BAND}: "
-          f"fwd max abs err {fwd:.2e} (out, va, vb), overlap mismatches "
-          f"{ov_diff}, d depth rel err {e_dd:.2e}; TPU lane-window clamp "
-          f"would move {moved} of {x.numel()} samples")
-    check(ov_diff == 0 and fwd <= 1e-6, "warp forward kernel disagrees")
+          f"fwd ({route} route) max abs err {fwd:.2e} (out, va, vb), overlap "
+          f"mismatches {ov_diff}, d depth rel err {e_dd:.2e}; TPU "
+          f"lane-window clamp would move {moved} of {x.numel()} samples")
+    check(ov_diff == 0 and fwd == 0, "warp forward kernel disagrees")
     check(e_dd <= 1e-6, f"warp backward kernel: rel err {e_dd:.2e} > 1e-6")
+    check_proj_routes(
+        f"kernel A N={arows.shape[0]} {HEIGHT}x{WIDTH}",
+        lambda r: twd._launch_fwd(r, image, depth, arows, S_SCALES, F_FRAMES,
+                                  BAND), ref)
     return errs, dict(image=image, depth=depth, arows=arows, gy=gy,
                       va=got[2], vb=got[3], lane_window_moves=moved,
                       samples=x.numel())
@@ -932,6 +1027,10 @@ def train_phases(counters, record):
     record["train_path"] = drive_steps(model, opt, batch, counters, want,
                                        "train path")
     counts = record["train_path"]["launches"]
+    got = record["train_path"]["routes"]["warp_depth_fwd"]
+    check(got == dict(narrow=0, vector=3),
+          f"train path: kernel A routes {got}, expected its 3 launches on "
+          "the vector route")
 
     # 10. one step at bs2 on the card against the port on the CPU
     small = white_noise_images({k: v[:2] for k, v in batch.items()})
@@ -1031,7 +1130,9 @@ def train_phases(counters, record):
     FB, SB, px = img.shape[0], dep.shape[0], N * HEIGHT * WIDTH
     warp_t = {
         "warp_depth_fwd": (
-            lambda: twd.warp_depth_fwd(img, dep, ar, S_SCALES, F_FRAMES, BAND),
+            {r: (lambda r=r: twd._launch_fwd(r, img, dep, ar, S_SCALES,
+                                             F_FRAMES, BAND))
+             for r in PROJ_ROUTES},
             lambda: twd.warp_depth_plain(img, dep, ar, S_SCALES, F_FRAMES,
                                          BAND),
             (px * (32.0 + 14.0 * C),
@@ -1085,17 +1186,22 @@ def train_phases(counters, record):
                                       if t["lib_shapes"] else ""))
         kernels.append(entry)
     for k, (fn, plain, ob) in warp_t.items():
-        ms = cuda_ms(fn, iters=10)
         b_ms, b_by = ms_bound(*ob)
-        kernels.append(dict(
+        entry = dict(
             name=k, route="cuda", source=meta[k][0], replaces=meta[k][1],
-            launches=counts[k], max_abs_err=errs[k], ms=ms,
+            launches=counts[k], max_abs_err=errs[k],
             plain_ms=cuda_ms(plain, iters=3, warmup=1), bound_ms=b_ms,
             bound_by=b_by, library_ms=None,
             note=f"N={N} warps of {HEIGHT}x{WIDTH}x{C}, band {BAND}, "
-                 "float32"))
+                 "float32")
+        if isinstance(fn, dict):
+            time_proj_routes(entry, fn, record["train_path"]["routes"][k])
+        else:
+            entry["ms"] = cuda_ms(fn, iters=10)
+        kernels.append(entry)
     for e in kernels:
-        print(f"time  {e['name']:15s} kernel {e['ms']:.4f} ms  plain "
+        print(f"time  {e['name']:15s} kernel {e['ms']:.4f} ms"
+              + proj_route_line(e) + f"  plain "
               f"{e['plain_ms']:.4f} ms  bound {e['bound_ms']:.4f} ms "
               f"({e['bound_by']})"
               + (f"  3xTF32 bound {e['tc_bound_ms']:.4f} ms "
@@ -1352,9 +1458,12 @@ def check_mei_kernels(scene):
     lane-window counts."""
     from fsnet_tpu_torch.ops import warp_fast as twf
     from fsnet_tpu_torch.ops import warp_mei as twm
+    from fsnet_tpu_torch.ops.warp_depth import proj_route
 
     image, mask, norm, rays, rows = scene
     S, F, H, W = S_SCALES, F_FRAMES, FISH_H, FISH_W
+    route = proj_route(*scene)
+    check(route == "vector", f"kernel G at the recipe: route {route}")
     got = twm.warp_mei_fwd(image, mask, norm, rays, rows, S, F, FISH_BAND,
                            True)
     gy = torch.randn(got[0].shape, device="cuda",
@@ -1385,7 +1494,8 @@ def check_mei_kernels(scene):
     moved = lane_window_moves(p["x"], W)
     n_samples = p["x"].numel()
     print(f"check Mei warp N={rows.shape[0]} {H}x{W} band {FISH_BAND}: "
-          f"kernel G max abs err {fwd:.2e} (out, va, vb), overlap mismatches "
+          f"kernel G ({route} route) max abs err {fwd:.2e} (out, va, vb), "
+          f"overlap mismatches "
           f"{ov_diff} ({int(got[1].sum().item())} of {n_samples} samples "
           f"overlap); kernel H d norm rel err {e_dn:.2e}; corner rows outside "
           f"the band: {out_of_band} of {n_samples} samples, "
@@ -1393,9 +1503,13 @@ def check_mei_kernels(scene):
           f"ray; band start pulled down by pixels outside the disc in "
           f"{pulled} of {y0.shape[0] * H} rows; TPU lane-window clamp would "
           f"move {moved}")
-    check(fwd <= 1e-6 and ov_diff == 0,
+    check(fwd == 0 and ov_diff == 0,
           f"kernel G: max abs err {fwd:.2e}, {ov_diff} overlap mismatches")
     check(e_dn <= 1e-6, f"kernel H: rel err {e_dn:.2e} > 1e-6")
+    check_proj_routes(
+        f"kernel G N={rows.shape[0]} {H}x{W} with the mask",
+        lambda r: twm._launch_fwd(r, image, mask, norm, rays, rows, S, F,
+                                  FISH_BAND, True), ref)
     return (dict(warp_mei_fwd=fwd, warp_mei_bwd=d_dn), gy, got,
             dict(out_of_band=out_of_band, out_of_band_valid=out_of_band_valid,
                  rows_pulled=pulled, lane_window_moves=moved,
@@ -1460,6 +1574,10 @@ def fisheye_phases(counters, record, train):
                 warp_mei_fwd=1, warp_mei_bwd=1)
     record["fisheye_path"] = drive_steps(model, opt, fb, counters, want,
                                          "fisheye path", size=size)
+    got = record["fisheye_path"]["routes"]["warp_mei_fwd"]
+    check(got == dict(narrow=0, vector=3),
+          f"fisheye path: kernel G routes {got}, expected its 3 launches on "
+          "the vector route")
 
     # 20. the card against the CPU port at bs2; the norm-direct route
     # against the grid route on the card, from the same weights
@@ -1540,8 +1658,9 @@ def fisheye_phases(counters, record, train):
     # projection and its derivative 89, 4 per channel, masks and sum 12
     timed = {
         "warp_mei_fwd": (
-            lambda: twm.warp_mei_fwd(image, mask, norm, rays, rows, S, Fr,
-                                     FISH_BAND, True),
+            {r: (lambda r=r: twm._launch_fwd(r, image, mask, norm, rays, rows,
+                                             S, Fr, FISH_BAND, True))
+             for r in PROJ_ROUTES},
             lambda: twm.warp_mei_plain(image, mask, norm, rays, rows, S, Fr,
                                        FISH_BAND, True),
             (px * (80.0 + 15.0 * C),
@@ -1563,15 +1682,19 @@ def fisheye_phases(counters, record, train):
     launches = record["fisheye_path"]["launches"]
     for k, (fn, plain, ob, replaces) in timed.items():
         b_ms, b_by = ms_bound(*ob)
-        kernels.append(dict(
+        entry = dict(
             name=k, route="cuda", source="fsnet_tpu_torch/csrc/warp_mei.cu",
             replaces=replaces, launches=launches[k], max_abs_err=errs[k],
-            ms=cuda_ms(fn, iters=10), plain_ms=cuda_ms(plain, iters=3,
-                                                       warmup=1),
+            plain_ms=cuda_ms(plain, iters=3, warmup=1),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             note=f"N={N} warps of {H}x{W}x{C} (S={S}, F={Fr}, B={B}), band "
                  f"{FISH_BAND}, float32; launches: 3 steps of the fisheye "
-                 "path (phase 19)"))
+                 "path (phase 19)")
+        if isinstance(fn, dict):
+            time_proj_routes(entry, fn, record["fisheye_path"]["routes"][k])
+        else:
+            entry["ms"] = cuda_ms(fn, iters=10)
+        kernels.append(entry)
     kernels[0]["grid_sample_ms"] = cuda_ms(lambda: F.grid_sample(
         src, grid, mode="bilinear", padding_mode="border",
         align_corners=True), iters=10)
@@ -1579,7 +1702,8 @@ def fisheye_phases(counters, record, train):
                            "no va/vb, no mask) of the sources tiled to N at "
                            "the Mei grid, a yardstick only")
     for e in kernels:
-        print(f"time  {e['name']:15s} kernel {e['ms']:.4f} ms  plain "
+        print(f"time  {e['name']:15s} kernel {e['ms']:.4f} ms"
+              + proj_route_line(e) + f"  plain "
               f"{e['plain_ms']:.4f} ms  bound {e['bound_ms']:.4f} ms "
               f"({e['bound_by']})"
               + (f"  F.grid_sample {e['grid_sample_ms']:.4f} ms"

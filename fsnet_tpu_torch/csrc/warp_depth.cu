@@ -32,6 +32,17 @@
 // What bounds it on an H100: bytes. It reads depth once and ~4 source rows
 // per output row (L1/L2 resident), and writes three NHWC f32 tensors, ~12x
 // the image bytes; about 40 operations per output value.
+// Two routes, picked on the host (ops/warp_depth.py proj_route; an entry
+// point refuses what its route does not take, never falls back):
+// - narrow (warp_depth_fwd_kernel, any shape): 256 threads per row, each
+//   pixel projected in both passes, each output value a scalar store;
+// - vector (warp_depth_fwd_vec_kernel, W % 4 == 0, W <= 2048, the staged
+//   row within shared memory, every pointer 16-byte aligned): W / 4
+//   threads per row (160 at W = 640, no idle lane), each projecting its 4
+//   pixels once and keeping (x, y) in registers for pass 2, the row staged
+//   in shared memory and written as 16-byte streaming stores and 4-byte
+//   overlap stores (csrc/warp_rows.cuh). Both routes round the same
+//   operations in the same order, so their outputs are bitwise equal.
 //
 // Kernel B replaces fsnet_tpu/ops/pallas/prep_kernel.py
 // warp_prep_bwd_pallas, with the channel contraction of warp_depth.py:114-121
@@ -45,6 +56,8 @@
 #include <cstdint>
 #include <climits>
 #include <cstddef>
+
+#include "warp_rows.cuh"
 
 namespace {
 
@@ -146,6 +159,91 @@ warp_depth_fwd_kernel(const float* __restrict__ image,
   }
 }
 
+// Kernel A, vector route: thread t of the row's block takes pixels
+// t + k W/4, k = 0..3 (csrc/warp_rows.cuh); KC the channels where fixed at
+// compile time (0: C at run time).
+template <int KC>
+__global__ void __launch_bounds__(kRowMaxThreads, kRowMinBlocks)
+warp_depth_fwd_vec_kernel(const float* __restrict__ image,
+                          const float* __restrict__ depth,
+                          const float* __restrict__ arows,
+                          float* __restrict__ out, float* __restrict__ va,
+                          float* __restrict__ vb,
+                          uint8_t* __restrict__ overlap, int S, int F, int B,
+                          int H, int W, int C_, int band) {
+  extern __shared__ float4 s_row[];
+  const int C = KC > 0 ? KC : C_;
+  const int i = blockIdx.x;                // output row
+  const int n = blockIdx.y;                // warp (s, f, b)
+  const int b = n % B;
+  const int f = (n / B) % F;
+  const int s = n / (F * B);
+  const int T = W / kRowPix;
+  const int t = threadIdx.x;
+  const bool live = t < T;                 // lanes past W / 4 only reduce
+  const float* a = arows + (size_t)n * 16;
+  const float* drow = depth + ((size_t)(s * B + b) * H + i) * W;
+  const float ii = (float)i;
+  const float wmax = (float)(W - 1);
+  const float hmax = (float)(H - 1);
+
+  // pass 1: project each pixel once; the row's band start
+  float px[kRowPix], py[kRowPix];
+  int lo = INT_MAX;
+#pragma unroll
+  for (int k = 0; k < kRowPix; ++k) {
+    const int j = live ? t + k * T : 0;
+    const Proj p = project(a, drow[j], (float)j, ii);
+    px[k] = p.x;
+    py[k] = p.y;
+    if (live) lo = min(lo, (int)floorf(fminf(fmaxf(p.y, 0.f), hmax)));
+  }
+  const int ymin = row_band_start(lo, H, band);
+
+  // pass 2: corners, fractions and the three outputs, staged
+  const RowStage st = row_stage(s_row, W, C);
+  const float* src = image + (size_t)(f * B + b) * H * W * C;
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < kRowPix; ++k) {
+      const int j = t + k * T;
+      const float x = px[k], y = py[k];
+      st.overlap[j] = (x >= -0.5f) & (x < (float)W - 0.5f) & (y >= -0.5f) &
+                      (y < (float)H - 0.5f);
+      const float xb = fminf(fmaxf(x, 0.f), wmax);
+      const float yb = fminf(fmaxf(y, 0.f), hmax);
+      const float x0f = floorf(xb);
+      const float y0f = floorf(yb);
+      const float fx = __fsub_rn(xb, x0f);
+      const float fy = __fsub_rn(yb, y0f);
+      const int x0 = (int)x0f;
+      const int y0 = (int)y0f;
+      const int x1 = min(x0 + 1, W - 1);
+      const int y1 = min(y0 + 1, H - 1);
+      const int r0 = ymin + min(max(y0 - ymin, 0), band - 1);
+      const int r1 = ymin + min(max(y1 - ymin, 0), band - 1);
+      const float* p00 = src + ((size_t)r0 * W + x0) * C;
+      const float* p01 = src + ((size_t)r0 * W + x1) * C;
+      const float* p10 = src + ((size_t)r1 * W + x0) * C;
+      const float* p11 = src + ((size_t)r1 * W + x1) * C;
+      const float wx0 = __fsub_rn(1.f, fx);
+      const float wy0 = __fsub_rn(1.f, fy);
+      for (int c = 0; c < C; ++c) {
+        const float i00 = __ldg(p00 + c), i01 = __ldg(p01 + c);
+        const float i10 = __ldg(p10 + c), i11 = __ldg(p11 + c);
+        const float h0 = __fadd_rn(__fmul_rn(i00, wx0), __fmul_rn(i01, fx));
+        const float h1 = __fadd_rn(__fmul_rn(i10, wx0), __fmul_rn(i11, fx));
+        st.out[j * C + c] = __fadd_rn(__fmul_rn(h0, wy0), __fmul_rn(h1, fy));
+        st.va[j * C + c] = __fadd_rn(__fmul_rn(__fsub_rn(i01, i00), wy0),
+                                     __fmul_rn(__fsub_rn(i11, i10), fy));
+        st.vb[j * C + c] = __fsub_rn(h1, h0);
+      }
+    }
+  }
+  __syncthreads();
+  row_flush(st, (size_t)n * H + i, W, C, out, va, vb, overlap);
+}
+
 __global__ void __launch_bounds__(kThreadsB)
 warp_depth_bwd_kernel(const float* __restrict__ depth,
                       const float* __restrict__ g, const float* __restrict__ va,
@@ -214,6 +312,36 @@ extern "C" int fsnet_warp_depth_fwd(const void* image, const void* depth,
       static_cast<float*>(va), static_cast<float*>(vb),
       static_cast<uint8_t*>(overlap), S, F, B, H, W, C, band);
   return (int)cudaGetLastError();
+}
+
+// Kernel A, vector route: the arguments of fsnet_warp_depth_fwd; refuses
+// (cudaErrorInvalidValue) a row that row_fits does not take or a pointer
+// that is not 16-byte aligned.
+extern "C" int fsnet_warp_depth_fwd_vec(const void* image, const void* depth,
+                                        const void* arows, void* out,
+                                        void* va, void* vb, void* overlap,
+                                        int S, int F, int B, int H, int W,
+                                        int C, int band, void* stream) {
+  if (bad_dims(S, F, B, H, W, C) || band <= 0 ||
+      (long long)S * F * B > 65535 || !row_fits(W, C) || !aligned16(image) ||
+      !aligned16(depth) || !aligned16(arows) || !aligned16(out) ||
+      !aligned16(va) || !aligned16(vb) || !aligned16(overlap))
+    return (int)cudaErrorInvalidValue;
+  static unsigned set3 = 0, set0 = 0;
+  const auto* im = static_cast<const float*>(image);
+  const auto* dp = static_cast<const float*>(depth);
+  const auto* ar = static_cast<const float*>(arows);
+  auto* o = static_cast<float*>(out);
+  auto* a = static_cast<float*>(va);
+  auto* b = static_cast<float*>(vb);
+  auto* ov = static_cast<uint8_t*>(overlap);
+  const int N = S * F * B;
+  return C == 3 ? row_launch(warp_depth_fwd_vec_kernel<3>, set3, N, H, W, C,
+                             stream, im, dp, ar, o, a, b, ov, S, F, B, H, W, C,
+                             band)
+                : row_launch(warp_depth_fwd_vec_kernel<0>, set0, N, H, W, C,
+                             stream, im, dp, ar, o, a, b, ov, S, F, B, H, W, C,
+                             band);
 }
 
 // Kernel B. depth [S*B,H,W], g/va/vb [S*F*B,H,W,C], arows [S*F*B,16] f32;

@@ -43,6 +43,21 @@
 // warp row and ~4 source rows per output row (L1/L2 resident), and writes
 // three NHWC f32 tensors and a byte mask, about 12x the image bytes; about
 // 80 operations per output pixel.
+// Two routes, picked on the host (ops/warp_depth.py proj_route; an entry
+// point refuses what its route does not take, never falls back):
+// - narrow (warp_mei_fwd_kernel, any shape): 128 threads per row, each
+//   pixel projected in both passes (two square roots, four divisions),
+//   each output value a scalar store;
+// - vector (warp_mei_fwd_vec_kernel, W % 4 == 0, W <= 2048, the staged
+//   row within shared memory, every pointer 16-byte aligned): W / 4
+//   threads per row (96 at W = 384, no idle lane), each projecting its 4
+//   pixels once and keeping the unclamped (x, y) in registers for the
+//   corners and the in-bounds test, the row staged in shared memory and
+//   written as 16-byte streaming stores and 4-byte overlap stores
+//   (csrc/warp_rows.cuh). Both routes round the same operations in the
+//   same order, so their outputs are bitwise equal. The vector route
+//   reaches about half the bytes bound: instruction issue holds it (the
+//   uncontracted Mei projection, 16 gathers a pixel; PERF.md).
 //
 // Kernel H replaces fsnet_tpu/ops/pallas/mei_prep_kernel.py
 // mei_prep_bwd_pallas, with the channel contraction of warp_mei.py:176-183
@@ -57,6 +72,8 @@
 #include <climits>
 #include <cstddef>
 #include <cstdint>
+
+#include "warp_rows.cuh"
 
 namespace {
 
@@ -200,6 +217,109 @@ warp_mei_fwd_kernel(const float* __restrict__ image,
   }
 }
 
+// Kernel G, vector route: thread t of the row's block takes pixels
+// t + k W/4, k = 0..3 (csrc/warp_rows.cuh); KC the channels where fixed at
+// compile time (0: C at run time).
+template <int KC>
+__global__ void __launch_bounds__(kRowMaxThreads, kRowMinBlocks)
+warp_mei_fwd_vec_kernel(const float* __restrict__ image,
+                        const float* __restrict__ mask,
+                        const float* __restrict__ norm,
+                        const float* __restrict__ rays,
+                        const float* __restrict__ mrows,
+                        float* __restrict__ out, float* __restrict__ va,
+                        float* __restrict__ vb, uint8_t* __restrict__ overlap,
+                        int S, int F, int B, int H, int W, int C_, int band,
+                        int with_mask) {
+  extern __shared__ float4 s_row[];
+  __shared__ float s_m[24];
+  const int C = KC > 0 ? KC : C_;
+  const int i = blockIdx.x;                // output row
+  const int n = blockIdx.y;                // warp (s, f, b)
+  const int b = n % B;
+  const int f = (n / B) % F;
+  const int s = n / (F * B);
+  const int T = W / kRowPix;
+  const int t = threadIdx.x;
+  const bool live = t < T;                 // lanes past W / 4 only reduce
+  if (t < 24) s_m[t] = mrows[(size_t)n * 24 + t];
+  __syncthreads();
+  const float* nrow = norm + ((size_t)(s * B + b) * H + i) * W;
+  const size_t plane = (size_t)H * W;
+  const float* rrow = rays + (size_t)b * 3 * plane + (size_t)i * W;
+  const float wmax = (float)(W - 1);
+  const float hmax = (float)(H - 1);
+
+  // pass 1: project each pixel once; the row's band start
+  float px[kRowPix], py[kRowPix];
+  int lo = INT_MAX;
+#pragma unroll
+  for (int k = 0; k < kRowPix; ++k) {
+    const int j = live ? t + k * T : 0;
+    const Mei q = mei_pix(s_m, nrow[j], rrow[j], rrow[plane + j],
+                          rrow[2 * plane + j]);
+    px[k] = q.x;
+    py[k] = q.y;
+    if (live) lo = min(lo, clampi((int)floorf(clampf(q.y, hmax)), H - 1));
+  }
+  const int ymin = row_band_start(lo, H, band);
+
+  // pass 2: corners, fractions, the three outputs and the overlap, staged
+  const RowStage st = row_stage(s_row, W, C);
+  const float* src = image + (size_t)(f * B + b) * plane * C;
+  const float* msk = mask + (size_t)b * plane;
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < kRowPix; ++k) {
+      const int j = t + k * T;
+      const float x = px[k], y = py[k];
+      const float xb = clampf(x, wmax);
+      const float yb = clampf(y, hmax);
+      const float x0f = floorf(xb);
+      const float y0f = floorf(yb);
+      const float fx = sub(xb, x0f);
+      const float fy = sub(yb, y0f);
+      const int x0 = clampi((int)x0f, W - 1);
+      const int y0 = clampi((int)y0f, H - 1);
+      const int x1 = min(x0 + 1, W - 1);
+      const int y1 = min(y0 + 1, H - 1);
+      const int r0 = ymin + clampi(y0 - ymin, band - 1);
+      const int r1 = ymin + clampi(y1 - ymin, band - 1);
+      const size_t q00 = (size_t)r0 * W + x0, q01 = (size_t)r0 * W + x1;
+      const size_t q10 = (size_t)r1 * W + x0, q11 = (size_t)r1 * W + x1;
+      const float wx0 = sub(1.f, fx);
+      const float wy0 = sub(1.f, fy);
+      for (int c = 0; c < C; ++c) {
+        const float i00 = __ldg(src + q00 * C + c);
+        const float i01 = __ldg(src + q01 * C + c);
+        const float i10 = __ldg(src + q10 * C + c);
+        const float i11 = __ldg(src + q11 * C + c);
+        const float h0 = add(mul(i00, wx0), mul(i01, fx));
+        const float h1 = add(mul(i10, wx0), mul(i11, fx));
+        st.out[j * C + c] = add(mul(h0, wy0), mul(h1, fy));
+        st.va[j * C + c] = add(mul(sub(i01, i00), wy0), mul(sub(i11, i10), fy));
+        st.vb[j * C + c] = sub(h1, h0);
+      }
+      if (with_mask) {
+        const float ex = fx >= 0.5f ? 1.f : 0.f;
+        const float ey = fy >= 0.5f ? 1.f : 0.f;
+        const float ex0 = sub(1.f, ex), ey0 = sub(1.f, ey);
+        const float h0 =
+            add(mul(__ldg(msk + q00), ex0), mul(__ldg(msk + q01), ex));
+        const float h1 =
+            add(mul(__ldg(msk + q10), ex0), mul(__ldg(msk + q11), ex));
+        const float mv = add(mul(h0, ey0), mul(h1, ey));
+        const bool inb = (x >= -0.5f) & (x < (float)W - 0.5f) &
+                         (y >= -0.5f) & (y < (float)H - 0.5f);
+        st.overlap[j] = (mv == 1.f) & inb;
+      }
+    }
+  }
+  __syncthreads();
+  row_flush(st, (size_t)n * H + i, W, C, out, va, vb,
+            with_mask ? overlap : nullptr);
+}
+
 __global__ void __launch_bounds__(kThreadsH)
 warp_mei_bwd_kernel(const float* __restrict__ norm,
                     const float* __restrict__ rays,
@@ -280,6 +400,41 @@ extern "C" int fsnet_warp_mei_fwd(const void* image, const void* mask,
       static_cast<float*>(va), static_cast<float*>(vb),
       static_cast<uint8_t*>(overlap), S, F, B, H, W, C, band, with_mask);
   return (int)cudaGetLastError();
+}
+
+// Kernel G, vector route: the arguments of fsnet_warp_mei_fwd; refuses
+// (cudaErrorInvalidValue) a row that row_fits does not take or a pointer
+// that is not 16-byte aligned (overlap may be null without the mask).
+extern "C" int fsnet_warp_mei_fwd_vec(const void* image, const void* mask,
+                                      const void* norm, const void* rays,
+                                      const void* mrows, void* out, void* va,
+                                      void* vb, void* overlap, int S, int F,
+                                      int B, int H, int W, int C, int band,
+                                      int with_mask, void* stream) {
+  if (bad_dims(S, F, B, H, W, C) || band <= 0 ||
+      (long long)S * F * B > 65535 || (with_mask && overlap == nullptr) ||
+      !row_fits(W, C) || !aligned16(image) || !aligned16(mask) ||
+      !aligned16(norm) || !aligned16(rays) || !aligned16(mrows) ||
+      !aligned16(out) || !aligned16(va) || !aligned16(vb) ||
+      !aligned16(overlap))
+    return (int)cudaErrorInvalidValue;
+  static unsigned set3 = 0, set0 = 0;
+  const auto* im = static_cast<const float*>(image);
+  const auto* mk = static_cast<const float*>(mask);
+  const auto* nm = static_cast<const float*>(norm);
+  const auto* ry = static_cast<const float*>(rays);
+  const auto* mr = static_cast<const float*>(mrows);
+  auto* o = static_cast<float*>(out);
+  auto* a = static_cast<float*>(va);
+  auto* b = static_cast<float*>(vb);
+  auto* ov = static_cast<uint8_t*>(overlap);
+  const int N = S * F * B;
+  return C == 3 ? row_launch(warp_mei_fwd_vec_kernel<3>, set3, N, H, W, C,
+                             stream, im, mk, nm, ry, mr, o, a, b, ov, S, F, B,
+                             H, W, C, band, with_mask)
+                : row_launch(warp_mei_fwd_vec_kernel<0>, set0, N, H, W, C,
+                             stream, im, mk, nm, ry, mr, o, a, b, ov, S, F, B,
+                             H, W, C, band, with_mask);
 }
 
 // Kernel H. norm [S*B,H,W], rays [B,3,H,W], g/va/vb [S*F*B,H,W,C], mrows

@@ -1,0 +1,118 @@
+// Shared by the vector routes of the projecting warps, kernel A
+// (warp_depth.cu) and kernel G (warp_mei.cu): one block per (warp n,
+// output row) of W pixels, W / 4 threads (whole warps at the recipes'
+// W = 640 and 384), each thread projecting pixels t, t + W/4, t + W/4*2,
+// t + W/4*3 once and keeping their coordinates in registers, so a warp
+// works on 32 neighbouring pixels at a time and its corner gathers touch
+// as few cache lines as the narrow route's. The row's three NHWC outputs
+// and its overlap bytes are staged in shared memory and leave as
+// contiguous 16-byte streaming stores (each warp store covers 512 bytes of
+// the row; a thread storing its own 4 pixels' 4C floats would cover a
+// 16C-byte stride per lane, as many sectors as scalar stores) and 4-byte
+// overlap stores of 4 pixels.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cstddef>
+#include <cstdint>
+
+#include "launch.cuh"
+
+namespace {
+
+constexpr int kRowPix = 4;             // pixels per thread
+// at most 512 threads a block (so W <= 2048), 3 blocks of them an SM: the
+// kernels' launch bound, which holds them to 40 registers. At the recipes
+// on an H100, G ran 8% and A 2% faster than at the 64 and 55 registers of
+// a bound of 1024 threads; A ran slower at 2 or 8 pixels a thread, G 1.6%
+// faster at 2 and slower at 8 (scripts/proj_variants.py).
+constexpr int kRowMaxThreads = 512;
+constexpr int kRowMinBlocks = 3;
+// the dynamic shared memory a block may take, less room for the kernels'
+// static arrays
+constexpr int kRowMaxSmem = 232448 - 1024;
+
+// threads of a row's block: W / 4 rounded up to whole warps
+inline int row_threads(int W) { return (W / kRowPix + 31) / 32 * 32; }
+
+// the staged row: out, va, vb (W C floats each), then W overlap bytes
+inline long row_smem(int W, int C) { return 12L * W * C + W; }
+
+// the shapes the vector route takes (the host's proj_route mirrors this)
+inline bool row_fits(int W, int C) {
+  return W > 0 && C > 0 && W % kRowPix == 0 &&
+         W / kRowPix <= kRowMaxThreads && row_smem(W, C) <= kRowMaxSmem;
+}
+
+// The band start of the row from each thread's min floor(y): the block's
+// minimum, clipped to [0, H - band] and rounded down to even. Every thread
+// of the block calls it.
+__device__ __forceinline__ int row_band_start(int lo, int H, int band) {
+  __shared__ int s_min[kRowMaxThreads / 32];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+  if ((threadIdx.x & 31) == 0) s_min[threadIdx.x >> 5] = lo;
+  __syncthreads();
+  int ymin = s_min[0];
+  for (int k = 1; k < (int)(blockDim.x >> 5); ++k) ymin = min(ymin, s_min[k]);
+  ymin = min(max(ymin, 0), max(H - band, 0));
+  return ymin - (ymin & 1);
+}
+
+// The staged row in dynamic shared memory.
+struct RowStage {
+  float *out, *va, *vb;
+  uint8_t* overlap;
+};
+
+__device__ __forceinline__ RowStage row_stage(float4* smem, int W, int C) {
+  float* s = reinterpret_cast<float*>(smem);
+  const int wc = W * C;
+  return RowStage{s, s + wc, s + 2 * wc,
+                  reinterpret_cast<uint8_t*>(s + 3 * wc)};
+}
+
+// Writes the staged row to row `row` (= n H + i) of out, va, vb [., W, C]
+// and, where `overlap` is not null, of overlap [., W]; every thread of the
+// block calls it after the barrier that ends the staging.
+__device__ __forceinline__ void row_flush(const RowStage& st, size_t row,
+                                          int W, int C, float* out, float* va,
+                                          float* vb, uint8_t* overlap) {
+  const int q4 = W * C / 4;
+  const size_t o4 = row * (size_t)q4;
+  const float4* so = reinterpret_cast<const float4*>(st.out);
+  const float4* sa = reinterpret_cast<const float4*>(st.va);
+  const float4* sb = reinterpret_cast<const float4*>(st.vb);
+  for (int q = threadIdx.x; q < q4; q += blockDim.x) {
+    __stcs(reinterpret_cast<float4*>(out) + o4 + q, so[q]);
+    __stcs(reinterpret_cast<float4*>(va) + o4 + q, sa[q]);
+    __stcs(reinterpret_cast<float4*>(vb) + o4 + q, sb[q]);
+  }
+  if (overlap != nullptr) {
+    const uchar4* sv = reinterpret_cast<const uchar4*>(st.overlap);
+    uchar4* ov = reinterpret_cast<uchar4*>(overlap) + row * (size_t)(W / 4);
+    for (int q = threadIdx.x; q < W / 4; q += blockDim.x)
+      __stcs(ov + q, sv[q]);
+  }
+}
+
+// Launches `kern` on grid (H, N) with the row's block and dynamic shared
+// memory, raising the kernel's shared-memory limit first where the row
+// needs more than 48 KB (`smem_set`: the caller's static for this kernel).
+template <typename K, typename... Args>
+inline int row_launch(K kern, unsigned& smem_set, int N, int H, int W, int C,
+                      void* stream, Args... args) {
+  const int smem = (int)row_smem(W, C);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = allow_smem(kern, smem, smem_set);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<dim3((unsigned)H, (unsigned)N), row_threads(W), smem,
+         static_cast<cudaStream_t>(stream)>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

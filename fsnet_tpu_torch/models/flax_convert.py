@@ -121,7 +121,11 @@ def flax_path(model: nn.Module, key: str) -> Tuple[str, Tuple[str, ...]]:
 def to_flax(model: nn.Module, tensors: Mapping[str, torch.Tensor]) -> Dict:
     """Port tensors keyed by ``model``'s state_dict names -> the nested
     ``{collection: tree}`` of numpy arrays in flax's layouts (HWIO
-    kernels)."""
+    kernels). Each array is a copy that owns its memory: ``.numpy()`` of a
+    CPU tensor is a view of it, and JAX on the CPU may read a numpy input
+    without copying after its call has returned, so a view would let a
+    later in-place update of the module (a train-mode BN forward) reach a
+    JAX computation dispatched before it."""
     out: Dict = {}
     for key, value in tensors.items():
         collection, path = flax_path(model, key)
@@ -132,5 +136,5 @@ def to_flax(model: nn.Module, tensors: Mapping[str, torch.Tensor]) -> Dict:
         node = out.setdefault(collection, {})
         for name in path[:-1]:
             node = node.setdefault(name, {})
-        node[path[-1]] = arr
+        node[path[-1]] = arr.copy()
     return out

@@ -15,7 +15,13 @@ only when every pose is a dataset constant (the GT-pose flagship).
 
 :func:`warp_depth_fwd` and :func:`warp_depth_bwd` pick their route from the
 device of the tensors they are given (the kernel on a CUDA device, the plain
-version on the CPU) and count launches in ``<function>.launches``.
+version on the CPU) and count launches in ``<function>.launches``. Kernel A
+has two routes, bitwise equal, picked by :func:`proj_route` (shared with
+kernel G of :mod:`~fsnet_tpu_torch.ops.warp_mei`): the vector route (each
+pixel projected once, the row written as 16-byte stores) where the row
+fits it, the narrow route for every other shape; ``warp_depth_fwd.routes``
+counts launches by route and :func:`_launch_fwd` launches one route (tests
+and ``chip_smoke.py`` hold both routes with it).
 """
 from __future__ import annotations
 
@@ -28,6 +34,29 @@ from .geometry import project_rows
 from .warp_fast import band_sample, indices_and_weights
 
 _DTYPES = (torch.float32,)
+ROUTES = ("narrow", "vector")
+_SUFFIX = dict(narrow="", vector="_vec")     # of the routes' C entry points
+# the vector route's row: W / 4 threads of at most 512, and out, va, vb
+# (W C floats each) and the overlap (W bytes) staged in at most this much
+# shared memory (csrc/warp_rows.cuh row_fits)
+_ROW_MAX_W, _ROW_MAX_SMEM = 2048, 232448 - 1024
+
+
+def proj_route(image: torch.Tensor, *others: torch.Tensor) -> str:
+    """The route of the projecting warps (kernels A and G) for these
+    operands: ``'vector'`` when ``image`` [., H, W, C] has W % 4 == 0,
+    W <= 2048 and 12 W C + W bytes of staged row within the shared-memory
+    limit, and every tensor's data is 16-byte aligned; else ``'narrow'``."""
+    W, C = image.shape[2], image.shape[3]
+    vec = W % 4 == 0 and W <= _ROW_MAX_W and \
+        12 * W * C + W <= _ROW_MAX_SMEM and \
+        all(t.data_ptr() % 16 == 0 for t in (image, *others))
+    return "vector" if vec else "narrow"
+
+
+def _known(route):
+    if route not in ROUTES:
+        raise ValueError(f"warp route must be one of {ROUTES}, got {route!r}")
 
 
 def make_affine_rows(K: torch.Tensor, inv_K: torch.Tensor, Ts: torch.Tensor,
@@ -109,26 +138,39 @@ def warp_depth_bwd_plain(depth: torch.Tensor, g: torch.Tensor,
     return term.view(S, F, SB // S, H, W).sum(dim=1).reshape(SB, H, W)
 
 
-def warp_depth_fwd(image: torch.Tensor, depth: torch.Tensor,
-                   arows: torch.Tensor, S: int, F: int, band: int):
-    """The forward (kernel A on a CUDA device): (out, overlap, va, vb)."""
-    _check(image, depth, arows, S, F)
-    if not _route(image, "warp_depth_fwd"):
-        return warp_depth_plain(image, depth, arows, S, F, band)
+def _launch_fwd(route: str, image: torch.Tensor, depth: torch.Tensor,
+                arows: torch.Tensor, S: int, F: int, band: int):
+    """Kernel A on ``route`` for checked CUDA operands (the vector route's
+    entry point raises where they do not fit it): (out, overlap, va, vb)."""
+    _known(route)
     FB, H, W, C = image.shape
     N = S * FB
     out, va, vb = (torch.empty((N, H, W, C), dtype=torch.float32,
                                device=image.device) for _ in range(3))
     overlap = torch.empty((N, H, W), dtype=torch.bool, device=image.device)
+    fn = "fsnet_warp_depth_fwd" + _SUFFIX[route]
     with torch.cuda.device(image.device):
-        err = _entry("warp_depth", "fsnet_warp_depth_fwd",
-                     (0, 1, 2, 3, 4, 5, 6), 15)(
+        err = _entry("warp_depth", fn, (0, 1, 2, 3, 4, 5, 6), 15)(
             image.data_ptr(), depth.data_ptr(), arows.data_ptr(),
             out.data_ptr(), va.data_ptr(), vb.data_ptr(), overlap.data_ptr(),
             S, F, FB // F, H, W, C, band, _stream(image))
-    _raise_on(err, "warp_depth_fwd")
+    _raise_on(err, fn)
     warp_depth_fwd.launches += 1
+    warp_depth_fwd.routes[route] += 1
     return out, overlap, va, vb
+
+
+def warp_depth_fwd(image: torch.Tensor, depth: torch.Tensor,
+                   arows: torch.Tensor, S: int, F: int, band: int):
+    """The forward (kernel A on a CUDA device, on the route of
+    :func:`proj_route`): (out, overlap, va, vb)."""
+    _check(image, depth, arows, S, F)
+    if not _route(image, "warp_depth_fwd"):
+        return warp_depth_plain(image, depth, arows, S, F, band)
+    # the route from the inputs: the outputs, fresh CUDA allocations, are
+    # 16-byte aligned
+    return _launch_fwd(proj_route(image, depth, arows), image, depth, arows,
+                       S, F, band)
 
 
 def warp_depth_bwd(depth: torch.Tensor, g: torch.Tensor, va: torch.Tensor,
@@ -186,4 +228,5 @@ def warp_depth_fused(image: torch.Tensor, depth: torch.Tensor,
 
 
 warp_depth_fwd.launches = 0
+warp_depth_fwd.routes = dict.fromkeys(ROUTES, 0)
 warp_depth_bwd.launches = 0

@@ -34,7 +34,12 @@ under autodiff; only the norm cotangent is produced. Callers dispatch here
 only when every pose is a dataset constant (``MonoDepthWPose``).
 :func:`warp_mei_fwd` and :func:`warp_mei_bwd` pick their route from the
 device of the tensors they are given and count launches in
-``<function>.launches``.
+``<function>.launches``. Kernel G has two routes, bitwise equal, picked by
+:func:`~fsnet_tpu_torch.ops.warp_depth.proj_route` as kernel A's: the
+vector route (each pixel projected once, the row written as 16-byte
+stores) where the row fits it, the narrow route for every other shape;
+``warp_mei_fwd.routes`` counts launches by route and :func:`_launch_fwd`
+launches one route.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .conv3x3 import _entry, _raise_on, _route, _stream
+from .warp_depth import ROUTES, _SUFFIX, _known, proj_route
 from .warp_fast import band_sample, indices_and_weights
 
 _DTYPES = (torch.float32,)
@@ -177,7 +183,9 @@ def warp_mei_bwd_plain(norm: torch.Tensor, rays_cf: torch.Tensor,
 def warp_mei_fwd(image: torch.Tensor, mask: torch.Tensor, norm: torch.Tensor,
                  rays_cf: torch.Tensor, mrows: torch.Tensor, S: int, F: int,
                  band: int, with_mask: bool):
-    """The forward (kernel G on a CUDA device): (out, overlap, va, vb)."""
+    """The forward (kernel G on a CUDA device, on the route of
+    :func:`~fsnet_tpu_torch.ops.warp_depth.proj_route`): (out, overlap, va,
+    vb)."""
     _check(image, norm, rays_cf, mrows, S, F, extra=(mask,))
     if tuple(mask.shape) != (rays_cf.shape[0], *image.shape[1:3]) or \
             not 1 <= band <= image.shape[1]:
@@ -186,6 +194,18 @@ def warp_mei_fwd(image: torch.Tensor, mask: torch.Tensor, norm: torch.Tensor,
     if not _route(image, "warp_mei_fwd"):
         return warp_mei_plain(image, mask, norm, rays_cf, mrows, S, F, band,
                               with_mask)
+    # the route from the inputs: the outputs, fresh CUDA allocations, are
+    # 16-byte aligned
+    return _launch_fwd(proj_route(image, mask, norm, rays_cf, mrows), image,
+                       mask, norm, rays_cf, mrows, S, F, band, with_mask)
+
+
+def _launch_fwd(route: str, image: torch.Tensor, mask: torch.Tensor,
+                norm: torch.Tensor, rays_cf: torch.Tensor, mrows: torch.Tensor,
+                S: int, F: int, band: int, with_mask: bool):
+    """Kernel G on ``route`` for checked CUDA operands (the vector route's
+    entry point raises where they do not fit it): (out, overlap, va, vb)."""
+    _known(route)
     FB, H, W, C = image.shape
     N = S * FB
     dev = image.device
@@ -193,15 +213,17 @@ def warp_mei_fwd(image: torch.Tensor, mask: torch.Tensor, norm: torch.Tensor,
                    for _ in range(3))
     overlap = (torch.empty((N, H, W), dtype=torch.bool, device=dev)
                if with_mask else None)
+    fn = "fsnet_warp_mei_fwd" + _SUFFIX[route]
     with torch.cuda.device(dev):
-        err = _entry("warp_mei", "fsnet_warp_mei_fwd", range(9), 18)(
+        err = _entry("warp_mei", fn, range(9), 18)(
             image.data_ptr(), mask.data_ptr(), norm.data_ptr(),
             rays_cf.data_ptr(), mrows.data_ptr(), out.data_ptr(),
             va.data_ptr(), vb.data_ptr(),
             overlap.data_ptr() if with_mask else None,
             S, F, FB // F, H, W, C, band, int(with_mask), _stream(image))
-    _raise_on(err, "warp_mei_fwd")
+    _raise_on(err, fn)
     warp_mei_fwd.launches += 1
+    warp_mei_fwd.routes[route] += 1
     return out, overlap, va, vb
 
 
@@ -268,4 +290,5 @@ def warp_mei_fused(image: torch.Tensor, mask: torch.Tensor,
 
 
 warp_mei_fwd.launches = 0
+warp_mei_fwd.routes = dict.fromkeys(ROUTES, 0)
 warp_mei_bwd.launches = 0

@@ -42,12 +42,14 @@ from torch.profiler import ProfilerActivity, profile
 _GROUPS = (
     ("conv3x3_dw_kernel", "conv3x3 weight cotangent (kernel D)"),
     ("warp_depth_fwd_kernel", "warp forward (kernel A)"),
+    ("warp_depth_fwd_vec_kernel", "warp forward (kernel A)"),
     ("warp_depth_bwd_kernel", "warp backward (kernel B)"),
     ("warp_grid_kernel<true>", "grid warp + va, vb (kernel F)"),
     ("warp_grid_kernel<false>", "grid warp forward (kernel E)"),
     ("warp_grid_vec_kernel", "grid warp forward (kernel E)"),
     ("warp_grid_bwd", "grid warp backward (kernel K)"),
     ("warp_mei_fwd_kernel", "Mei warp + va, vb + overlap (kernel G)"),
+    ("warp_mei_fwd_vec_kernel", "Mei warp + va, vb + overlap (kernel G)"),
     ("warp_mei_bwd_kernel", "Mei norm cotangent (kernel H)"),
     ("photo_loss_fwd_kernel", "photometric loss forward (kernel I)"),
     ("photo_loss_fwd_vec_kernel", "photometric loss forward (kernel I)"),

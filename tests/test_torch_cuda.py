@@ -409,6 +409,101 @@ def test_mei_warp_kernels_match_plain(cuda, dims):
         assert torch.equal(torch.isfinite(dn), torch.isfinite(dn_ref))
 
 
+@pytest.mark.parametrize("dims", [(2, 2, 2, 16, 128, 3, 4),
+                                  (4, 2, 3, 24, 200, 3, 4),
+                                  (1, 2, 1, 7, 36, 2, 8),
+                                  (1, 1, 2, 9, 1028, 1, 4)])
+def test_warp_depth_routes_match_plain(cuda, dims):
+    """Kernel A's two routes at rows the vector route takes (W % 4 == 0;
+    at W = 1028 31 lanes of the last warp hold no pixel; C = 1, 2 run the
+    kernel's run-time channel loop), each launched twice: out, va, vb and
+    the overlap bitwise equal launch to launch, route to route and to the
+    plain version; the public wrapper takes the vector route."""
+    from fsnet_tpu_torch.ops import warp_depth as twd
+
+    S, F, B, H, W, C, band = dims
+    g = torch.Generator(device=cuda).manual_seed(14)
+    image, depth, arows = _warp_scene(g, S, F, B, H, W, C)
+    assert twd.proj_route(image, depth, arows) == "vector"
+    r0 = dict(twd.warp_depth_fwd.routes)
+    runs = [twd._launch_fwd(r, image, depth, arows, S, F, band)
+            for r in ("vector", "narrow", "narrow", "vector")]
+    runs.append(twd.warp_depth_fwd(image, depth, arows, S, F, band))
+    torch.cuda.synchronize()
+    assert twd.warp_depth_fwd.routes == dict(narrow=r0["narrow"] + 2,
+                                             vector=r0["vector"] + 3)
+    ref = twd.warp_depth_plain(image, depth, arows, S, F, band)
+    for got in runs:
+        for a, r in zip(got, ref):
+            assert a.shape == r.shape and a.dtype == r.dtype
+            assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("with_mask", [True, False], ids=["mask", "no_mask"])
+@pytest.mark.parametrize("dims", [(2, 2, 2, 16, 128, 3, 16, None),
+                                  (4, 2, 3, 24, 200, 3, 8, None),
+                                  (1, 1, 2, 8, 36, 2, 4, None),
+                                  (2, 2, 1, 16, 64, 3, 16, -1.0)])
+def test_mei_warp_routes_match_plain(cuda, dims, with_mask):
+    """Kernel G's two routes at rows the vector route takes, with and
+    without the mask pass (xi = -1 sends some coordinates non-finite), each
+    launched twice: out, va, vb and the overlap bitwise equal launch to
+    launch, route to route and to the plain version; the public wrapper
+    takes the vector route."""
+    from fsnet_tpu_torch.ops import warp_depth as twd
+    from fsnet_tpu_torch.ops import warp_mei as twm
+
+    S, F, B, H, W, C, band, xi = dims
+    g = torch.Generator(device=cuda).manual_seed(15)
+    scene = _mei_scene(g, S, F, B, H, W, C)
+    if xi is not None:
+        scene[4][:, 12] = xi
+    assert twd.proj_route(*scene) == "vector"
+    r0 = dict(twm.warp_mei_fwd.routes)
+    runs = [twm._launch_fwd(r, *scene, S, F, band, with_mask)
+            for r in ("vector", "narrow", "narrow", "vector")]
+    runs.append(twm.warp_mei_fwd(*scene, S, F, band, with_mask))
+    torch.cuda.synchronize()
+    assert twm.warp_mei_fwd.routes == dict(narrow=r0["narrow"] + 2,
+                                           vector=r0["vector"] + 3)
+    ref = twm.warp_mei_plain(*scene, S, F, band, with_mask)
+    for got in runs:
+        assert (got[1] is None) == (ref[1] is None) == (not with_mask)
+        for a, r in zip(got, ref):
+            if r is not None:
+                assert a.shape == r.shape and a.dtype == r.dtype
+                assert bool(torch.isfinite(a.float()).all())
+                assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("what", ["offset", "width"])
+@pytest.mark.parametrize("kernel", ["A", "G"])
+def test_proj_warp_vector_route_refuses_what_it_does_not_take(cuda, kernel,
+                                                             what):
+    """The vector route's entry points of kernels A and G refuse an operand
+    4 bytes off a 16-byte boundary and W % 4 != 0 (a raised error, no
+    fallback to the narrow route)."""
+    from fsnet_tpu_torch.ops import warp_depth as twd
+    from fsnet_tpu_torch.ops import warp_mei as twm
+
+    S, F, B, H, W, C = 2, 2, 1, 8, 18 if what == "width" else 16, 3
+    g = torch.Generator(device=cuda).manual_seed(16)
+    if kernel == "A":
+        fn, launch = twd.warp_depth_fwd, twd._launch_fwd
+        args = list(_warp_scene(g, S, F, B, H, W, C)) + [S, F, 4]
+    else:
+        fn, launch = twm.warp_mei_fwd, twm._launch_fwd
+        args = list(_mei_scene(g, S, F, B, H, W, C)) + [S, F, 4, True]
+    if what == "offset":
+        args[0] = _unaligned(args[0])
+        assert args[0].is_contiguous() and args[0].data_ptr() % 16
+    assert twd.proj_route(*args[:-3 if kernel == "A" else -4]) == "narrow"
+    n0, r0 = fn.launches, dict(fn.routes)
+    with pytest.raises(RuntimeError):
+        launch("vector", *args)
+    assert (fn.launches, fn.routes) == (n0, r0)
+
+
 def test_fisheye_train_step_on_card_matches_cpu(cuda):
     """The fisheye train step at a small size, on the card through kernels
     G and H, against the port on the CPU (the fisheye batch's images are

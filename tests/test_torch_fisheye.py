@@ -360,7 +360,7 @@ def test_warp_mei_entry_points_declare_their_arguments(monkeypatch, entry,
     monkeypatch.setattr(twm, "_stream", lambda t: 0)
     monkeypatch.setattr(twm.torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
-    H, W = 8, 16
+    H, W = 8, 18      # W % 4 != 0: the narrow route's entry points
     image, norm, rays4, P, params, Ts = _scene(4, H, W)
     rows = twm.make_mei_rows(torch.from_numpy(P), torch.from_numpy(params),
                              torch.from_numpy(Ts), S)

@@ -154,3 +154,28 @@ def test_learned_pose_round_trip():
     assert sorted(flat_b) == sorted(flat_v)
     for k, a in flat_v.items():
         np.testing.assert_array_equal(flat_b[k], a, err_msg=str(k))
+
+
+def test_to_flax_arrays_own_their_memory():
+    """``to_flax`` returns copies: no later in-place update of the module
+    (here of every parameter and BN statistic, as a train-mode forward
+    updates the running statistics) changes a tree it returned. JAX on the
+    CPU may read a numpy input after its call has returned, so a view of
+    the module's tensors would let the update reach a JAX computation
+    dispatched before it."""
+    from fsnet_tpu_torch.models.flax_convert import to_flax
+
+    model = flagship_model(H, W, device="cpu")
+    state = model.state_dict()
+    tree = to_flax(model, state)
+    before = {(c,) + p: a.copy() for c in tree for p, a in _leaves(tree[c])}
+    with torch.no_grad():
+        for t in state.values():
+            if t.is_floating_point():
+                t.add_(1.0)
+    assert any(k[0] == "batch_stats" for k in before)
+    for c in tree:
+        for p, a in _leaves(tree[c]):
+            assert a.flags.owndata, (c,) + p
+            np.testing.assert_array_equal(a, before[(c,) + p],
+                                          err_msg=str((c,) + p))
