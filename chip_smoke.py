@@ -11,17 +11,18 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. builds the kernels from ``fsnet_tpu_torch/csrc`` (nvcc, sm_90a, one
    process per source, all together) and prints the build time and the
-   compiler's register/spill report; checks that the SASS of both conv
-   libraries holds tensor-core (``HMMA``) and asynchronous-copy
-   (``LDGSTS``) instructions (``cuobjdump -sass``; the run fails where the
-   toolkit has no cuobjdump), that kernel E's library holds 16-byte global
-   loads and stores and kernel K's vector float reductions (``RED`` of 4
-   floats), the instructions of their channel-wide routes, that the vector
-   routes of the projecting warps A and G at C = 3 hold 128-bit global
-   stores (``STG.E.EF.128``; their narrow kernels' stores are counted
-   beside them), and that the photometric kernels' vector route (I and J
-   at C = 3) holds 16-byte
-   asynchronous copies (``LDGSTS``) and 128-bit global loads and stores;
+   compiler's register/spill report of each kernel by name; checks that
+   the SASS of both conv libraries holds tensor-core (``HMMA``) and
+   asynchronous-copy (``LDGSTS``) instructions (``cuobjdump -sass``; the
+   run fails where the toolkit has no cuobjdump), that kernel E's library
+   holds 16-byte global loads and stores and kernel K's vector float
+   reductions (``RED`` of 4 floats), the instructions of their
+   channel-wide routes, that the vector routes of the projecting warps A
+   and G at C = 3 and the row routes of the grid warps F at C = 3 and E at
+   C = 1 hold 128-bit global stores (``STG.E.EF.128``; their narrow
+   kernels' stores are counted beside them), and that the photometric
+   kernels' vector route (I and J at C = 3) holds 16-byte asynchronous
+   copies (``LDGSTS``) and 128-bit global loads and stores;
    prints each photometric kernel's registers and spills (ptxas) and its
    counts of those instructions, shuffles and FP32 instructions, in all
    and in each stretch of code after one of its barriers;
@@ -95,28 +96,34 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     route's shapes at batch 12: 96 reprojection grids @192x640 (4 scales x
     2 frames x 12) against the 24 source frames for kernel F (bilinear,
     border, C=3: out, va, vb) and against the 12 patched masks for kernel E
-    (nearest, zeros, C=1), max abs err <= 1e-6 and the ``== 1.0`` overlap
-    equal; prints how many samples the TPU kernel's lane-window clamp would
-    have moved there;
+    (nearest, zeros, C=1), through the public wrappers (the row route that
+    ``warp_route`` picks there) with max abs err <= 1e-6 and the ``== 1.0``
+    overlap equal, then each launched 4 times on the row and the narrow
+    route in turns (row, narrow, narrow, row, ...), every launch bitwise
+    equal to the plain version; the same at the NuScenes recipe's shape,
+    batch 8 x 288x512 (64 grids, the synthetic batch's ``"nuscenes"``
+    patched mask); prints at both how many samples the TPU kernel's
+    lane-window clamp would have moved (at W = 512 it can);
 13. the grid route of the flagship: three train steps at batch 12 x
     192x640 on the synthetic batch with an all-ones ``patched_mask`` (as
     every dataset batch carries one), the launch counters set to 0 just
-    before; checks per step kernel F 1 launch, kernel E 1 (on the narrow
-    route: the mask has one channel), the depth-direct
+    before; checks per step kernel F 1 launch and kernel E 1, both on the
+    row route (route counters), the depth-direct
     kernels 0 and the conv kernels as in phase 9, a finite loss and changed
     parameters and BN statistics; then one step from the same weights with
     and one without the mask (the depth-direct route): loss rel <= 1e-4 and
     global gradient rel-L2 < 3e-2 between the two routes;
 14. the learned-pose ``MonoDepthMeta``: three train steps at batch 12, the
-    counters set to 0 just before; per step kernel F 1 launch, kernel E 0,
-    the depth-direct kernels 0, the conv kernels as in phase 9; a finite
-    loss and changed pose parameters;
+    counters set to 0 just before; per step kernel F 1 launch (on the row
+    route), kernel E 0, the depth-direct kernels 0, the conv kernels as in
+    phase 9; a finite loss and changed pose parameters;
 15. one ``MonoDepthMeta`` step at batch 2 on the card against the port on
     the CPU, held to phase 10's gate;
 16. times both grid-route steps at batch 12 (images/s over 10 steps after
-    warm-up, the batch on the card) and kernels E and F beside their plain
-    versions and bounds (``F.grid_sample``, another function without the
-    band, is timed beside them as a yardstick only);
+    warm-up, the batch on the card) and kernels E and F on both routes in
+    turns (row, narrow, narrow, row), at phase 12's two scenes, beside
+    their plain versions and bounds (``F.grid_sample``, another function
+    without the band, is timed beside them as a yardstick only);
 17. the KITTI-360 fisheye recipe (bs 16 @ 384x384, Mei camera, band 16):
     holds kernels G (the norm-direct warp with its mask pass) and H (the
     norm cotangent) against their plain versions on the fisheye batch's
@@ -142,7 +149,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     held to phase 10's gate; then one step at batch 16 from the same
     weights on the norm-direct route (G, H) and one on the fisheye grid
     route (F, E at band 16, forced by leaving out the marker of dataset
-    poses): loss rel <= 1e-4 and global gradient rel-L2 < 3e-2;
+    poses; both on the row route): loss rel <= 1e-4 and global gradient
+    rel-L2 < 3e-2;
 21. times the fisheye step at batch 16 (images/s over 10 steps, the batch
     on the card) and kernels G (both routes in turns: vector, narrow,
     narrow, vector) and H beside their plain versions and bounds
@@ -259,6 +267,9 @@ def decoder_shapes(H, W):
 SHAPES = decoder_shapes(HEIGHT, WIDTH)
 # the KITTI-360 fisheye recipe (configs/kitti360_fisheye_example.py)
 FISH_BATCH, FISH_H, FISH_W, FISH_BAND = 16, 384, 384, 16
+# the NuScenes recipe's batch and frame (configs/nusc_wpose_example.py),
+# phase 12's second grid-warp scene
+NUSC_BATCH, NUSC_H, NUSC_W = 8, 288, 512
 FISH_SHAPES = decoder_shapes(FISH_H, FISH_W)
 
 
@@ -349,21 +360,59 @@ def conv_sass(build):
     return found
 
 
-# the projecting warps' kernels whose global memory opcodes phase 2 counts
-# one by one
-PROJ_KERNELS = ("warp_depth_fwd_kernel", "warp_depth_fwd_vec_kernel<3>",
-                "warp_mei_fwd_kernel", "warp_mei_fwd_vec_kernel<3>")
+# the warps' kernels whose global memory opcodes phase 2 counts one by one:
+# the projecting warps' and the grid warps' narrow kernels, each beside its
+# row-staging kernel at the recipes' channels
+SASS_KERNELS = ("warp_depth_fwd_kernel", "warp_depth_fwd_vec_kernel<3>",
+                "warp_mei_fwd_kernel", "warp_mei_fwd_vec_kernel<3>",
+                "warp_grid_kernel<true>", "warp_grid_row_kernel<true,3>",
+                "warp_grid_kernel<false>", "warp_grid_row_kernel<false,1>")
+
+
+def kernel_name(mangled):
+    """``warp_grid_row_kernel<true,3>`` from a mangled kernel name (template
+    arguments of bool and int only); None where it names no kernel."""
+    for m in re.finditer(r"_kernel", mangled):
+        end = m.end()
+        # the name's length prefix ends where the name starts (the
+        # anonymous namespace's own name ends in digits too)
+        for n in range(len("x_kernel"), end):
+            start = end - n
+            if mangled[start - len(str(n)):start] == str(n) and \
+                    mangled[start].isalpha():
+                t = re.match(r"I((?:L[bi]\d+E)+)E", mangled[end:])
+                args = re.findall(r"L([bi])(\d+)E", t.group(1) if t else "")
+                return mangled[start:end] + (
+                    "<" + ",".join(("true" if v == "1" else "false")
+                                   if k == "b" else v for k, v in args) + ">"
+                    if args else "")
+    return None
+
+
+def ptxas_lines(log):
+    """ptxas's register and spill lines by kernel, from a library's
+    ``-Xptxas -v`` messages."""
+    name, out = None, {}
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            name = kernel_name(m.group(1)) or m.group(1)
+        elif name and ("registers" in line or "spill" in line):
+            out.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+    return out
 
 
 def warp_sass(build):
-    """Phase 2: the band warps' channel-wide routes and the projecting
-    warps' vector routes in SASS. Kernel E's library must hold 16-byte
-    global loads and stores (``LDG...128``, ``STG...128``), kernel K's
-    vector float reductions into global memory (a ``RED`` of 4 floats:
-    ``atomicAdd(float4*, float4)``), and the vector kernels of A and G at
-    C = 3 128-bit global stores (``STG.E.EF.128``, streaming). Returns the
-    counts of the global memory opcodes by library, and by kernel for A's
-    and G's forward kernels."""
+    """Phase 2: the band warps' channel-wide routes, the projecting warps'
+    vector routes and the grid warps' row routes in SASS. Kernel E's
+    library must hold 16-byte global loads and stores (``LDG...128``,
+    ``STG...128``), kernel K's vector float reductions into global memory
+    (a ``RED`` of 4 floats: ``atomicAdd(float4*, float4)``), and the vector
+    kernels of A and G at C = 3 and the row kernels of F at C = 3 and E at
+    C = 1 128-bit global stores (``STG.E.EF.128``, streaming). Returns the
+    counts of the global memory opcodes by library, and by kernel for the
+    kernels of :data:`SASS_KERNELS`."""
     import os
     import re
     from collections import Counter
@@ -377,16 +426,14 @@ def warp_sass(build):
                                str(build.library_path(name))],
                               capture_output=True, text=True, check=True,
                               timeout=120).stdout
-        if name in ("warp_depth", "warp_mei"):
+        if name in ("warp_depth", "warp_mei", "warp_grid"):
             for part in sass.split("Function : ")[1:]:
-                m = re.search(r"((?:warp_depth|warp_mei)_fwd(?:_vec)?_kernel)"
-                              r"(?:ILi(\d+)E)?", part.split("\n", 1)[0])
-                kname = m and m.group(1) + (f"<{m.group(2)}>" if m.group(2)
-                                            else "")
-                if kname in PROJ_KERNELS:
+                kname = kernel_name(part.split("\n", 1)[0])
+                if kname in SASS_KERNELS:
                     found[kname] = dict(Counter(re.findall(pat, part)))
                     print(f"SASS {kname}: {found[kname]}")
-            continue
+            if name != "warp_grid":
+                continue
         ops = Counter(re.findall(pat, sass))
         found[name] = dict(ops)
         print(f"SASS {name}: {dict(ops)}")
@@ -401,7 +448,7 @@ def warp_sass(build):
     check(wide["warp_grad"]["LDG"] > 0 and vec_red > 0,
           f"warp_grad: no 16-byte load ({wide}) or vector float reduction "
           f"({vec_red}) in its SASS")
-    for k in PROJ_KERNELS[1::2]:
+    for k in SASS_KERNELS[1::2]:
         stg = sum(c for o, c in found.get(k, {}).items()
                   if o.startswith("STG") and ".128" in o)
         check(stg > 0, f"{k}: no 128-bit global store in its SASS "
@@ -776,45 +823,54 @@ PROJ_ROUTES = ("vector", "narrow")
 PROJ_REPEATS = 4
 
 
-def check_proj_routes(what, launch, ref):
-    """Phases 8 and 17: ``launch(route)`` (kernel A or G) on each route
-    ``PROJ_REPEATS`` times in turns (vector, narrow, narrow, vector, ...);
-    every launch's out, overlap, va and vb must equal the plain version's
-    ``ref`` bit for bit, and so route to route and launch to launch."""
-    bad = dict.fromkeys(PROJ_ROUTES, 0)
+# the routes of the grid warps F and E (the mask) on the grid route; phase
+# 12 launches each PROJ_REPEATS times at both scenes, in turns
+GRID_ROUTES = ("row", "narrow")
+
+
+def check_routes(what, launch, ref, routes=PROJ_ROUTES,
+                 outputs="out, overlap, va, vb"):
+    """Phases 8, 12 and 17: ``launch(route)`` (kernel A, G, F or E) on each
+    of ``routes`` ``PROJ_REPEATS`` times in turns (the main path's route,
+    the narrow one, the narrow one, the main path's, ...); every launch's
+    ``outputs`` must equal the plain version's ``ref`` bit for bit, and so
+    route to route and launch to launch."""
+    bad = dict.fromkeys(routes, 0)
     for k in range(PROJ_REPEATS):
-        for r in PROJ_ROUTES if k % 2 == 0 else PROJ_ROUTES[::-1]:
+        for r in routes if k % 2 == 0 else routes[::-1]:
             got = launch(r)
             torch.cuda.synchronize()
             bad[r] += not all(torch.equal(a, b) for a, b in zip(got, ref))
             del got
     print(f"check {what}: {PROJ_REPEATS} launches on each route "
-          f"{PROJ_ROUTES}, launches not bitwise equal to the plain version "
-          f"(out, overlap, va, vb): {bad}")
+          f"{routes}, launches not bitwise equal to the plain version "
+          f"({outputs}): {bad}")
     check(not any(bad.values()), f"{what}: launches not bitwise equal to the "
           f"plain version by route: {bad}")
 
 
-def time_proj_routes(entry, launch, routes_taken):
-    """Phases 11 and 21: kernel A or G timed on each route in turns
-    (vector, narrow, narrow, vector; CUDA events over 10 back-to-back
-    launches each), into its kernel line ``entry``: ``ms`` the vector
-    route's (the main path's) least reading, the narrow route's under
-    ``routes``; ``routes_taken`` the main path's launches by route."""
-    ms = {r: [] for r in PROJ_ROUTES}
-    for r in PROJ_ROUTES + PROJ_ROUTES[::-1]:
+def time_routes(entry, launch, routes_taken, routes=PROJ_ROUTES):
+    """Phases 11, 16 and 21: kernel A, G, F or E timed on each of
+    ``routes`` in turns (the main path's route, the narrow one, the narrow
+    one, the main path's; CUDA events over 10 back-to-back launches each),
+    into its kernel line ``entry``: ``ms`` the main path's route's least
+    reading, the narrow route's under ``routes``; ``routes_taken`` the main
+    path's launches by route."""
+    main, other = routes
+    ms = {r: [] for r in routes}
+    for r in routes + routes[::-1]:
         ms[r].append(cuda_ms(launch[r], iters=10))
-    entry.update(warp_route=taken(routes_taken), ms=min(ms["vector"]),
-                 ms_readings=ms["vector"],
-                 routes=dict(narrow=dict(launches=routes_taken["narrow"],
-                                         ms=min(ms["narrow"]),
-                                         ms_readings=ms["narrow"])))
-    entry["note"] += ("; ms: the vector route (the main path's), the least "
-                      "of two readings taken in turns with the narrow route "
-                      "(routes.narrow)")
+    entry.update(warp_route=taken(routes_taken), ms=min(ms[main]),
+                 ms_readings=ms[main],
+                 routes={other: dict(launches=routes_taken[other],
+                                     ms=min(ms[other]),
+                                     ms_readings=ms[other])})
+    entry["note"] += (f"; ms: the {main} route (the main path's), the least "
+                      f"of two readings taken in turns with the {other} "
+                      f"route (routes.{other})")
 
 
-def proj_route_line(e):
+def route_line(e):
     """The routes' readings of a kernel line entry, for the printed line."""
     if "ms_readings" not in e or "warp_route" not in e:
         return ""
@@ -857,7 +913,7 @@ def check_training_kernels(batch_np, rows):
           f"lane-window clamp would move {moved} of {x.numel()} samples")
     check(ov_diff == 0 and fwd == 0, "warp forward kernel disagrees")
     check(e_dd <= 1e-6, f"warp backward kernel: rel err {e_dd:.2e} > 1e-6")
-    check_proj_routes(
+    check_routes(
         f"kernel A N={arows.shape[0]} {HEIGHT}x{WIDTH}",
         lambda r: twd._launch_fwd(r, image, depth, arows, S_SCALES, F_FRAMES,
                                   BAND), ref)
@@ -1195,13 +1251,13 @@ def train_phases(counters, record):
             note=f"N={N} warps of {HEIGHT}x{WIDTH}x{C}, band {BAND}, "
                  "float32")
         if isinstance(fn, dict):
-            time_proj_routes(entry, fn, record["train_path"]["routes"][k])
+            time_routes(entry, fn, record["train_path"]["routes"][k])
         else:
             entry["ms"] = cuda_ms(fn, iters=10)
         kernels.append(entry)
     for e in kernels:
         print(f"time  {e['name']:15s} kernel {e['ms']:.4f} ms"
-              + proj_route_line(e) + f"  plain "
+              + route_line(e) + f"  plain "
               f"{e['plain_ms']:.4f} ms  bound {e['bound_ms']:.4f} ms "
               f"({e['bound_by']})"
               + (f"  3xTF32 bound {e['tc_bound_ms']:.4f} ms "
@@ -1215,15 +1271,16 @@ def train_phases(counters, record):
                 want=want)
 
 
-def grid_scene(batch_np, warp_in):
-    """The grid route's warp operands at the flagship batch: the 24 source
-    frames, the 12 patched masks (the NuScenes ``CAM_BACK`` form: the
-    bottom 2/9 of the rows zeroed) and the 96 reprojection grids of phase
-    8's depth through the batch's GT poses, in the loss's (s, f, b)
-    order."""
+def grid_scene(batch_np, image, depth, mask=None):
+    """The grid route's warp operands at a batch: the source frames
+    ``image`` [F*B, H, W, 3], the patched masks (``mask`` [B, H, W], else
+    the NuScenes ``CAM_BACK`` form: the bottom 2/9 of the rows zeroed) and
+    the S*F*B reprojection grids of ``depth`` [S*B, H, W] through the
+    batch's GT poses, in the loss's (s, f, b) order."""
     from fsnet_tpu_torch.ops.geometry import invert_K, make_K44, reproject
 
-    S, F, B, H, W = S_SCALES, F_FRAMES, BATCH, HEIGHT, WIDTH
+    SB, H, W = depth.shape
+    S, F, B = S_SCALES, F_FRAMES, SB // S_SCALES
     N = S * F * B
 
     def per_warp(t):
@@ -1232,22 +1289,50 @@ def grid_scene(batch_np, warp_in):
     K = make_K44(torch.from_numpy(batch_np["P2"]).cuda())
     Ts = torch.stack([torch.from_numpy(batch_np[f"relative_pose/{f}"])
                       for f in (1, -1)]).cuda()
-    depth = warp_in["depth"].view(S, 1, B, H, W).expand(S, F, B, H, W)
+    depth = depth.view(S, 1, B, H, W).expand(S, F, B, H, W)
     grid = reproject(depth.reshape(N, H, W, 1), per_warp(K),
                      per_warp(invert_K(K)),
                      Ts[None].expand(S, F, B, 4, 4).reshape(N, 4, 4))
-    mask = torch.ones(B, H, W, 1, device="cuda")
-    mask[:, H - (2 * H) // 9:] = 0.0
-    return warp_in["image"], mask, grid.contiguous()
+    if mask is None:
+        mask = torch.ones(B, H, W, 1, device="cuda")
+        mask[:, H - (2 * H) // 9:] = 0.0
+    else:
+        mask = mask.to("cuda", torch.float32)[..., None].contiguous()
+    return image, mask, grid.contiguous()
 
 
-def check_grid_kernels(scene):
-    """Phase 12: kernels F and E against their plain versions at the grid
-    route's shapes. Returns their max abs errors and the lane-window
-    counts."""
+def nuscenes_scene(seed=0):
+    """Phase 12's second scene, at the NuScenes recipe's shape: bs8
+    @288x512, 64 warps, the synthetic batch's clipped textures as sources,
+    its ``"nuscenes"`` patched mask and per-scale depth in [2, 42)."""
+    from fsnet_tpu_torch.entry import synthetic_batch
+
+    B, H, W = NUSC_BATCH, NUSC_H, NUSC_W
+    batch_np = synthetic_batch(B, H, W, patched_mask="nuscenes")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    image = torch.cat([torch.from_numpy(batch_np[f"original_image/{f}"])
+                       for f in (1, -1)]).cuda().contiguous()
+    depth = 2.0 + 40.0 * torch.rand(S_SCALES * B, H, W, generator=g,
+                                    device="cuda")
+    return grid_scene(batch_np, image, depth,
+                      torch.from_numpy(batch_np["patched_mask"]))
+
+
+def check_grid_kernels(scene, tag):
+    """Phase 12 at one scene: kernels F and E (the mask) through their
+    public wrappers (on the route :func:`warp_route` picks, which must be
+    the row route) against their plain versions, then each launched
+    ``PROJ_REPEATS`` times on the row and the narrow route in turns, every
+    launch bitwise equal to the plain version. Returns their max abs errors
+    and the lane-window counts."""
     from fsnet_tpu_torch.ops import warp_fast as twf
 
     image, mask, grid = scene
+    N, H, W, _ = grid.shape
+    r_f = twf.warp_route(image, grid=grid, fused=True)
+    r_e = twf.warp_route(mask, grid=grid)
+    check(r_f == r_e == "row", f"grid warp {tag}: routes F {r_f}, E {r_e}; "
+          "both must take the row route")
     got = twf.grid_band_fused(image, grid, "border", BAND)
     ov = twf.grid_band_fwd(mask, grid, "nearest", "zeros", BAND)
     torch.cuda.synchronize()
@@ -1257,20 +1342,30 @@ def check_grid_kernels(scene):
     err_f = max(rel_err(a, r)[0] for a, r in zip(got, ref))
     err_e = rel_err(ov, ref_ov)[0]
     ov_diff = int(((ov == 1.0) != (ref_ov == 1.0)).sum().item())
-    x = twf.unnormalize(grid[..., 0], WIDTH)
-    moved = dict(photometric=lane_window_moves(x, WIDTH),
-                 mask=lane_window_moves(x, WIDTH, nearest=True),
+    x = twf.unnormalize(grid[..., 0], W)
+    moved = dict(photometric=lane_window_moves(x, W),
+                 mask=lane_window_moves(x, W, nearest=True),
                  samples=x.numel())
-    print(f"check grid warp N={grid.shape[0]} {HEIGHT}x{WIDTH} band {BAND}: "
-          f"kernel F (bilinear, border, C={image.shape[-1]}) max abs err "
+    print(f"check grid warp {tag} N={N} {H}x{W} band {BAND}: kernel F "
+          f"(bilinear, border, C={image.shape[-1]}, {r_f} route) max abs err "
           f"{err_f:.2e} (out, va, vb); kernel E (nearest, zeros, C=1, "
-          f"{mask.shape[0]} masks) max abs err {err_e:.2e}, overlap "
-          f"mismatches {ov_diff}; TPU lane-window clamp would move "
+          f"{mask.shape[0]} masks, {r_e} route) max abs err {err_e:.2e}, "
+          f"overlap mismatches {ov_diff}; TPU lane-window clamp would move "
           f"{moved['photometric']} (photometric) and {moved['mask']} (mask) "
           f"of {moved['samples']} samples")
     check(err_f <= 1e-6, f"kernel F: max abs err {err_f:.2e} > 1e-6")
     check(err_e <= 1e-6 and ov_diff == 0,
           f"kernel E: max abs err {err_e:.2e}, {ov_diff} overlap mismatches")
+    del got, ov
+    check_routes(
+        f"kernel F {tag} N={N} {H}x{W}",
+        lambda r: twf._launch_grid(r, image, grid, "bilinear", "border", BAND,
+                                   fused=True), ref, GRID_ROUTES,
+        "out, va, vb")
+    check_routes(
+        f"kernel E (mask) {tag} N={N} {H}x{W}",
+        lambda r: (twf._launch_grid(r, mask, grid, "nearest", "zeros",
+                                    BAND),), (ref_ov,), GRID_ROUTES, "out")
     return dict(warp_grid_fused=err_f, warp_grid_fwd=err_e), moved
 
 
@@ -1286,10 +1381,16 @@ def grid_phases(counters, record, train):
     from fsnet_tpu_torch.ops import warp_fast as twf
     from fsnet_tpu_torch.runtime.state import make_train_step
 
-    # 12. kernels E and F against their plain versions
-    scene = grid_scene(train["batch"], train["warp_in"])
-    errs, moved = check_grid_kernels(scene)
+    # 12. kernels E and F against their plain versions, both routes, at the
+    # flagship's scene and at a NuScenes-shaped one
+    scene = grid_scene(train["batch"], train["warp_in"]["image"],
+                       train["warp_in"]["depth"])
+    errs, moved = check_grid_kernels(scene, "flagship")
     record["grid_lane_window_moves"] = moved
+    nusc = nuscenes_scene()
+    errs_n, record["nuscenes_lane_window_moves"] = check_grid_kernels(
+        nusc, f"nuscenes bs{NUSC_BATCH}")
+    errs = {k: max(v, errs_n[k]) for k, v in errs.items()}
 
     # 13. the flagship on the grid route: a batch with a patched mask
     masked = synthetic_batch(BATCH, HEIGHT, WIDTH, patched_mask="ones")
@@ -1299,9 +1400,11 @@ def grid_phases(counters, record, train):
     opt, _ = flagship_optimizer(model)
     record["grid_path_mask"] = drive_steps(model, opt, masked, counters,
                                            want_mask, "grid path (mask)")
-    got = record["grid_path_mask"]["routes"]["warp_grid_fwd"]
-    check(got == dict(narrow=3, vector=0), f"grid path (mask): kernel E "
-          f"routes {got}; the mask (C=1) takes the narrow one")
+    got = record["grid_path_mask"]["routes"]
+    check(got["warp_grid_fwd"] == dict(narrow=0, vector=0, row=3)
+          and got["warp_grid_fused"] == dict(narrow=0, row=3),
+          f"grid path (mask): kernel E routes {got['warp_grid_fwd']}, F "
+          f"{got['warp_grid_fused']}; both take the row route")
     state = copy.deepcopy(model.state_dict())
     route = {}
     for tag, b in (("grid", masked), ("depth-direct", train["batch"])):
@@ -1331,6 +1434,9 @@ def grid_phases(counters, record, train):
     meta_opt, _ = flagship_optimizer(meta)
     rec = drive_steps(meta, meta_opt, train["batch"], counters, want_pose,
                       "grid path (learned pose)")
+    got = rec["routes"]["warp_grid_fused"]
+    check(got == dict(narrow=0, row=3), f"grid path (learned pose): kernel "
+          f"F routes {got}; it takes the row route")
     pose = [n for n, _ in meta.named_parameters()
             if n.startswith(("pose_backbone.", "head.pose_decoder."))]
     stuck = [n for n in pose if n in rec["unchanged"]]
@@ -1369,48 +1475,50 @@ def grid_phases(counters, record, train):
 
     image, mask, grid = scene
     N, H, W, _ = grid.shape
-    C, M, px = image.shape[-1], mask.shape[0], grid.shape[0] * H * W
-    g_bytes = 4.0 * grid.numel()
+    C, M = image.shape[-1], mask.shape[0]
     yard = {k: (src.permute(0, 3, 1, 2).repeat(N // src.shape[0], 1, 1, 1),
                 mode, pad)
             for k, src, mode, pad in (
                 ("warp_grid_fused", image, "bilinear", "border"),
                 ("warp_grid_fwd", mask, "nearest", "zeros"))}
+
+    def launchers(image, mask, grid):
+        return {"warp_grid_fused": {r: (
+                    lambda r=r: twf._launch_grid(r, image, grid, "bilinear",
+                                                 "border", BAND, fused=True))
+                    for r in GRID_ROUTES},
+                "warp_grid_fwd": {r: (
+                    lambda r=r: twf._launch_grid(r, mask, grid, "nearest",
+                                                 "zeros", BAND))
+                    for r in GRID_ROUTES}}
+
     timed = {
         "warp_grid_fused": (
-            lambda: twf.grid_band_fused(image, grid, "border", BAND),
             lambda: twf.grid_band_plain(image, grid, "bilinear", "border",
                                         BAND),
-            (px * (20.0 + 21.0 * C),
-             g_bytes + 4.0 * image.numel() + 3 * 4.0 * px * C),
             "fsnet_tpu/ops/pallas/warp_kernel.py:1022 (grid route, "
             "grid_sample_band_pallas_fused :1328) + warp_kernel.py:974",
             f"N={N} grids of {H}x{W} against {image.shape[0]} sources, C={C},"
             f" bilinear, border, band {BAND}, float32"),
         "warp_grid_fwd": (
-            lambda: twf.grid_band_fwd(mask, grid, "nearest", "zeros", BAND),
             lambda: twf.grid_band_plain(mask, grid, "nearest", "zeros", BAND,
                                         False),
-            (px * 29.0, g_bytes + 4.0 * mask.numel() + 4.0 * px),
             "fsnet_tpu/ops/pallas/warp_kernel.py:752 + warp_kernel.py:1115",
             f"N={N} grids of {H}x{W} against {M} patched masks, C=1, "
             f"nearest, zeros, band {BAND}, float32"),
     }
-    launches = {k: record["grid_path_mask"]["launches"][k]
-                + record["grid_path_learned_pose"]["launches"][k]
-                for k in timed}
+    paths = (record["grid_path_mask"], record["grid_path_learned_pose"])
     kernels = []
-    for k, (fn, plain, ob, replaces, note) in timed.items():
+    main, at_nusc = launchers(image, mask, grid), launchers(*nusc)
+    for k, (plain, replaces, note) in timed.items():
         src, mode, pad = yard[k]
-        b_ms, b_by = ms_bound(*ob)
-        kernels.append(dict(
+        b_ms, b_by = ms_bound(*grid_work(k, image, mask, grid))
+        entry = dict(
             name=k, route="cuda", source="fsnet_tpu_torch/csrc/warp_grid.cu",
-            replaces=replaces, launches=launches[k],
-            warp_route=("narrow" if k == "warp_grid_fused" else taken(
-                record["grid_path_mask"]["routes"][k])),
+            replaces=replaces,
+            launches=sum(p["launches"][k] for p in paths),
             max_abs_err=errs[k],
-            ms=cuda_ms(fn, iters=10), plain_ms=cuda_ms(plain, iters=3,
-                                                       warmup=1),
+            plain_ms=cuda_ms(plain, iters=3, warmup=1),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             grid_sample_ms=cuda_ms(lambda: F.grid_sample(
                 src, grid, mode=mode, padding_mode=pad, align_corners=True),
@@ -1418,13 +1526,45 @@ def grid_phases(counters, record, train):
             note=note + "; launches: 3 steps each of the two grid-route "
                  "paths (phases 13, 14); grid_sample_ms: F.grid_sample "
                  "(exact, no band, no va/vb) on the sources tiled to N, a "
-                 "yardstick only"))
+                 "yardstick only")
+        time_routes(entry, main[k],
+                         {r: sum(p["routes"][k].get(r, 0) for p in paths)
+                          for r in GRID_ROUTES}, GRID_ROUTES)
+        # the same at phase 12's NuScenes-shaped scene, as a reading
+        nb_ms, nb_by = ms_bound(*grid_work(k, *nusc))
+        entry["nuscenes"] = dict(
+            ms={r: [cuda_ms(at_nusc[k][r], iters=10)] for r in GRID_ROUTES},
+            bound_ms=nb_ms, bound_by=nb_by,
+            shape=f"N={nusc[2].shape[0]} grids of "
+                  f"{NUSC_H}x{NUSC_W}, bs{NUSC_BATCH}")
+        for r in GRID_ROUTES[::-1]:
+            entry["nuscenes"]["ms"][r].append(cuda_ms(at_nusc[k][r],
+                                                      iters=10))
+        kernels.append(entry)
     for e in kernels:
-        print(f"time  {e['name']:15s} kernel {e['ms']:.4f} ms  plain "
-              f"{e['plain_ms']:.4f} ms  bound {e['bound_ms']:.4f} ms "
-              f"({e['bound_by']})  F.grid_sample {e['grid_sample_ms']:.4f} ms"
-              "  library none")
+        n = e["nuscenes"]
+        print(f"time  {e['name']:15s} kernel {e['ms']:.4f} ms"
+              + route_line(e) + f"  plain {e['plain_ms']:.4f} ms  "
+              f"bound {e['bound_ms']:.4f} ms ({e['bound_by']})  "
+              f"F.grid_sample {e['grid_sample_ms']:.4f} ms  library none; "
+              f"nuscenes {n['shape']}: {n['ms']} bound {n['bound_ms']:.4f} "
+              f"ms ({n['bound_by']})")
     return kernels
+
+
+def grid_work(k, image, mask, grid):
+    """(operations, bytes) of one launch of kernel F (``k`` =
+    ``'warp_grid_fused'``: out, va, vb of the frames) or E (the mask) on
+    these operands: about 20 operations per sample and 21 per channel for
+    F, 29 per sample for E; the grid and the sources read once, the outputs
+    written once."""
+    N, H, W, _ = grid.shape
+    px, g_bytes = N * H * W, 4.0 * grid.numel()
+    if k == "warp_grid_fused":
+        C = image.shape[-1]
+        return (px * (20.0 + 21.0 * C),
+                g_bytes + 4.0 * image.numel() + 3 * 4.0 * px * C)
+    return px * 29.0, g_bytes + 4.0 * mask.numel() + 4.0 * px
 
 
 def mei_scene(batch_np, seed=0):
@@ -1506,7 +1646,7 @@ def check_mei_kernels(scene):
     check(fwd == 0 and ov_diff == 0,
           f"kernel G: max abs err {fwd:.2e}, {ov_diff} overlap mismatches")
     check(e_dn <= 1e-6, f"kernel H: rel err {e_dn:.2e} > 1e-6")
-    check_proj_routes(
+    check_routes(
         f"kernel G N={rows.shape[0]} {H}x{W} with the mask",
         lambda r: twm._launch_fwd(r, image, mask, norm, rays, rows, S, F,
                                   FISH_BAND, True), ref)
@@ -1597,7 +1737,7 @@ def fisheye_phases(counters, record, train):
         torch.cuda.synchronize()
         route[tag] = (float(met["loss"]), {k: g.detach() for k, g in
                                            met["_grads"].items()},
-                      read(counters))
+                      read(counters), routes(counters))
     del model.head._warp_all
     model.load_state_dict(state)
     ran = {t: {k: route[t][2][k] for k in ("warp_mei_fwd", "warp_mei_bwd",
@@ -1616,6 +1756,13 @@ def fisheye_phases(counters, record, train):
           and ran["grid"] == dict(warp_mei_fwd=0, warp_mei_bwd=0,
                                   warp_grid_fused=1, warp_grid_fwd=1),
           f"fisheye routes launched {ran}")
+    got = {k: route["grid"][3][k] for k in ("warp_grid_fused",
+                                            "warp_grid_fwd")}
+    check(got == dict(warp_grid_fused=dict(narrow=0, row=1),
+                      warp_grid_fwd=dict(narrow=0, vector=0, row=1)),
+          f"fisheye grid route: kernels F and E took the routes {got}; both "
+          "take the row route")
+    record["fisheye_grid_routes"] = got
     check(loss_rel <= 1e-4, f"fisheye grid vs norm-direct route: loss rel "
           f"{loss_rel:.2e} > 1e-4")
     check(grad_rel < 3e-2, f"fisheye grid vs norm-direct route: grad rel-L2 "
@@ -1691,7 +1838,7 @@ def fisheye_phases(counters, record, train):
                  f"{FISH_BAND}, float32; launches: 3 steps of the fisheye "
                  "path (phase 19)")
         if isinstance(fn, dict):
-            time_proj_routes(entry, fn, record["fisheye_path"]["routes"][k])
+            time_routes(entry, fn, record["fisheye_path"]["routes"][k])
         else:
             entry["ms"] = cuda_ms(fn, iters=10)
         kernels.append(entry)
@@ -1703,7 +1850,7 @@ def fisheye_phases(counters, record, train):
                            "the Mei grid, a yardstick only")
     for e in kernels:
         print(f"time  {e['name']:15s} kernel {e['ms']:.4f} ms"
-              + proj_route_line(e) + f"  plain "
+              + route_line(e) + f"  plain "
               f"{e['plain_ms']:.4f} ms  bound {e['bound_ms']:.4f} ms "
               f"({e['bound_by']})"
               + (f"  F.grid_sample {e['grid_sample_ms']:.4f} ms"
@@ -1897,8 +2044,8 @@ def dla_phases(counters, record):
     check(counts == want_eval, f"DLA forward launches {counts}, expected "
           f"{want_eval}")
     got = routes(counters)["warp_grid_fwd"]
-    check(got == dict(narrow=0, vector=len(scene)), f"DLA forward: kernel E "
-          f"routes {got}, expected all {len(scene)} channel-wide")
+    check(got == dict(narrow=0, vector=len(scene), row=0), f"DLA forward: "
+          f"kernel E routes {got}, expected all {len(scene)} channel-wide")
     check(tuple(pred.shape) == (B, H // 4, W // 4, 64)
           and bool(torch.isfinite(pred).all()),
           f"DLA output {tuple(pred.shape)}, finite "
@@ -1916,8 +2063,8 @@ def dla_phases(counters, record):
                                      "DLA train path", size=size)
     for k in ("warp_grid_fwd", "warp_grid_bwd"):
         got = record["dla_path"]["routes"][k]
-        check(got == dict(narrow=0, vector=3 * len(scene)), f"DLA train "
-              f"path: {k} routes {got}, expected all channel-wide")
+        check(got == dict.fromkeys(got, 0) | dict(vector=3 * len(scene)),
+              f"DLA train path: {k} routes {got}, expected all channel-wide")
     small = {k: v[:2] for k, v in batch.items()}
     record["dla_card_vs_cpu"] = card_vs_cpu(
         functools.partial(dla_model, norm_frozen=True), small,
@@ -2397,11 +2544,14 @@ def main() -> int:
     logs = _build.build_all()
     record["build_s"] = time.time() - t0
     print(f"kernels built in {record['build_s']:.1f} s")
+    record["ptxas"] = {}
     for name, log in logs.items():
-        for line in log.splitlines():
-            if name != "photo_loss" and ("registers" in line
-                                         or "spill" in line):
-                print(f"  {name}: {line.strip()}")
+        if name == "photo_loss":
+            continue
+        record["ptxas"][name] = ptxas_lines(log)
+        for kname, lines in record["ptxas"][name].items():
+            for line in lines:
+                print(f"  ptxas {name} {kname}: {line}")
     record["conv_sass"] = conv_sass(_build)
     record["warp_sass"] = warp_sass(_build)
     record["photo_sass"] = photo_build(_build, logs.get("photo_loss", ""))

@@ -1,8 +1,9 @@
 // Shared by the band-warp kernels of warp_grid.cu (E, F) and warp_grad.cu
-// (K): the corner indices, weights and validity of one sample, and the band
-// start of one output row, rounded once per operation in the order of
-// indices_and_weights in ops/warp_fast.py, so every kernel sees the plain
-// version's corners exactly. Blocks of kThreads threads.
+// (K): the corner indices, weights and validity of one sample, the band
+// start of one output row and the blend, rounded once per operation in the
+// order of indices_and_weights and band_sample in ops/warp_fast.py, so every
+// kernel sees the plain version's corners and values exactly. Blocks of
+// kThreads threads (the row route's: csrc/warp_rows.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -63,12 +64,26 @@ __device__ __forceinline__ void axis(float c, int size, bool nearest,
   i1 = (int)fminf(fmaxf(f1, 0.f), cmax);
 }
 
+// the corners of the sample at normalized (gx, gy): the one piece of
+// corner arithmetic of the narrow, channel-wide and row routes
+__device__ __forceinline__ Corners corners_at(float gx, float gy, int H,
+                                              int W, bool nearest,
+                                              bool zeros) {
+  Corners k;
+  axis(gx, W, nearest, zeros, k.x0, k.x1, k.wx0, k.wx1, k.mx0, k.mx1);
+  axis(gy, H, nearest, zeros, k.y0, k.y1, k.wy0, k.wy1, k.my0, k.my1);
+  return k;
+}
+
 __device__ __forceinline__ Corners corners(const float* g, int H, int W,
                                            bool nearest, bool zeros) {
-  Corners k;
-  axis(g[0], W, nearest, zeros, k.x0, k.x1, k.wx0, k.wx1, k.mx0, k.mx1);
-  axis(g[1], H, nearest, zeros, k.y0, k.y1, k.wy0, k.wy1, k.my0, k.my1);
-  return k;
+  return corners_at(g[0], g[1], H, W, nearest, zeros);
+}
+
+// the sample's two rows clamped into the band [ymin, ymin + band)
+__device__ __forceinline__ void band_clamp(Corners& k, int ymin, int band) {
+  k.y0 = ymin + min(max(k.y0 - ymin, 0), band - 1);
+  k.y1 = ymin + min(max(k.y1 - ymin, 0), band - 1);
 }
 
 // the band start from the row's min y0c: clipped to [0, H - band] and
@@ -179,8 +194,7 @@ __device__ __forceinline__ Corners band_corners(const float* grow, int j,
                                                 int band, bool nearest,
                                                 bool zeros) {
   Corners k = corners(grow + 2 * min(j, Wo - 1), H, W, nearest, zeros);
-  k.y0 = ymin + min(max(k.y0 - ymin, 0), band - 1);
-  k.y1 = ymin + min(max(k.y1 - ymin, 0), band - 1);
+  band_clamp(k, ymin, band);
   return k;
 }
 
@@ -200,6 +214,23 @@ __device__ __forceinline__ float blend(float i00, float i01, float i10,
   const float h0 = __fadd_rn(__fmul_rn(i00, k.wx0), __fmul_rn(i01, k.wx1));
   const float h1 = __fadd_rn(__fmul_rn(i10, k.wx0), __fmul_rn(i11, k.wx1));
   return __fadd_rn(__fmul_rn(h0, k.wy0), __fmul_rn(h1, k.wy1));
+}
+
+// one channel's blend and the values of its VJP (kernel F): va = d out/d
+// fx, vb = d out/d fy, rounded as the plain version rounds them
+struct Blended {
+  float out, va, vb;
+};
+
+__device__ __forceinline__ Blended blend_vjp(float i00, float i01, float i10,
+                                             float i11, const Corners& k) {
+  const float h0 = __fadd_rn(__fmul_rn(i00, k.wx0), __fmul_rn(i01, k.wx1));
+  const float h1 = __fadd_rn(__fmul_rn(i10, k.wx0), __fmul_rn(i11, k.wx1));
+  const float a0 = __fsub_rn(__fmul_rn(i01, k.mx1), __fmul_rn(i00, k.mx0));
+  const float a1 = __fsub_rn(__fmul_rn(i11, k.mx1), __fmul_rn(i10, k.mx0));
+  return Blended{__fadd_rn(__fmul_rn(h0, k.wy0), __fmul_rn(h1, k.wy1)),
+                 __fadd_rn(__fmul_rn(a0, k.wy0), __fmul_rn(a1, k.wy1)),
+                 __fsub_rn(__fmul_rn(h1, k.my1), __fmul_rn(h0, k.my0))};
 }
 
 }  // namespace

@@ -34,13 +34,19 @@
 // a 3-tile window of 384 columns per 128-lane output tile, an artifact of
 // their lane tiling that fires only at W > 384; these kernels do not.
 //
-// Two routes, chosen on the host from C and the pointers' alignment
-// (ops/warp_fast.py warp_route), never one after the other fails:
-// - narrow (kernels E and F, C <= 3 or C not a multiple of 4, or a pointer
-//   not 16-byte aligned: the grid route's mask, C = 1, and F's frames,
-//   C = 3): one block per (warp n, output row); pass 1 reduces min y0c over
-//   the row, pass 2 gives each thread one output sample and loops over its
-//   C channels.
+// Three routes, chosen on the host from C, the row width Wo and the
+// pointers' alignment (ops/warp_fast.py warp_route), never one after the
+// other fails:
+// - narrow (kernels E and F, any shape: a ragged or too wide row, or a
+//   pointer not 16-byte aligned): one block of kThreads per (warp n,
+//   output row); pass 1 reduces min y0c over the row, pass 2 reads the
+//   grid again, gives each thread one output sample and loops over its C
+//   channels, each value a scalar store.
+// - row (kernels E and F where the channel-wide route does not apply and
+//   Wo % 4 == 0, Wo <= 2048, the staged row within shared memory and every
+//   pointer 16-byte aligned: the grid route's mask, C = 1, and F's frames,
+//   C = 3): the row staging of warp_rows.cuh, as kernel A's vector route;
+//   each sample's grid read once, the row written as 16-byte stores.
 // - channel-wide (kernel E at C a multiple of 4: the deformable convs'
 //   taps, C = 64-512): the layout of warp_band.cuh, L <= 32 lanes per
 //   sample with a float4 of channels each, so a warp's corner loads and
@@ -61,6 +67,7 @@
 #include <cstddef>
 
 #include "warp_band.cuh"
+#include "warp_rows.cuh"
 
 namespace {
 
@@ -87,19 +94,81 @@ warp_grid_kernel(const float* __restrict__ image,
     for (int c = 0; c < C; ++c) {
       const float i00 = __ldg(p00 + c), i01 = __ldg(p01 + c);
       const float i10 = __ldg(p10 + c), i11 = __ldg(p11 + c);
-      const float h0 = __fadd_rn(__fmul_rn(i00, k.wx0), __fmul_rn(i01, k.wx1));
-      const float h1 = __fadd_rn(__fmul_rn(i10, k.wx0), __fmul_rn(i11, k.wx1));
-      out[o + c] = __fadd_rn(__fmul_rn(h0, k.wy0), __fmul_rn(h1, k.wy1));
       if (FUSED) {
-        const float a0 =
-            __fsub_rn(__fmul_rn(i01, k.mx1), __fmul_rn(i00, k.mx0));
-        const float a1 =
-            __fsub_rn(__fmul_rn(i11, k.mx1), __fmul_rn(i10, k.mx0));
-        va[o + c] = __fadd_rn(__fmul_rn(a0, k.wy0), __fmul_rn(a1, k.wy1));
-        vb[o + c] = __fsub_rn(__fmul_rn(h1, k.my1), __fmul_rn(h0, k.my0));
+        const Blended v = blend_vjp(i00, i01, i10, i11, k);
+        out[o + c] = v.out;
+        va[o + c] = v.va;
+        vb[o + c] = v.vb;
+      } else {
+        out[o + c] = blend(i00, i01, i10, i11, k);
       }
     }
   }
+}
+
+// Kernels E and F, row route: thread t of the row's block takes samples
+// t + k Wo/4, k = 0..3 (csrc/warp_rows.cuh). It reads each sample's
+// (gx, gy) once, as one 8-byte load, and keeps the four pairs in registers
+// from the band reduction to the corners; the row's out (and F's va, vb)
+// is staged in shared memory and leaves as 16-byte streaming stores. KC
+// the channels where fixed at compile time (0: C at run time).
+template <bool FUSED, int KC>
+__global__ void __launch_bounds__(kRowMaxThreads, kRowMinBlocks)
+warp_grid_row_kernel(const float* __restrict__ image,
+                     const float2* __restrict__ grid,
+                     float* __restrict__ out, float* __restrict__ va,
+                     float* __restrict__ vb, int M, int H, int W, int C_,
+                     int Ho, int Wo, int band, bool nearest, bool zeros) {
+  extern __shared__ float4 s_row[];
+  const int C = KC > 0 ? KC : C_;
+  const int i = blockIdx.x;                // output row
+  const int n = blockIdx.y;                // warp
+  const int T = Wo / kRowPix;
+  const int t = threadIdx.x;
+  const bool live = t < T;                 // lanes past Wo / 4 only reduce
+  const size_t row = (size_t)n * Ho + i;
+  const float2* grow = grid + row * Wo;
+
+  // pass 1: each sample's grid read once; the row's band start
+  float2 g[kRowPix];
+  int lo = INT_MAX;
+#pragma unroll
+  for (int k = 0; k < kRowPix; ++k) {
+    g[k] = __ldg(grow + (live ? t + k * T : 0));
+    if (live) lo = min(lo, first_row(g[k].y, H, nearest, zeros));
+  }
+  const int ymin = row_band_start(lo, H, band);
+
+  // pass 2: corners from the registers, gathers and blend, staged
+  const RowStage st = row_stage(s_row, Wo, C);
+  const float* src = image + (size_t)(n % M) * H * W * C;
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < kRowPix; ++k) {
+      const int j = t + k * T;
+      Corners q = corners_at(g[k].x, g[k].y, H, W, nearest, zeros);
+      band_clamp(q, ymin, band);
+      const float* p00 = src + ((size_t)q.y0 * W + q.x0) * C;
+      const float* p01 = src + ((size_t)q.y0 * W + q.x1) * C;
+      const float* p10 = src + ((size_t)q.y1 * W + q.x0) * C;
+      const float* p11 = src + ((size_t)q.y1 * W + q.x1) * C;
+      for (int c = 0; c < C; ++c) {
+        const float i00 = __ldg(p00 + c), i01 = __ldg(p01 + c);
+        const float i10 = __ldg(p10 + c), i11 = __ldg(p11 + c);
+        if (FUSED) {
+          const Blended v = blend_vjp(i00, i01, i10, i11, q);
+          st.out[j * C + c] = v.out;
+          st.va[j * C + c] = v.va;
+          st.vb[j * C + c] = v.vb;
+        } else {
+          st.out[j * C + c] = blend(i00, i01, i10, i11, q);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  row_flush(st, row, Wo, C, out, FUSED ? va : nullptr, FUSED ? vb : nullptr,
+            nullptr);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -158,6 +227,50 @@ int launch(bool fused, const void* image, const void* grid, void* out,
   return (int)cudaGetLastError();
 }
 
+// the row route's staged row: out (E) or out, va, vb (F), Wo C floats each
+inline long grid_row_smem(bool fused, int Wo, int C) {
+  return (fused ? 12L : 4L) * Wo * C;
+}
+
+template <bool FUSED, int KC>
+int launch_row_kc(const float* image, const float* grid, float* out,
+                  float* va, float* vb, int M, int N, int H, int W, int C,
+                  int Ho, int Wo, int band, bool nearest, bool zeros,
+                  void* stream) {
+  static unsigned smem_set = 0;
+  return row_launch_bytes(warp_grid_row_kernel<FUSED, KC>, smem_set,
+                          grid_row_smem(FUSED, Wo, C), N, Ho, Wo, stream,
+                          image, reinterpret_cast<const float2*>(grid), out,
+                          va, vb, M, H, W, C, Ho, Wo, band, nearest, zeros);
+}
+
+// The row route of kernel E (FUSED false) or F: refuses
+// (cudaErrorInvalidValue) a row that row_fits_bytes does not take or a
+// pointer that is not 16-byte aligned; compiled for C = 3 (the frames), 1
+// (the masks) and C at run time.
+template <bool FUSED>
+int launch_row(const void* image, const void* grid, void* out, void* va,
+               void* vb, int M, int N, int H, int W, int C, int Ho, int Wo,
+               int band, int nearest, int zeros, void* stream) {
+  if (bad_dims(M, N, H, W, C, Ho, Wo, band) || N > 65535 ||
+      !row_fits_bytes(Wo, grid_row_smem(FUSED, Wo, C)) || !aligned16(image) ||
+      !aligned16(grid) || !aligned16(out) ||
+      (FUSED && (!aligned16(va) || !aligned16(vb))))
+    return (int)cudaErrorInvalidValue;
+  const float* im = static_cast<const float*>(image);
+  const float* g = static_cast<const float*>(grid);
+  float* o = static_cast<float*>(out);
+  float* a = static_cast<float*>(va);
+  float* b = static_cast<float*>(vb);
+  const bool nr = nearest != 0, zr = zeros != 0;
+  return C == 3   ? launch_row_kc<FUSED, 3>(im, g, o, a, b, M, N, H, W, C, Ho,
+                                            Wo, band, nr, zr, stream)
+         : C == 1 ? launch_row_kc<FUSED, 1>(im, g, o, a, b, M, N, H, W, C, Ho,
+                                            Wo, band, nr, zr, stream)
+                  : launch_row_kc<FUSED, 0>(im, g, o, a, b, M, N, H, W, C, Ho,
+                                            Wo, band, nr, zr, stream);
+}
+
 }  // namespace
 
 // Kernel E, the narrow route. image [M,H,W,C], grid [N,Ho,Wo,2] f32
@@ -201,4 +314,26 @@ extern "C" int fsnet_warp_grid_fused(const void* image, const void* grid,
                                      void* stream) {
   return launch(true, image, grid, out, va, vb, M, N, H, W, C, Ho, Wo, band,
                 0, zeros, stream);
+}
+
+// Kernel E, the row route: as fsnet_warp_grid_fwd, for Wo % 4 == 0,
+// Wo <= 2048, the staged row (4 Wo C bytes) within shared memory and every
+// pointer 16-byte aligned (else cudaErrorInvalidValue, nothing launched).
+extern "C" int fsnet_warp_grid_fwd_row(const void* image, const void* grid,
+                                       void* out, int M, int N, int H, int W,
+                                       int C, int Ho, int Wo, int band,
+                                       int nearest, int zeros, void* stream) {
+  return launch_row<false>(image, grid, out, nullptr, nullptr, M, N, H, W, C,
+                           Ho, Wo, band, nearest, zeros, stream);
+}
+
+// Kernel F, the row route: as fsnet_warp_grid_fused, for the rows of
+// fsnet_warp_grid_fwd_row with a staged row of 12 Wo C bytes.
+extern "C" int fsnet_warp_grid_fused_row(const void* image, const void* grid,
+                                         void* out, void* va, void* vb, int M,
+                                         int N, int H, int W, int C, int Ho,
+                                         int Wo, int band, int zeros,
+                                         void* stream) {
+  return launch_row<true>(image, grid, out, va, vb, M, N, H, W, C, Ho, Wo,
+                          band, 0, zeros, stream);
 }

@@ -1,11 +1,13 @@
 // Shared by the vector routes of the projecting warps, kernel A
-// (warp_depth.cu) and kernel G (warp_mei.cu): one block per (warp n,
+// (warp_depth.cu) and kernel G (warp_mei.cu), and by the row route of the
+// grid warps, kernels E and F (warp_grid.cu): one block per (warp n,
 // output row) of W pixels, W / 4 threads (whole warps at the recipes'
 // W = 640 and 384), each thread projecting pixels t, t + W/4, t + W/4*2,
-// t + W/4*3 once and keeping their coordinates in registers, so a warp
-// works on 32 neighbouring pixels at a time and its corner gathers touch
-// as few cache lines as the narrow route's. The row's three NHWC outputs
-// and its overlap bytes are staged in shared memory and leave as
+// t + W/4*3 once (E and F: reading their grid once) and keeping their
+// coordinates in registers, so a warp works on 32 neighbouring pixels at a
+// time and its corner gathers touch as few cache lines as the narrow
+// route's. The row's three NHWC outputs (E: one) and its overlap bytes (A
+// and G) are staged in shared memory and leave as
 // contiguous 16-byte streaming stores (each warp store covers 512 bytes of
 // the row; a thread storing its own 4 pixels' 4C floats would cover a
 // 16C-byte stride per lane, as many sectors as scalar stores) and 4-byte
@@ -37,13 +39,21 @@ constexpr int kRowMaxSmem = 232448 - 1024;
 // threads of a row's block: W / 4 rounded up to whole warps
 inline int row_threads(int W) { return (W / kRowPix + 31) / 32 * 32; }
 
-// the staged row: out, va, vb (W C floats each), then W overlap bytes
+// the projecting warps' staged row: out, va, vb (W C floats each), then W
+// overlap bytes
 inline long row_smem(int W, int C) { return 12L * W * C + W; }
 
-// the shapes the vector route takes (the host's proj_route mirrors this)
+// the rows a row-staging kernel takes: W / 4 threads of at most 512 and
+// `smem` bytes of staged row
+inline bool row_fits_bytes(int W, long smem) {
+  return W > 0 && W % kRowPix == 0 && W / kRowPix <= kRowMaxThreads &&
+         smem <= kRowMaxSmem;
+}
+
+// the shapes the projecting warps' vector route takes (the host's
+// proj_route mirrors this)
 inline bool row_fits(int W, int C) {
-  return W > 0 && C > 0 && W % kRowPix == 0 &&
-         W / kRowPix <= kRowMaxThreads && row_smem(W, C) <= kRowMaxSmem;
+  return C > 0 && row_fits_bytes(W, row_smem(W, C));
 }
 
 // The band start of the row from each thread's min floor(y): the block's
@@ -75,9 +85,10 @@ __device__ __forceinline__ RowStage row_stage(float4* smem, int W, int C) {
                   reinterpret_cast<uint8_t*>(s + 3 * wc)};
 }
 
-// Writes the staged row to row `row` (= n H + i) of out, va, vb [., W, C]
-// and, where `overlap` is not null, of overlap [., W]; every thread of the
-// block calls it after the barrier that ends the staging.
+// Writes the staged row to row `row` (= n H + i) of out [., W, C], where
+// `va` is not null of va and vb [., W, C] too (kernel E's row route stages
+// out alone), and where `overlap` is not null of overlap [., W]; every
+// thread of the block calls it after the barrier that ends the staging.
 __device__ __forceinline__ void row_flush(const RowStage& st, size_t row,
                                           int W, int C, float* out, float* va,
                                           float* vb, uint8_t* overlap) {
@@ -88,8 +99,10 @@ __device__ __forceinline__ void row_flush(const RowStage& st, size_t row,
   const float4* sb = reinterpret_cast<const float4*>(st.vb);
   for (int q = threadIdx.x; q < q4; q += blockDim.x) {
     __stcs(reinterpret_cast<float4*>(out) + o4 + q, so[q]);
-    __stcs(reinterpret_cast<float4*>(va) + o4 + q, sa[q]);
-    __stcs(reinterpret_cast<float4*>(vb) + o4 + q, sb[q]);
+    if (va != nullptr) {
+      __stcs(reinterpret_cast<float4*>(va) + o4 + q, sa[q]);
+      __stcs(reinterpret_cast<float4*>(vb) + o4 + q, sb[q]);
+    }
   }
   if (overlap != nullptr) {
     const uchar4* sv = reinterpret_cast<const uchar4*>(st.overlap);
@@ -99,20 +112,28 @@ __device__ __forceinline__ void row_flush(const RowStage& st, size_t row,
   }
 }
 
-// Launches `kern` on grid (H, N) with the row's block and dynamic shared
-// memory, raising the kernel's shared-memory limit first where the row
-// needs more than 48 KB (`smem_set`: the caller's static for this kernel).
+// Launches `kern` on grid (H, N) with the row's block and `smem` bytes of
+// dynamic shared memory, raising the kernel's shared-memory limit first
+// where the row needs more than 48 KB (`smem_set`: the caller's static for
+// this kernel).
+template <typename K, typename... Args>
+inline int row_launch_bytes(K kern, unsigned& smem_set, long smem, int N,
+                            int H, int W, void* stream, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = allow_smem(kern, (int)smem, smem_set);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<dim3((unsigned)H, (unsigned)N), row_threads(W), (size_t)smem,
+         static_cast<cudaStream_t>(stream)>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// the same with the projecting warps' staged row
 template <typename K, typename... Args>
 inline int row_launch(K kern, unsigned& smem_set, int N, int H, int W, int C,
                       void* stream, Args... args) {
-  const int smem = (int)row_smem(W, C);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = allow_smem(kern, smem, smem_set);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kern<<<dim3((unsigned)H, (unsigned)N), row_threads(W), smem,
-         static_cast<cudaStream_t>(stream)>>>(args...);
-  return (int)cudaGetLastError();
+  return row_launch_bytes(kern, smem_set, row_smem(W, C), N, H, W, stream,
+                          args...);
 }
 
 }  // namespace

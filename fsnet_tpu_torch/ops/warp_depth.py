@@ -31,15 +31,15 @@ import torch
 
 from .conv3x3 import _entry, _raise_on, _route, _stream
 from .geometry import project_rows
-from .warp_fast import band_sample, indices_and_weights
+# the vector route's row: W / 4 threads of at most 512, and out, va, vb
+# (W C floats each) and the overlap (W bytes) staged in at most
+# _ROW_MAX_SMEM bytes of shared memory (csrc/warp_rows.cuh row_fits)
+from .warp_fast import (_ROW_MAX_SMEM, _ROW_MAX_W, band_sample,
+                        indices_and_weights)
 
 _DTYPES = (torch.float32,)
 ROUTES = ("narrow", "vector")
 _SUFFIX = dict(narrow="", vector="_vec")     # of the routes' C entry points
-# the vector route's row: W / 4 threads of at most 512, and out, va, vb
-# (W C floats each) and the overlap (W bytes) staged in at most this much
-# shared memory (csrc/warp_rows.cuh row_fits)
-_ROW_MAX_W, _ROW_MAX_SMEM = 2048, 232448 - 1024
 
 
 def proj_route(image: torch.Tensor, *others: torch.Tensor) -> str:

@@ -25,17 +25,23 @@ backward recomputes both cotangents from the image: ``csrc/warp_grad.cu``
 ``n mod M`` of an image batch ``M`` that divides it, and its image
 cotangent goes to image ``n mod M``; nothing is tiled.
 
-Kernels E and K have two routes each, both hand-written: the narrow one
-(one thread per sample for E, scalar loads and atomics for K) and the
-channel-wide one (float4 lanes over the channels, vector atomics for K) for
-C a multiple of 4 with every pointer 16-byte aligned, the deformable convs'
-case. :func:`warp_route` picks it from the operands before the launch; a
-launch that fails raises. ``grid_band_fwd.routes`` and
-``grid_band_bwd.routes`` count the launches of each route.
+The kernels have several routes, all hand-written, which :func:`warp_route`
+picks from the operands before the launch (a launch that fails raises,
+never falls back): the narrow one (one thread per sample for E and F,
+scalar loads and atomics for K) takes every shape; the channel-wide one
+(float4 lanes over the channels, vector atomics for K) takes E and K at C
+a multiple of 4 with every pointer 16-byte aligned, the deformable convs'
+case; the row one (each sample's grid read once, the row staged in shared
+memory and written as 16-byte stores) takes E elsewhere and F where the
+row width is a multiple of 4 and the staged row fits, the grid route's
+frames and masks. ``grid_band_fwd.routes``, ``grid_band_fused.routes``
+and ``grid_band_bwd.routes`` count the launches of each route, and
+:func:`_launch_grid` launches E or F on one route (the card tests and
+``chip_smoke.py`` hold the routes against each other with it).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -146,18 +152,40 @@ def grid_band_plain(image: torch.Tensor, grid: torch.Tensor, mode: str,
     return band_sample(image, src, iw, with_vjp)
 
 
-ROUTES = ("narrow", "vector")
-_SUFFIX = dict(narrow="", vector="_vec")     # of the routes' C entry points
+ROUTES = ("narrow", "vector")                 # kernel K's routes
+FWD_ROUTES = ("narrow", "vector", "row")      # kernel E's
+FUSED_ROUTES = ("narrow", "row")              # kernel F's
+_SUFFIX = dict(narrow="", vector="_vec", row="_row")   # of the C entry points
+# a row-staging kernel's row: W / 4 threads of at most 512, and its staged
+# row in at most this much shared memory (csrc/warp_rows.cuh
+# row_fits_bytes)
+_ROW_MAX_W, _ROW_MAX_SMEM = 2048, 232448 - 1024
 
 
-def warp_route(*tensors: torch.Tensor) -> str:
-    """The route of kernels E and K for these operands: ``'vector'`` (the
-    channel-wide kernels) when the channels, the last dim of the first
-    tensor, are a multiple of 4 and every tensor's data is 16-byte aligned;
-    else ``'narrow'``."""
-    vec = tensors[0].shape[-1] % 4 == 0 and \
-        all(t.data_ptr() % 16 == 0 for t in tensors)
-    return "vector" if vec else "narrow"
+def warp_route(*tensors: torch.Tensor, grid: Optional[torch.Tensor] = None,
+               fused: bool = False) -> str:
+    """The route of kernels E, F and K for these operands, the first the
+    image [M, H, W, C]:
+
+    * ``'vector'`` (the channel-wide kernels of E and K; not with
+      ``fused``, kernel F) when C is a multiple of 4 and every tensor's
+      data is 16-byte aligned;
+    * else ``'row'`` (kernels E and F, which pass their ``grid``
+      [N, Ho, Wo, 2]) when Wo % 4 == 0, Wo <= 2048, the staged row (4 Wo C
+      bytes; with ``fused`` 12 Wo C) fits in shared memory and the grid's
+      data and every tensor's are 16-byte aligned;
+    * else ``'narrow'``."""
+    C = tensors[0].shape[-1]
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
+    if not fused and C % 4 == 0 and aligned:
+        return "vector"
+    if grid is not None:
+        Wo = grid.shape[2]
+        if Wo % 4 == 0 and 0 < Wo <= _ROW_MAX_W and \
+                (12 if fused else 4) * Wo * C <= _ROW_MAX_SMEM and \
+                aligned and grid.data_ptr() % 16 == 0:
+            return "row"
+    return "narrow"
 
 
 def _launch(lib: str, fn: str, image, grid, tensors, band, flags):
@@ -173,6 +201,32 @@ def _launch(lib: str, fn: str, image, grid, tensors, band, flags):
     _raise_on(err, fn)
 
 
+def _launch_grid(route: str, image: torch.Tensor, grid: torch.Tensor,
+                 mode: str, padding: str, band: int, fused: bool = False):
+    """Kernel E, or with ``fused`` kernel F (bilinear), on ``route`` for
+    checked CUDA operands (the channel-wide and row entry points raise where
+    the operands do not fit them): out, or (out, va, vb), each
+    [N, Ho, Wo, C]."""
+    routes = FUSED_ROUTES if fused else FWD_ROUTES
+    if route not in routes:
+        raise ValueError(f"kernel {'F' if fused else 'E'} route must be one "
+                         f"of {routes}, got {route!r}")
+    outs = tuple(torch.empty((*grid.shape[:3], image.shape[3]),
+                             dtype=torch.float32, device=image.device)
+                 for _ in range(3 if fused else 1))
+    zeros = int(padding == "zeros")
+    if fused:
+        fn, flags, counter = "fsnet_warp_grid_fused", (zeros,), \
+            grid_band_fused
+    else:
+        fn, flags, counter = "fsnet_warp_grid_fwd", \
+            (int(mode == "nearest"), zeros), grid_band_fwd
+    _launch("warp_grid", fn + _SUFFIX[route], image, grid, outs, band, flags)
+    counter.launches += 1
+    counter.routes[route] += 1
+    return outs if fused else outs[0]
+
+
 def grid_band_fwd(image: torch.Tensor, grid: torch.Tensor, mode: str,
                   padding: str, band: int) -> torch.Tensor:
     """The forward (kernel E on a CUDA device, on the route of
@@ -180,30 +234,22 @@ def grid_band_fwd(image: torch.Tensor, grid: torch.Tensor, mode: str,
     _check(image, grid, mode, padding, band)
     if not _route(image, "grid_band_fwd"):
         return grid_band_plain(image, grid, mode, padding, band, False)[0]
-    out = torch.empty((*grid.shape[:3], image.shape[3]), dtype=torch.float32,
-                      device=image.device)
-    route = warp_route(image, out)
-    _launch("warp_grid", "fsnet_warp_grid_fwd" + _SUFFIX[route], image, grid,
-            (out,), band, (int(mode == "nearest"), int(padding == "zeros")))
-    grid_band_fwd.launches += 1
-    grid_band_fwd.routes[route] += 1
-    return out
+    # the route from the inputs: the output, a fresh CUDA allocation, is
+    # 16-byte aligned
+    return _launch_grid(warp_route(image, grid=grid), image, grid, mode,
+                        padding, band)
 
 
 def grid_band_fused(image: torch.Tensor, grid: torch.Tensor, padding: str,
                     band: int):
     """The bilinear forward with the values of its VJP (kernel F on a CUDA
-    device): (out, va, vb), each [N, Ho, Wo, C]."""
+    device, on the route of :func:`warp_route`): (out, va, vb), each
+    [N, Ho, Wo, C]."""
     _check(image, grid, "bilinear", padding, band)
     if not _route(image, "grid_band_fused"):
         return grid_band_plain(image, grid, "bilinear", padding, band)
-    out, va, vb = (torch.empty((*grid.shape[:3], image.shape[3]),
-                               dtype=torch.float32, device=image.device)
-                   for _ in range(3))
-    _launch("warp_grid", "fsnet_warp_grid_fused", image, grid, (out, va, vb),
-            band, (int(padding == "zeros"),))
-    grid_band_fused.launches += 1
-    return out, va, vb
+    return _launch_grid(warp_route(image, grid=grid, fused=True), image, grid,
+                        "bilinear", padding, band, fused=True)
 
 
 def grid_band_bwd_plain(image: torch.Tensor, grid: torch.Tensor,
@@ -335,5 +381,6 @@ def grid_sample(image: torch.Tensor, grid: torch.Tensor,
 grid_band_fwd.launches = 0
 grid_band_fused.launches = 0
 grid_band_bwd.launches = 0
-grid_band_fwd.routes = dict.fromkeys(ROUTES, 0)
+grid_band_fwd.routes = dict.fromkeys(FWD_ROUTES, 0)
+grid_band_fused.routes = dict.fromkeys(FUSED_ROUTES, 0)
 grid_band_bwd.routes = dict.fromkeys(ROUTES, 0)

@@ -45,7 +45,9 @@ _GROUPS = (
     ("warp_depth_fwd_vec_kernel", "warp forward (kernel A)"),
     ("warp_depth_bwd_kernel", "warp backward (kernel B)"),
     ("warp_grid_kernel<true>", "grid warp + va, vb (kernel F)"),
+    ("warp_grid_row_kernel<true", "grid warp + va, vb (kernel F)"),
     ("warp_grid_kernel<false>", "grid warp forward (kernel E)"),
+    ("warp_grid_row_kernel<false", "grid warp forward (kernel E)"),
     ("warp_grid_vec_kernel", "grid warp forward (kernel E)"),
     ("warp_grid_bwd", "grid warp backward (kernel K)"),
     ("warp_mei_fwd_kernel", "Mei warp + va, vb + overlap (kernel G)"),

@@ -714,21 +714,90 @@ def test_grid_bwd_kernel_matches_plain(cuda, case, mode, padding, aligned):
         image, cot = _unaligned(image), _unaligned(cot)
         assert image.is_contiguous() and image.data_ptr() % 16
     want = "vector" if C % 4 == 0 and aligned else "narrow"
+    # kernel E takes the row route where the channel-wide one does not
+    # apply and the row does (C = 3 at Wo = 100)
+    want_e = "row" if want == "narrow" and aligned and Wo % 4 == 0 else want
     n_e, n_k = twf.grid_band_fwd.launches, twf.grid_band_bwd.launches
-    r_e, r_k = twf.grid_band_fwd.routes[want], twf.grid_band_bwd.routes[want]
+    r_e, r_k = twf.grid_band_fwd.routes[want_e], \
+        twf.grid_band_bwd.routes[want]
     out = twf.grid_band_fwd(image, grid, mode, padding, band)
     got = twf.grid_band_bwd(image, grid, cot, mode, padding, band)
     torch.cuda.synchronize()
     assert (twf.grid_band_fwd.launches, twf.grid_band_bwd.launches) == \
         (n_e + 1, n_k + 1)
-    assert (twf.grid_band_fwd.routes[want], twf.grid_band_bwd.routes[want]) \
-        == (r_e + 1, r_k + 1)
+    assert (twf.grid_band_fwd.routes[want_e],
+            twf.grid_band_bwd.routes[want]) == (r_e + 1, r_k + 1)
     ref_out = twf.grid_band_plain(image, grid, mode, padding, band, False)[0]
     assert torch.equal(out, ref_out)
     ref = twf.grid_band_bwd_plain(image, grid, cot, mode, padding, band)
     for a, r in zip(got, ref):
         assert a.shape == r.shape and a.dtype == r.dtype
         assert (a - r).abs().max() <= 1e-5 * r.abs().max()
+
+
+@pytest.mark.parametrize("kind", ["F", "E-bilinear-border", "E-nearest-zeros",
+                                  "E-bilinear-zeros", "E-nearest-border"])
+@pytest.mark.parametrize("case", [
+    # (M, N, H, W, Ho, Wo, C, band): the recipes' C = 3 and 1 at rows the
+    # row route takes; C = 2 and 5 run its run-time channel loop; at
+    # Wo = 1028 31 lanes of the last warp hold no sample; Ho, Wo != H, W
+    (2, 4, 16, 128, 16, 128, 3, 4),
+    (3, 6, 24, 200, 24, 200, 1, 8),
+    (1, 2, 9, 36, 9, 36, 2, 4),
+    (1, 2, 7, 1028, 7, 1028, 1, 4),
+    (2, 4, 12, 40, 10, 32, 5, 4),
+], ids=lambda c: "-".join(map(str, c)))
+def test_grid_warp_routes_match_plain(cuda, case, kind):
+    """Kernels E and F on their row and narrow routes, each launched twice
+    in turns (row, narrow, narrow, row), and through the public wrapper
+    (the row route): every output bitwise equal to the plain version, and
+    so route to route and launch to launch."""
+    from fsnet_tpu_torch.ops import warp_fast as twf
+
+    M, N, H, W, Ho, Wo, C, band = case
+    g = torch.Generator(device=cuda).manual_seed(17)
+    _, grid = _grid_scene(g, M, N, Ho, Wo, C)
+    image = torch.rand(M, H, W, C, generator=g, device=cuda)
+    fused = kind == "F"
+    mode, padding = ("bilinear", "border") if fused else kind.split("-")[1:]
+    fn = twf.grid_band_fused if fused else twf.grid_band_fwd
+    assert twf.warp_route(image, grid=grid, fused=fused) == "row"
+    r0 = dict(fn.routes)
+    runs = [twf._launch_grid(r, image, grid, mode, padding, band, fused)
+            for r in ("row", "narrow", "narrow", "row")]
+    runs.append(twf.grid_band_fused(image, grid, padding, band) if fused
+                else twf.grid_band_fwd(image, grid, mode, padding, band))
+    torch.cuda.synchronize()
+    assert fn.routes == dict(r0, narrow=r0["narrow"] + 2, row=r0["row"] + 3)
+    ref = twf.grid_band_plain(image, grid, mode, padding, band, fused)
+    for got in runs:
+        for a, r in zip(got if fused else (got,), ref):
+            assert a.shape == r.shape == (N, Ho, Wo, C)
+            assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("what", ["offset", "grid-offset", "width"])
+@pytest.mark.parametrize("kernel", ["E", "F"])
+def test_grid_row_route_refuses_what_it_does_not_take(cuda, kernel, what):
+    """The row route's entry points of kernels E and F refuse an image or a
+    grid 4 bytes off a 16-byte boundary and Wo % 4 != 0 (a raised error, no
+    fallback to the narrow route)."""
+    from fsnet_tpu_torch.ops import warp_fast as twf
+
+    g = torch.Generator(device=cuda).manual_seed(18)
+    Wo = 18 if what == "width" else 16
+    image, grid = _grid_scene(g, 2, 4, 8, Wo, 3)
+    if what == "offset":
+        image = _unaligned(image)
+    elif what == "grid-offset":
+        grid = _unaligned(grid)
+    fused = kernel == "F"
+    assert twf.warp_route(image, grid=grid, fused=fused) == "narrow"
+    fn = twf.grid_band_fused if fused else twf.grid_band_fwd
+    n0, r0 = fn.launches, dict(fn.routes)
+    with pytest.raises(RuntimeError):
+        twf._launch_grid("row", image, grid, "bilinear", "border", 4, fused)
+    assert (fn.launches, fn.routes) == (n0, r0)
 
 
 def test_grid_bwd_kernel_rejects_what_it_does_not_take(cuda):

@@ -194,7 +194,10 @@ def test_grid_entry_points_declare_their_arguments(monkeypatch, entry, nargs,
     monkeypatch.setattr(twf, "_stream", lambda t: None)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
-    image, grid = torch.rand(2, 8, 16, 3), torch.zeros(4, 8, 16, 2)
+    # Wo = 18: a row the row route does not take, so the wrappers reach the
+    # narrow entry points (tests/test_torch_warp_grid_route.py checks the
+    # row route's)
+    image, grid = torch.rand(2, 8, 18, 3), torch.zeros(4, 8, 18, 2)
     if entry == "fsnet_warp_grid_fwd":
         twf.grid_band_fwd(image, grid, "nearest", "zeros", 4)
     else:
