@@ -215,9 +215,50 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     step at batch 12 (10 steps, the batch on the card; its peak memory)
     and its forward.
 
-Every train step (phases 9, 13, 14, 19) launches the forward kernel twice
-(the warped stack and the identity stack) and the cotangent kernel once,
-on the vector route; ``forward_test`` launches neither.
+27. the nuScenes ``nusc_wpose`` recipe (``entry.nusc_model``: ResNet-34,
+    64 bins, ``base_fx=369``, ``overlapped_mask=False``; ``NUSC_RECIPE``:
+    StepLR step 4): three train steps at batch 8 x 288x512 on
+    ``entry.nusc_batch`` (the ``"nuscenes"`` patched mask, so the grid
+    route), the counters set to 0 just before: per step conv3x3 4,
+    conv3x3_bn 10, dx 14, dw 14, kernel F 1 (row route), I 2 and J 1
+    (vector route) and kernel E none (without the overlap mask the head
+    warps no mask); a finite loss, changed parameters and BN statistics;
+    prints how many samples the TPU lane-window clamp would move on the
+    grids of the last step's own depths (W = 512);
+28. the conv kernels against their plain versions at every distinct conv
+    shape of the two nuScenes steps, batch 8 (the 10 upconvs, the 64- and
+    16-bin dispconvs and the one-channel uncertainty convs: forward,
+    moments at the upconvs, dx and dw, phase 8's gates, repeated as
+    there), the template arguments of the kernel each wrapper launches at
+    Co = 64 and Co = 1 (read by ``torch.profiler``; at Co = 1 no 16-byte
+    copies), and kernels I and J against their plain versions on the
+    nusc_wpose step's own operands (its warped stack, kernel F's output of
+    phase 27's last step, and its sources), as phase 22 holds them, with
+    autograd of the plain forward as a reading;
+29. the ``distill_nusc`` recipe (``entry.distill_model``: a frozen
+    ResNet-18/16-bin teacher grafted from a seeded ``MonoDepthWPose``
+    through ``runtime.checkpoint``, a ResNet-18 student with
+    ``MultiChannelDepthDecoderUncertain``, the uncertainty-weighted
+    distillation loss at 0.3, the overlap mask): three train steps at
+    batch 8 x 288x512, the counters set to 0 just before: per step
+    conv3x3 22 (the student's 4 dispconvs and 4 uncertainty convs, the
+    teacher's 14 in eval mode), conv3x3_bn 10, dx 18, dw 18, F 1 and E 1
+    (row route), I 2 and J 1; the teacher's parameters and BN statistics
+    bitwise unchanged and out of the optimizer, every student parameter
+    moved, the four ``distilation/{s}`` terms finite; the lane-window
+    count on the last step's depths;
+30. one step of each recipe at batch 2 x 288x512 on the card against the
+    port on the CPU, held to phase 10's gate;
+31. times both steps at batch 8 (images/s over 10 steps after warm-up,
+    the batch on the card; device-busy ms a step under ``torch.profiler``
+    over 3 steps; peak memory) and each conv kernel at the shapes of phase
+    28 beside its plain version, its two bounds and, at the one-part
+    zero-padded shapes, cuDNN's call of the same function, summed over
+    each step's launches.
+
+Every train step (phases 9, 13, 14, 19, 27, 29) launches the forward
+kernel twice (the warped stack and the identity stack) and the cotangent
+kernel once, on the vector route; ``forward_test`` launches neither.
 
 It prints the record and the kernel line as JSON lines and, last, the
 result line ``{"ok": true, "device": {...}}``. It imports nothing of JAX or
@@ -247,9 +288,11 @@ PEAK_BYTES = 3.35e12
 PEAK_TF32 = 495e12
 TF32_PRODUCTS = {torch.float32: 3, torch.bfloat16: 1}
 
-def decoder_shapes(H, W):
+def decoder_shapes(H, W, bins=16, uncertain=False):
     """(name, H, W, input part channels, Co, padding) of the decoder's 14
-    3x3 convs at an H x W input, in the order the main path runs them."""
+    3x3 convs at an H x W input, in the order the main path runs them: the
+    dispconvs to ``bins`` channels; with ``uncertain`` the 4 one-channel
+    uncertainty convs (``uncertain_logz_{s}``) after them."""
     ch, enc = (16, 32, 64, 128, 256), (64, 64, 128, 256, 512)
     out = []
     for i in range(4, -1, -1):
@@ -259,18 +302,32 @@ def decoder_shapes(H, W):
                     (ch[i], enc[i - 1]) if i else (ch[i],), ch[i],
                     "replicate"))
     for s in range(4):
-        out.append((f"dispconv_{s}", H >> s, W >> s, (ch[s],), 16,
+        out.append((f"dispconv_{s}", H >> s, W >> s, (ch[s],), bins,
                     "replicate"))
+    if uncertain:
+        out += [(f"uncertain_logz_{s}", H >> s, W >> s, (ch[s],), 1,
+                 "replicate") for s in range(4)]
     return out
 
 
 SHAPES = decoder_shapes(HEIGHT, WIDTH)
 # the KITTI-360 fisheye recipe (configs/kitti360_fisheye_example.py)
 FISH_BATCH, FISH_H, FISH_W, FISH_BAND = 16, 384, 384, 16
-# the NuScenes recipe's batch and frame (configs/nusc_wpose_example.py),
-# phase 12's second grid-warp scene
+# the NuScenes recipes' batch and frame (configs/nusc_wpose_example.py,
+# configs/distill_nusc_example.py): phase 12's second grid-warp scene and
+# phases 27-31
 NUSC_BATCH, NUSC_H, NUSC_W = 8, 288, 512
 FISH_SHAPES = decoder_shapes(FISH_H, FISH_W)
+# the decoder convs of the two nuScenes steps: the nusc_wpose step's 14
+# (64-bin dispconvs), the distillation student's 18 (16-bin dispconvs and
+# the uncertainty convs) and its teacher's 14 (forward only, in eval mode);
+# NUSC_CONV_SHAPES holds each distinct shape once
+NUSC_SHAPES = decoder_shapes(NUSC_H, NUSC_W, bins=64)
+DISTILL_SHAPES = decoder_shapes(NUSC_H, NUSC_W, uncertain=True)
+NUSC_CONV_SHAPES = [
+    (n.replace("dispconv_", "dispconv64_"), *rest) for n, *rest in NUSC_SHAPES
+] + [(n.replace("dispconv_", "dispconv16_"), *rest)
+     for n, *rest in DISTILL_SHAPES if not n.startswith("upconv_")]
 
 
 class SmokeFailure(RuntimeError):
@@ -953,16 +1010,17 @@ def grad_rel_l2(g_a, g_b):
     return (num / den) ** 0.5
 
 
-def one_step(build, batch, dev, H, W, dtype=torch.float32):
+def one_step(build, batch, dev, H, W, dtype=torch.float32, optimizer=None):
     """(loss, gradients, first Adam updates) of one train step of
     ``build(H, W, ...)`` from its seeded weights, on ``dev`` in ``dtype``
-    (float64 only on the CPU, through the plain versions)."""
+    (float64 only on the CPU, through the plain versions), with
+    ``optimizer(model)`` (default the flagship's)."""
     from fsnet_tpu_torch.entry import flagship_optimizer
     from fsnet_tpu_torch.ops import warp_fast as twf
     from fsnet_tpu_torch.runtime.state import make_train_step
 
     m = build(H, W, device=dev, seed=0).to(dtype)
-    o, _ = flagship_optimizer(m)
+    o, _ = (optimizer or flagship_optimizer)(m)
     start = {k: p.detach().cpu().double().clone()
              for k, p in m.named_parameters()}
     if dtype == torch.float64:
@@ -978,14 +1036,16 @@ def one_step(build, batch, dev, H, W, dtype=torch.float32):
              for k, p in m.named_parameters()})
 
 
-def card_vs_cpu(build, batch, what, H=HEIGHT, W=WIDTH):
+def card_vs_cpu(build, batch, what, H=HEIGHT, W=WIDTH, optimizer=None):
     """One train step of ``build(H, W, ...)`` on the card and through the
     port on the CPU, from the same seeded weights and ``batch``, held to the
     JAX package's own backward gate between two routes: loss rel <= 1e-4,
     global gradient rel-L2 < 3e-2, every leaf < 0.5, Adam's first update
     off by more than lr / 2 on under 2% of the parameters."""
-    (l_card, g_card, u_card) = one_step(build, batch, "cuda", H, W)
-    (l_cpu, g_cpu, u_cpu) = one_step(build, batch, "cpu", H, W)
+    (l_card, g_card, u_card) = one_step(build, batch, "cuda", H, W,
+                                        optimizer=optimizer)
+    (l_cpu, g_cpu, u_cpu) = one_step(build, batch, "cpu", H, W,
+                                     optimizer=optimizer)
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
     grad_rel = grad_rel_l2(g_card, g_cpu)
     zero = [k for k in g_cpu if not bool(g_cpu[k].any())]
@@ -1017,49 +1077,140 @@ def card_vs_cpu(build, batch, what, H=HEIGHT, W=WIDTH):
 
 
 def drive_steps(model, opt, batch, counters, want, what, steps=3,
-                size=f"bs{BATCH}@{HEIGHT}x{WIDTH}"):
-    """Phases 9, 13, 14, 19: ``steps`` train steps through ``make_train_step``,
-    the launch counters set to 0 just before and read just after; checks
-    the launches per step against ``want``, finite losses, and that the
-    parameters and BN running variances changed."""
+                size=f"bs{BATCH}@{HEIGHT}x{WIDTH}", frozen=None):
+    """Phases 9, 13, 14, 19, 25, 27, 29: ``steps`` train steps through
+    ``make_train_step``, the launch counters set to 0 just before and read
+    just after; checks the launches per step against ``want``, finite
+    losses and loss terms, and that the parameters and BN running variances
+    changed; those under the prefix ``frozen`` (the distillation teacher)
+    must keep every parameter and statistic bit for bit instead."""
     from fsnet_tpu_torch.runtime.state import make_train_step
 
     step = make_train_step("cuda")
-    p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    kept = {n: t.clone() for n, t in model.state_dict().items()
+            if frozen and n.startswith(frozen)}
+    p0 = {n: p.detach().clone() for n, p in model.named_parameters()
+          if n not in kept}
     s0 = {n: b.clone() for n, b in model.named_buffers()
-          if n.endswith("running_var")}
+          if n.endswith("running_var") and n not in kept}
     zero(counters)
     losses = []
     for _ in range(steps):
-        losses.append(float(step(model, opt, batch)["loss"]))
+        met = step(model, opt, batch)
+        losses.append(float(met["loss"]))
     torch.cuda.synchronize()
     counts = read(counters)
+    terms = {k: float(v) for k, v in met.items()}
     print(f"{what}: {steps} steps {size} f32, "
           f"losses {losses}, launches {counts}")
-    check(all(np.isfinite(losses)), f"{what}: non-finite loss {losses}")
+    check(all(np.isfinite(losses)) and all(np.isfinite(list(terms.values()))),
+          f"{what}: non-finite loss {losses} or loss terms {terms}")
+    state = model.state_dict()
+    moved = [n for n, t in kept.items() if not torch.equal(state[n], t)]
+    check(not moved, f"{what}: {len(moved)} of the {len(kept)} frozen "
+          f"tensors under {frozen} changed: {moved[:5]}")
     check(counts == {k: n * steps for k, n in want.items()},
           f"{what} launches {counts}, expected per step {want}")
     changed = {n for n, p in model.named_parameters()
-               if bool((p.detach() != p0[n]).any())}
+               if n in p0 and bool((p.detach() != p0[n]).any())}
     stats_moved = sum(int((b != s0[n]).any().item())
                       for n, b in model.named_buffers() if n in s0)
     check(len(changed) >= len(p0) - 10 and stats_moved == len(s0),
           f"{what}: {len(changed)} of {len(p0)} parameters and {stats_moved} "
           f"of {len(s0)} BN variances changed")
     return dict(steps=steps, losses=losses, launches=counts,
-                routes=routes(counters),
+                routes=routes(counters), last_terms=terms,
                 launches_per_step=want, params_changed=len(changed),
-                params=len(p0), unchanged=sorted(set(p0) - changed))
+                params=len(p0), unchanged=sorted(set(p0) - changed),
+                frozen_bitwise=len(kept))
+
+
+def time_conv_kernels(B, shapes, rows, forward=False):
+    """Phases 11 and 31: each conv kernel at ``shapes`` and batch ``B``
+    (CUDA events over 10 back-to-back launches), with its plain version,
+    its two bounds (float32 CUDA cores, 3xTF32 tensor cores) and, at a
+    one-part zero-padded shape, the one PyTorch call of the same function
+    (cuDNN; a yardstick only): the moments kernel at the upconvs, the input
+    and weight cotangents at all and, with ``forward``, the forward at all.
+    Fills each shape's row of ``rows``; returns the sums by kernel."""
+    import torch.nn.functional as F
+
+    from fsnet_tpu_torch.ops import conv3x3 as tc
+
+    torch.backends.cudnn.benchmark = True      # the yardstick's best
+    names = (("conv3x3",) if forward else ()) + ("conv3x3_bn", "conv3x3_dx",
+                                                  "conv3x3_dw")
+    tot = {k: dict(ms=0.0, plain_ms=0.0, items=[], lib_ms=0.0,
+                   lib_kernel_ms=0.0, lib_shapes=[]) for k in names}
+    for i, (name, H, W, Cs, Co, pad) in enumerate(shapes):
+        parts, w, b = conv_inputs(B, H, W, Cs, Co, torch.float32, seed=i)
+        gy = torch.randn(B, H, W, Co, device="cuda")
+        n, cin = B * H * W, sum(Cs)
+        row = rows[i]
+        timed = {}
+        lib = len(Cs) == 1 and pad == "zeros"
+        xc = parts[0].permute(0, 3, 1, 2)
+        wc = w.permute(3, 2, 0, 1).contiguous()
+        gc = gy.permute(0, 3, 1, 2)
+        if forward:
+            timed["conv3x3"] = (
+                lambda: tc.conv3x3(parts, w, b, pad),
+                lambda: tc.conv3x3_plain(parts, w, b, pad),
+                conv_work(B, H, W, Cs, Co),
+                (lambda: F.conv2d(xc, wc, b, padding=1)) if lib else None)
+        if name.startswith("upconv_"):
+            timed["conv3x3_bn"] = (
+                lambda: tc.conv3x3_bn(parts, w, b, pad),
+                lambda: tc.moments_plain(tc.conv3x3_plain(parts, w, b, pad)),
+                (2.0 * 9 * n * cin * Co + 3.0 * n * Co,
+                 4.0 * (n * cin + 9 * cin * Co + Co + n * Co + 2 * Co)), None)
+        timed["conv3x3_dx"] = (
+            lambda: tc.conv3x3_dx(gy, w, pad, Cs),
+            lambda: tc.conv3x3_dx_plain(gy, w, pad, Cs),
+            (2.0 * 9 * n * Co * cin,
+             4.0 * (n * Co + 9 * cin * Co + n * cin)),
+            (lambda: torch.nn.grad.conv2d_input(xc.shape, wc, gc, padding=1))
+            if lib else None)
+        timed["conv3x3_dw"] = (
+            lambda: tc.conv3x3_dw(parts, gy, pad),
+            lambda: tc.conv3x3_dw_plain(parts, gy, pad),
+            (2.0 * 9 * n * cin * Co,
+             4.0 * (n * cin + n * Co + 9 * cin * Co)),
+            (lambda: torch.nn.grad.conv2d_weight(xc, wc.shape, gc, padding=1))
+            if lib else None)
+        for k, (fn, plain, ob, library) in timed.items():
+            t = tot[k]
+            ms = cuda_ms(fn, iters=10)
+            t["ms"] += ms
+            plain0 = t["plain_ms"]
+            t["plain_ms"] += cuda_ms(plain, iters=3, warmup=1)
+            t["items"].append(ob)
+            row[f"{k}_ms"] = ms
+            row[f"{k}_plain_ms"] = t["plain_ms"] - plain0
+            row[f"{k}_work"] = ob
+            row[f"{k}_bound_ms"] = ms_bound(*ob)[0]
+            row[f"{k}_tc_bound_ms"] = tc_bound(*ob)[0]
+            if library is not None:
+                row[f"{k}_library_ms"] = cuda_ms(library, iters=10)
+                t["lib_ms"] += row[f"{k}_library_ms"]
+                t["lib_kernel_ms"] += ms
+                t["lib_shapes"].append(name)
+        print(f"time  {name:11s} "
+              + "  ".join(f"{k[8:]} {row[f'{k}_ms']:.4f} ms (bound f32 "
+                          f"{row[f'{k}_bound_ms']:.4f}, 3xTF32 "
+                          f"{row[f'{k}_tc_bound_ms']:.4f}"
+                          + (f"; cuDNN {row[f'{k}_library_ms']:.4f}"
+                             if f"{k}_library_ms" in row else "") + ")"
+                          for k in timed))
+    torch.backends.cudnn.benchmark = False
+    return tot
 
 
 def train_phases(counters, record):
     """Phases 8-11. Returns the launch counts of the train path and the
     kernel line's entries of the training kernels."""
-    import torch.nn.functional as F
-
     from fsnet_tpu_torch.entry import (flagship_model, flagship_optimizer,
                                        synthetic_batch)
-    from fsnet_tpu_torch.ops import conv3x3 as tc
     from fsnet_tpu_torch.ops import warp_depth as twd
     from fsnet_tpu_torch.runtime.state import make_train_step
 
@@ -1122,62 +1273,7 @@ def train_phases(counters, record):
           f"from host numpy {ms_host:.3f} ms = "
           f"{BATCH / ms_host * 1e3:.2f} imgs/s")
 
-    torch.backends.cudnn.benchmark = True      # the yardstick's best
-    tot = {k: dict(ms=0.0, plain_ms=0.0, items=[], lib_ms=0.0,
-                   lib_kernel_ms=0.0, lib_shapes=[])
-           for k in ("conv3x3_bn", "conv3x3_dx", "conv3x3_dw")}
-    for i, (name, H, W, Cs, Co, pad) in enumerate(SHAPES):
-        parts, w, b = conv_inputs(BATCH, H, W, Cs, Co, torch.float32, seed=i)
-        gy = torch.randn(BATCH, H, W, Co, device="cuda")
-        n, cin = BATCH * H * W, sum(Cs)
-        row = rows[i]
-        timed = {}
-        if name.startswith("upconv_"):
-            timed["conv3x3_bn"] = (
-                lambda: tc.conv3x3_bn(parts, w, b, pad),
-                lambda: tc.moments_plain(tc.conv3x3_plain(parts, w, b, pad)),
-                (2.0 * 9 * n * cin * Co + 3.0 * n * Co,
-                 4.0 * (n * cin + 9 * cin * Co + Co + n * Co + 2 * Co)), None)
-        lib = len(Cs) == 1 and pad == "zeros"
-        xc = parts[0].permute(0, 3, 1, 2)
-        wc = w.permute(3, 2, 0, 1).contiguous()
-        gc = gy.permute(0, 3, 1, 2)
-        timed["conv3x3_dx"] = (
-            lambda: tc.conv3x3_dx(gy, w, pad, Cs),
-            lambda: tc.conv3x3_dx_plain(gy, w, pad, Cs),
-            (2.0 * 9 * n * Co * cin,
-             4.0 * (n * Co + 9 * cin * Co + n * cin)),
-            (lambda: torch.nn.grad.conv2d_input(xc.shape, wc, gc, padding=1))
-            if lib else None)
-        timed["conv3x3_dw"] = (
-            lambda: tc.conv3x3_dw(parts, gy, pad),
-            lambda: tc.conv3x3_dw_plain(parts, gy, pad),
-            (2.0 * 9 * n * cin * Co,
-             4.0 * (n * cin + n * Co + 9 * cin * Co)),
-            (lambda: torch.nn.grad.conv2d_weight(xc, wc.shape, gc, padding=1))
-            if lib else None)
-        for k, (fn, plain, ob, library) in timed.items():
-            t = tot[k]
-            ms = cuda_ms(fn, iters=10)
-            t["ms"] += ms
-            t["plain_ms"] += cuda_ms(plain, iters=3, warmup=1)
-            t["items"].append(ob)
-            row[f"{k}_ms"] = ms
-            row[f"{k}_bound_ms"] = ms_bound(*ob)[0]
-            row[f"{k}_tc_bound_ms"] = tc_bound(*ob)[0]
-            if library is not None:
-                row[f"{k}_library_ms"] = cuda_ms(library, iters=10)
-                t["lib_ms"] += row[f"{k}_library_ms"]
-                t["lib_kernel_ms"] += ms
-                t["lib_shapes"].append(name)
-        print(f"time  {name:11s} "
-              + "  ".join(f"{k[8:]} {row[f'{k}_ms']:.4f} ms (bound f32 "
-                          f"{row[f'{k}_bound_ms']:.4f}, 3xTF32 "
-                          f"{row[f'{k}_tc_bound_ms']:.4f}"
-                          + (f"; cuDNN {row[f'{k}_library_ms']:.4f}"
-                             if f"{k}_library_ms" in row else "") + ")"
-                          for k in timed))
-    torch.backends.cudnn.benchmark = False
+    tot = time_conv_kernels(BATCH, SHAPES, rows)
     record["train_shapes"] = rows
 
     # the warp at N = 96
@@ -1301,14 +1397,22 @@ def grid_scene(batch_np, image, depth, mask=None):
     return image, mask, grid.contiguous()
 
 
+@functools.lru_cache(maxsize=1)
+def nusc_batch_np():
+    """``entry.nusc_batch()`` (bs8 @288x512, the ``"nuscenes"`` patched
+    mask), made once: its textures take the host a while. Phases 12 and
+    27-31 read it and change none of its arrays."""
+    from fsnet_tpu_torch.entry import nusc_batch
+
+    return nusc_batch(NUSC_BATCH, NUSC_H, NUSC_W)
+
+
 def nuscenes_scene(seed=0):
     """Phase 12's second scene, at the NuScenes recipe's shape: bs8
     @288x512, 64 warps, the synthetic batch's clipped textures as sources,
     its ``"nuscenes"`` patched mask and per-scale depth in [2, 42)."""
-    from fsnet_tpu_torch.entry import synthetic_batch
-
     B, H, W = NUSC_BATCH, NUSC_H, NUSC_W
-    batch_np = synthetic_batch(B, H, W, patched_mask="nuscenes")
+    batch_np = nusc_batch_np()
     g = torch.Generator(device="cuda").manual_seed(seed)
     image = torch.cat([torch.from_numpy(batch_np[f"original_image/{f}"])
                        for f in (1, -1)]).cuda().contiguous()
@@ -2213,17 +2317,18 @@ def photo_ties(pred, target, muy, sy):
                 equal=int((t["x"] == target).sum()), values=pred.numel())
 
 
-def check_photo_kernels(recipe, stacks, target, seed):
-    """Phase 22 at one recipe: the photometric kernels of both routes
-    against their plain versions on the loss's own operands, the warped
-    stack and the identity stack against ``target`` (n mod B): the forward
-    bitwise equal on the vector route and within 1e-6 of the largest loss
-    on the narrow one (the share of bitwise-equal pixels printed), the
-    cotangent of the warped stack within 1e-5 of its largest entry against
-    the plain cotangent and against autograd of the plain forward on the
-    card, for each of 4 seeded loss cotangents (autograd held at the first
-    only, the vector route bitwise equal to the plain cotangent at each);
-    the ties each stack holds.
+def check_photo_kernels(recipe, stacks, target, seed, autograd_gate=True):
+    """Phase 22 at one recipe (and phase 28 at the nuScenes step): the
+    photometric kernels of both routes against their plain versions on the
+    loss's own operands, the warped stack and the identity stack against
+    ``target`` (n mod B): the forward bitwise equal on the vector route and
+    within 1e-6 of the largest loss on the narrow one (the share of
+    bitwise-equal pixels printed), the cotangent of the warped stack within
+    1e-5 of its largest entry against the plain cotangent and against
+    autograd of the plain forward on the card, for each of 4 seeded loss
+    cotangents (autograd held at the first only, and there only with
+    ``autograd_gate``, the vector route bitwise equal to the plain
+    cotangent at each); the ties each stack holds.
     Returns the max abs errors by route, the ties, the timings by route
     (with the plain versions', the bound and the host's time to issue one
     call) and the cotangent's errors by route and seed."""
@@ -2295,7 +2400,8 @@ def check_photo_kernels(recipe, stacks, target, seed):
                     # at the others autograd is a reading, since the
                     # plain cotangent and autograd, both float32, round
                     # apart by about 1e-5 of the largest entry themselves
-                    check(e_b <= 1e-5 and (k > 0 or e_a <= 1e-5)
+                    check(e_b <= 1e-5 and (k > 0 or not autograd_gate
+                                           or e_a <= 1e-5)
                           and (route != "vector" or equal == 1.0),
                           f"photo_loss_bwd {route} {recipe} seed {seed + k}: "
                           f"rel err {e_b:.2e} (plain, bitwise-equal share "
@@ -2502,6 +2608,343 @@ def photo_phases(record, train, fish):
               f"ms per call: wrapper {e['host_ms']['wrapper']:.4f}, narrow "
               f"launcher {e['host_ms']['narrow_launcher']:.4f}")
     return kernels
+
+
+def capture_warp(model):
+    """Phases 27 and 29: keeps, at every step, what the head's warp gave
+    the loss (the warped stack [S, F, B, H, W, C] and the full-resolution
+    depths [S, B, H, W, 1], detached) by wrapping ``_warp_all`` on the
+    instance; no launch is added. Returns the record and a function that
+    takes the wrap away."""
+    head = model.head
+    orig = head._warp_all
+    seen = {}
+
+    def wrapped(input_dict, output_dict):
+        preds, overlap, depths = orig(input_dict, output_dict)
+        seen.update(preds=preds.detach(), depths=depths.detach())
+        return preds, overlap, depths
+
+    head._warp_all = wrapped
+    return seen, lambda: delattr(head, "_warp_all")
+
+
+def cuda_kernels(fn, calls=1):
+    """The CUDA kernels ``torch.profiler`` sees over ``calls`` calls of
+    ``fn`` (its ``key_averages``: name, count, device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+CONV_KERNEL = re.compile(r"(conv3x3_mma_kernel|conv3x3_dw_kernel)<([^>]*)>")
+
+
+def conv_kernel_args(B, shapes):
+    """Phase 28: at each shape of ``shapes`` with Co = 1 or 64, the template
+    arguments of the kernel each conv wrapper launches (forward, input and
+    weight cotangent), by name: ``<T, TN, MODE, VEC>`` and ``<CI_T, CO_T,
+    VEC>``. At Co = 1 no route may take 16-byte copies (VEC false)."""
+    from fsnet_tpu_torch.ops import conv3x3 as tc
+
+    out = {}
+    for i, (name, H, W, Cs, Co, pad) in enumerate(shapes):
+        if Co not in (1, 64):
+            continue
+        parts, w, b = conv_inputs(B, H, W, Cs, Co, torch.float32, seed=i)
+        gy = torch.randn(B, H, W, Co, device="cuda")
+        got = {}
+        for k, fn in (("conv3x3", lambda: tc.conv3x3(parts, w, b, pad)),
+                      ("conv3x3_dx", lambda: tc.conv3x3_dx(gy, w, pad, Cs)),
+                      ("conv3x3_dw", lambda: tc.conv3x3_dw(parts, gy, pad))):
+            names = [m.groups() for m in (CONV_KERNEL.search(e.key)
+                                          for e in cuda_kernels(fn)) if m]
+            check(len(names) == 1, f"{name} {k}: conv kernels launched "
+                  f"{names}, expected one")
+            got[k] = names[0][1]
+            if Co == 1:
+                check(got[k].endswith("false"), f"{name} {k} at Co = 1 took "
+                      f"16-byte copies: <{got[k]}>")
+        out[name] = got
+        print(f"kernels {name:17s} B{B} {H}x{W} {Cs[0]}->{Co}: "
+              + "  ".join(f"{k[8:] or 'fwd'} <{v}>" for k, v in got.items()))
+    return out
+
+
+def path_sums(rows, kernel, names):
+    """Phase 31: ``kernel``'s time, plain time and library time (at the
+    one-part zero-padded shapes) summed over the shape rows ``names`` (one
+    per launch of a step, repeated where a step launches a shape twice),
+    with the bounds of the summed work."""
+    by = {r["name"]: r for r in rows}
+    items = [by[n] for n in names]
+    ops = sum(r[f"{kernel}_work"][0] for r in items)
+    nbytes = sum(r[f"{kernel}_work"][1] for r in items)
+    lib = [r for r in items if f"{kernel}_library_ms" in r]
+    b_ms, b_by = ms_bound(ops, nbytes)
+    tc_ms, tc_by = tc_bound(ops, nbytes)
+    return dict(launches=len(items),
+                ms=sum(r[f"{kernel}_ms"] for r in items),
+                plain_ms=sum(r[f"{kernel}_plain_ms"] for r in items),
+                bound_ms=b_ms, bound_by=b_by, tc_bound_ms=tc_ms,
+                tc_bound_by=tc_by,
+                library_ms=(sum(r[f"{kernel}_library_ms"] for r in lib)
+                            if lib else None),
+                library_shapes=[r["name"] for r in lib],
+                ms_library_shapes=sum(r[f"{kernel}_ms"] for r in lib))
+
+
+def nusc_conv_sums(rows, conv_errs, record):
+    """Phase 31: each conv kernel's readings at the nuScenes shapes for the
+    kernel line: its max abs error over every distinct shape (phase 28) and
+    its times summed over one step's launches of each path (``rows``: the
+    shapes' timings); the sums must count the launches phases 27 and 29
+    saw."""
+    up = [n for n, *_ in NUSC_SHAPES if n.startswith("upconv_")]
+    d64 = [n.replace("dispconv_", "dispconv64_") for n, *_ in NUSC_SHAPES
+           if n.startswith("dispconv_")]
+    d16 = [n.replace("dispconv_", "dispconv16_") for n, *_ in DISTILL_SHAPES
+           if n.startswith("dispconv_")]
+    unc = [n for n, *_ in DISTILL_SHAPES if n.startswith("uncertain_")]
+    paths = dict(
+        nusc=dict(conv3x3=d64, conv3x3_bn=up, conv3x3_dx=up + d64,
+                  conv3x3_dw=up + d64),
+        distill=dict(conv3x3=d16 + unc + up + d16, conv3x3_bn=up,
+                     conv3x3_dx=up + d16 + unc, conv3x3_dw=up + d16 + unc))
+    conv = {}
+    for k in ("conv3x3", "conv3x3_bn", "conv3x3_dx", "conv3x3_dw"):
+        conv[k] = dict(max_abs_err=conv_errs[k], shapes=len(rows))
+        if k == "conv3x3_bn":
+            conv[k]["max_abs_err_moments"] = conv_errs["conv3x3_bn_mom"]
+        for tag, names in paths.items():
+            conv[k][f"{tag}_step"] = t = path_sums(rows, k, names[k])
+            check(t["launches"] == record[f"{tag}_path"]["launches_per_step"][
+                k], f"{tag} path: {k} sums {t['launches']} shapes, the step "
+                f"launches {record[f'{tag}_path']['launches_per_step'][k]}")
+            print(f"time  {k:11s} {tag} step ({t['launches']} launches) "
+                  f"kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
+                  f"bound f32 {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+                  f"3xTF32 {t['tc_bound_ms']:.4f} ms  library "
+                  + ("none" if t["library_ms"] is None else
+                     f"{t['library_ms']:.4f} ms vs kernel "
+                     f"{t['ms_library_shapes']:.4f} ms at "
+                     f"{len(t['library_shapes'])} shapes"))
+    return conv
+
+
+def nusc_phases(counters, record):
+    """Phases 27-31. Returns the launch counts of the two nuScenes paths
+    and the readings the kernel line takes from these phases."""
+    from fsnet_tpu_torch.entry import (NUSC_RECIPE, distill_config,
+                                       distill_model, flagship_model,
+                                       nusc_model, recipe_optimizer)
+    from fsnet_tpu_torch.ops import warp_fast as twf
+    from fsnet_tpu_torch.runtime.checkpoint import transform_teacher_params
+    from fsnet_tpu_torch.runtime.state import make_train_step
+
+    B, H, W = NUSC_BATCH, NUSC_H, NUSC_W
+    size = f"bs{B}@{H}x{W}"
+    batch = nusc_batch_np()
+    sources = torch.cat([torch.from_numpy(batch[f"original_image/{f}"])
+                         for f in (1, -1)]).cuda().contiguous()
+    target = torch.from_numpy(batch["original_image/0"]).cuda()
+    none = dict.fromkeys(counters, 0)
+    photo = dict(photo_loss_fwd=2, photo_loss_bwd=1)
+
+    def routes_taken(rec, what, mask_warps):
+        got = rec["routes"]
+        n = rec["steps"]
+        want = dict(warp_grid_fused=dict(narrow=0, row=n),
+                    warp_grid_fwd=dict(narrow=0, vector=0,
+                                       row=n * mask_warps),
+                    photo_loss_fwd=dict(narrow=0, vector=2 * n),
+                    photo_loss_bwd=dict(narrow=0, vector=n))
+        bad = {k: got[k] for k, v in want.items() if got[k] != v}
+        check(not bad, f"{what}: routes {bad}, expected {want}")
+
+    def own_moves(seen, what):
+        """The TPU lane-window clamp on the step's own depths: the grids of
+        the last step's depths through the batch's poses."""
+        depth = seen["depths"].reshape(S_SCALES * B, H, W)
+        grid = grid_scene(batch, sources, depth)[2]
+        x = twf.unnormalize(grid[..., 0], W)
+        out = dict(photometric=lane_window_moves(x, W),
+                   mask=lane_window_moves(x, W, nearest=True),
+                   samples=x.numel(), depth_min=float(depth.min()),
+                   depth_max=float(depth.max()))
+        print(f"{what}: on the last step's own depths (in "
+              f"[{out['depth_min']:.3f}, {out['depth_max']:.3f}] m) the TPU "
+              f"lane-window clamp would move {out['photometric']} "
+              f"(photometric) and {out['mask']} (mask) of {out['samples']} "
+              f"samples at W = {W}")
+        return out
+
+    # 27. the nusc_wpose step: ResNet-34, 64 bins, base_fx 369, no overlap
+    # mask; the patched mask sends the loss down the grid route
+    model = nusc_model(H, W, device="cuda", seed=0)
+    opt, _ = recipe_optimizer(model, NUSC_RECIPE)
+    want = dict(none, conv3x3=4, conv3x3_bn=10,
+                conv3x3_dx=len(NUSC_SHAPES), conv3x3_dw=len(NUSC_SHAPES),
+                warp_grid_fused=1, **photo)
+    seen, release = capture_warp(model)
+    rec = drive_steps(model, opt, batch, counters, want, "nuscenes path",
+                      size=size)
+    release()
+    routes_taken(rec, "nuscenes path", 0)
+    print("nuscenes path: overlapped_mask=False leaves out the mask's warp "
+          "(kernel E 0 launches a step; 1 with the overlap mask)")
+    rec["lane_window_moves"] = own_moves(seen, "nuscenes path")
+    record["nusc_path"] = rec
+
+    # 28. the conv kernels at every distinct conv shape of the two steps
+    # (phase 8's gates, REPEATS launches each), the kernels the wrappers
+    # take at Co = 1 and 64, and kernels I and J against their plain
+    # versions on the step's own operands: its warped stack (kernel F's
+    # output) and its sources. Autograd of the plain forward is a reading
+    # here: on these operands the plain cotangent itself (to which J is
+    # bitwise equal) and float32 autograd round apart by 1.09e-5 of the
+    # largest entry at the first seed, as at the flagship's seeds 12-14
+    # (phase 22; ROADMAP C)
+    rows = [dict(name=n) for n, *_ in NUSC_CONV_SHAPES]
+    record["nusc_conv_errs"] = conv_errs = check_conv_kernels(
+        B, NUSC_CONV_SHAPES, rows, tag="nuscenes", forward=True)
+    record["nusc_conv_kernels"] = conv_kernel_args(B, NUSC_CONV_SHAPES)
+    photo_res = check_photo_kernels(
+        f"nuscenes {size}", dict(warped=seen["preds"].reshape(-1, H, W, 3),
+                                 identity=sources), target, seed=13,
+        autograd_gate=False)
+    del seen
+    record["nusc_photo_ties"] = photo_res[1]
+    record["nusc_photo_bwd_errs"] = photo_res[3]
+
+    # 29. the distillation step: a frozen ResNet-18/16-bin teacher grafted
+    # from a seeded MonoDepthWPose, the uncertain student
+    src = flagship_model(H, W, device="cuda", seed=1).state_dict()
+    dmodel = distill_model(H, W, device="cuda", seed=0, teacher_state=src)
+    state = dmodel.state_dict()
+    graft = transform_teacher_params(src)
+    teacher_keys = [k for k in state if k.startswith("teacher_net.")]
+    check(len(graft) == len(teacher_keys)
+          and all(torch.equal(state["teacher_net." + k], v)
+                  for k, v in graft.items()),
+          "distillation: the teacher is not the grafted MonoDepthWPose")
+    del src, graft, state
+    dopt, _ = recipe_optimizer(dmodel, NUSC_RECIPE, distill_config(H, W))
+    n_teacher = sum(n.startswith("teacher_net.")
+                    for n, _ in dmodel.named_parameters())
+    check(len(dopt.params) + n_teacher == len(list(dmodel.parameters())),
+          "distillation: the optimizer holds teacher parameters")
+    want_d = dict(none, conv3x3=4 + 4 + len(SHAPES), conv3x3_bn=10,
+                  conv3x3_dx=len(DISTILL_SHAPES),
+                  conv3x3_dw=len(DISTILL_SHAPES), warp_grid_fused=1,
+                  warp_grid_fwd=1, **photo)
+    seen, release = capture_warp(dmodel)
+    drec = drive_steps(dmodel, dopt, batch, counters, want_d,
+                       "distillation path", size=size, frozen="teacher_net.")
+    release()
+    routes_taken(drec, "distillation path", 1)
+    terms = {k: v for k, v in drec["last_terms"].items()
+             if k.startswith("distilation/")}
+    check(sorted(terms) == [f"distilation/{s}" for s in range(4)],
+          f"distillation path: loss terms {sorted(terms)}")
+    print(f"distillation path: teacher ({drec['frozen_bitwise']} tensors: "
+          f"{n_teacher} parameters and its BN statistics) bitwise unchanged "
+          f"after {drec['steps']} steps, {drec['params_changed']} of the "
+          f"student's {drec['params']} parameters moved; last step's terms "
+          f"{terms}")
+    drec["lane_window_moves"] = own_moves(seen, "distillation path")
+    del seen
+    record["distill_path"] = drec
+
+    # 30. one step of each at bs2 on the card against the port on the CPU
+    small = white_noise_images({k: v[:2] for k, v in batch.items()})
+    record["nusc_card_vs_cpu"] = card_vs_cpu(
+        nusc_model, small, "nuscenes train step", H, W,
+        optimizer=lambda m: recipe_optimizer(m, NUSC_RECIPE))
+    src = flagship_model(H, W, device="cpu", seed=1).state_dict()
+    record["distill_card_vs_cpu"] = card_vs_cpu(
+        lambda h, w, device, seed: distill_model(
+            h, w, device=device, seed=seed, teacher_state=src),
+        small, "distillation train step", H, W,
+        optimizer=lambda m: recipe_optimizer(m, NUSC_RECIPE,
+                                             distill_config(H, W)))
+    del src
+
+    # 31. timings: both steps (10 steps after warm-up, the batch on the
+    # card; device time under the profiler), then each conv kernel at the
+    # nuScenes shapes
+    step = make_train_step("cuda")
+    on_card = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    n_steps = 10
+    for key, m, o in (("nusc_step", model, opt),
+                      ("distill_step", dmodel, dopt)):
+        for _ in range(2):
+            step(m, o, on_card)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step(m, o, on_card)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / n_steps * 1e3
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        busy = sum(e.self_device_time_total for e in cuda_kernels(
+            lambda: step(m, o, on_card), calls=3)) / 1e3 / 3
+        check(busy > 0, f"{key}: the profiler saw no device time")
+        record[key] = dict(bs=B, ms=ms, imgs_per_s=B / ms * 1e3,
+                           device_busy_ms=busy, peak_mem_gb=peak)
+        print(f"{key} {size} f32 (mean of {n_steps}, batch on the card): "
+              f"{ms:.3f} ms = {B / ms * 1e3:.2f} imgs/s; device busy "
+              f"{busy:.3f} ms a step (profiler, 3 steps); peak memory "
+              f"{peak:.3f} GB")
+    del model, opt, dmodel, dopt, on_card
+    time_conv_kernels(B, NUSC_CONV_SHAPES, rows, forward=True)
+    record["nusc_conv_shapes"] = [
+        {k: v for k, v in r.items() if not k.endswith("_work")}
+        for r in rows]
+    conv = nusc_conv_sums(rows, conv_errs, record)
+    ph = {}
+    for tag, k in (("fwd", "photo_loss_fwd"), ("bwd", "photo_loss_bwd")):
+        t = photo_res[2][tag]
+        ph[k] = dict(max_abs_err=photo_res[0]["vector"][k],
+                     autograd_rel_err=[e["autograd"] for e in
+                                       photo_res[3]["vector"]]
+                     if tag == "bwd" else None,
+                     ms=min(t["ms"]["vector"]), ms_readings=t["ms"]["vector"],
+                     narrow_ms=min(t["ms"]["narrow"]),
+                     plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                     bound_by=t["bound_by"])
+    return dict(launches=dict(nusc=rec["launches"],
+                              distill=drec["launches"]),
+                conv=conv, photo=ph)
+
+
+def add_nusc_readings(kernels, nusc):
+    """Phases 27-31 into the kernel line: every kernel's launches on the two
+    nuScenes paths (3 steps each), the conv kernels' errors at the
+    nuScenes shapes and their times summed over each step's launches, and
+    kernels I and J on the nuScenes step's operands."""
+    for e in kernels:
+        k = e["name"]
+        for tag in ("nusc", "distill"):
+            e[f"launches_{tag}_path"] = nusc["launches"][tag][k]
+        extra = nusc["conv"].get(k) or nusc["photo"].get(k)
+        if extra:
+            e["nuscenes"] = extra
+            e["note"] = e.get("note", "") + (
+                "; nuscenes: phases 27-31 at bs8 @288x512 (max_abs_err over "
+                "every distinct conv shape of both steps; *_step: sums over "
+                "one step's launches)" if k.startswith("conv") else
+                "; nuscenes: the nuscenes step's warped stack and sources "
+                "at bs8 @288x512, vector route (phase 28)")
+
 
 
 def main() -> int:
@@ -2745,9 +3188,14 @@ def main() -> int:
             e["note"] += ("; dla_*: the 16 DCNs of one bs12 @192x640 DLA "
                           "step (phases 23-26), launches over its 3 steps")
 
+    # 27-31. the nuScenes recipes: the nusc_wpose step and the distillation
+    # step with its frozen teacher, bs8 @288x512
+    kernels = ([kernel] + train["kernels"] + grid_kernels + mei_kernels
+               + photo_kernels + [kernel_k])
+    add_nusc_readings(kernels, nusc_phases(counters, record))
+
     print(json.dumps(record))
-    print(json.dumps({"kernels": [kernel] + train["kernels"] + grid_kernels
-                      + mei_kernels + photo_kernels + [kernel_k]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

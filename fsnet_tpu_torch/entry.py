@@ -16,6 +16,16 @@ the flagship with the ``FishEyeDecoder`` head of
 built through the builder. The DLA model is ``dlanet(34)`` under
 ``DLASegUpsample`` (the composition of ``tests/test_backbones.py:114-125``),
 trained on the sum of its output weighted by a seeded tensor.
+
+The nuScenes recipes (bs8 @288x512, the nuScenes patched mask, so the loss
+takes the grid route) are copies of two shipped configs' ``meta_arch``:
+``configs/nusc_wpose_example.py`` (:func:`nusc_config`: ResNet-34, 64
+bins, ``base_fx=369``, no overlap mask) and
+``configs/distill_nusc_example.py`` (:func:`distill_config`: a frozen
+ResNet-18/16-bin teacher beside a student with the uncertain decoder),
+with ``pretrained`` off and no teacher path: the ImageNet weights and the
+trained teacher are not in the repo, so weights are seeded or grafted from
+a state_dict. Both train with :data:`NUSC_RECIPE`.
 """
 from __future__ import annotations
 
@@ -240,17 +250,136 @@ def fisheye_batch(batch: int, height: int, width: int) -> Dict:
     return encode_batch(data)
 
 
+# the training recipe of bench.py, and the nuScenes configs' (the
+# optimizer, scheduler and trainer.clip_gradients of
+# configs/nusc_wpose_example.py and configs/distill_nusc_example.py)
+FLAGSHIP_RECIPE = dict(optimizer=dict(name="adam", lr=1e-4),
+                       scheduler=dict(name="StepLR", step_size=8),
+                       clip_gradients=1.0)
+NUSC_RECIPE = dict(optimizer=dict(name="adam", lr=1e-4, weight_decay=0),
+                   scheduler=dict(name="StepLR", step_size=4),
+                   clip_gradients=1.0)
+
+
+def recipe_optimizer(model: torch.nn.Module, recipe: Dict,
+                     meta_arch_cfg: Optional[Dict] = None,
+                     steps_per_epoch: int = 1000):
+    """A recipe's optimizer (``recipe``: ``optimizer``, ``scheduler`` and
+    ``clip_gradients`` as in a config) over ``model``'s parameters, less
+    those that ``meta_arch_cfg`` freezes (the distillation teacher, frozen
+    backbone stages), whose ``requires_grad`` is turned off. Returns
+    (optimizer, schedule)."""
+    from .runtime.optim import (build_frozen_mask, build_optimizer,
+                                frozen_param_prefixes, trainable_params)
+
+    mask = build_frozen_mask(model, frozen_param_prefixes(meta_arch_cfg or {}))
+    return build_optimizer(trainable_params(model, mask),
+                           dict(recipe["optimizer"]), recipe.get("scheduler"),
+                           steps_per_epoch=steps_per_epoch,
+                           clip_gradients=recipe.get("clip_gradients"))
+
+
 def flagship_optimizer(model: torch.nn.Module, steps_per_epoch: int = 1000):
     """The training recipe of ``bench.py``: Adam (lr 1e-4), global-norm
     clip 1.0, StepLR with step_size 8, over all of ``model``'s
     parameters. Returns (optimizer, schedule)."""
-    from .runtime.optim import build_optimizer
+    return recipe_optimizer(model, FLAGSHIP_RECIPE,
+                            steps_per_epoch=steps_per_epoch)
 
-    return build_optimizer(list(model.parameters()),
-                           dict(name="adam", lr=1e-4),
-                           dict(name="StepLR", step_size=8),
-                           steps_per_epoch=steps_per_epoch,
-                           clip_gradients=1.0)
+
+NUSC_BATCH, NUSC_HEIGHT, NUSC_WIDTH = 8, 288, 512
+_PKG = "fsnet_tpu_torch.models."
+
+
+def _resnet_cfg(depth: int) -> Dict:
+    return dict(name=_PKG + "backbones.resnet.resnet", depth=depth,
+                pretrained=False, frozen_stages=-1, num_stages=4,
+                out_indices=(-1, 0, 1, 2, 3), norm_eval=False,
+                dilations=(1, 1, 1, 1))
+
+
+def _decoder_cfg(name: str, bins: int, **extra) -> Dict:
+    return dict(name=_PKG + "heads.depth_decoder." + name,
+                num_ch_enc=(64, 64, 128, 256, 512), num_output_channels=bins,
+                use_skips=True, scales=(0, 1, 2, 3), min_depth=0.5,
+                max_depth=100, **extra)
+
+
+def _head_cfg(height: int, width: int, overlapped_mask: bool,
+              depth_decoder_cfg: Dict, **extra) -> Dict:
+    return dict(name=_PKG + "heads.monodepth2_decoder.MonoDepth2Decoder",
+                scales=(0, 1, 2, 3), height=height, width=width,
+                min_depth=0.5, max_depth=100.0, is_log_image=False,
+                overlapped_mask=overlapped_mask,
+                depth_decoder_cfg=depth_decoder_cfg, **extra)
+
+
+def nusc_config(height: int = NUSC_HEIGHT, width: int = NUSC_WIDTH) -> Dict:
+    """``MonoDepthWPose`` of ``configs/nusc_wpose_example.py``
+    (``configs/common.py:wpose_meta_arch`` with ResNet-34, depth 0.5-100,
+    ``base_fx=369``, 64 bins, ``overlapped_mask=False``)."""
+    dec = _decoder_cfg("MultiChannelDepthDecoder", 64)
+    dec["max_depth"], dec["base_fx"] = 100.0, 369
+    return dict(
+        name=_PKG + "meta_archs.monodepth2_model.MonoDepthWPose",
+        depth_backbone_cfg=_resnet_cfg(34),
+        head_cfg=_head_cfg(height, width, False, dec),
+        train_cfg=dict(frame_ids=(0, 1, -1)), test_cfg=dict())
+
+
+def nusc_model(height: int = NUSC_HEIGHT, width: int = NUSC_WIDTH,
+               device: DeviceLike = "cuda", seed: int = 0):
+    """The nuScenes ``MonoDepthWPose`` with seeded random weights on
+    ``device``."""
+    return build(**nusc_config(height, width), device=device, seed=seed)
+
+
+def nusc_batch(batch: int = NUSC_BATCH, height: int = NUSC_HEIGHT,
+               width: int = NUSC_WIDTH) -> Dict:
+    """The synthetic batch with the nuScenes ``CAM_BACK`` patched mask
+    (:func:`synthetic_batch`, ``"nuscenes"``)."""
+    return synthetic_batch(batch, height, width, patched_mask="nuscenes")
+
+
+def distill_config(height: int = NUSC_HEIGHT,
+                   width: int = NUSC_WIDTH) -> Dict:
+    """``DistillWPoseMeta`` of ``configs/distill_nusc_example.py``: a
+    ``MonoDepthInference`` teacher (ResNet-18, 16-bin
+    ``MultiChannelDepthDecoder``), a ResNet-18 student under the head with
+    the overlap mask, ``distillation_loss_weight=0.3`` and
+    ``is_uncertain_distill``, decoding through
+    ``MultiChannelDepthDecoderUncertain`` (16 bins)."""
+    return dict(
+        name=_PKG + "meta_archs.monodepth2_model.DistillWPoseMeta",
+        teacher_net_cfg=dict(
+            name=_PKG + "meta_archs.monodepth2_model.MonoDepthInference",
+            backbone_cfg=_resnet_cfg(18),
+            depth_head_cfg=_decoder_cfg("MultiChannelDepthDecoder", 16)),
+        teacher_net_path="",
+        depth_backbone_cfg=_resnet_cfg(18),
+        head_cfg=_head_cfg(
+            height, width, True,
+            _decoder_cfg("MultiChannelDepthDecoderUncertain", 16),
+            distillation_loss_weight=0.3, is_uncertain_distill=True),
+        train_cfg=dict(frame_ids=(0, 1, -1)), test_cfg=dict())
+
+
+def distill_model(height: int = NUSC_HEIGHT, width: int = NUSC_WIDTH,
+                  device: DeviceLike = "cuda", seed: int = 0,
+                  teacher_state: Optional[Dict] = None):
+    """The nuScenes ``DistillWPoseMeta`` with seeded random weights on
+    ``device``; with ``teacher_state``, the state_dict of a trained
+    ``MonoDepthWPose`` whose depth net is the teacher's (ResNet-18, 16 bins,
+    as :func:`flagship_model`'s), its teacher grafted from that
+    (:func:`fsnet_tpu_torch.runtime.checkpoint.graft_teacher`). Train it
+    with ``recipe_optimizer(model, NUSC_RECIPE, distill_config())``, which
+    freezes the teacher."""
+    from .runtime.checkpoint import graft_teacher
+
+    model = build(**distill_config(height, width), device=device, seed=seed)
+    if teacher_state is not None:
+        graft_teacher(model, teacher_state)
+    return model
 
 
 DLA_CHANNELS = (16, 32, 64, 128, 256, 512)

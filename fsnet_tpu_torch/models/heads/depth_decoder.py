@@ -7,7 +7,8 @@ skip concat is not built: the upsampled map and the skip go to the conv as
 two parts, in the order ``[x, skip]``.
 
 Output dict keys keep the reference's tuple-key protocol: ``('logits', s)``,
-``('disp', s)``, ``('depth', s, s)``; tensors are NHWC.
+``('disp', s)``, ``('depth', s, s)`` and, from the uncertain variant,
+``('uncertain_z', s)``; tensors are NHWC.
 """
 from __future__ import annotations
 
@@ -143,4 +144,39 @@ class MultiChannelDepthDecoder(_DecoderBase):
             outputs[("logits", i)] = logits
             outputs[("depth", i, i)], outputs[("disp", i)] = self.gather_output(
                 logits, depth_scale)
+        return outputs
+
+
+class MultiChannelDepthDecoderUncertain(MultiChannelDepthDecoder):
+    """The softmax-over-bins decoder plus a per-scale uncertainty: a
+    replicate-padded 3x3 conv to one channel (``uncertain_logz_{s}``, through
+    the same conv kernel as the dispconvs) and its sigmoid as
+    ``('uncertain_z', s)``, the distillation student's decoder. The depth
+    scale multiplies the depth whether or not ``base_fx`` is set (1 without
+    it), and there is no ``('logits', s)`` output."""
+
+    def __init__(self, num_ch_enc: Sequence[int] = (64, 64, 128, 256, 512),
+                 scales: Sequence[int] = (0, 1, 2, 3),
+                 num_output_channels: int = 16, use_skips: bool = True,
+                 min_depth: float = 0.1, max_depth: float = 100.0,
+                 base_fx: Optional[float] = None):
+        super().__init__(num_ch_enc, scales, num_output_channels, use_skips,
+                         min_depth, max_depth, base_fx)
+        for i in self.scales:
+            self.add_module(f"uncertain_logz_{i}", _RepConv(NUM_CH_DEC[i], 1))
+
+    def forward(self, input_features, P2=None, train: bool = False) -> Dict:
+        outputs = {}
+        depth_scale = _get_scale(P2, self.base_fx)
+        feats = self.trunk(input_features, train)
+        for i in self.scales:
+            x = feats[i]
+            depth = gather_activation(self.dispconv(i, x), self.depth_bins)
+            depth = depth * depth_scale
+            outputs[("depth", i, i)] = depth
+            outputs[("disp", i)] = depth_to_disp(
+                depth, self.min_depth * depth_scale,
+                self.max_depth * depth_scale)
+            outputs[("uncertain_z", i)] = torch.sigmoid(
+                getattr(self, f"uncertain_logz_{i}")(x))
         return outputs

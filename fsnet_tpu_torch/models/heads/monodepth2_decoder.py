@@ -20,9 +20,11 @@ Then 0.85 SSIM + 0.15 L1 per pixel
 (:func:`~fsnet_tpu_torch.ops.photo_loss.reprojection_loss_fused`, against
 target n mod B), the overlap mask, the identity automask
 with the identity candidates pre-minned over the frames, the patched mask,
-and edge-aware smoothness over a dyadic color pyramid. Other branches
-(residual poses or flow, motion masks, light compensation, SSIM weights,
-distillation, depth monitors) raise. On a CUDA device the warps and the
+and edge-aware smoothness over a dyadic color pyramid; with
+``distillation_loss_weight`` the teacher-student depth loss of every scale
+(:meth:`MonoDepth2Decoder.compute_distill_loss`). Other branches (residual
+poses or flow, motion masks, light compensation, SSIM weights, depth
+monitors) raise. On a CUDA device the warps and the
 photometric loss are the Hopper kernels.
 
 The identity tie-break noise is an input: ``noise`` [F, B, H, W] standard
@@ -95,13 +97,14 @@ class MonoDepth2Decoder(nn.Module):
         self.min_depth, self.max_depth = min_depth, max_depth
         self.pose_loss_weight = pose_loss_weight
         self.distillation_loss_weight = distillation_loss_weight
+        self.is_unscaled_distill = is_unscaled_distill
+        self.is_uncertain_distill = is_uncertain_distill
         self.residualflow_weight = residualflow_weight
         self.overlapped_mask = overlapped_mask
         self.is_log_image = is_log_image
         self.warp_impl, self.warp_band = warp_impl, warp_band
         # switches of loss branches the port does not run yet: the loss
-        # raises when one is on (the distillation options act only through
-        # distillation_loss_weight, the net options only with the net)
+        # raises when one is on (the net options act only with the net)
         self.unported = dict(is_residual_flow=is_residual_flow,
                              is_light_compensate=is_light_compensate,
                              is_ssim_weight=is_ssim_weight)
@@ -130,8 +133,6 @@ class MonoDepth2Decoder(nn.Module):
 
     def _check_branch(self, input_dict, output_dict) -> None:
         on = [k for k, v in self.unported.items() if v]
-        if self.distillation_loss_weight > 0:
-            on.append("distillation_loss_weight")
         if self.warp_impl != "band":
             on.append(f"warp_impl={self.warp_impl!r}")
         for key in ("motion_mask", "depth_gt"):
@@ -317,9 +318,30 @@ class MonoDepth2Decoder(nn.Module):
                 - output_dict[("cam_T_cam", f)]).mean()
         return pose_loss
 
+    def compute_distill_loss(self, output_dict, input_dict,
+                             scale: int) -> torch.Tensor:
+        """Teacher-student depth loss at ``scale``: the mean of |teacher -
+        student| (with ``is_unscaled_distill`` the teacher first scaled by
+        the per-sample mean of student / (teacher + 1e-5)), with
+        ``is_uncertain_distill`` weighted as error / z + log(z + 1e-5) by
+        the student's ``('uncertain_z', scale)``. No gradient reaches the
+        teacher's depth."""
+        pred = output_dict[("depth", scale, scale)]
+        teacher = output_dict[("teacher_depth", scale, scale)].detach()
+        if self.is_unscaled_distill:
+            ratio = (pred / (teacher + 1e-5)).mean(dim=(1, 2), keepdim=True)
+            error = abs_(ratio * teacher - pred)
+        else:
+            error = abs_(teacher - pred)
+        if self.is_uncertain_distill:
+            z = output_dict[("uncertain_z", scale)]
+            return (error / z + torch.log(z + 1e-5)).mean()
+        return error.mean()
+
     def loss(self, output_dict, input_dict,
              noise: Optional[torch.Tensor] = None) -> Dict:
-        """Total training loss: {'loss', 'loss_dict', 'hm'}."""
+        """Total training loss: {'loss', 'loss_dict', 'hm'}. The loss dict
+        keeps the JAX package's key ``distilation/{s}``."""
         self._check_branch(input_dict, output_dict)
         losses, hm, total_loss = self.compute_total_reprojection_loss(
             output_dict, input_dict, noise=noise)
@@ -327,6 +349,11 @@ class MonoDepth2Decoder(nn.Module):
             pose_loss = self.compute_pose_loss(output_dict, input_dict)
             losses["pose_loss"] = pose_loss.detach()
             total_loss = total_loss + self.pose_loss_weight * pose_loss
+        if self.distillation_loss_weight > 0:
+            for s in self.scales:
+                d = self.compute_distill_loss(output_dict, input_dict, s)
+                losses[f"distilation/{s}"] = d.detach()
+                total_loss = total_loss + d * self.distillation_loss_weight
         losses["total_loss"] = total_loss.detach()
         if not self.is_log_image:
             hm = {}

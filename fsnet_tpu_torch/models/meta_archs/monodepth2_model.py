@@ -1,7 +1,9 @@
 """MonoDepth meta-architectures (counterpart of
 ``fsnet_tpu.models.meta_archs.monodepth2_model``: ``MonoDepthMeta``, the
 learned-pose baseline; ``MonoDepthWPose``'s GT-pose ``forward_train``,
-``forward_test`` and ``dummy_forward``; and ``MonoDepthInference``).
+``forward_test`` and ``dummy_forward``; ``MonoDepthInference``; and
+``DistillWPoseMeta``, the self-distillation student with its frozen
+teacher).
 
 Batches are string-keyed (``'image/0'``, ``'P2'``) and decoded to the
 reference's tuple-key protocol at entry. Images are NHWC float tensors.
@@ -32,7 +34,12 @@ def _decode(data: Dict) -> Dict:
     return dict(data)
 
 
-def _place(module: nn.Module, device: DeviceLike, seed: int) -> None:
+def _place(module: nn.Module, device: Optional[DeviceLike],
+           seed: int) -> None:
+    """Seeded random weights, then ``device``; nothing for ``device=None``,
+    a submodule that the model holding it places."""
+    if device is None:
+        return
     dev = resolve_device(device)
     init_params(module, torch.Generator().manual_seed(seed))
     module.to(dev)
@@ -149,11 +156,13 @@ class MonoDepthWPose(BaseMetaArch):
 
 
 class MonoDepthInference(nn.Module):
-    """Inference-only backbone + decoder (the distillation teacher)."""
+    """Inference-only backbone + decoder (the distillation teacher). Its BN
+    always runs on the running statistics. ``device=None`` leaves it
+    unplaced, as a submodule of a model that places it."""
 
     def __init__(self, backbone_cfg: Dict, depth_head_cfg: Dict,
                  is_produce_detached: bool = True,
-                 device: DeviceLike = "cuda", seed: int = 0):
+                 device: Optional[DeviceLike] = "cuda", seed: int = 0):
         super().__init__()
         self.is_produce_detached = is_produce_detached
         self.depth_backbone = build(**dict(backbone_cfg))
@@ -174,3 +183,61 @@ class MonoDepthInference(nn.Module):
                     value = value.detach()
                 teacher_output[("teacher_depth", key[1], key[2])] = value
         return teacher_output
+
+
+class DistillWPoseMeta(BaseMetaArch):
+    """Self-distillation: a frozen ``MonoDepthInference`` teacher's depth
+    beside the student's, GT poses for the warp (the student's loss takes
+    the route ``MonoDepthWPose``'s would). The teacher is built unplaced and
+    initialised with the rest of the model, in module order (teacher,
+    student backbone, head), before any teacher weights are grafted in
+    (:func:`fsnet_tpu_torch.runtime.checkpoint.load_teacher_into_params`);
+    the optimizer leaves it out
+    (:func:`fsnet_tpu_torch.runtime.optim.frozen_param_prefixes`).
+    ``teacher_net_path`` is kept for the config's sake; nothing here reads
+    it."""
+
+    def __init__(self, teacher_net_cfg: Dict, depth_backbone_cfg: Dict,
+                 head_cfg: Dict, train_cfg: Dict,
+                 test_cfg: Optional[Dict] = None, teacher_net_path: str = "",
+                 device: DeviceLike = "cuda", seed: int = 0):
+        super().__init__()
+        self.train_cfg = dict(train_cfg)
+        self.test_cfg = dict(test_cfg or {})
+        self.teacher_net_path = teacher_net_path
+        self.teacher_net = build(**dict(teacher_net_cfg), device=None)
+        self.depth_backbone = build(**dict(depth_backbone_cfg))
+        self.head = build(frame_ids=tuple(self.train_cfg["frame_ids"]),
+                          **dict(head_cfg))
+        _place(self, device, seed)
+
+    def forward_train(self, data: Dict, meta: Dict,
+                      noise: Optional[torch.Tensor] = None) -> Dict:
+        """The student's depth in train mode (with ``P2``), the teacher's
+        depth of frame 0 (BN on its running statistics; without autograd
+        where the teacher produces detached depth, which gives the numbers
+        ``.detach()`` would), then the head's loss with the dataset's GT
+        relative poses as the warp poses."""
+        data = _decode(data)
+        image_0 = data[("image", 0)]
+        features = self.depth_backbone(image_0, train=True)
+        outputs = self.head.forward_depth(features, data["P2"], train=True)
+        with torch.set_grad_enabled(
+                torch.is_grad_enabled()
+                and not self.teacher_net.is_produce_detached):
+            outputs.update(self.teacher_net.compute_teacher_depth(image_0))
+        for f_i in self.train_cfg["frame_ids"][1:]:
+            outputs[("cam_T_cam", f_i)] = data[("relative_pose", f_i)]
+        outputs["pose_is_const"] = True
+        return self.head.loss(outputs, data, noise=noise)
+
+    def forward_test(self, data: Dict, meta: Dict) -> Dict:
+        data = _decode(data)
+        features = self.depth_backbone(data[("image", 0)], train=False)
+        outputs = self.head.forward_depth(features, data["P2"], train=False)
+        return self.head.get_prediction(data, outputs)
+
+    def dummy_forward(self, image: torch.Tensor) -> Dict:
+        features = self.depth_backbone(image, train=False)
+        outputs = self.head.forward_depth(features, train=False)
+        return self.head.get_prediction(None, outputs)

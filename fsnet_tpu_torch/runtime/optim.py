@@ -16,12 +16,20 @@ scaling, then the learning rate:
 Torch Adam's ``weight_decay`` is L2 added to the gradient before the
 moments. The update runs in place on the parameters with ``torch._foreach``
 operations, which keep the launches few on a CUDA device.
+
+Frozen parameters (the distillation teacher, ``frozen_stages`` of a
+backbone; :func:`frozen_param_prefixes`, :func:`build_frozen_mask`) are the
+JAX package's ``optax.set_to_zero`` branch: :func:`trainable_params` turns
+their ``requires_grad`` off and leaves them out of the optimizer, so they
+take no update and no part in the clip's global norm (their gradients are
+exactly 0 in the JAX step, so its norm is the same).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
+from torch import nn
 
 
 def build_lr_schedule(scheduler_cfg: Optional[Dict], base_lr: float,
@@ -133,3 +141,55 @@ def build_optimizer(params: Sequence[torch.Tensor], optimizer_cfg: Dict,
         raise TypeError(f"unknown optimizer options {sorted(cfg)}")
     return opt, schedule
 
+
+def frozen_param_prefixes(meta_arch_cfg: Mapping) -> List[Tuple[str, ...]]:
+    """Frozen parameter path prefixes of a meta-arch config: the
+    distillation teacher (``('teacher_net',)``) and, for a backbone with
+    ``frozen_stages >= 0``, its stem (``conv1``, ``bn1``) and the blocks of
+    stages 1..frozen_stages (``'layer{i}_'``, a partial scope name)."""
+    prefixes = []
+    if "teacher_net_cfg" in meta_arch_cfg:
+        prefixes.append(("teacher_net",))
+    for scope in ("depth_backbone_cfg", "pose_backbone_cfg"):
+        sub = meta_arch_cfg.get(scope)
+        if not sub:
+            continue
+        frozen_stages = sub.get("frozen_stages", -1)
+        if frozen_stages is None or frozen_stages < 0:
+            continue
+        name = scope[:-len("_cfg")]
+        prefixes += [(name, "conv1"), (name, "bn1")]
+        prefixes += [(name, f"layer{i}_") for i in range(1, frozen_stages + 1)]
+    return prefixes
+
+
+def build_frozen_mask(model: nn.Module,
+                      prefixes: Sequence[Tuple[str, ...]]) -> Dict[str, bool]:
+    """``model``'s parameter name -> frozen: True where the name's dotted
+    path starts with one of ``prefixes``, whose last element may be a
+    partial scope name (``'layer1_'``)."""
+
+    def frozen(path: Tuple[str, ...]) -> bool:
+        for pre in prefixes:
+            if len(pre) > len(path):
+                continue
+            head, last = tuple(pre[:-1]), pre[-1]
+            if path[:len(head)] == head and path[len(head)].startswith(last):
+                return True
+        return False
+
+    return {n: frozen(tuple(n.split("."))) for n, _ in
+            model.named_parameters()}
+
+
+def trainable_params(model: nn.Module,
+                     mask: Mapping[str, bool]) -> List[nn.Parameter]:
+    """Turns ``requires_grad`` off for the parameters ``mask`` freezes and
+    returns the others, in module order: the optimizer's parameter list."""
+    out = []
+    for n, p in model.named_parameters():
+        if mask[n]:
+            p.requires_grad_(False)
+        else:
+            out.append(p)
+    return out

@@ -1,8 +1,8 @@
 """Where the time of a train step goes on the card.
 
     python -m fsnet_tpu_torch.scripts.profile_train [--batch 12] [--iters 5]
-        [--model {wpose,learned_pose,fisheye,dla}] [--route {depth,grid}]
-        [--host-batch]
+        [--model {wpose,learned_pose,fisheye,dla,nusc,distill}]
+        [--route {depth,grid}] [--host-batch]
 
 Builds the model (seeded random weights) and the ``bench.py`` recipe (Adam
 lr 1e-4, clip 1.0, StepLR) on the CUDA device with TF32 off: the flagship
@@ -11,7 +11,13 @@ lr 1e-4, clip 1.0, StepLR) on the CUDA device with TF32 off: the flagship
 KITTI-360 fisheye ``MonoDepthWPose`` (``--model fisheye``: ``FishEyeDecoder``
 at 384x384 on the fisheye batch, always its norm-direct route; the recipe's
 batch is 16), or ``dlanet(34)`` under ``DLASegUpsample`` (``--model dla``:
-16 deformable convs, kernels E and K, on ``entry.dla_batch``). The flagship's loss takes the depth-direct route on the
+16 deformable convs, kernels E and K, on ``entry.dla_batch``), or a
+nuScenes recipe at 288x512 on ``entry.nusc_batch`` with its own optimizer
+(``entry.NUSC_RECIPE``; the recipe's batch is 8; the patched mask sends
+the loss down the grid route): ``--model nusc`` (``entry.nusc_model``:
+ResNet-34, 64 bins, ``base_fx``, no overlap mask) or ``--model distill``
+(``entry.distill_model``: the student beside a frozen teacher grafted from
+a seeded ``MonoDepthWPose``). The flagship's loss takes the depth-direct route on the
 synthetic KITTI-like batch (``--route depth``) and the grid route when the
 batch carries an all-ones ``patched_mask``, as every dataset batch does
 (``--route grid``). Puts the batch on the card (as ``bench.py`` does for the
@@ -63,7 +69,8 @@ _GROUPS = (
 def _group(name: str) -> str:
     conv = re.search(r"conv3x3_mma_kernel<[^,]+, \d+, (\d)", name)
     if conv:                               # <T, TN, MODE, VEC>
-        return {"0": "conv3x3 forward (dispconvs)",
+        return {"0": "conv3x3 forward (dispconvs, uncertainty convs, "
+                     "eval-mode teacher)",
                 "1": "conv3x3 + BN moments (kernel C)",
                 "2": "conv3x3 input cotangent"}[conv.group(1)]
     for key, group in _GROUPS:
@@ -82,36 +89,53 @@ def _group(name: str) -> str:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, default=12)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default: 8 for nusc and distill, else 12")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--host-batch", action="store_true")
     ap.add_argument("--model", choices=("wpose", "learned_pose", "fisheye",
-                                        "dla"), default="wpose")
-    ap.add_argument("--route", choices=("depth", "grid"), default="depth")
+                                        "dla", "nusc", "distill"),
+                    default="wpose")
+    ap.add_argument("--route", choices=("depth", "grid"), default=None,
+                    help="the flagship's (default depth); the other models "
+                         "have one each")
     args = ap.parse_args(argv)
-    if args.model == "learned_pose" and args.route != "grid":
-        ap.error("learned poses take the grid route: pass --route grid")
-    if args.model in ("fisheye", "dla") and args.route != "depth":
+    nusc = args.model in ("nusc", "distill")
+    one = dict(learned_pose="grid", fisheye="depth", dla="depth",
+               nusc="grid", distill="grid").get(args.model)
+    if one is not None and args.route not in (None, one):
         ap.error(f"the {args.model} model has one route: leave --route out")
+    route = args.route or one or "depth"
 
-    from ..entry import (dla_batch, dla_model, fisheye_batch, fisheye_model,
+    from ..entry import (NUSC_RECIPE, distill_config, distill_model,
+                         dla_batch, dla_model, fisheye_batch, fisheye_model,
                          flagship_model, flagship_optimizer,
-                         learned_pose_model, synthetic_batch)
+                         learned_pose_model, nusc_batch, nusc_model,
+                         recipe_optimizer, synthetic_batch)
     from ..runtime.state import make_train_step
 
     # full float32, as chip_smoke.py measures it: no TF32 in cuDNN/cuBLAS
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     fisheye = args.model == "fisheye"
-    H, W, B = (384, 384, args.batch) if fisheye else (192, 640, args.batch)
-    build = dict(wpose=flagship_model, learned_pose=learned_pose_model,
-                 fisheye=fisheye_model, dla=dla_model)[args.model]
-    model = build(H, W, device="cuda", seed=0)
-    opt, _ = flagship_optimizer(model)
+    H, W = (384, 384) if fisheye else (288, 512) if nusc else (192, 640)
+    B = args.batch or (8 if nusc else 12)
+    if args.model == "distill":
+        teacher = flagship_model(H, W, device="cuda", seed=1).state_dict()
+        model = distill_model(H, W, device="cuda", seed=0,
+                              teacher_state=teacher)
+        opt, _ = recipe_optimizer(model, NUSC_RECIPE, distill_config(H, W))
+    else:
+        build = dict(wpose=flagship_model, learned_pose=learned_pose_model,
+                     fisheye=fisheye_model, dla=dla_model,
+                     nusc=nusc_model)[args.model]
+        model = build(H, W, device="cuda", seed=0)
+        opt, _ = (recipe_optimizer(model, NUSC_RECIPE) if nusc
+                  else flagship_optimizer(model))
     step = make_train_step("cuda")
-    mask = "ones" if args.model == "wpose" and args.route == "grid" else None
+    mask = "ones" if args.model == "wpose" and route == "grid" else None
     batch = (fisheye_batch(B, H, W) if fisheye else dla_batch(B, H, W)
-             if args.model == "dla"
+             if args.model == "dla" else nusc_batch(B, H, W) if nusc
              else synthetic_batch(B, H, W, patched_mask=mask))
     if not args.host_batch:
         batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
@@ -152,7 +176,7 @@ def main(argv=None) -> None:
     lines = [f"{card}; torch {torch.__version__}; train step of "
              f"{args.model}, "
              + ("" if args.model == "dla" else
-                f"{'norm-direct' if fisheye else args.route} route, ") +
+                f"{'norm-direct' if fisheye else route} route, ") +
              f"bs{B}@{H}x{W} float32, "
              f"batch {where}, {n} steps untraced, then {n} under "
              "torch.profiler",

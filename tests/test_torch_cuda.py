@@ -884,3 +884,89 @@ def test_dla_train_step_on_card_matches_cpu(cuda):
     assert (num / den) ** 0.5 < 3e-2
     for k, ref in cpu[1].items():
         assert (card[1][k] - ref).norm() <= 0.5 * ref.norm(), k
+
+
+# the nuScenes recipes' new conv widths at their 288x512 frame, batch 2:
+# Co = 64 (the 64-bin dispconvs) and Co = 1 (the uncertain convs: one
+# 8-channel chunk with 7 channels masked in the cotangent, the output tile
+# padded to 16, no 16-byte copies, dw on its scalar route), at the finest
+# and a coarser scale
+NUSC_CONV_SHAPES = [
+    (2, 288, 512, (16,), 64, "replicate"),
+    (2, 36, 64, (128,), 64, "replicate"),
+    (2, 288, 512, (16,), 1, "replicate"),
+    (2, 72, 128, (64,), 1, "replicate"),
+]
+
+
+@pytest.mark.parametrize("shape", NUSC_CONV_SHAPES,
+                         ids=lambda s: f"{s[1]}x{s[2]}-{s[3][0]}to{s[4]}")
+def test_conv_kernels_at_nuscenes_widths(cuda, shape):
+    """Forward, moments, dx and dw against their plain versions at the
+    gates of ``chip_smoke.py`` phase 8: forward 1e-4 of max |ref|; the
+    moments kernel's stored output, s2, dx and dw 2e-5; s1 2e-5 of the sum
+    of |out|."""
+    from fsnet_tpu_torch.ops import conv3x3 as tc
+
+    B, H, W, Cs, Co, pad_mode = shape
+    g = torch.Generator(device=cuda).manual_seed(3)
+    parts = [_randn(g, B, H, W, c) for c in Cs]
+    w = _randn(g, 3, 3, sum(Cs), Co, scale=1 / np.sqrt(9 * sum(Cs)))
+    b = _randn(g, Co, scale=0.1)
+    gy = _randn(g, B, H, W, Co)
+    ref = tc.conv3x3_plain(parts, w, b, pad_mode)
+
+    def rel(a, r, scale=None):
+        den = r.abs().max() if scale is None else scale
+        return float((a.double() - r.double()).abs().max() / den)
+
+    out = tc.conv3x3(parts, w, b, pad_mode)
+    y, s1, s2 = tc.conv3x3_bn(parts, w, b, pad_mode)
+    dxs = tc.conv3x3_dx(gy, w, pad_mode, Cs)
+    dw = tc.conv3x3_dw(parts, gy, pad_mode)
+    torch.cuda.synchronize()
+    r1, r2 = tc.moments_plain(ref)
+    assert rel(out, ref) <= 1e-4
+    assert rel(y, ref) <= 2e-5
+    assert rel(s1, r1, ref.abs().sum((0, 1, 2)).max()) <= 2e-5
+    assert rel(s2, r2) <= 2e-5
+    for a, r in zip(dxs, tc.conv3x3_dx_plain(gy, w, pad_mode, Cs)):
+        assert a.shape == r.shape and rel(a, r) <= 2e-5
+    assert rel(dw, tc.conv3x3_dw_plain(parts, gy, pad_mode)) <= 2e-5
+
+
+def test_distill_train_step_on_card_keeps_the_teacher(cuda):
+    """One ``DistillWPoseMeta`` step at a small size on the card: the
+    teacher (grafted from a seeded ``MonoDepthWPose``) keeps its parameters
+    and BN statistics bit for bit, the student moves, and every conv of
+    both runs through the kernels (the teacher's 14 in eval mode)."""
+    from fsnet_tpu_torch.entry import (NUSC_RECIPE, distill_config,
+                                       distill_model, flagship_model,
+                                       nusc_batch, recipe_optimizer)
+    from fsnet_tpu_torch.ops import conv3x3 as tc
+    from fsnet_tpu_torch.ops import warp_fast as twf
+    from fsnet_tpu_torch.runtime.state import make_train_step
+
+    H, W, B = 64, 128, 2
+    teacher = flagship_model(H, W, device=cuda, seed=1)
+    model = distill_model(H, W, device=cuda,
+                          teacher_state=teacher.state_dict())
+    opt, _ = recipe_optimizer(model, NUSC_RECIPE, distill_config(H, W))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    counters = (tc.conv3x3, tc.conv3x3_bn, tc.conv3x3_dx, tc.conv3x3_dw,
+                twf.grid_band_fused, twf.grid_band_fwd)
+    n0 = [f.launches for f in counters]
+    met = make_train_step(cuda)(model, opt, nusc_batch(B, H, W))
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(counters, n0)] == \
+        [22, 10, 18, 18, 1, 1]
+    assert np.isfinite(float(met["loss"]))
+    assert sorted(k for k in met if k.startswith("distilation/")) == [
+        f"distilation/{s}" for s in range(4)]
+    after = model.state_dict()
+    for k, v in before.items():
+        if k.startswith("teacher_net."):
+            assert torch.equal(after[k], v), k
+    moved = [k for k, v in before.items() if not k.startswith("teacher_net.")
+             and not torch.equal(after[k], v)]
+    assert len(moved) > 100

@@ -73,6 +73,15 @@ def test_dla_model_without_device_raises():
         dla_model(64, 128)
 
 
+@pytest.mark.parametrize("name", ["nusc_model", "distill_model"])
+def test_nusc_models_without_device_raise(name):
+    _no_cuda()
+    from fsnet_tpu_torch import entry
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(entry, name)(64, 128)
+
+
 def test_eval_step_without_device_raises():
     _no_cuda()
     from fsnet_tpu_torch.runtime.state import make_eval_step

@@ -35,6 +35,23 @@ batch, with no tie-break noise on either side. Routes:
   the norm-direct route, and the test proves that ``mei_prep_pallas``,
   ``warp_rows_pallas_dma_fused`` and ``mei_prep_bwd_pallas`` ran and
   ``photo_loss_pallas`` did not;
+* ``nusc_xla``: the ``MonoDepthWPose`` of ``configs/nusc_wpose_example.py``
+  (``entry.nusc_config``: ResNet-34, 64 bins, ``base_fx=369``, no overlap
+  mask) at 64x128 in float64 on the batch with the NuScenes patched mask,
+  with the recipe's optimizer (``entry.NUSC_RECIPE``: StepLR step 4): both
+  packages take the grid route, and only the photometric warp runs (no
+  mask warp without the overlap mask);
+* ``distill_xla``: the ``DistillWPoseMeta`` of
+  ``configs/distill_nusc_example.py`` (``entry.distill_config``: a frozen
+  ResNet-18/16-bin ``MonoDepthInference`` teacher, a student with
+  ``MultiChannelDepthDecoderUncertain``, the uncertainty-weighted
+  distillation loss at 0.3) at 64x128 in float64 on the same batch, bridged
+  weights for student and teacher; the JAX step under
+  ``build_frozen_mask`` (optax ``set_to_zero`` on the teacher), the port's
+  with the teacher left out of its optimizer. The teacher's gradients are
+  exactly 0 on the JAX side, so the clip's global norms must agree, and
+  the teacher's parameters and BN statistics are bitwise unchanged on both
+  sides; each ``distilation/{s}`` term matches JAX's to 1e-10 rel;
 * ``photo_tpu``: ``mask_tpu`` with the JAX side's photometric kernel forced
   on (``fsnet_tpu.ops.photo_loss.PHOTO_KERNEL``), so the loss of the warped
   stack and of the identity stack runs ``photo_loss_pallas`` (interpreted)
@@ -60,7 +77,11 @@ Bounds, with the values measured when this test was written:
   gradients per leaf rel-L2 <= 1e-4 (6.1e-14; 9.4e-13 on ``meta_xla``;
   1.6e-13 on ``fisheye_xla``; with the port's photometric cotangent in
   closed form); parameters after the Adam step within 1e-6 (2e-13); BN
-  running statistics within 1e-6 (7e-15).
+  running statistics within 1e-6 (7e-15); the global gradient norm (the
+  clip's) within 1e-10 rel. On ``nusc_xla`` and ``distill_xla``: loss
+  2.9e-16 and 8.7e-16, worst leaf 2.7e-13 and 5.7e-14, parameters
+  6.9e-13 and 3.1e-13, statistics 2.3e-14 and 5.2e-15, gradient norm
+  1.0e-14 and 2.6e-15, each ``distilation/{s}`` within 2.7e-15.
 * float32 (``tpu``, ``mask_tpu``, ``photo_tpu``): rounding flips discrete
   choices (a bilinear corner where a coordinate lies within an ulp of an
   integer, the reprojection min at near ties), each of which moves the
@@ -98,10 +119,13 @@ import jax.experimental.pallas as pl
 import optax
 
 import __graft_entry__ as ge
-from fsnet_tpu_torch.entry import (fisheye_batch, fisheye_config,
-                                   fisheye_model, flagship_model,
-                                   flagship_optimizer, learned_pose_config,
-                                   learned_pose_model, synthetic_batch)
+from fsnet_tpu_torch.entry import (NUSC_RECIPE, distill_config,
+                                   distill_model, fisheye_batch,
+                                   fisheye_config, fisheye_model,
+                                   flagship_model, flagship_optimizer,
+                                   learned_pose_config, learned_pose_model,
+                                   nusc_config, nusc_model, recipe_optimizer,
+                                   synthetic_batch)
 from fsnet_tpu_torch.models.flax_convert import load_flax_variables, to_flax
 from fsnet_tpu_torch.ops import conv3x3 as tc
 from fsnet_tpu_torch.ops import photo_loss as tpl
@@ -122,7 +146,11 @@ ROUTES = {
     "fisheye_xla": (64, 128, np.float64, "fisheye", None),
     "fisheye_tpu": (64, 128, np.float32, "fisheye", None),
     "photo_tpu": (64, 128, np.float32, "wpose", "nuscenes"),
+    "nusc_xla": (64, 128, np.float64, "nusc", "nuscenes"),
+    "distill_xla": (64, 128, np.float64, "distill", "nuscenes"),
 }
+# the nuScenes recipes' configs and optimizer
+RECIPE_CFG = dict(nusc=nusc_config, distill=distill_config)
 B = 2
 LR = 1e-4
 
@@ -192,19 +220,21 @@ def _jax_names(cfg):
 
 
 def jax_model(kind, H, W):
-    """The JAX package's flagship, learned-pose ``MonoDepthMeta`` or
-    fisheye ``MonoDepthWPose``."""
+    """The JAX package's flagship, learned-pose ``MonoDepthMeta``,
+    fisheye ``MonoDepthWPose`` or a nuScenes recipe's model."""
     if kind == "wpose":
         return ge._flagship_model(H, W)
     from fsnet_tpu.utils.builder import build
 
-    cfg = learned_pose_config if kind == "meta" else fisheye_config
+    cfg = dict(RECIPE_CFG, meta=learned_pose_config,
+               fisheye=fisheye_config)[kind]
     return build(**_jax_names(cfg(H, W)))
 
 
 def jax_init(kind, model, image):
-    """Every variable of ``model``: the depth path, and for the learned-pose
-    model the pose net on a frame pair."""
+    """Every variable of ``model``: the depth path, for the learned-pose
+    model the pose net on a frame pair, for the distillation model the
+    teacher."""
     def init_all(m, x):
         if kind == "fisheye":         # its prediction needs the ray maps
             return m.head.forward_depth(m.depth_backbone(x, train=False),
@@ -213,13 +243,16 @@ def jax_init(kind, model, image):
         if kind == "meta":
             pair = jax.numpy.concatenate([x, x], axis=-1)
             m.head.forward_pose([m.pose_backbone(pair, train=False)])
+        if kind == "distill":
+            m.teacher_net(x)
         return out
     return jax.jit(lambda x: model.init({"params": jax.random.PRNGKey(0)},
                                         x, method=init_all))(image)
 
 
 def _jax_step(kind, H, W, batch, dtype):
-    from fsnet_tpu.runtime.optim import build_optimizer
+    from fsnet_tpu.runtime.optim import (build_frozen_mask, build_optimizer,
+                                         frozen_param_prefixes)
 
     model = jax_model(kind, H, W)
     rng = np.random.RandomState(0)
@@ -232,16 +265,28 @@ def _jax_step(kind, H, W, batch, dtype):
             out, mutated = model.apply(
                 {"params": params, "batch_stats": v["batch_stats"]}, batch,
                 {"is_training": True}, mutable=["batch_stats"])
-            return out["loss"], mutated
+            return out["loss"], (mutated, out["loss_dict"])
 
-        (loss, mutated), grads = jax.jit(jax.value_and_grad(
+        (loss, (mutated, loss_dict)), grads = jax.jit(jax.value_and_grad(
             loss_fn, has_aux=True))(v["params"])
-        tx, _ = build_optimizer(dict(name="adam", lr=LR),
-                                dict(name="StepLR", step_size=8),
-                                steps_per_epoch=1000, clip_gradients=1.0)
+        if kind in RECIPE_CFG:
+            cfg = _jax_names(RECIPE_CFG[kind](H, W))
+            mask = build_frozen_mask(v["params"], frozen_param_prefixes(cfg))
+            tx, _ = build_optimizer(dict(NUSC_RECIPE["optimizer"], lr=LR),
+                                    NUSC_RECIPE["scheduler"],
+                                    steps_per_epoch=1000,
+                                    clip_gradients=NUSC_RECIPE[
+                                        "clip_gradients"],
+                                    frozen_mask=mask)
+        else:
+            tx, _ = build_optimizer(dict(name="adam", lr=LR),
+                                    dict(name="StepLR", step_size=8),
+                                    steps_per_epoch=1000, clip_gradients=1.0)
         updates, _ = tx.update(grads, tx.init(v["params"]), v["params"])
         new_params = optax.apply_updates(v["params"], updates)
     return dict(variables=v, loss=float(loss), grads=_to_dicts(grads),
+                grad_norm=float(optax.global_norm(grads)),
+                loss_dict={k: float(x) for k, x in loss_dict.items()},
                 params=_to_dicts(new_params),
                 stats=_to_dicts(mutated["batch_stats"]))
 
@@ -305,11 +350,15 @@ def _run(name):
         finally:
             jax.config.update("jax_enable_x64", False)
     build_port = dict(wpose=flagship_model, meta=learned_pose_model,
-                      fisheye=fisheye_model)[kind]
+                      fisheye=fisheye_model, nusc=nusc_model,
+                      distill=distill_model)[kind]
     port = build_port(H, W, device="cpu").to(
         torch.float64 if x64 else torch.float32)
     load_flax_variables(port, ref["variables"])
-    opt, _ = flagship_optimizer(port)
+    if kind in RECIPE_CFG:
+        opt, _ = recipe_optimizer(port, NUSC_RECIPE, RECIPE_CFG[kind](H, W))
+    else:
+        opt, _ = flagship_optimizer(port)
     pose_bn_updates = []
     with pytest.MonkeyPatch.context() as mp:
         if x64:
@@ -324,6 +373,9 @@ def _run(name):
                        (pose_bn_updates.append(1), _orig(m, v)))
         metrics = make_train_step("cpu", with_grads=True)(port, opt, batch)
     got = dict(loss=float(metrics["loss"]),
+               grad_norm=float(metrics["grad_norm"]),
+               loss_dict={k: float(v) for k, v in metrics.items()
+                          if k.startswith("distilation/")},
                grads=to_flax(port, metrics["_grads"])["params"],
                params=to_flax(port, dict(port.named_parameters()))["params"],
                stats=to_flax(port, {k: t for k, t in port.state_dict().items()
@@ -362,6 +414,12 @@ def test_train_step_matches_jax(route):
         assert abs(got["loss"] - ref["loss"]) <= loss_tol * abs(ref["loss"])
 
     ref_g, got_g = dict(_flat(ref["grads"])), dict(_flat(got["grads"]))
+    # the distillation teacher: no gradient on the JAX side, none taken on
+    # the port's (it is out of the optimizer)
+    teacher = [p for p in ref_g if p[0] == "teacher_net"]
+    assert bool(teacher) == (name == "distill_xla")
+    for path in teacher:
+        assert not np.any(ref_g.pop(path)), path
     assert sorted(got_g) == sorted(ref_g)
     kept = [p for p in ref_g if not _bn_cancelled(p)]
     g_norm = np.sqrt(sum(float(np.sum(np.square(ref_g[p]))) for p in kept))
@@ -378,6 +436,17 @@ def test_train_step_matches_jax(route):
         diff = np.sqrt(sum(float(np.sum(np.square(got_g[p] - ref_g[p])))
                            for p in kept))
         assert diff <= 1e-2 * g_norm, diff / g_norm
+    else:
+        # the global norm the clip divides by, the teacher's zeros included
+        # on the JAX side
+        assert abs(got["grad_norm"] - ref["grad_norm"]) <= \
+            1e-10 * ref["grad_norm"]
+    distill = {k: v for k, v in ref["loss_dict"].items()
+               if k.startswith("distilation/")}
+    assert sorted(got["loss_dict"]) == sorted(distill)
+    assert bool(distill) == (name == "distill_xla")
+    for k, r in distill.items():
+        assert abs(got["loss_dict"][k] - r) <= 1e-10 * abs(r), k
 
     start = dict(_flat(ref["variables"]["params"]))
     ref_p, got_p = dict(_flat(ref["params"])), dict(_flat(got["params"]))
@@ -389,6 +458,9 @@ def test_train_step_matches_jax(route):
         if _bn_cancelled(path):
             assert np.abs(a - start[path]).max() <= LR * (1 + 1e-6), path
             continue
+        if path[0] == "teacher_net":          # frozen: bitwise unchanged
+            assert np.array_equal(r, start[path]), path
+            assert np.array_equal(a, start[path]), path
         d = np.abs(a - r)
         assert d.max() <= (1e-6 if f64 else 2 * LR * (1 + 1e-6)), path
         n_close += int((d <= 1e-6).sum())
@@ -398,9 +470,13 @@ def test_train_step_matches_jax(route):
     ref_s, got_s = dict(_flat(ref["stats"])), dict(_flat(got["stats"]))
     assert sorted(got_s) == sorted(ref_s)
     tol = 1e-6 if f64 else 1e-5
+    start_s = dict(_flat(ref["variables"]["batch_stats"]))
     for path, r in ref_s.items():
         assert np.all(np.abs(got_s[path] - r)
                       <= tol * np.maximum(1.0, np.abs(r))), path
+        if path[0] == "teacher_net":          # eval-mode BN: unchanged
+            assert np.array_equal(r, start_s[path]), path
+            assert np.array_equal(got_s[path], start_s[path]), path
 
     # the forced TPU route really ran the Pallas kernels: the depth-direct
     # warp without a patched mask, the grid route's two warps with one
