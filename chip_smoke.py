@@ -254,7 +254,47 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     over 3 steps; peak memory) and each conv kernel at the shapes of phase
     28 beside its plain version, its two bounds and, at the one-part
     zero-padded shapes, cuDNN's call of the same function, summed over
-    each step's launches.
+    each step's launches;
+32. the bf16 forms against their plain versions on the card, each
+    launched 4 times (``--conv-repeats``): the moments kernel at the 10
+    upconv shapes of the bs12 step (the stored bf16 output within one bf16
+    ulp of the plain one beyond 2e-5 of its largest entry and bitwise
+    launch to launch, the float32 moments within phase 8's gates of the
+    sums of that stored output: a one-ulp rounding flip of a stored value
+    moves a sum over 1,440 pixels by about 5e-6 of it)
+    and the weight cotangent on bf16 operands at all 14 (float32, phase
+    8's gate), phase 8's trap saving a miss; kernels I and J on the
+    depth-direct step's bf16 warped and identity stacks (bitwise equal to
+    the plain versions, J also to its float32 form on the widened operands
+    rounded, which is within 1e-5 of the float32 plain cotangent); the
+    warps A, B (depth-direct) and F, E (the mask) through their wrappers on
+    bf16 images (A, F, E bitwise; B's bf16 form, gfx and gfy formed in the
+    kernel, within 1e-6); prints each bf16 kernel's
+    registers, spills and shared memory (ptxas) and the photometric
+    kernels' occupancy at bf16;
+33. one bf16 step of each flagship route through ``make_train_step`` with
+    the recipe's ``compute_dtype``, the counters set to 0 just before: the
+    launches of phases 9 and 13, the conv and photometric kernels on bf16
+    operands (the wrappers' counts by dtype), the routes as at float32,
+    bf16 warped frames into the loss; the lane-window count on the step's
+    own depths;
+34. one bf16 step at batch 2 x 192x640 of each route on the card and
+    through the port on the CPU, on the synthetic batch's own textures,
+    held to the JAX package's bf16 gates: loss rel < 2e-2, which the card's
+    float32 step (the control) must miss; the card's bf16 gradients against
+    the CPU port's, global rel-L2 < 0.3 and worst leaf < 0.6 (the
+    control's read beside them, and gated to miss); gradient cosine
+    against the card's float32 step > 0.25;
+    every gradient leaf on the card bf16-valued; prints the bf16/f32 loss
+    ratio;
+35. times the flagship step at batch 12 in float32 and in bf16 on both
+    routes as ``bench.py`` times the JAX step (the batch on the card, 3
+    warm-up steps, the fastest of 4 windows of 20 steps; device-busy ms
+    under ``torch.profiler``; peak memory), and each bf16 form at the
+    step's shapes beside its float32 form, its bounds at bf16 bytes and,
+    at the 5 one-part zero-padded conv shapes, cuDNN in bf16; the warps
+    through their wrappers on bf16 images, widening and rounding passes
+    included, beside their float32 kernels alone.
 
 Every train step (phases 9, 13, 14, 19, 27, 29) launches the forward
 kernel twice (the warped stack and the identity stack) and the cotangent
@@ -519,11 +559,15 @@ PHOTO_FP32 = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "MUFU",
 
 
 def _photo_name(mangled):
-    """``photo_loss_fwd_vec_kernel<3>`` from a mangled kernel name."""
-    m = re.search(r"(photo_loss_(?:fwd|bwd)(?:_vec)?_kernel)(?:ILi(\d)E)?",
-                  mangled)
-    return mangled if m is None else m.group(1) + (
-        f"<{m.group(2)}>" if m.group(2) else "")
+    """``photo_loss_fwd_vec_kernel<3>`` (the float32 kernel) or
+    ``photo_loss_fwd_vec_kernel<3, bf16>`` from a mangled kernel name."""
+    m = re.search(r"(photo_loss_(?:fwd|bwd)(?:_vec)?_kernel)"
+                  r"(?:I(?:Li(\d)E)?(f|13__nv_bfloat16)E)?", mangled)
+    if m is None:
+        return mangled
+    args = [a for a in (m.group(2), "bf16" if m.group(3) == "13__nv_bfloat16"
+                        else None) if a]
+    return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
 def photo_build(build, log):
@@ -588,6 +632,13 @@ def photo_build(build, log):
     return found
 
 
+def tc16_bound(ops, nbytes):
+    """(bound ms, what bounds it) of a pass on bfloat16 operands at the bf16
+    dense tensor-core rate (989 TFLOP/s) against its bytes at the HBM
+    rate."""
+    return ms_bound(ops, nbytes, torch.bfloat16)
+
+
 def tc_bound(ops, nbytes, dtype=torch.float32):
     """(bound ms, what bounds it) of a conv pass on the conv kernels' route:
     its TF32 tensor-core products at 495 TFLOP/s (three per float32
@@ -643,6 +694,8 @@ def zero(counters) -> None:
         fn.launches = 0
         if hasattr(fn, "routes"):
             fn.routes = dict.fromkeys(fn.routes, 0)
+        if hasattr(fn, "dtypes"):
+            fn.dtypes = dict.fromkeys(fn.dtypes, 0)
 
 
 def routes(counters):
@@ -667,10 +720,10 @@ def rel_err(got, ref, scale=None):
     return diff, diff / max(den, 1e-30)
 
 
-def ms_bound(ops, nbytes):
-    """(bound ms, what bounds it): float32 operations at the peak outside
-    the tensor cores, bytes at the HBM rate."""
-    t_ops, t_bytes = ops / PEAK_OPS[torch.float32], nbytes / PEAK_BYTES
+def ms_bound(ops, nbytes, dtype=torch.float32):
+    """(bound ms, what bounds it): operations at ``dtype``'s peak (float32:
+    outside the tensor cores), bytes at the HBM rate."""
+    t_ops, t_bytes = ops / PEAK_OPS[dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -1010,11 +1063,13 @@ def grad_rel_l2(g_a, g_b):
     return (num / den) ** 0.5
 
 
-def one_step(build, batch, dev, H, W, dtype=torch.float32, optimizer=None):
+def one_step(build, batch, dev, H, W, dtype=torch.float32, optimizer=None,
+             compute_dtype=None):
     """(loss, gradients, first Adam updates) of one train step of
     ``build(H, W, ...)`` from its seeded weights, on ``dev`` in ``dtype``
     (float64 only on the CPU, through the plain versions), with
-    ``optimizer(model)`` (default the flagship's)."""
+    ``optimizer(model)`` (default the flagship's), through
+    ``make_train_step(compute_dtype=compute_dtype)``."""
     from fsnet_tpu_torch.entry import flagship_optimizer
     from fsnet_tpu_torch.ops import warp_fast as twf
     from fsnet_tpu_torch.runtime.state import make_train_step
@@ -1027,7 +1082,8 @@ def one_step(build, batch, dev, H, W, dtype=torch.float32, optimizer=None):
         batch = {k: v.astype(np.float64) for k, v in batch.items()}
     dtypes, twf._DTYPES = twf._DTYPES, (dtype,)
     try:
-        met = make_train_step(dev, with_grads=True)(m, o, batch)
+        met = make_train_step(dev, compute_dtype=compute_dtype,
+                              with_grads=True)(m, o, batch)
     finally:
         twf._DTYPES = dtypes
     return (float(met["loss"]),
@@ -1125,14 +1181,17 @@ def drive_steps(model, opt, batch, counters, want, what, steps=3,
                 frozen_bitwise=len(kept))
 
 
-def time_conv_kernels(B, shapes, rows, forward=False):
-    """Phases 11 and 31: each conv kernel at ``shapes`` and batch ``B``
-    (CUDA events over 10 back-to-back launches), with its plain version,
-    its two bounds (float32 CUDA cores, 3xTF32 tensor cores) and, at a
-    one-part zero-padded shape, the one PyTorch call of the same function
-    (cuDNN; a yardstick only): the moments kernel at the upconvs, the input
-    and weight cotangents at all and, with ``forward``, the forward at all.
-    Fills each shape's row of ``rows``; returns the sums by kernel."""
+def time_conv_kernels(B, shapes, rows, forward=False, dtype=torch.float32):
+    """Phases 11, 31 and 35: each conv kernel at ``shapes`` and batch ``B``
+    on ``dtype`` operands (CUDA events over 10 back-to-back launches), with
+    its plain version, its two bounds (float32 CUDA cores, TF32 tensor
+    cores: three products a float32 one, one a bfloat16 one; in bfloat16
+    also the bf16 tensor cores' ``tc16_bound_ms``) and, at a one-part
+    zero-padded shape, the one PyTorch call of the same function (cuDNN in
+    ``dtype``; a yardstick only): the moments kernel at the upconvs, the
+    input and weight cotangents at all and, with ``forward``, the forward
+    at all. Fills each shape's row of ``rows``; returns the sums by
+    kernel."""
     import torch.nn.functional as F
 
     from fsnet_tpu_torch.ops import conv3x3 as tc
@@ -1142,9 +1201,10 @@ def time_conv_kernels(B, shapes, rows, forward=False):
                                                   "conv3x3_dw")
     tot = {k: dict(ms=0.0, plain_ms=0.0, items=[], lib_ms=0.0,
                    lib_kernel_ms=0.0, lib_shapes=[]) for k in names}
+    sz = torch.finfo(dtype).bits // 8          # bytes of an operand
     for i, (name, H, W, Cs, Co, pad) in enumerate(shapes):
-        parts, w, b = conv_inputs(B, H, W, Cs, Co, torch.float32, seed=i)
-        gy = torch.randn(B, H, W, Co, device="cuda")
+        parts, w, b = conv_inputs(B, H, W, Cs, Co, dtype, seed=i)
+        gy = torch.randn(B, H, W, Co, device="cuda").to(dtype)
         n, cin = B * H * W, sum(Cs)
         row = rows[i]
         timed = {}
@@ -1156,26 +1216,27 @@ def time_conv_kernels(B, shapes, rows, forward=False):
             timed["conv3x3"] = (
                 lambda: tc.conv3x3(parts, w, b, pad),
                 lambda: tc.conv3x3_plain(parts, w, b, pad),
-                conv_work(B, H, W, Cs, Co),
+                conv_work(B, H, W, Cs, Co, dtype),
                 (lambda: F.conv2d(xc, wc, b, padding=1)) if lib else None)
         if name.startswith("upconv_"):
             timed["conv3x3_bn"] = (
                 lambda: tc.conv3x3_bn(parts, w, b, pad),
                 lambda: tc.moments_plain(tc.conv3x3_plain(parts, w, b, pad)),
                 (2.0 * 9 * n * cin * Co + 3.0 * n * Co,
-                 4.0 * (n * cin + 9 * cin * Co + Co + n * Co + 2 * Co)), None)
+                 sz * (n * cin + 9 * cin * Co + Co + n * Co) + 8.0 * Co),
+                None)
         timed["conv3x3_dx"] = (
             lambda: tc.conv3x3_dx(gy, w, pad, Cs),
             lambda: tc.conv3x3_dx_plain(gy, w, pad, Cs),
             (2.0 * 9 * n * Co * cin,
-             4.0 * (n * Co + 9 * cin * Co + n * cin)),
+             sz * (n * Co + 9 * cin * Co + n * cin)),
             (lambda: torch.nn.grad.conv2d_input(xc.shape, wc, gc, padding=1))
             if lib else None)
-        timed["conv3x3_dw"] = (
+        timed["conv3x3_dw"] = (         # the weight cotangent is float32
             lambda: tc.conv3x3_dw(parts, gy, pad),
             lambda: tc.conv3x3_dw_plain(parts, gy, pad),
             (2.0 * 9 * n * cin * Co,
-             4.0 * (n * cin + n * Co + 9 * cin * Co)),
+             sz * (n * cin + n * Co) + 4.0 * 9 * cin * Co),
             (lambda: torch.nn.grad.conv2d_weight(xc, wc.shape, gc, padding=1))
             if lib else None)
         for k, (fn, plain, ob, library) in timed.items():
@@ -1189,16 +1250,20 @@ def time_conv_kernels(B, shapes, rows, forward=False):
             row[f"{k}_plain_ms"] = t["plain_ms"] - plain0
             row[f"{k}_work"] = ob
             row[f"{k}_bound_ms"] = ms_bound(*ob)[0]
-            row[f"{k}_tc_bound_ms"] = tc_bound(*ob)[0]
+            row[f"{k}_tc_bound_ms"] = tc_bound(*ob, dtype)[0]
+            if dtype == torch.bfloat16:
+                row[f"{k}_tc16_bound_ms"] = tc16_bound(*ob)[0]
             if library is not None:
                 row[f"{k}_library_ms"] = cuda_ms(library, iters=10)
                 t["lib_ms"] += row[f"{k}_library_ms"]
                 t["lib_kernel_ms"] += ms
                 t["lib_shapes"].append(name)
-        print(f"time  {name:11s} "
+        print(f"time  {name:11s} {str(dtype)[6:]} "
               + "  ".join(f"{k[8:]} {row[f'{k}_ms']:.4f} ms (bound f32 "
-                          f"{row[f'{k}_bound_ms']:.4f}, 3xTF32 "
+                          f"{row[f'{k}_bound_ms']:.4f}, TF32 "
                           f"{row[f'{k}_tc_bound_ms']:.4f}"
+                          + (f", bf16 TC {row[f'{k}_tc16_bound_ms']:.4f}"
+                             if f"{k}_tc16_bound_ms" in row else "")
                           + (f"; cuDNN {row[f'{k}_library_ms']:.4f}"
                              if f"{k}_library_ms" in row else "") + ")"
                           for k in timed))
@@ -2442,24 +2507,27 @@ def check_photo_kernels(recipe, stacks, target, seed, autograd_gate=True):
     return errs, ties, times, bwd_errs
 
 
-def photo_occupancy():
+def photo_occupancy(dtype=0):
     """Dynamic shared memory per block and resident blocks per SM of the
-    vector route's two kernels at C = 3, by the runtime."""
+    vector route's two kernels at C = 3, in float32 (``dtype`` 0) or
+    bfloat16 (1, whose staged tiles are float32 as the float32 kernels'),
+    by the runtime."""
     import ctypes
 
     from fsnet_tpu_torch.ops import _build
 
     fn = _build.load("photo_loss").fsnet_photo_loss_vec_occupancy
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     occ = {}
     for bwd, tag in ((0, "fwd"), (1, "bwd")):
         smem = ctypes.c_int(0)
-        blocks = fn(bwd, 3, ctypes.byref(smem))
-        check(blocks > 0, f"occupancy of photo_loss_{tag}_vec_kernel<3>: "
-              f"{blocks}")
+        blocks = fn(bwd, 3, dtype, ctypes.byref(smem))
+        name = f"photo_loss_{tag}_vec_kernel<3{', bf16' if dtype else ''}>"
+        check(blocks > 0, f"occupancy of {name}: {blocks}")
         occ[tag] = dict(dynamic_smem=smem.value, blocks_per_sm=blocks)
-        print(f"kernel photo_loss_{tag}_vec_kernel<3>: {occ[tag]}")
+        print(f"kernel {name}: {occ[tag]}")
     return occ
 
 
@@ -2947,6 +3015,674 @@ def add_nusc_readings(kernels, nusc):
 
 
 
+# ---------------------------------------------------------------- bf16 step
+
+BF16 = torch.bfloat16
+
+
+def bf16_ulp(t):
+    """One bfloat16 ulp at |t| elementwise (0 at 0)."""
+    a = t.float().abs()
+    e = torch.frexp(a).exponent
+    return torch.where(a > 0, torch.ldexp(torch.ones_like(a), e - 8),
+                       torch.zeros_like(a))
+
+
+class HeldUlp(Held):
+    """A bfloat16 output of a conv kernel held over repeated launches: each
+    launch within one bf16 ulp of the plain ``ref`` elementwise beyond
+    ``gate`` times max |ref| (the two round float32 sums taken in other
+    orders: the float32 gate), and bitwise equal to the first launch. A
+    miss is saved as :class:`Held` saves one."""
+
+    share = 0.0
+
+    def __call__(self, got):
+        self.n += 1
+        diff = (got.float() - self.ref.float()).abs()
+        big = torch.maximum(got.float().abs(), self.ref.float().abs())
+        nbad = int((diff > bf16_ulp(big) + self.gate * self.den).sum())
+        d = diff.max().item()
+        self.d, self.e = max(self.d, d), max(self.e, d / self.den)
+        self.share = max(self.share, float((got != self.ref).double().mean()))
+        if self.first is None:
+            self.first = got
+        same = torch.equal(got, self.first)
+        if nbad or not same:
+            what = (f"launch {self.n}: {nbad} elements beyond one bf16 ulp + "
+                    f"{self.gate:.0e} of max |plain|"
+                    + ("" if same else ", not bitwise equal to launch 1"))
+            save_fault(f"{self.tag}_launch{self.n}", what, self.inputs, got,
+                       self.first, self.ref, self.ref64(),
+                       self.gate * self.den)
+            check(False, f"{self.tag}: {what}")
+
+
+def template_name(mangled):
+    """``conv3x3_dw_kernel<bf16, 16, 32, true>`` from a mangled kernel
+    name whose template arguments are types (float, bfloat16), ints and
+    bools."""
+    name = kernel_name(mangled)
+    m = re.search(r"_kernelI(.*?)EEv", mangled)
+    if name is None or m is None:
+        return mangled
+    args = ["bf16" if "bfloat16" in t.group(0) else "float"
+            if t.group(0) == "f" else t.group(1)
+            or ("true" if t.group(2) == "1" else "false")
+            for t in re.finditer(r"13__nv_bfloat16|Li(\d+)E|Lb([01])E|f",
+                                 m.group(1))]
+    return f"{name.split('<')[0]}<{', '.join(args)}>"
+
+
+def bf16_ptxas(logs):
+    """ptxas's register, spill and shared-memory lines of every kernel
+    instantiated on bfloat16 operands, by name, from the build's
+    ``-Xptxas -v`` messages."""
+    out = {}
+    for lib, log in logs.items():
+        name = None
+        for line in log.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(\w+)", line)
+            if m:
+                name = (template_name(m.group(1))
+                        if "nv_bfloat16" in m.group(1) else None)
+            elif name and ("registers" in line or "spill" in line):
+                out.setdefault(f"{lib}: {name}", []).append(
+                    line.split(":", 1)[-1].strip())
+    return out
+
+
+def check_bf16_kernels(train, record):
+    """Phase 32: each bfloat16 form against its plain version on the card,
+    each launched :data:`REPEATS` times: the moments kernel at the 10
+    upconv shapes and the weight cotangent at all 14 of the bs12 train step
+    (phase 8's trap saves a miss), kernels I and J on the depth-direct
+    step's warped and identity stacks at bf16, and the warps A, B, F and
+    E (at the mask) through their wrappers on bf16 images. Prints each
+    bf16 kernel's ptxas report and the photometric kernels' occupancy.
+    Returns the max abs errors by kernel and the operands phase 35
+    times."""
+    from fsnet_tpu_torch.ops import conv3x3 as tc
+    from fsnet_tpu_torch.ops import photo_loss as tpl
+    from fsnet_tpu_torch.ops import warp_depth as twd
+    from fsnet_tpu_torch.ops import warp_fast as twf
+    from fsnet_tpu_torch.ops.ssim import ssim_target_stats
+
+    for name, lines in record["bf16_ptxas"].items():
+        for line in lines:
+            print(f"  ptxas bf16 {name}: {line}")
+    occ = record["bf16_photo_occupancy"] = photo_occupancy(1)
+    print(f"photometric vector kernels at bf16, C = 3: {occ} (float32 "
+          f"tiles, as the float32 kernels': {record['photo_occupancy']})")
+
+    errs = dict(conv3x3_bn=0.0, conv3x3_bn_mom=0.0, conv3x3_dw=0.0)
+    shares = []
+    for i, (name, H, W, Cs, Co, pad) in enumerate(SHAPES):
+        parts, w, b = conv_inputs(BATCH, H, W, Cs, Co, BF16, seed=i)
+        gy = torch.randn(BATCH, H, W, Co, device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(100 + i)).to(BF16)
+        inputs = {f"x{j}": p for j, p in enumerate(parts)}
+        inputs.update(w=w, b=b, gy=gy)
+        at = f"bf16_{name}"
+
+        def conv64():
+            return tc._conv_core([p.double() for p in parts], w.double(),
+                                 b.double(), pad)
+
+        held = {}
+        bn = name.startswith("upconv_")
+        if bn:
+            ref = tc.conv3x3_plain(parts, w, b, pad)
+            r1, r2 = tc.moments_plain(ref)
+            held["bn"] = HeldUlp(f"{at}_bn_out", ref, 2e-5, True, inputs,
+                                 conv64)
+            s1_scale = ref.float().abs().sum((0, 1, 2)).max().item()
+            mom = dict(s1=0.0, s2=0.0, plain_s1=0.0, plain_s2=0.0)
+            del ref
+        held["dw"] = Held(f"{at}_dw", tc.conv3x3_dw_plain(parts, gy, pad),
+                          2e-5, False, inputs,
+                          lambda: tc.conv3x3_dw_plain(
+                              [p.double() for p in parts], gy.double(), pad))
+        for _ in range(REPEATS):
+            got = {}
+            if bn:
+                got["bn"], got["s1"], got["s2"] = tc.conv3x3_bn(parts, w, b,
+                                                                pad)
+            got["dw"] = tc.conv3x3_dw(parts, gy, pad)
+            torch.cuda.synchronize()
+            check(got["dw"].dtype == torch.float32 and (
+                not bn or (got["bn"].dtype == BF16
+                           and got["s1"].dtype == torch.float32)),
+                  f"{at}: output dtypes")
+            for k, v in got.items():
+                if k in held:
+                    held[k](v)
+            if bn:
+                # the moments: float32 sums of this launch's own stored
+                # output, at phase 8's gates; beside the plain moments (of
+                # the plain output, whose bf16 rounding may differ by one
+                # ulp in some elements: a reading)
+                own = tc.moments_plain(got["bn"])
+                for k, r, pr, scale in (("s1", own[0], r1, s1_scale),
+                                        ("s2", own[1], r2, None)):
+                    Held(f"{at}_bn_{k}", r, 2e-5, False, inputs,
+                         lambda k=k: tc.moments_plain(
+                             got["bn"].double())[k == "s2"],
+                         scale)(got[k])
+                    e = rel_err(got[k], r, scale)[1]
+                    mom[k] = max(mom[k], e)
+                    mom[f"plain_{k}"] = max(mom[f"plain_{k}"], rel_err(
+                        got[k], pr, scale)[1])
+                    errs["conv3x3_bn_mom"] = max(errs["conv3x3_bn_mom"],
+                                                 rel_err(got[k], r)[0])
+        errs["conv3x3_dw"] = max(errs["conv3x3_dw"], held["dw"].d)
+        line = f"dw {held['dw'].e:.2e}"
+        if bn:
+            errs["conv3x3_bn"] = max(errs["conv3x3_bn"], held["bn"].d)
+            shares.append(held["bn"].share)
+            line = (f"bn out max abs err {held['bn'].d:.2e} "
+                    f"({held['bn'].share:.2e} not bitwise equal, all within "
+                    f"one bf16 ulp) s1 {mom['s1']:.2e} s2 {mom['s2']:.2e} "
+                    f"(of the launch's own output; of the plain output "
+                    f"{mom['plain_s1']:.2e}, {mom['plain_s2']:.2e}) " + line)
+        print(f"check bf16 {name:11s} B{BATCH} {H}x{W} x{REPEATS}: rel err "
+              f"{line}")
+    record["bf16_conv_bn_not_bitwise"] = max(shares)
+
+    # kernels I and J on the depth-direct step's stacks at bf16
+    wi = train["warp_in"]
+    image = wi["image"].to(BF16)
+    depth, arows = wi["depth"], wi["arows"]
+    warped, ov, va, vb = twd.warp_depth_fwd(image, depth, arows, S_SCALES,
+                                            F_FRAMES, BAND)
+    target = torch.from_numpy(
+        train["batch"]["original_image/0"]).cuda().to(BF16)
+    muy, sy = ssim_target_stats(target)
+    for kind, pred in (("warped", warped), ("identity", image)):
+        check(tpl.photo_route(pred, target, muy, sy) == "vector",
+              f"bf16 {kind} stack: operands miss the vector route")
+        ref = tpl.photo_loss_plain(pred, target, muy, sy)
+        for _ in range(REPEATS):
+            got = tpl.photo_loss_fwd(pred, target, muy, sy)
+            torch.cuda.synchronize()
+            check(got.dtype == BF16 and torch.equal(got, ref),
+                  f"photo_loss_fwd bf16 {kind}: not bitwise equal to the "
+                  "plain version")
+    errs["photo_loss_fwd"] = 0.0
+    N = warped.shape[0]
+    g = torch.randn(N, HEIGHT, WIDTH, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(13)
+                    ).to(BF16)
+    ref = tpl.photo_loss_bwd_plain(warped, target, muy, sy, g)
+    wide = [t.float() for t in (warped, target, muy, sy, g)]
+    ref32 = tpl.photo_loss_bwd_plain(*wide)
+    for _ in range(REPEATS):
+        dx = tpl.photo_loss_bwd(warped, target, muy, sy, g)
+        dx32 = tpl.photo_loss_bwd(*wide)
+        torch.cuda.synchronize()
+        e32 = rel_err(dx32, ref32)[1]
+        check(dx.dtype == BF16 and torch.equal(dx, ref)
+              and torch.equal(dx, dx32.to(BF16)) and e32 <= 1e-5,
+              f"photo_loss_bwd bf16: not bitwise equal to the plain version "
+              f"or to its float32 form rounded, or the float32 form "
+              f"{e32:.2e} > 1e-5 of the largest entry")
+    errs["photo_loss_bwd"] = 0.0
+    print(f"check bf16 photometric loss, warped N={N} and identity stacks "
+          f"{HEIGHT}x{WIDTH}x3 against B={BATCH} (vector route) x{REPEATS}: "
+          f"I bitwise equal to the plain version on both; J bitwise equal "
+          f"to the plain version and to its float32 form on the widened "
+          f"operands, rounded; that float32 form {e32:.2e} of the largest "
+          f"entry from the float32 plain cotangent")
+
+    # the warps A, B (depth-direct) and F, E (grid route) at bf16
+    ref = twd.warp_depth_plain(image.float(), depth, arows, S_SCALES,
+                               F_FRAMES, BAND)
+    ref = (ref[0].to(BF16), ref[1], ref[2].to(BF16), ref[3].to(BF16))
+    gb = torch.randn(warped.shape, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(7)
+                     ).to(BF16)
+    dd_ref = twd.warp_depth_bwd_plain(depth, gb, ref[2], ref[3], arows,
+                                      S_SCALES, F_FRAMES)
+    e_dd = 0.0
+    for _ in range(REPEATS):
+        got = twd.warp_depth_fwd(image, depth, arows, S_SCALES, F_FRAMES,
+                                 BAND)
+        dd = twd.warp_depth_bwd(depth, gb, got[2], got[3], arows, S_SCALES,
+                                F_FRAMES)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, r) for a, r in zip(got, ref)),
+              "kernel A at bf16: not bitwise equal to the plain version")
+        e_dd = max(e_dd, rel_err(dd, dd_ref)[1])
+        check(dd.dtype == torch.float32 and e_dd <= 1e-6,
+              f"kernel B at bf16: rel err {e_dd:.2e} > 1e-6")
+    errs["warp_depth_fwd"], errs["warp_depth_bwd"] = 0.0, e_dd
+    image_g, mask, grid = grid_scene(train["batch"], wi["image"], depth)
+    image_g, mask = image_g.to(BF16), mask.to(BF16)
+    ref_f = tuple(t.to(BF16) for t in twf.grid_band_plain(
+        image_g.float(), grid, "bilinear", "border", BAND))
+    ref_e = twf.grid_band_plain(mask.float(), grid, "nearest", "zeros", BAND,
+                                False)[0].to(BF16)
+    for _ in range(REPEATS):
+        got = twf.grid_band_fused(image_g, grid, "border", BAND)
+        ov = twf.grid_band_fwd(mask, grid, "nearest", "zeros", BAND)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, r) for a, r in zip(got, ref_f))
+              and torch.equal(ov, ref_e),
+              "kernels F, E at bf16: not bitwise equal to the plain versions")
+    errs["warp_grid_fused"] = errs["warp_grid_fwd"] = 0.0
+    print(f"check bf16 warps x{REPEATS}: A (out, overlap, va, vb) bitwise "
+          f"equal to the plain version, B (its bf16 form: bf16 loads, gfx "
+          f"and gfy formed in the kernel) rel err {e_dd:.2e} (gate 1e-6), "
+          f"F (out, va, vb) and E (the mask) bitwise; A, F and E on their "
+          f"float32 kernels, the image widened at the wrapper and out, va, "
+          f"vb rounded to bf16")
+    return errs, dict(image=image, depth=depth, arows=arows, warped=warped,
+                      va=va, vb=vb, gb=gb, target=target, muy=muy, sy=sy,
+                      g=g, grid_scene=(image_g, mask, grid))
+
+
+def bf16_steps(counters, record, train):
+    """Phase 33: one bf16 step of each route of the flagship (depth-direct
+    on the synthetic batch, the grid route with an all-ones patched mask)
+    through ``make_train_step(compute_dtype=...)`` with the recipe's
+    compute dtype, the launch counters set to 0 just before: the launches
+    per kernel as at float32, the conv and photometric kernels on bf16
+    operands (by the wrappers' dtype counts), the warps' on their float32
+    kernels, the routes as at float32, the warped frames the loss saw
+    bf16; the lane-window count on the step's own depths."""
+    from fsnet_tpu_torch.entry import (FLAGSHIP_RECIPE, flagship_model,
+                                       flagship_optimizer, synthetic_batch)
+    from fsnet_tpu_torch.ops import warp_depth as twd
+    from fsnet_tpu_torch.ops import warp_fast as twf
+    from fsnet_tpu_torch.ops.geometry import project_rows
+    from fsnet_tpu_torch.runtime.state import make_train_step
+
+    cdt = FLAGSHIP_RECIPE["compute_dtype"]
+    step = make_train_step("cuda", compute_dtype=cdt)
+    bf16_kernels = ("conv3x3", "conv3x3_bn", "conv3x3_dx", "conv3x3_dw",
+                    "photo_loss_fwd", "photo_loss_bwd", "warp_depth_bwd")
+    out = {}
+    want_dd = train["want"]
+    want_grid = dict(want_dd, warp_depth_fwd=0, warp_depth_bwd=0,
+                     warp_grid_fused=1, warp_grid_fwd=1)
+    batches = dict(depth_direct=train["batch"],
+                   grid=synthetic_batch(BATCH, HEIGHT, WIDTH,
+                                        patched_mask="ones"))
+    for route, want in (("depth_direct", want_dd), ("grid", want_grid)):
+        model = flagship_model(HEIGHT, WIDTH, device="cuda", seed=0)
+        opt, _ = flagship_optimizer(model)
+        p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        seen, release = capture_warp(model)
+        zero(counters)
+        met = step(model, opt, batches[route])
+        torch.cuda.synchronize()
+        counts = read(counters)
+        dtypes = {k: dict(counters[k].dtypes) for k in bf16_kernels}
+        rts = routes(counters)
+        release()
+        loss = float(met["loss"])
+        check(np.isfinite(loss), f"bf16 {route} step: loss {loss}")
+        check(counts == want, f"bf16 {route} step: launches {counts}, "
+              f"expected {want}")
+        check(all(dtypes[k] == dict(float32=0, bfloat16=want[k])
+                  for k in bf16_kernels),
+              f"bf16 {route} step: launches by dtype {dtypes}")
+        check(seen["preds"].dtype == BF16, f"bf16 {route} step: the loss "
+              f"saw {seen['preds'].dtype} warped frames")
+        wanted_routes = dict(photo_loss_fwd=dict(narrow=0, vector=2),
+                             photo_loss_bwd=dict(narrow=0, vector=1))
+        if route == "depth_direct":
+            wanted_routes["warp_depth_fwd"] = dict(narrow=0, vector=1)
+        else:
+            wanted_routes["warp_grid_fused"] = dict(narrow=0, row=1)
+            wanted_routes["warp_grid_fwd"] = dict(narrow=0, vector=0, row=1)
+        for k, r in wanted_routes.items():
+            check(rts[k] == r, f"bf16 {route} step: {k} routes {rts[k]}, "
+                  f"expected {r}")
+        moved = sum(int(not torch.equal(p.detach(), p0[n]))
+                    for n, p in model.named_parameters())
+        check(moved >= len(p0) - 10, f"bf16 {route} step: {moved} of "
+              f"{len(p0)} parameters moved")
+        # the lane-window clamp on this step's own depths
+        depth = seen["depths"].reshape(S_SCALES * BATCH, HEIGHT, WIDTH)
+        if route == "depth_direct":
+            x = project_rows(twd._per_warp_depth(depth, S_SCALES, F_FRAMES),
+                             train["warp_in"]["arows"])["x"]
+        else:
+            grid = grid_scene(batches[route], train["warp_in"]["image"],
+                              depth)[2]
+            x = twf.unnormalize(grid[..., 0], WIDTH)
+        lane = lane_window_moves(x, WIDTH)
+        out[route] = dict(loss=loss, launches=counts, dtypes=dtypes,
+                          routes=rts, params_moved=moved,
+                          lane_window_moves=lane, samples=x.numel(),
+                          depth_min=float(depth.min()),
+                          depth_max=float(depth.max()))
+        print(f"bf16 {route} step bs{BATCH}@{HEIGHT}x{WIDTH} (compute_dtype "
+              f"{cdt!r}): loss {loss:.6f}, launches {counts}, by dtype "
+              f"{dtypes}, routes { {k: rts[k] for k in wanted_routes} }, "
+              f"{moved} of {len(p0)} parameters moved; on the step's own "
+              f"depths (in [{out[route]['depth_min']:.3f}, "
+              f"{out[route]['depth_max']:.3f}] m) the TPU lane-window clamp "
+              f"would move {lane} of {x.numel()} samples")
+        del model, opt, seen
+    return out, batches
+
+
+def bf16_card_vs_cpu(batches):
+    """Phase 34: one bf16 step at bs2 @192x640 of each route on the card
+    and through the port on the CPU, from the same seeded weights, on the
+    synthetic batch's own images (spatially correlated textures), held to
+    the JAX package's own bf16 gates (``scripts/tpu_smoke.py``): loss rel
+    < 2e-2, which the card's float32 step (the control: a step that did
+    not compute in bf16) must miss against the CPU's bf16 loss; the card's
+    bf16 gradients against the CPU port's bf16 ones, global rel-L2 < 0.3
+    and every leaf < 0.6 without the BN-cancelled biases (measured 0.20
+    and 0.39: the two round apart, as two bf16 implementations do), gates
+    that the card's float32 gradients, the control, miss (0.49 and 0.94);
+    the card's bf16 gradient against the same model's
+    float32 step on the card, cosine > 0.25; every gradient leaf on the
+    card equal to its own bf16 rounding. Prints the bf16/f32 loss ratio
+    (not gated)."""
+    from fsnet_tpu_torch.entry import FLAGSHIP_RECIPE, flagship_model
+
+    cdt = FLAGSHIP_RECIPE["compute_dtype"]
+    out = {}
+    for route, batch in batches.items():
+        small = {k: v[:2] for k, v in batch.items()}
+        l16, g16, _ = one_step(flagship_model, small, "cuda", HEIGHT, WIDTH,
+                               compute_dtype=cdt)
+        l16c, g16c, _ = one_step(flagship_model, small, "cpu", HEIGHT, WIDTH,
+                                 compute_dtype=cdt)
+        l32, g32, _ = one_step(flagship_model, small, "cuda", HEIGHT, WIDTH)
+        rel = abs(l16 - l16c) / abs(l16c)
+        control = abs(l32 - l16c) / abs(l16c)
+        a = torch.cat([g16[k].flatten() for k in sorted(g16)])
+        b = torch.cat([g32[k].flatten() for k in sorted(g32)])
+        cos = float(a @ b / (a.norm() * b.norm()))
+        rounded = [k for k, g in g16.items()
+                   if not torch.equal(g, g.to(BF16).double())]
+        kept = [k for k in g16c if not bn_cancelled(k) and
+                bool(g16c[k].any())]
+
+        def worst_leaf(g):
+            leaf = {k: float((g[k] - g16c[k]).norm() / g16c[k].norm())
+                    for k in kept}
+            worst = max(leaf, key=leaf.get)
+            return worst, leaf[worst]
+
+        grad_rel, (leaf, leaf_rel) = grad_rel_l2(g16, g16c), worst_leaf(g16)
+        c_grad_rel, (_, c_leaf_rel) = grad_rel_l2(g32, g16c), worst_leaf(g32)
+        out[route] = dict(loss_card=l16, loss_cpu=l16c, loss_rel=rel,
+                          control_f32_loss_rel=control,
+                          grad_rel_l2=grad_rel, worst_leaf=leaf,
+                          worst_leaf_rel_l2=leaf_rel,
+                          control_f32_grad_rel_l2=c_grad_rel,
+                          control_f32_worst_leaf_rel_l2=c_leaf_rel,
+                          grad_cosine_vs_f32=cos, loss_f32=l32,
+                          bf16_f32_loss_ratio=l16 / l32,
+                          leaves_not_bf16=rounded)
+        print(f"bf16 card vs CPU port, {route} bs2@{HEIGHT}x{WIDTH}: loss "
+              f"{l16:.6f} vs {l16c:.6f} (rel {rel:.2e}, gate 2e-2; the "
+              f"card's f32 step {l32:.6f}, rel {control:.2e}, must miss); "
+              f"gradients global rel-L2 {grad_rel:.3e} (gate 0.3), worst "
+              f"leaf {leaf} {leaf_rel:.3e} (gate 0.6); the card's f32 "
+              f"gradients against the same {c_grad_rel:.3e}, "
+              f"{c_leaf_rel:.3e}; gradient cosine against the card's f32 "
+              f"step {cos:.4f} (gate > 0.25); bf16/f32 loss ratio "
+              f"{l16 / l32:.4f} (not gated); leaves not bf16-valued: "
+              f"{len(rounded)}")
+        check(rel < 2e-2, f"bf16 {route}: card vs CPU loss rel {rel:.2e}")
+        check(control >= 2e-2, f"bf16 {route}: the f32 control's loss rel "
+              f"{control:.2e} passes the bf16 gate")
+        check(grad_rel < 0.3 and leaf_rel < 0.6, f"bf16 {route}: card vs "
+              f"CPU gradients rel-L2 {grad_rel:.3e}, {leaf} {leaf_rel:.3e}")
+        check(c_grad_rel >= 0.3 or c_leaf_rel >= 0.6, f"bf16 {route}: the "
+              f"f32 control's gradients pass the bf16 gates: {c_grad_rel:.3e}"
+              f", {c_leaf_rel:.3e}")
+        check(cos > 0.25, f"bf16 {route}: gradient cosine {cos:.4f}")
+        check(not rounded, f"bf16 {route}: gradient leaves not bf16-valued: "
+              f"{rounded[:5]}")
+    return out
+
+
+def time_steps(batches):
+    """Phase 35: the flagship step at bs12 @192x640 in float32 and in bf16
+    on each route, the batch on the card, as ``bench.py`` times the JAX
+    step: 3 warm-up steps, 4 windows of 20 steps, the fastest window;
+    device-busy ms a step under ``torch.profiler`` over 3 steps; peak
+    memory over the windows."""
+    from fsnet_tpu_torch.entry import (FLAGSHIP_RECIPE, flagship_model,
+                                       flagship_optimizer)
+    from fsnet_tpu_torch.runtime.state import make_train_step
+
+    out = {}
+    for route, batch in batches.items():
+        on_card = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        for tag, cdt in (("f32", None),
+                         ("bf16", FLAGSHIP_RECIPE["compute_dtype"])):
+            model = flagship_model(HEIGHT, WIDTH, device="cuda", seed=0)
+            opt, _ = flagship_optimizer(model)
+            step = make_train_step("cuda", compute_dtype=cdt)
+            for _ in range(3):
+                step(model, opt, on_card)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            windows = []
+            for _ in range(4):
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    step(model, opt, on_card)
+                torch.cuda.synchronize()
+                windows.append((time.perf_counter() - t0) / 20 * 1e3)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            busy = sum(e.self_device_time_total for e in cuda_kernels(
+                lambda: step(model, opt, on_card), calls=3)) / 1e3 / 3
+            check(busy > 0, f"{route} {tag}: the profiler saw no device time")
+            ms = min(windows)
+            out[f"{route}_{tag}"] = dict(ms=ms, windows_ms=windows,
+                                         imgs_per_s=BATCH / ms * 1e3,
+                                         device_busy_ms=busy,
+                                         peak_mem_gb=peak)
+            print(f"train step {route} {tag} bs{BATCH}@{HEIGHT}x{WIDTH} "
+                  f"(fastest of 4 windows of 20, batch on the card): "
+                  f"{ms:.3f} ms = {BATCH / ms * 1e3:.2f} imgs/s, windows "
+                  f"{[round(w, 3) for w in windows]}; device busy "
+                  f"{busy:.3f} ms a step; peak memory {peak:.3f} GB")
+            del model, opt
+    return out
+
+
+def time_bf16_kernels(ops_in, counts):
+    """Phase 35: each kernel's bf16 form at the bs12 train step's shapes
+    beside its float32 form: the conv kernels at every shape (with cuDNN
+    in bf16 at the one-part zero-padded ones), the warps A, B, F and E
+    through their wrappers on bf16 images (the widening and rounding passes
+    included) beside their float32 kernels, and I, J on the step's bf16
+    stacks beside the float32 kernels on the same values. Bounds at bf16
+    bytes. Returns the kernel line's bf16 entries and the warps' bf16
+    readings."""
+    from fsnet_tpu_torch.ops import photo_loss as tpl
+    from fsnet_tpu_torch.ops import warp_depth as twd
+    from fsnet_tpu_torch.ops import warp_fast as twf
+
+    rows = [dict(name=n) for n, *_ in SHAPES]
+    tot = time_conv_kernels(BATCH, SHAPES, rows, forward=True, dtype=BF16)
+    src = "fsnet_tpu_torch/csrc/"
+    meta = dict(
+        conv3x3=(src + "conv3x3.cu",
+                 "fsnet_tpu/ops/pallas/conv_kernel.py:210"),
+        conv3x3_bn=(src + "conv3x3.cu",
+                    "fsnet_tpu/ops/pallas/conv_kernel.py:258"),
+        conv3x3_dx=(src + "conv3x3.cu",
+                    "fsnet_tpu/ops/pallas/conv_kernel.py:210"),
+        conv3x3_dw=(src + "conv3x3_dw.cu",
+                    "fsnet_tpu/ops/pallas/conv_kernel.py:351"),
+        photo_loss_fwd=(src + "photo_loss.cu",
+                        "fsnet_tpu/ops/pallas/photo_kernel.py:324"),
+        photo_loss_bwd=(src + "photo_loss.cu",
+                        "fsnet_tpu/ops/pallas/photo_kernel.py:370"))
+    entries = []
+    for k, t in tot.items():
+        ops = sum(o for o, _ in t["items"])
+        nbytes = sum(b for _, b in t["items"])
+        b_ms, b_by = ms_bound(ops, nbytes)
+        tc_ms, tc_by = tc_bound(ops, nbytes, BF16)
+        t16_ms, t16_by = tc16_bound(ops, nbytes)
+        entries.append(dict(
+            name=k + "_bf16", form="bf16", route="cuda", source=meta[k][0],
+            replaces=meta[k][1], launches=counts["depth_direct"]["dtypes"][k][
+                "bfloat16"],
+            launches_grid_route=counts["grid"]["dtypes"][k]["bfloat16"],
+            max_abs_err=None, ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=b_ms, bound_by=b_by, tc_bound_ms=tc_ms,
+            tc_bound_by=tc_by, tc16_bound_ms=t16_ms, tc16_bound_by=t16_by,
+            library_ms=t["lib_ms"] if t["lib_shapes"] else None,
+            library_shapes=t["lib_shapes"],
+            ms_library_shapes=t["lib_kernel_ms"],
+            note="bfloat16 operands: sums over the shapes of one bs12 train "
+                 "step's launches (conv3x3: all 14 shapes; the step launches "
+                 "it at the 4 dispconvs); bound_ms on the float32 CUDA "
+                 "cores, tc_bound_ms at one TF32 product (the kernels' "
+                 "route), tc16_bound_ms at the bf16 tensor-core rate, all "
+                 "at bf16 bytes; library_ms: cuDNN in bf16 at "
+                 "library_shapes, ms_library_shapes the kernel there"))
+    record_rows = [{k: v for k, v in r.items() if not k.endswith("_work")}
+                   for r in rows]
+
+    # the photometric kernels on the step's bf16 stacks, bf16 beside f32
+    o = ops_in
+    stacks = dict(warped=o["warped"], identity=o["image"])
+    photo = {}
+    for k, fn in (("photo_loss_fwd", tpl.photo_loss_fwd),
+                  ("photo_loss_bwd", tpl.photo_loss_bwd)):
+        items = stacks.items() if k == "photo_loss_fwd" else [
+            ("warped", o["warped"])]
+        ms16 = ms32 = plain = 0.0
+        ops = nbytes = 0.0
+        for kind, pred in items:
+            args = (pred, o["target"], o["muy"], o["sy"]) + (
+                (o["g"],) if k == "photo_loss_bwd" else ())
+            wide = tuple(a.float() for a in args)
+            ms16 += cuda_ms(lambda: fn(*args), iters=10)
+            ms32 += cuda_ms(lambda: fn(*wide), iters=10)
+            plain += cuda_ms(lambda: (tpl.photo_loss_plain if k ==
+                                      "photo_loss_fwd" else
+                                      tpl.photo_loss_bwd_plain)(*args),
+                             iters=3, warmup=1)
+            N, H, W, C = pred.shape
+            px = N * H * W * C
+            ops += PHOTO_OPS["fwd" if k == "photo_loss_fwd" else "bwd"] * px
+            nbytes += 2.0 * (px + 3 * BATCH * H * W * C + N * H * W) + (
+                2.0 * (N * H * W + px) if k == "photo_loss_bwd" else 0.0)
+        b_ms, b_by = ms_bound(ops, nbytes)
+        photo[k] = dict(ms=ms16, f32_kernel_ms=ms32, plain_ms=plain,
+                        bound_ms=b_ms, bound_by=b_by)
+        entries.append(dict(
+            name=k + "_bf16", form="bf16", route="cuda", source=meta[k][0],
+            replaces=meta[k][1],
+            launches=counts["depth_direct"]["dtypes"][k]["bfloat16"],
+            launches_grid_route=counts["grid"]["dtypes"][k]["bfloat16"],
+            max_abs_err=0.0, ms=ms16, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, f32_kernel_ms=ms32,
+            photo_route="vector",
+            note="bfloat16 operands: one bs12 step's launches on the "
+                 "depth-direct step's bf16 stacks (" + (
+                     "warped N=96 and identity N=24" if k ==
+                     "photo_loss_fwd" else "warped N=96")
+                 + "), vector route; f32_kernel_ms: the float32 kernel on "
+                 "the same values; bound at bf16 bytes"))
+
+    # the warps through their wrappers on bf16 images, beside the float32
+    # kernels on the same values
+    img, dep, ar = o["image"], o["depth"], o["arows"]
+    N = ar.shape[0]
+    px = N * HEIGHT * WIDTH
+    FB, SB, C = img.shape[0], dep.shape[0], img.shape[-1]
+    image_g, mask, grid = o["grid_scene"]
+    warps = {
+        "warp_depth_fwd": (
+            lambda: twd.warp_depth_fwd(img, dep, ar, S_SCALES, F_FRAMES, BAND),
+            lambda: twd.warp_depth_fwd(img.float(), dep, ar, S_SCALES,
+                                       F_FRAMES, BAND),
+            (px * (32.0 + 14.0 * C),
+             2.0 * FB * HEIGHT * WIDTH * C + 4.0 * (SB * HEIGHT * WIDTH
+                                                    + N * 16)
+             + px * (3 * 2.0 * C + 1))),
+        "warp_depth_bwd": (
+            lambda: twd.warp_depth_bwd(dep, o["gb"], o["va"], o["vb"], ar,
+                                       S_SCALES, F_FRAMES),
+            lambda: twd.warp_depth_bwd(dep, o["gb32"], o["va32"],
+                                       o["vb32"], ar, S_SCALES, F_FRAMES),
+            (px * (40.0 + 4.0 * C),
+             2.0 * 3 * px * C + 4.0 * (2 * SB * HEIGHT * WIDTH + N * 16))),
+        "warp_grid_fused": (
+            lambda: twf.grid_band_fused(image_g, grid, "border", BAND),
+            lambda: twf.grid_band_fused(image_g.float(), grid, "border",
+                                        BAND),
+            (px * (20.0 + 21.0 * C),
+             2.0 * image_g.numel() + 4.0 * grid.numel() + 2.0 * 3 * px * C)),
+        "warp_grid_fwd": (
+            lambda: twf.grid_band_fwd(mask, grid, "nearest", "zeros", BAND),
+            lambda: twf.grid_band_fwd(mask.float(), grid, "nearest", "zeros",
+                                      BAND),
+            (px * 29.0,
+             2.0 * mask.numel() + 4.0 * grid.numel() + 2.0 * px)),
+    }
+    readings = {}
+    for k, (fn, f32, ob) in warps.items():
+        b_ms, b_by = ms_bound(*ob)
+        readings[k] = dict(
+            ms=cuda_ms(fn, iters=10), f32_kernel_ms=cuda_ms(f32, iters=10),
+            bound_ms=b_ms, bound_by=b_by,
+            launches=counts["depth_direct"]["launches"][k],
+            launches_grid_route=counts["grid"]["launches"][k])
+    for e in entries:
+        print(f"time  {e['name']:19s} {e['ms']:.4f} ms  plain "
+              f"{e['plain_ms']:.4f} ms  bound {e['bound_ms']:.4f} ms "
+              f"({e['bound_by']})"
+              + (f"  TF32 {e['tc_bound_ms']:.4f}  bf16 TC "
+                 f"{e['tc16_bound_ms']:.4f}" if "tc16_bound_ms" in e else "")
+              + (f"  f32 kernel {e['f32_kernel_ms']:.4f} ms"
+                 if "f32_kernel_ms" in e else "")
+              + ("" if e["library_ms"] is None else
+                 f"  cuDNN bf16 {e['library_ms']:.4f} ms vs kernel "
+                 f"{e['ms_library_shapes']:.4f} ms at "
+                 f"{len(e['library_shapes'])} shapes"))
+    for k, r in readings.items():
+        print(f"time  {k:19s} bf16 through the wrapper {r['ms']:.4f} ms "
+              f"(the float32 kernel on the same values {r['f32_kernel_ms']:.4f}"
+              f" ms; A, F, E: the rest the widening and rounding passes; B: "
+              f"its bf16 form)  bound at bf16 bytes {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
+    return entries, readings, record_rows
+
+
+def bf16_phases(counters, record, train, shapes):
+    """Phases 32-35 (``shapes``: phase 4's rows, whose bf16 forward and
+    input-cotangent errors the kernel line takes). Returns the kernel
+    line's bf16 entries and the warps' bf16 readings."""
+    errs, ops_in = check_bf16_kernels(train, record)
+    for k in ("gb", "va", "vb"):
+        ops_in[k + "32"] = ops_in[k].float()
+    steps, batches = bf16_steps(counters, record, train)
+    record["bf16_steps"] = steps
+    record["bf16_card_vs_cpu"] = bf16_card_vs_cpu(batches)
+    record["bf16_train_step"] = time_steps(batches)
+    entries, readings, rows = time_bf16_kernels(ops_in, steps)
+    record["bf16_train_shapes"] = rows
+    errs["conv3x3"] = max(r["max_abs_err_bf16"] for r in shapes)
+    errs["conv3x3_dx"] = max(r["dx_max_abs_err_bf16"] for r in shapes)
+    for e in entries:
+        base = e["name"][:-len("_bf16")]
+        e["max_abs_err"] = errs[base]
+        if base == "conv3x3_bn":
+            e["max_abs_err_moments"] = errs["conv3x3_bn_mom"]
+    return entries, readings
+
+
 def main() -> int:
     global REPEATS
     import argparse
@@ -2995,6 +3731,7 @@ def main() -> int:
         for kname, lines in record["ptxas"][name].items():
             for line in lines:
                 print(f"  ptxas {name} {kname}: {line}")
+    record["bf16_ptxas"] = bf16_ptxas(logs)
     record["conv_sass"] = conv_sass(_build)
     record["warp_sass"] = warp_sass(_build)
     record["photo_sass"] = photo_build(_build, logs.get("photo_loss", ""))
@@ -3027,9 +3764,11 @@ def main() -> int:
                                  .manual_seed(100 + i)).to(dtype)
                 dxs = conv3x3_dx(gy, w, pad, Cs)
                 torch.cuda.synchronize()
-                rel = max(rel_err(a, r)[1] for a, r in
-                          zip(dxs, conv3x3_dx_plain(gy, w, pad, Cs)))
+                dx_errs = [rel_err(a, r) for a, r in
+                           zip(dxs, conv3x3_dx_plain(gy, w, pad, Cs))]
+                rel = max(e for _, e in dx_errs)
                 row["dx_rel_err_bf16"] = rel
+                row["dx_max_abs_err_bf16"] = max(d for d, _ in dx_errs)
                 check(rel <= TOL[dtype], f"{name} bf16 dx: rel err "
                       f"{rel:.3e} > {TOL[dtype]:.0e}")
         print(f"check {name:11s} B{BATCH} {H}x{W} {'+'.join(map(str, Cs))}"
@@ -3193,6 +3932,20 @@ def main() -> int:
     kernels = ([kernel] + train["kernels"] + grid_kernels + mei_kernels
                + photo_kernels + [kernel_k])
     add_nusc_readings(kernels, nusc_phases(counters, record))
+
+    # 32-35. the bf16 step: each bf16 form against its plain version, the
+    # launches, routes and dtypes of one bf16 step of each route, the card
+    # against the CPU port, and the steps' and kernels' times
+    bf16_entries, warp_bf16 = bf16_phases(counters, record, train, shapes)
+    for e in kernels:
+        if e["name"] in warp_bf16:
+            e["bf16"] = warp_bf16[e["name"]]
+            e["note"] = e.get("note", "") + (
+                "; bf16: the bf16 step's launches of this float32 kernel "
+                "(the image widened at the wrapper, out, va, vb rounded), "
+                "ms through the wrapper with those passes beside the "
+                "kernel alone, the bound at bf16 bytes (phases 33, 35)")
+    kernels += bf16_entries
 
     print(json.dumps(record))
     print(json.dumps({"kernels": kernels}))

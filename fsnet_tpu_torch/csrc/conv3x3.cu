@@ -45,16 +45,21 @@
 // two A elements; with a halo row of exactly 8 channels and weight rows
 // 16 mod 32 bytes apart the fragment loads are free of bank conflicts.
 // Float32 operands are split into TF32 hi and lo as they are loaded, so
-// each k8 step costs 3 MMAs; the tensor cores' partial of each chunk is
-// added to float32 accumulators (csrc/mma_tf32.cuh).
+// each k8 step costs 3 MMAs, a bfloat16 operand one; for both types the
+// tensor cores' partial of each chunk is added to float32 accumulators
+// (csrc/mma_tf32.cuh), so a bfloat16 output is the rounding of a sum as
+// accurate as float32 FMA, and its moments miss no gate by the tensor
+// cores' truncation.
 //
 // Epilogue through shared memory: the accumulators go to a TM x TN tile,
 // and each thread then owns one output channel over a strided set of
-// pixels, so stores run along channels. Moments (MODE MOM, float32 only):
-// the per-channel sum and sum of squares of the STORED value, summed per
-// block in a fixed order and added into [2, Co] with one atomicAdd per
-// channel and block; the order of those atomics varies, so the moments are
-// not bitwise run-to-run deterministic.
+// pixels, so stores run along channels. Moments (MODE MOM, float32 or
+// bfloat16 operands; TPU conv3x3_fused_mats_m, conv_kernel.py:196-200):
+// the per-channel float32 sum and sum of squares of the STORED value (in
+// bfloat16, of each output after its rounding), summed per block in a
+// fixed order and added into [2, Co] with one atomicAdd per channel and
+// block; the order of those atomics varies, so the moments are not bitwise
+// run-to-run deterministic.
 //
 // Input cotangent (MODE DX): the same GEMM on the output cotangent g with
 // the weight flipped and io-transposed: the caller passes w.transpose(2, 3)
@@ -255,8 +260,8 @@ conv3x3_mma_kernel(const ConvArgs<T> p) {
     cp_async_wait<NS - 2>();           // chunk ch has landed (this thread)
     __syncthreads();                   // ... for every thread; chunk ch-1
     fetch(ch + NS - 1);                // is done, so its stage is free
-    // float32: this chunk's 9 x KC products summed on the tensor cores from
-    // zero, then added to acc in float32 (csrc/mma_tf32.cuh)
+    // this chunk's 9 x KC products summed on the tensor cores from zero,
+    // then added to acc in float32 (csrc/mma_tf32.cuh)
     float cacc[2][C::WN_F][4];
 #pragma unroll
     for (int f = 0; f < 2; ++f)
@@ -302,17 +307,15 @@ conv3x3_mma_kernel(const ConvArgs<T> p) {
           if constexpr (F32)
             mma_3xtf32(cacc[f][j], ah[f], al[f], bh[j], bl[j]);
           else
-            mma_tf32(acc[f][j], ah[f], bh[j]);
+            mma_tf32(cacc[f][j], ah[f], bh[j]);
         }
     }
-    if constexpr (F32) {
 #pragma unroll
-      for (int f = 0; f < 2; ++f)
+    for (int f = 0; f < 2; ++f)
 #pragma unroll
-        for (int j = 0; j < C::WN_F; ++j)
+      for (int j = 0; j < C::WN_F; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[f][j][e] += cacc[f][j][e];
-    }
+        for (int e = 0; e < 4; ++e) acc[f][j][e] += cacc[f][j][e];
   }
 
   // epilogue: the accumulators through a shared TM x TN tile
@@ -500,15 +503,15 @@ int conv_forward(const void* x0, int C0, const void* x1, int C1,
                  int B, int H, int W, int Co, int replicate, int dtype,
                  void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || Co <= 0 || C0 <= 0 || C1 < 0 ||
-      (C1 > 0 && x1 == nullptr) || (dtype != 0 && dtype != 1) ||
-      (mom != nullptr && dtype != 0))
+      (C1 > 0 && x1 == nullptr) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return run<__nv_bfloat16, FWD>(
-        forward_args<__nv_bfloat16>(x0, C0, x1, C1, w, bias, out, nullptr, H,
-                                    W, Co, replicate),
-        B, s);
+  if (dtype == 1) {
+    const ConvArgs<__nv_bfloat16> a = forward_args<__nv_bfloat16>(
+        x0, C0, x1, C1, w, bias, out, mom, H, W, Co, replicate);
+    return mom != nullptr ? run<__nv_bfloat16, MOM>(a, B, s)
+                          : run<__nv_bfloat16, FWD>(a, B, s);
+  }
   const ConvArgs<float> a = forward_args<float>(x0, C0, x1, C1, w, bias, out,
                                                 mom, H, W, Co, replicate);
   return mom != nullptr ? run<float, MOM>(a, B, s) : run<float, FWD>(a, B, s);
@@ -547,16 +550,17 @@ extern "C" int fsnet_conv3x3_nhwc(const void* x0, int C0, const void* x1,
                       replicate, dtype, stream);
 }
 
-// The same with the moments epilogue, float32 only: `mom` is a zeroed
-// [2, Co] f32 buffer that receives the per-channel sum and sum of squares
-// of the stored `out`.
+// The same with the moments epilogue: `mom` is a zeroed [2, Co] f32 buffer
+// that receives the per-channel sum and sum of squares of the stored `out`
+// (dtype 1: of each bfloat16 output after its rounding), in float32.
 extern "C" int fsnet_conv3x3_bn_nhwc(const void* x0, int C0, const void* x1,
                                      int C1, const void* w, const void* bias,
                                      void* out, void* mom, int B, int H, int W,
-                                     int Co, int replicate, void* stream) {
+                                     int Co, int replicate, int dtype,
+                                     void* stream) {
   if (mom == nullptr) return (int)cudaErrorInvalidValue;
   return conv_forward(x0, C0, x1, C1, w, bias, out, mom, B, H, W, Co,
-                      replicate, 0, stream);
+                      replicate, dtype, stream);
 }
 
 // Input cotangents of the conv of a two-part (or one-part, C1 = 0) input:

@@ -15,7 +15,10 @@
 // What bounds it on an H100: 2*9*Cin*Co operations per pixel against one
 // read of x and g, so operations at the decoder's shapes; in float32 the
 // products run as 3xTF32 on the tensor cores (csrc/mma_tf32.cuh), 3 x ops at
-// 495 TFLOP/s. The decoder's two regimes are far apart: 16->16 over 1.47 M
+// 495 TFLOP/s. The operands may instead be bfloat16 (the bf16 train step,
+// TPU conv3x3_fused_dw on bf16 operands): a bfloat16 value is exact in
+// TF32, so each product is one exact MMA, summed as the float32 form sums;
+// the cotangent is float32 either way. The decoder's two regimes are far apart: 16->16 over 1.47 M
 // pixels (a tiny output, a huge reduction) and 512->256 over 1,440 (1.18 M
 // weights, a short reduction).
 //
@@ -30,8 +33,10 @@
 // channel tile at 512->256. Per pixel tile the block stages the (TH+2) x
 // (TW+2) x CI_T input halo (padding applied at load) and the TH x TW x CO_T
 // cotangent tile through a ring of NS = 3 stages filled with 16-byte
-// cp.async copies along channels, so the next tiles' copies overlap this
-// tile's MMAs. Neither operand is K-major in NHWC: the mma.sync.m16n8k8
+// cp.async copies along channels (4 float32 or 8 bfloat16 channels a copy,
+// so the channel counts must be multiples of 4 or of 8, else the copies
+// are one element each), so the next tiles' copies overlap this tile's
+// MMAs. Neither operand is K-major in NHWC: the mma.sync.m16n8k8
 // fragments are gathered from shared memory (A[ci][pixel] from the halo,
 // B[pixel][co] from the cotangent tile; row strides of 8 or 24 mod 32 words
 // keep both free of bank conflicts), not transposed while staging. Six
@@ -58,27 +63,29 @@ constexpr int TPX = 64;        // pixels per tile (TH x TW): 8 k8 steps
 constexpr int NS = 3;          // cp.async ring stages
 constexpr int MAX_HALO = 136;  // (TH+2) x (TW+2) for TW = 8, 16, 32
 
-template <int CI_T, int CO_T>
+template <typename T, int CI_T, int CO_T>
 struct DwCfg {
+  static constexpr int SZ = (int)sizeof(T);
   static constexpr int MI = CI_T / 16;        // m16 fragments of channels
   static constexpr int KG = 2 / MI;           // warps splitting the pixels
   static constexpr int NT = 32 * 3 * MI * KG; // six warps
   static constexpr int NF = CO_T / 8;         // n8 fragments
-  static constexpr int SX = CI_T + 8;         // floats per halo pixel
-  static constexpr int SG = CO_T + 8;         // floats per cotangent pixel
-  static constexpr int X_BYTES = MAX_HALO * SX * 4;
-  static constexpr int G_BYTES = TPX * SG * 4;
+  static constexpr int SX = CI_T + 8;         // elements per halo pixel
+  static constexpr int SG = CO_T + 8;         // elements per cotangent pixel
+  static constexpr int X_BYTES = MAX_HALO * SX * SZ;
+  static constexpr int G_BYTES = TPX * SG * SZ;
   static constexpr int STAGE = X_BYTES + G_BYTES;
   static constexpr int ACC = 3 * NF * 4;      // accumulators per thread
   static constexpr int RED = 3 * MI * 32 * ACC * 4;
   static constexpr int SMEM = NS * STAGE > RED ? NS * STAGE : RED;
 };
 
+template <typename T>
 struct DwArgs {
-  const float* x0;
-  const float* x1;
+  const T* x0;
+  const T* x1;
   int C0, C1;
-  const float* g;
+  const T* g;
   float* dw;
   int B, H, W, Co;
   int TW, TH, tiles_w, tiles_h;
@@ -90,23 +97,23 @@ struct DwArgs {
   int vec;        // 16-byte copies allowed (host only)
 };
 
-// one copy unit: a 16-byte cp.async (VEC) or one float by a plain load and
-// store; zeros where !ok
-template <bool VEC>
-__device__ __forceinline__ void copy_unit(char* dst, const float* base,
+// one copy unit: a 16-byte cp.async (VEC) or one element by a plain load
+// and store; zeros where !ok
+template <typename T, bool VEC>
+__device__ __forceinline__ void copy_unit(char* dst, const T* base,
                                           size_t off, bool ok) {
   if constexpr (VEC)
     cp_async16(dst, ok ? base + off : base, ok);
   else
-    *reinterpret_cast<float*>(dst) = ok ? base[off] : 0.f;
+    *reinterpret_cast<T*>(dst) = ok ? base[off] : from_f32<T>(0.f);
 }
 
-template <int CI_T, int CO_T, bool VEC>
-__device__ __forceinline__ void load_tile(const DwArgs& p, char* stage, int t,
-                                          const float* x, int Cp, int ci0,
+template <typename T, int CI_T, int CO_T, bool VEC>
+__device__ __forceinline__ void load_tile(const DwArgs<T>& p, char* stage,
+                                          int t, const T* x, int Cp, int ci0,
                                           int co0, int tid) {
-  using C = DwCfg<CI_T, CO_T>;
-  constexpr int UE = VEC ? 4 : 1;           // floats per copy unit
+  using C = DwCfg<T, CI_T, CO_T>;
+  constexpr int UE = VEC ? 16 / C::SZ : 1;  // elements per copy unit
   const int tw_i = t % p.tiles_w;
   t /= p.tiles_w;
   const int th_i = t % p.tiles_h;
@@ -131,7 +138,7 @@ __device__ __forceinline__ void load_tile(const DwArgs& p, char* stage, int t,
       gx = min(max(gx, 0), p.W - 1);
     }
     const int c = ci0 + e * UE;
-    copy_unit<VEC>(sx + (px * C::SX + e * UE) * 4, x,
+    copy_unit<T, VEC>(sx + (px * C::SX + e * UE) * C::SZ, x,
                    (((size_t)b * p.H + gy) * p.W + gx) * Cp + c,
                    c < Cp && gy >= 0 && gy < p.H && gx >= 0 && gx < p.W);
   }
@@ -143,16 +150,16 @@ __device__ __forceinline__ void load_tile(const DwArgs& p, char* stage, int t,
     const int gy = h0 + (px >> p.tw_shift);
     const int gx = w0 + (px & (p.TW - 1));
     const int c = co0 + e * UE;
-    copy_unit<VEC>(sg + (px * C::SG + e * UE) * 4, p.g,
+    copy_unit<T, VEC>(sg + (px * C::SG + e * UE) * C::SZ, p.g,
                    (((size_t)b * p.H + gy) * p.W + gx) * p.Co + c,
                    c < p.Co && gy < p.H && gx < p.W);
   }
 }
 
-template <int CI_T, int CO_T, bool VEC>
-__global__ void __launch_bounds__(DwCfg<CI_T, CO_T>::NT, 2)
-conv3x3_dw_kernel(const DwArgs p) {
-  using C = DwCfg<CI_T, CO_T>;
+template <typename T, int CI_T, int CO_T, bool VEC>
+__global__ void __launch_bounds__(DwCfg<T, CI_T, CO_T>::NT, 2)
+conv3x3_dw_kernel(const DwArgs<T> p) {
+  using C = DwCfg<T, CI_T, CO_T>;
   extern __shared__ __align__(16) char smem[];
 
   const int tid = threadIdx.x;
@@ -168,7 +175,7 @@ conv3x3_dw_kernel(const DwArgs p) {
   const int co0 = (blockIdx.y % p.co_tiles) * CO_T;
   const int part = ct < p.cit0 ? 0 : 1;
   const int ci0 = (ct - (part ? p.cit0 : 0)) * CI_T;
-  const float* x = part ? p.x1 : p.x0;
+  const T* x = part ? p.x1 : p.x0;
   const int Cp = part ? p.C1 : p.C0;
   const int ntiles = p.B * p.tiles_h * p.tiles_w;
   const int mine = (int)blockIdx.x < ntiles
@@ -185,7 +192,7 @@ conv3x3_dw_kernel(const DwArgs p) {
 
   auto fetch = [&](int j) {
     if (j < mine)
-      load_tile<CI_T, CO_T, VEC>(p, smem + (j % NS) * C::STAGE,
+      load_tile<T, CI_T, CO_T, VEC>(p, smem + (j % NS) * C::STAGE,
                                  (int)blockIdx.x + j * (int)gridDim.x, x, Cp,
                                  ci0, co0, tid);
     cp_async_commit();                // empty groups keep the count even
@@ -198,10 +205,9 @@ conv3x3_dw_kernel(const DwArgs p) {
     cp_async_wait<NS - 2>();
     __syncthreads();
     fetch(j + NS - 1);
-    const float* sx =
-        reinterpret_cast<const float*>(smem + (j % NS) * C::STAGE);
-    const float* sg = reinterpret_cast<const float*>(
-        smem + (j % NS) * C::STAGE + C::X_BYTES);
+    const T* sx = reinterpret_cast<const T*>(smem + (j % NS) * C::STAGE);
+    const T* sg =
+        reinterpret_cast<const T*>(smem + (j % NS) * C::STAGE + C::X_BYTES);
     // this tile's products summed on the tensor cores from zero, then added
     // to acc in float32 (csrc/mma_tf32.cuh)
     float tacc[3][C::NF][4];
@@ -216,27 +222,31 @@ conv3x3_dw_kernel(const DwArgs p) {
       const int ty = s >> spr_shift;
       const int tx0 = (s & ((1 << spr_shift) - 1)) * 8;
       // B[k = pixel][n = co] from the cotangent tile
-      const float* gp = sg + (ty * p.TW + tx0 + tig) * C::SG + gid;
+      const T* gp = sg + (ty * p.TW + tx0 + tig) * C::SG + gid;
       unsigned bh[C::NF][2], bl[C::NF][2];
 #pragma unroll
       for (int n = 0; n < C::NF; ++n) {
-        split_tf32(gp[n * 8], bh[n][0], bl[n][0]);
-        split_tf32(gp[4 * C::SG + n * 8], bh[n][1], bl[n][1]);
+        frag<T>(to_f32(gp[n * 8]), bh[n][0], bl[n][0]);
+        frag<T>(to_f32(gp[4 * C::SG + n * 8]), bh[n][1], bl[n][1]);
       }
       // A[m = ci][k = pixel] from the halo, shifted by the tap
-      const float* xp =
+      const T* xp =
           sx + ((ty + dy) * (p.TW + 2) + tx0 + tig) * C::SX + mi * 16 + gid;
 #pragma unroll
       for (int dx = 0; dx < 3; ++dx) {
-        const float* q = xp + dx * C::SX;
+        const T* q = xp + dx * C::SX;
         unsigned ah[4], al[4];
-        split_tf32(q[0], ah[0], al[0]);
-        split_tf32(q[8], ah[1], al[1]);
-        split_tf32(q[4 * C::SX], ah[2], al[2]);
-        split_tf32(q[4 * C::SX + 8], ah[3], al[3]);
+        frag<T>(to_f32(q[0]), ah[0], al[0]);
+        frag<T>(to_f32(q[8]), ah[1], al[1]);
+        frag<T>(to_f32(q[4 * C::SX]), ah[2], al[2]);
+        frag<T>(to_f32(q[4 * C::SX + 8]), ah[3], al[3]);
 #pragma unroll
-        for (int n = 0; n < C::NF; ++n)
-          mma_3xtf32(tacc[dx][n], ah, al, bh[n], bl[n]);
+        for (int n = 0; n < C::NF; ++n) {
+          if constexpr (C::SZ == 4)
+            mma_3xtf32(tacc[dx][n], ah, al, bh[n], bl[n]);
+          else
+            mma_tf32(tacc[dx][n], ah, bh[n]);
+        }
       }
     }
 #pragma unroll
@@ -311,43 +321,35 @@ int pick_ct(int Ca, int Cb) {
   return best;
 }
 
-template <int CI_T, int CO_T, bool VEC>
-int launch(const DwArgs& a, dim3 grid, cudaStream_t s) {
-  using C = DwCfg<CI_T, CO_T>;
+template <typename T, int CI_T, int CO_T, bool VEC>
+int launch(const DwArgs<T>& a, dim3 grid, cudaStream_t s) {
+  using C = DwCfg<T, CI_T, CO_T>;
   static unsigned smem_set = 0;
   const cudaError_t e =
-      allow_smem(conv3x3_dw_kernel<CI_T, CO_T, VEC>, C::SMEM, smem_set);
+      allow_smem(conv3x3_dw_kernel<T, CI_T, CO_T, VEC>, C::SMEM, smem_set);
   if (e != cudaSuccess) return (int)e;
-  conv3x3_dw_kernel<CI_T, CO_T, VEC><<<grid, C::NT, C::SMEM, s>>>(a);
+  conv3x3_dw_kernel<T, CI_T, CO_T, VEC><<<grid, C::NT, C::SMEM, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// x0 [B,H,W,C0], x1 [B,H,W,C1] or null with C1 = 0, g [B,H,W,Co] float32;
-// dw [3,3,C0+C1,Co] float32, zeroed by the caller, receives the weight
-// cotangent. All contiguous. Launches on `stream` and returns
-// cudaGetLastError() (0 on success); never synchronises.
-extern "C" int fsnet_conv3x3_dw_nhwc(const void* x0, int C0, const void* x1,
-                                     int C1, const void* g, void* dw, int B,
-                                     int H, int W, int Co, int replicate,
-                                     void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || Co <= 0 || C0 <= 0 || C1 < 0 ||
-      (C1 > 0 && x1 == nullptr))
-    return (int)cudaErrorInvalidValue;
-  DwArgs a{};
-  a.x0 = static_cast<const float*>(x0);
-  a.x1 = static_cast<const float*>(x1);
+template <typename T>
+int dw_run(const void* x0, int C0, const void* x1, int C1, const void* g,
+           void* dw, int B, int H, int W, int Co, int replicate,
+           cudaStream_t s) {
+  constexpr int V = 16 / (int)sizeof(T);     // elements per 16-byte copy
+  DwArgs<T> a{};
+  a.x0 = static_cast<const T*>(x0);
+  a.x1 = static_cast<const T*>(x1);
   a.C0 = C0;
   a.C1 = C1;
-  a.g = static_cast<const float*>(g);
+  a.g = static_cast<const T*>(g);
   a.dw = static_cast<float*>(dw);
   a.B = B;
   a.H = H;
   a.W = W;
   a.Co = Co;
   a.replicate = replicate;
-  a.vec = C0 % 4 == 0 && C1 % 4 == 0 && Co % 4 == 0 && aligned16(x0) &&
+  a.vec = C0 % V == 0 && C1 % V == 0 && Co % V == 0 && aligned16(x0) &&
           (C1 == 0 || aligned16(x1)) && aligned16(g);
   // the pixel tile of least padded area
   long long best = LLONG_MAX;
@@ -380,17 +382,37 @@ extern "C" int fsnet_conv3x3_dw_nhwc(const void* x0, int C0, const void* x1,
   if (split < 1) split = 1;
   if (split > ntiles) split = ntiles;
   const dim3 grid((unsigned)split, (unsigned)nct);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.vec) {
     if (ci_t == 16)
-      return co_t == 16 ? launch<16, 16, true>(a, grid, s)
-                        : launch<16, 32, true>(a, grid, s);
-    return co_t == 16 ? launch<32, 16, true>(a, grid, s)
-                      : launch<32, 32, true>(a, grid, s);
+      return co_t == 16 ? launch<T, 16, 16, true>(a, grid, s)
+                        : launch<T, 16, 32, true>(a, grid, s);
+    return co_t == 16 ? launch<T, 32, 16, true>(a, grid, s)
+                      : launch<T, 32, 32, true>(a, grid, s);
   }
   if (ci_t == 16)
-    return co_t == 16 ? launch<16, 16, false>(a, grid, s)
-                      : launch<16, 32, false>(a, grid, s);
-  return co_t == 16 ? launch<32, 16, false>(a, grid, s)
-                    : launch<32, 32, false>(a, grid, s);
+    return co_t == 16 ? launch<T, 16, 16, false>(a, grid, s)
+                      : launch<T, 16, 32, false>(a, grid, s);
+  return co_t == 16 ? launch<T, 32, 16, false>(a, grid, s)
+                    : launch<T, 32, 32, false>(a, grid, s);
+}
+
+}  // namespace
+
+// x0 [B,H,W,C0], x1 [B,H,W,C1] or null with C1 = 0, g [B,H,W,Co], all of
+// one dtype (0 = float32, 1 = bfloat16); dw [3,3,C0+C1,Co] float32, zeroed
+// by the caller, receives the weight cotangent. All contiguous. Launches on
+// `stream` and returns cudaGetLastError() (0 on success); never
+// synchronises.
+extern "C" int fsnet_conv3x3_dw_nhwc(const void* x0, int C0, const void* x1,
+                                     int C1, const void* g, void* dw, int B,
+                                     int H, int W, int Co, int replicate,
+                                     int dtype, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || Co <= 0 || C0 <= 0 || C1 < 0 ||
+      (C1 > 0 && x1 == nullptr) || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return dw_run<__nv_bfloat16>(x0, C0, x1, C1, g, dw, B, H, W, Co,
+                                 replicate, s);
+  return dw_run<float>(x0, C0, x1, C1, g, dw, B, H, W, Co, replicate, s);
 }

@@ -14,7 +14,7 @@
 // cores from zero and add each stretch's partial to the running sum with a
 // float32 add (round to nearest): float32 FMA accuracy, as the decoder's
 // gates need. A bfloat16 value is exact in TF32, so bfloat16 operands take
-// one product, accumulated on the tensor cores (their gate is 2e-2).
+// one exact product, summed the same way.
 //
 // Fragment layout of m16n8k8 (PTX ISA, gid = lane / 4, tig = lane % 4):
 //   A (16x8, row):  a0 (gid, tig)  a1 (gid+8, tig)  a2 (gid, tig+4)

@@ -2,10 +2,17 @@
 // (ctypes): the forward and the prediction cotangent of
 // fsnet_tpu_torch.ops.photo_loss.reprojection_loss_fused.
 //
-// Layouts: pred [N, H, W, C], target, muy, sy [B, H, W, C] (NHWC f32, N a
-// multiple of B), loss and g [N, H, W] f32, dpred [N, H, W, C] f32.
+// Layouts: pred [N, H, W, C], target, muy, sy [B, H, W, C] (NHWC, N a
+// multiple of B), loss and g [N, H, W], dpred [N, H, W, C], all float32 or
+// all bfloat16 (the bf16 train step; every entry point takes the dtype).
 // Prediction n compares with target n mod B: the target and its pooled
 // stats (muy, sy = ops.ssim.ssim_target_stats(target)) are never tiled.
+// In bfloat16 the kernels load each value widened to float32 (exactly),
+// compute exactly as in float32, and round the loss and the cotangent to
+// bfloat16 as they store them (round to nearest even, as a cast of the
+// float32 result would): TPU photo_loss_pallas writes the loss in the
+// prediction's dtype (photo_kernel.py:238), and photo_loss_bwd_pallas's
+// float32 cotangent is rounded to it by its caller (ops/photo_loss.py:110).
 //
 // The function, per pixel and channel (x = pred, y = target):
 //   P(t) = the 3x3 mean pool over reflect-101 padding by 1 (row -1 -> row 1,
@@ -87,14 +94,30 @@
 // the tile's pooled positions plus a 1-pixel ring into shared memory, and
 // each thread gathers P^T of them at its pixel. Both re-read the target and
 // its stats once per prediction.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 #include <initializer_list>
 
 #include "launch.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+// one element as float32 (bfloat16 widens exactly), and back
+__device__ __forceinline__ float f32(float v) { return v; }
+__device__ __forceinline__ float f32(bf16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 constexpr int kTW = 32;                 // tile columns
 constexpr int kTH = 8;                  // tile rows
@@ -165,25 +188,27 @@ __device__ __forceinline__ Ssim ssim_terms(const Pooled& p, float my,
 
 // stage channel c of x (prediction n) and y (target n mod B) for the tile
 // at (i0, j0) with a `halo`-pixel ring, reflected at the image edge
+template <typename T>
 __device__ __forceinline__ void stage(float* xs, float* ys, int rows, int cols,
-                                      const float* __restrict__ xb,
-                                      const float* __restrict__ yb, int i0,
+                                      const T* __restrict__ xb,
+                                      const T* __restrict__ yb, int i0,
                                       int j0, int halo, int H, int W, int C,
                                       int c) {
   for (int k = threadIdx.x; k < rows * cols; k += kThreads) {
     const int r = k / cols, q = k - r * cols;
     const size_t off =
         ((size_t)refl(i0 - halo + r, H) * W + refl(j0 - halo + q, W)) * C + c;
-    xs[k] = xb[off];
-    ys[k] = yb[off];
+    xs[k] = f32(xb[off]);
+    ys[k] = f32(yb[off]);
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-photo_loss_fwd_kernel(const float* __restrict__ pred,
-                      const float* __restrict__ target,
-                      const float* __restrict__ muy,
-                      const float* __restrict__ sy, float* __restrict__ loss,
+photo_loss_fwd_kernel(const T* __restrict__ pred,
+                      const T* __restrict__ target,
+                      const T* __restrict__ muy,
+                      const T* __restrict__ sy, T* __restrict__ loss,
                       int B, int H, int W, int C, float w_ssim, float w_l1,
                       float inv_c) {
   constexpr int R = kTH + 2, Q = kTW + 2;
@@ -195,8 +220,8 @@ photo_loss_fwd_kernel(const float* __restrict__ pred,
   const int i = i0 + ty, j = j0 + tx;
   const bool live = i < H && j < W;
   const size_t plane = (size_t)H * W * C;
-  const float* xb = pred + (size_t)n * plane;
-  const float* yb = target + (size_t)b * plane;
+  const T* xb = pred + (size_t)n * plane;
+  const T* yb = target + (size_t)b * plane;
   const size_t pix = ((size_t)i * W + j) * C;
   float dsum = 0.f, lsum = 0.f;
   for (int c = 0; c < C; ++c) {
@@ -205,7 +230,7 @@ photo_loss_fwd_kernel(const float* __restrict__ pred,
     if (live) {
       const Pooled p = pool3(xs, ys, Q, ty, tx);
       const size_t at = (size_t)b * plane + pix + c;
-      const Ssim t = ssim_terms(p, muy[at], sy[at]);
+      const Ssim t = ssim_terms(p, f32(muy[at]), f32(sy[at]));
       const float dis = fminf(fmaxf(t.val, 0.f), 1.f);
       const float l1 =
           fabsf(sub(ys[(ty + 1) * Q + tx + 1], xs[(ty + 1) * Q + tx + 1]));
@@ -215,8 +240,8 @@ photo_loss_fwd_kernel(const float* __restrict__ pred,
     __syncthreads();
   }
   if (live)
-    loss[((size_t)n * H + i) * W + j] =
-        add(mul(w_ssim, mul(dsum, inv_c)), mul(w_l1, mul(lsum, inv_c)));
+    loss[((size_t)n * H + i) * W + j] = from_f32<T>(
+        add(mul(w_ssim, mul(dsum, inv_c)), mul(w_l1, mul(lsum, inv_c))));
 }
 
 // J's three partials G dr/du, G dr/dv, G dr/dw at one pooled position from
@@ -255,12 +280,13 @@ __device__ __forceinline__ float adj3(float a_m1, float a_0, float a_p1, int p,
   return mul(s, kThird);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-photo_loss_bwd_kernel(const float* __restrict__ pred,
-                      const float* __restrict__ target,
-                      const float* __restrict__ muy,
-                      const float* __restrict__ sy,
-                      const float* __restrict__ g, float* __restrict__ dpred,
+photo_loss_bwd_kernel(const T* __restrict__ pred,
+                      const T* __restrict__ target,
+                      const T* __restrict__ muy,
+                      const T* __restrict__ sy,
+                      const T* __restrict__ g, T* __restrict__ dpred,
                       int B, int H, int W, int C, float k_ssim, float k_l1) {
   constexpr int XR = kTH + 4, XQ = kTW + 4;   // x, y tiles: 2-pixel halo
   constexpr int PR = kTH + 2, PQ = kTW + 2;   // partials: 1-pixel ring
@@ -273,9 +299,9 @@ photo_loss_bwd_kernel(const float* __restrict__ pred,
   const int i = i0 + ty, j = j0 + tx;
   const bool live = i < H && j < W;
   const size_t plane = (size_t)H * W * C;
-  const float* xb = pred + (size_t)n * plane;
-  const float* yb = target + (size_t)b * plane;
-  const float* gn = g + (size_t)n * H * W;
+  const T* xb = pred + (size_t)n * plane;
+  const T* yb = target + (size_t)b * plane;
+  const T* gn = g + (size_t)n * H * W;
   for (int c = 0; c < C; ++c) {
     stage(xs, ys, XR, XQ, xb, yb, i0, j0, 2, H, W, C, c);
     __syncthreads();
@@ -286,8 +312,8 @@ photo_loss_bwd_kernel(const float* __restrict__ pred,
       float a_u = 0.f, a_v = 0.f, a_w = 0.f;
       if (pi >= 0 && pi < H && pj >= 0 && pj < W) {
         const size_t at = (size_t)b * plane + ((size_t)pi * W + pj) * C + c;
-        partials(pool3(xs, ys, XQ, pr, pq), muy[at], sy[at],
-                 gn[(size_t)pi * W + pj], k_ssim, a_u, a_v, a_w);
+        partials(pool3(xs, ys, XQ, pr, pq), f32(muy[at]), f32(sy[at]),
+                 f32(gn[(size_t)pi * W + pj]), k_ssim, a_u, a_v, a_w);
       }
       au[k] = a_u;
       av[k] = a_v;
@@ -310,10 +336,10 @@ photo_loss_bwd_kernel(const float* __restrict__ pred,
       const float hw = adj3(bw[0], bw[1], bw[2], i, H);
       const float xc = xs[(ty + 2) * XQ + tx + 2];
       const float yc = ys[(ty + 2) * XQ + tx + 2];
-      const float dl1 = mul(mul(gn[(size_t)i * W + j], k_l1),
+      const float dl1 = mul(mul(f32(gn[(size_t)i * W + j]), k_l1),
                             sub(yc, xc) >= 0.f ? -1.f : 1.f);
-      dpred[(size_t)n * plane + ((size_t)i * W + j) * C + c] =
-          add(add(add(hu, mul(mul(2.f, xc), hv)), mul(yc, hw)), dl1);
+      dpred[(size_t)n * plane + ((size_t)i * W + j) * C + c] = from_f32<T>(
+          add(add(add(hu, mul(mul(2.f, xc), hv)), mul(yc, hw)), dl1));
     }
     __syncthreads();
   }
@@ -365,37 +391,56 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Stage ROWS rows of the tile at (i0, j0) of the image `img` [H, W, C] into
 // `dst`: tile row r holds image row i0 - HALO + r. The interior pixels j0 ..
-// j0 + 127 that lie in the image go as 16-byte copies (W % 4 == 0, so a
-// ragged tile ends on a whole chunk); then HALO pixels left of the interior
+// j0 + 127 that lie in the image go as chunks of 4 elements (W % 4 == 0, so
+// a ragged tile ends on a whole chunk): in float32 16-byte cp.async copies;
+// in bfloat16 8-byte loads widened to float32 and stored as a float4 (the
+// tile stays float32 on chip, so everything past the staging is the
+// float32 kernel's; the copy is synchronous). Then HALO pixels left of the interior
 // and HALO pixels from q_r = min(128, W - j0) on, the first column past the
 // tile's in-image part. Reflect-101 is applied to the source address of
 // each row and of each halo pixel (row -1 <- 1, row H <- H - 2, column -1
 // <- 1, column W <- W - 2; anything further out, which feeds only results
 // that are never stored, is clamped into the image), so no interior element
 // computes a reflection. Unstaged slots keep what they held.
-template <int C, int HALO, int ROWS>
+template <int C, int HALO, int ROWS, typename Val>
 __device__ __forceinline__ void stage_tile(float* dst,
-                                           const float* __restrict__ img,
+                                           const Val* __restrict__ img,
                                            int i0, int j0, int H, int W) {
-  using T = Tile<C, HALO>;
-  constexpr int kChunks = kVW * C / 4;       // float4s of an interior row
+  using TL = Tile<C, HALO>;
+  constexpr int kChunks = kVW * C / 4;       // chunks of an interior row
   const int qr = min(kVW, W - j0);
   const int chunks = qr * C / 4;
   for (int k = threadIdx.x; k < ROWS * kChunks; k += kVThreads) {
     const int r = k / kChunks, f = k - r * kChunks;
-    if (f < chunks)
-      cp_async16(dst + r * T::kPitch + T::kPad + 4 * f,
-                 img + ((size_t)refl(i0 - HALO + r, H) * W + j0) * C + 4 * f);
+    if (f < chunks) {
+      float* d = dst + r * TL::kPitch + TL::kPad + 4 * f;
+      const Val* src =
+          img + ((size_t)refl(i0 - HALO + r, H) * W + j0) * C + 4 * f;
+      if constexpr (sizeof(Val) == 4) {
+        cp_async16(d, src);
+      } else {
+        const uint2 v = __ldg(reinterpret_cast<const uint2*>(src));
+        const float2 lo = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&v.x));
+        const float2 hi = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&v.y));
+        *reinterpret_cast<float4*>(d) = make_float4(lo.x, lo.y, hi.x, hi.y);
+      }
+    }
   }
-  constexpr int kRing = 2 * HALO * C;        // halo floats of a row
+  constexpr int kRing = 2 * HALO * C;        // halo elements of a row
   for (int k = threadIdx.x; k < ROWS * kRing; k += kVThreads) {
     const int r = k / kRing, e = k - r * kRing;
     const int side = e / (HALO * C), s = e - side * (HALO * C);
     const int qq = s / C, c = s - qq * C;
     const int q = side == 0 ? qq - HALO : qr + qq;
-    cp_async4(dst + r * T::kPitch + T::kPad + q * C + c,
-              img + ((size_t)refl(i0 - HALO + r, H) * W + refl(j0 + q, W)) *
-                        C + c);
+    float* d = dst + r * TL::kPitch + TL::kPad + q * C + c;
+    const Val* src =
+        img + ((size_t)refl(i0 - HALO + r, H) * W + refl(j0 + q, W)) * C + c;
+    if constexpr (sizeof(Val) == 4)
+      cp_async4(d, src);
+    else
+      *d = f32(*src);
   }
 }
 
@@ -420,12 +465,41 @@ __device__ __forceinline__ void ldg4(float (&out)[E], const float* src) {
   }
 }
 
+// the same from bfloat16 (8-byte aligned), widened
+template <int E>
+__device__ __forceinline__ void ldg4(float (&out)[E], const bf16* src) {
+#pragma unroll
+  for (int f = 0; f < E / 4; ++f) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(src) + f);
+    const float2 lo =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+    const float2 hi =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+    out[4 * f] = lo.x, out[4 * f + 1] = lo.y, out[4 * f + 2] = hi.x,
+    out[4 * f + 3] = hi.y;
+  }
+}
+
 template <int E>
 __device__ __forceinline__ void st4(float* dst, const float (&v)[E]) {
 #pragma unroll
   for (int f = 0; f < E / 4; ++f)
     reinterpret_cast<float4*>(dst)[f] =
         make_float4(v[4 * f], v[4 * f + 1], v[4 * f + 2], v[4 * f + 3]);
+}
+
+// the same into bfloat16 (8-byte aligned), each value rounded to nearest
+template <int E>
+__device__ __forceinline__ void st4(bf16* dst, const float (&v)[E]) {
+#pragma unroll
+  for (int f = 0; f < E / 4; ++f) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[4 * f], v[4 * f + 1]);
+    const __nv_bfloat162 hi =
+        __floats2bfloat162_rn(v[4 * f + 2], v[4 * f + 3]);
+    reinterpret_cast<uint2*>(dst)[f] =
+        make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                   *reinterpret_cast<const unsigned*>(&hi));
+  }
 }
 
 // H sums of x, x*x and x*y at E consecutive elements of the three staged
@@ -490,13 +564,13 @@ constexpr int fwd_vec_smem_floats(int C) {
          (2 * (4 * ((C + 3) / 4)) + kVW * C);
 }
 
-template <int C>
+template <int C, typename Val>
 __global__ void __launch_bounds__(kVThreads, 2)
-photo_loss_fwd_vec_kernel(const float* __restrict__ pred,
-                          const float* __restrict__ target,
-                          const float* __restrict__ muy,
-                          const float* __restrict__ sy,
-                          float* __restrict__ loss, int B, int R, int H,
+photo_loss_fwd_vec_kernel(const Val* __restrict__ pred,
+                          const Val* __restrict__ target,
+                          const Val* __restrict__ muy,
+                          const Val* __restrict__ sy,
+                          Val* __restrict__ loss, int B, int R, int H,
                           int W, float w_ssim, float w_l1, float inv_c) {
   using T = Tile<C, 1>;
   constexpr int kRows = kFwdRows + 2, kSize = kRows * T::kPitch;
@@ -512,12 +586,12 @@ photo_loss_fwd_vec_kernel(const float* __restrict__ pred,
   const bool live = row_live && j < W;
   const size_t plane = (size_t)H * W * C;
 
-  stage_tile<C, 1, kRows>(ys, target + b * plane, i0, j0, H, W);
-  stage_tile<C, 1, kRows>(xs, pred + b * plane, i0, j0, H, W);
+  stage_tile<C, 1, kRows, Val>(ys, target + b * plane, i0, j0, H, W);
+  stage_tile<C, 1, kRows, Val>(xs, pred + b * plane, i0, j0, H, W);
   cp_async_commit();
   if (R > 1)
-    stage_tile<C, 1, kRows>(xs + kSize, pred + (size_t)(b + B) * plane, i0,
-                            j0, H, W);
+    stage_tile<C, 1, kRows, Val>(xs + kSize, pred + (size_t)(b + B) * plane,
+                                 i0, j0, H, W);
   cp_async_commit();
   float my[E], s_y[E];
   if (live) {
@@ -536,9 +610,9 @@ photo_loss_fwd_vec_kernel(const float* __restrict__ pred,
     cp_async_wait<1>();
     __syncthreads();          // tile k staged; tile k - 1 read by all
     if (k + 2 < R)
-      stage_tile<C, 1, kRows>(xs + ((k + 2) % kFwdStages) * kSize,
-                              pred + (size_t)(b + (k + 2) * B) * plane, i0,
-                              j0, H, W);
+      stage_tile<C, 1, kRows, Val>(xs + ((k + 2) % kFwdStages) * kSize,
+                                   pred + (size_t)(b + (k + 2) * B) * plane,
+                                   i0, j0, H, W);
     cp_async_commit();
     if (!row_live) continue;
     // image rows i - 1 .. i + 1 are tile rows warp .. warp + 2
@@ -619,14 +693,14 @@ constexpr int bwd_vec_smem_floats(int C) {
          3 * C * kBwdPooled * kVW;
 }
 
-template <int C>
+template <int C, typename Val>
 __global__ void __launch_bounds__(kVThreads, 2)
-photo_loss_bwd_vec_kernel(const float* __restrict__ pred,
-                          const float* __restrict__ target,
-                          const float* __restrict__ muy,
-                          const float* __restrict__ sy,
-                          const float* __restrict__ g,
-                          float* __restrict__ dpred, int B, int R, int H,
+photo_loss_bwd_vec_kernel(const Val* __restrict__ pred,
+                          const Val* __restrict__ target,
+                          const Val* __restrict__ muy,
+                          const Val* __restrict__ sy,
+                          const Val* __restrict__ g,
+                          Val* __restrict__ dpred, int B, int R, int H,
                           int W, float k_ssim, float k_l1) {
   using T = Tile<C, 2>;                     // x, y: 2-pixel halo
   using TG = Tile<1, 1>;                    // g: the 1-pixel ring
@@ -657,9 +731,9 @@ photo_loss_bwd_vec_kernel(const float* __restrict__ pred,
   for (int p = 0; p < 4; ++p)
     lo[p] = j + p == 1 ? 1.f : 0.f, hi[p] = j + p == W - 2 ? 1.f : 0.f;
 
-  stage_tile<C, 2, kBwdRows + 4>(ys, target + b * plane, i0, j0, H, W);
-  stage_tile<C, 2, kBwdRows + 4>(xs, pred + b * plane, i0, j0, H, W);
-  stage_tile<1, 1, kBwdPooled>(gs, g + b * gplane, i0, j0, H, W);
+  stage_tile<C, 2, kBwdRows + 4, Val>(ys, target + b * plane, i0, j0, H, W);
+  stage_tile<C, 2, kBwdRows + 4, Val>(xs, pred + b * plane, i0, j0, H, W);
+  stage_tile<1, 1, kBwdPooled, Val>(gs, g + b * gplane, i0, j0, H, W);
   cp_async_commit();
   float my[E], s_y[E], myr[C], syr[C];
 #pragma unroll
@@ -675,8 +749,8 @@ photo_loss_bwd_vec_kernel(const float* __restrict__ pred,
     if (ring_in) {
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        myr[c] = __ldg(muy + row + (size_t)(j0 + q1) * C + c);
-        syr[c] = __ldg(sy + row + (size_t)(j0 + q1) * C + c);
+        myr[c] = f32(__ldg(muy + row + (size_t)(j0 + q1) * C + c));
+        syr[c] = f32(__ldg(sy + row + (size_t)(j0 + q1) * C + c));
       }
     }
   }
@@ -685,10 +759,10 @@ photo_loss_bwd_vec_kernel(const float* __restrict__ pred,
     const int n = b + k * B;
     if (k + 1 < R) {
       const int s = (k + 1) % kBwdStages;
-      stage_tile<C, 2, kBwdRows + 4>(
+      stage_tile<C, 2, kBwdRows + 4, Val>(
           xs + s * kX, pred + (size_t)(n + B) * plane, i0, j0, H, W);
-      stage_tile<1, 1, kBwdPooled>(gs + s * kG, g + (size_t)(n + B) * gplane,
-                                   i0, j0, H, W);
+      stage_tile<1, 1, kBwdPooled, Val>(
+          gs + s * kG, g + (size_t)(n + B) * gplane, i0, j0, H, W);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -792,55 +866,58 @@ photo_loss_bwd_vec_kernel(const float* __restrict__ pred,
   }
 }
 
-template <int C>
-int launch_fwd_vec(const float* pred, const float* target, const float* muy,
-                   const float* sy, float* loss, int N, int B, int H, int W,
+template <int C, typename Val>
+int launch_fwd_vec(const Val* pred, const Val* target, const Val* muy,
+                   const Val* sy, Val* loss, int N, int B, int H, int W,
                    float w_ssim, float w_l1, float inv_c,
                    cudaStream_t stream) {
   const int smem = fwd_vec_smem_floats(C) * (int)sizeof(float);
   static unsigned smem_set = 0;
   const cudaError_t err =
-      allow_smem(photo_loss_fwd_vec_kernel<C>, smem, smem_set);
+      allow_smem(photo_loss_fwd_vec_kernel<C, Val>, smem, smem_set);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((W + kVW - 1) / kVW),
                   (unsigned)((H + kFwdRows - 1) / kFwdRows), (unsigned)B);
-  photo_loss_fwd_vec_kernel<C><<<grid, kVThreads, smem, stream>>>(
+  photo_loss_fwd_vec_kernel<C, Val><<<grid, kVThreads, smem, stream>>>(
       pred, target, muy, sy, loss, B, N / B, H, W, w_ssim, w_l1, inv_c);
   return (int)cudaGetLastError();
 }
 
-template <int C>
-int launch_bwd_vec(const float* pred, const float* target, const float* muy,
-                   const float* sy, const float* g, float* dpred, int N,
-                   int B, int H, int W, float k_ssim, float k_l1,
+template <int C, typename Val>
+int launch_bwd_vec(const Val* pred, const Val* target, const Val* muy,
+                   const Val* sy, const Val* g, Val* dpred, int N, int B,
+                   int H, int W, float k_ssim, float k_l1,
                    cudaStream_t stream) {
   const int smem = bwd_vec_smem_floats(C) * (int)sizeof(float);
   static unsigned smem_set = 0;
   const cudaError_t err =
-      allow_smem(photo_loss_bwd_vec_kernel<C>, smem, smem_set);
+      allow_smem(photo_loss_bwd_vec_kernel<C, Val>, smem, smem_set);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((W + kVW - 1) / kVW),
                   (unsigned)((H + kBwdRows - 1) / kBwdRows), (unsigned)B);
-  photo_loss_bwd_vec_kernel<C><<<grid, kVThreads, smem, stream>>>(
+  photo_loss_bwd_vec_kernel<C, Val><<<grid, kVThreads, smem, stream>>>(
       pred, target, muy, sy, g, dpred, B, N / B, H, W, k_ssim, k_l1);
   return (int)cudaGetLastError();
 }
 
 // the dynamic shared memory (bytes) and resident blocks per SM of the
-// vector route's forward or cotangent at C channels
-template <int C>
+// vector route's forward or cotangent at C channels (the staged tiles are
+// float32 whatever the element type)
+template <int C, typename Val>
 cudaError_t vec_occupancy(bool bwd, int* blocks, int* smem) {
   *smem = (bwd ? bwd_vec_smem_floats(C) : fwd_vec_smem_floats(C)) *
           (int)sizeof(float);
   static unsigned fwd_set = 0, bwd_set = 0;
   const cudaError_t err =
-      bwd ? allow_smem(photo_loss_bwd_vec_kernel<C>, *smem, bwd_set)
-          : allow_smem(photo_loss_fwd_vec_kernel<C>, *smem, fwd_set);
+      bwd ? allow_smem(photo_loss_bwd_vec_kernel<C, Val>, *smem, bwd_set)
+          : allow_smem(photo_loss_fwd_vec_kernel<C, Val>, *smem, fwd_set);
   if (err != cudaSuccess) return err;
   return bwd ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   blocks, photo_loss_bwd_vec_kernel<C>, kVThreads, *smem)
+                   blocks, photo_loss_bwd_vec_kernel<C, Val>, kVThreads,
+                   *smem)
              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   blocks, photo_loss_fwd_vec_kernel<C>, kVThreads, *smem);
+                   blocks, photo_loss_fwd_vec_kernel<C, Val>, kVThreads,
+                   *smem);
 }
 
 // the vector route's shapes and pointers: tile rows `rows`
@@ -864,61 +941,47 @@ dim3 tiles(int N, int H, int W) {
               (unsigned)N);
 }
 
-}  // namespace
 
-// Forward. pred [N,H,W,C], target/muy/sy [B,H,W,C] f32; writes loss
-// [N,H,W] f32. All contiguous. Launches on `stream` and returns
-// cudaGetLastError() (0 on success); never synchronises.
-extern "C" int fsnet_photo_loss_fwd(const void* pred, const void* target,
-                                    const void* muy, const void* sy,
-                                    void* loss, int N, int B, int H, int W,
-                                    int C, float w_ssim, float w_l1,
-                                    float inv_c, void* stream) {
+template <typename Val>
+int fwd_narrow(const void* pred, const void* target, const void* muy,
+               const void* sy, void* loss, int N, int B, int H, int W, int C,
+               float w_ssim, float w_l1, float inv_c, void* stream) {
   if (bad_dims(N, B, H, W, C) || (H + kTH - 1) / kTH > 65535)
     return (int)cudaErrorInvalidValue;
-  photo_loss_fwd_kernel<<<tiles(N, H, W), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pred), static_cast<const float*>(target),
-      static_cast<const float*>(muy), static_cast<const float*>(sy),
-      static_cast<float*>(loss), B, H, W, C, w_ssim, w_l1, inv_c);
+  photo_loss_fwd_kernel<Val><<<tiles(N, H, W), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const Val*>(pred), static_cast<const Val*>(target),
+      static_cast<const Val*>(muy), static_cast<const Val*>(sy),
+      static_cast<Val*>(loss), B, H, W, C, w_ssim, w_l1, inv_c);
   return (int)cudaGetLastError();
 }
 
-// Prediction cotangent. pred [N,H,W,C], target/muy/sy [B,H,W,C], g [N,H,W]
-// f32; writes dpred [N,H,W,C] f32. All contiguous. Launches on `stream` and
-// returns cudaGetLastError(); never synchronises.
-extern "C" int fsnet_photo_loss_bwd(const void* pred, const void* target,
-                                    const void* muy, const void* sy,
-                                    const void* g, void* dpred, int N, int B,
-                                    int H, int W, int C, float k_ssim,
-                                    float k_l1, void* stream) {
+template <typename Val>
+int bwd_narrow(const void* pred, const void* target, const void* muy,
+               const void* sy, const void* g, void* dpred, int N, int B,
+               int H, int W, int C, float k_ssim, float k_l1, void* stream) {
   if (bad_dims(N, B, H, W, C) || (H + kTH - 1) / kTH > 65535)
     return (int)cudaErrorInvalidValue;
-  photo_loss_bwd_kernel<<<tiles(N, H, W), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pred), static_cast<const float*>(target),
-      static_cast<const float*>(muy), static_cast<const float*>(sy),
-      static_cast<const float*>(g), static_cast<float*>(dpred), B, H, W, C,
+  photo_loss_bwd_kernel<Val><<<tiles(N, H, W), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const Val*>(pred), static_cast<const Val*>(target),
+      static_cast<const Val*>(muy), static_cast<const Val*>(sy),
+      static_cast<const Val*>(g), static_cast<Val*>(dpred), B, H, W, C,
       k_ssim, k_l1);
   return (int)cudaGetLastError();
 }
 
-// The vector route's forward: as fsnet_photo_loss_fwd, for C <= 4, W % 4 ==
-// 0 and every pointer 16-byte aligned; anything else is refused with
-// cudaErrorInvalidValue.
-extern "C" int fsnet_photo_loss_fwd_vec(const void* pred, const void* target,
-                                        const void* muy, const void* sy,
-                                        void* loss, int N, int B, int H,
-                                        int W, int C, float w_ssim,
-                                        float w_l1, float inv_c,
-                                        void* stream) {
+template <typename Val>
+int fwd_vec(const void* pred, const void* target, const void* muy,
+            const void* sy, void* loss, int N, int B, int H, int W, int C,
+            float w_ssim, float w_l1, float inv_c, void* stream) {
   if (bad_vec(N, B, H, W, C, kFwdRows, {pred, target, muy, sy, loss}))
     return (int)cudaErrorInvalidValue;
-  const auto* x = static_cast<const float*>(pred);
-  const auto* y = static_cast<const float*>(target);
-  const auto* m = static_cast<const float*>(muy);
-  const auto* s = static_cast<const float*>(sy);
-  auto* out = static_cast<float*>(loss);
+  const auto* x = static_cast<const Val*>(pred);
+  const auto* y = static_cast<const Val*>(target);
+  const auto* m = static_cast<const Val*>(muy);
+  const auto* s = static_cast<const Val*>(sy);
+  auto* out = static_cast<Val*>(loss);
   const auto st = static_cast<cudaStream_t>(stream);
   switch (C) {
     case 1:
@@ -936,23 +999,18 @@ extern "C" int fsnet_photo_loss_fwd_vec(const void* pred, const void* target,
   }
 }
 
-// The vector route's prediction cotangent: as fsnet_photo_loss_bwd, for C
-// <= 4, W % 4 == 0 and every pointer 16-byte aligned; anything else is
-// refused with cudaErrorInvalidValue.
-extern "C" int fsnet_photo_loss_bwd_vec(const void* pred, const void* target,
-                                        const void* muy, const void* sy,
-                                        const void* g, void* dpred, int N,
-                                        int B, int H, int W, int C,
-                                        float k_ssim, float k_l1,
-                                        void* stream) {
+template <typename Val>
+int bwd_vec(const void* pred, const void* target, const void* muy,
+            const void* sy, const void* g, void* dpred, int N, int B, int H,
+            int W, int C, float k_ssim, float k_l1, void* stream) {
   if (bad_vec(N, B, H, W, C, kBwdRows, {pred, target, muy, sy, g, dpred}))
     return (int)cudaErrorInvalidValue;
-  const auto* x = static_cast<const float*>(pred);
-  const auto* y = static_cast<const float*>(target);
-  const auto* m = static_cast<const float*>(muy);
-  const auto* s = static_cast<const float*>(sy);
-  const auto* gg = static_cast<const float*>(g);
-  auto* out = static_cast<float*>(dpred);
+  const auto* x = static_cast<const Val*>(pred);
+  const auto* y = static_cast<const Val*>(target);
+  const auto* m = static_cast<const Val*>(muy);
+  const auto* s = static_cast<const Val*>(sy);
+  const auto* gg = static_cast<const Val*>(g);
+  auto* out = static_cast<Val*>(dpred);
   const auto st = static_cast<cudaStream_t>(stream);
   switch (C) {
     case 1:
@@ -970,17 +1028,93 @@ extern "C" int fsnet_photo_loss_bwd_vec(const void* pred, const void* target,
   }
 }
 
-// The occupancy of the vector route's forward (bwd = 0) or cotangent (bwd =
-// 1) at C <= 4 channels, for reports: writes its dynamic shared memory per
-// block (bytes) to `smem` and returns its resident blocks per SM, or minus
-// a CUDA error code.
-extern "C" int fsnet_photo_loss_vec_occupancy(int bwd, int C, int* smem) {
+template <typename Val>
+int occupancy(int bwd, int C, int* smem) {
   int blocks = 0;
   const cudaError_t err =
-      C == 1   ? vec_occupancy<1>(bwd != 0, &blocks, smem)
-      : C == 2 ? vec_occupancy<2>(bwd != 0, &blocks, smem)
-      : C == 3 ? vec_occupancy<3>(bwd != 0, &blocks, smem)
-      : C == 4 ? vec_occupancy<4>(bwd != 0, &blocks, smem)
+      C == 1   ? vec_occupancy<1, Val>(bwd != 0, &blocks, smem)
+      : C == 2 ? vec_occupancy<2, Val>(bwd != 0, &blocks, smem)
+      : C == 3 ? vec_occupancy<3, Val>(bwd != 0, &blocks, smem)
+      : C == 4 ? vec_occupancy<4, Val>(bwd != 0, &blocks, smem)
                : cudaErrorInvalidValue;
   return err == cudaSuccess ? blocks : -(int)err;
+}
+
+}  // namespace
+
+// Forward. pred [N,H,W,C], target/muy/sy [B,H,W,C]; writes loss [N,H,W];
+// all of one dtype, float32 (dtype 0) or bfloat16 (dtype 1). All
+// contiguous. Launches on `stream` and returns cudaGetLastError() (0 on
+// success); never synchronises.
+extern "C" int fsnet_photo_loss_fwd(const void* pred, const void* target,
+                                    const void* muy, const void* sy,
+                                    void* loss, int N, int B, int H, int W,
+                                    int C, float w_ssim, float w_l1,
+                                    float inv_c, int dtype, void* stream) {
+  auto* fn = dtype == 0 ? fwd_narrow<float>
+             : dtype == 1 ? fwd_narrow<bf16>
+                          : nullptr;
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return fn(pred, target, muy, sy, loss, N, B, H, W, C, w_ssim, w_l1, inv_c,
+            stream);
+}
+
+// Prediction cotangent. pred [N,H,W,C], target/muy/sy [B,H,W,C], g [N,H,W];
+// writes dpred [N,H,W,C]; all of one dtype (as the forward's). All
+// contiguous. Launches on `stream` and returns cudaGetLastError(); never
+// synchronises.
+extern "C" int fsnet_photo_loss_bwd(const void* pred, const void* target,
+                                    const void* muy, const void* sy,
+                                    const void* g, void* dpred, int N, int B,
+                                    int H, int W, int C, float k_ssim,
+                                    float k_l1, int dtype, void* stream) {
+  auto* fn = dtype == 0 ? bwd_narrow<float>
+             : dtype == 1 ? bwd_narrow<bf16>
+                          : nullptr;
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return fn(pred, target, muy, sy, g, dpred, N, B, H, W, C, k_ssim, k_l1,
+            stream);
+}
+
+// The vector route's forward: as fsnet_photo_loss_fwd, for C <= 4, W % 4 ==
+// 0 and every pointer 16-byte aligned; anything else is refused with
+// cudaErrorInvalidValue.
+extern "C" int fsnet_photo_loss_fwd_vec(const void* pred, const void* target,
+                                        const void* muy, const void* sy,
+                                        void* loss, int N, int B, int H,
+                                        int W, int C, float w_ssim,
+                                        float w_l1, float inv_c, int dtype,
+                                        void* stream) {
+  auto* fn = dtype == 0 ? fwd_vec<float> : dtype == 1 ? fwd_vec<bf16>
+                                                      : nullptr;
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return fn(pred, target, muy, sy, loss, N, B, H, W, C, w_ssim, w_l1, inv_c,
+            stream);
+}
+
+// The vector route's prediction cotangent: as fsnet_photo_loss_bwd, for C
+// <= 4, W % 4 == 0 and every pointer 16-byte aligned; anything else is
+// refused with cudaErrorInvalidValue.
+extern "C" int fsnet_photo_loss_bwd_vec(const void* pred, const void* target,
+                                        const void* muy, const void* sy,
+                                        const void* g, void* dpred, int N,
+                                        int B, int H, int W, int C,
+                                        float k_ssim, float k_l1, int dtype,
+                                        void* stream) {
+  auto* fn = dtype == 0 ? bwd_vec<float> : dtype == 1 ? bwd_vec<bf16>
+                                                      : nullptr;
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return fn(pred, target, muy, sy, g, dpred, N, B, H, W, C, k_ssim, k_l1,
+            stream);
+}
+
+// The occupancy of the vector route's forward (bwd = 0) or cotangent (bwd =
+// 1) at C <= 4 channels and `dtype` (as the entries'), for reports: writes
+// its dynamic shared memory per block (bytes) to `smem` and returns its
+// resident blocks per SM, or minus a CUDA error code.
+extern "C" int fsnet_photo_loss_vec_occupancy(int bwd, int C, int dtype,
+                                              int* smem) {
+  return dtype == 0   ? occupancy<float>(bwd, C, smem)
+         : dtype == 1 ? occupancy<bf16>(bwd, C, smem)
+                      : -(int)cudaErrorInvalidValue;
 }

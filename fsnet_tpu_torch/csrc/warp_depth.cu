@@ -50,7 +50,13 @@
 // (s*B + b, i, j): it recomputes x, y and dx/dd, dy/dd for each of the F
 // frames, masks with the strict border test 0 < x < W-1, 0 < y < H-1, and
 // sums the F frames into d depth in one pass, without atomics. Bound by
-// bytes: it reads g, va and vb once.
+// bytes: it reads g, va and vb once. Its bfloat16 form (the bf16 step,
+// whose fraction cotangents the JAX package forms in bf16,
+// warp_depth.py:117-120) loads g, va and vb in bfloat16 and forms gfx and
+// gfy as torch's bfloat16 ops do: each product g*va rounded to bfloat16,
+// the channels summed in float32 in order, the sum rounded to bfloat16;
+// the rest is the float32 kernel's arithmetic.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -244,10 +250,25 @@ warp_depth_fwd_vec_kernel(const float* __restrict__ image,
   row_flush(st, (size_t)n * H + i, W, C, out, va, vb, overlap);
 }
 
+// kernel B's channel products: float32 as they are; bfloat16 operands
+// widened (exactly), their product rounded to bfloat16 and widened back
+__device__ __forceinline__ float product(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float product(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return __bfloat162float(__float2bfloat16_rn(
+      __fmul_rn(__bfloat162float(a), __bfloat162float(b))));
+}
+__device__ __forceinline__ float rounded(float v, float) { return v; }
+__device__ __forceinline__ float rounded(float v, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <typename Val>
 __global__ void __launch_bounds__(kThreadsB)
 warp_depth_bwd_kernel(const float* __restrict__ depth,
-                      const float* __restrict__ g, const float* __restrict__ va,
-                      const float* __restrict__ vb,
+                      const Val* __restrict__ g, const Val* __restrict__ va,
+                      const Val* __restrict__ vb,
                       const float* __restrict__ arows,
                       float* __restrict__ ddepth, int S, int F, int B, int H,
                       int W, int C) {
@@ -273,10 +294,11 @@ warp_depth_bwd_kernel(const float* __restrict__ depth,
     const size_t o = (((size_t)n * H + i) * W + j) * C;
     float gx = 0.f, gy = 0.f;
     for (int c = 0; c < C; ++c) {
-      const float gc = g[o + c];
-      gx = __fadd_rn(gx, __fmul_rn(gc, va[o + c]));
-      gy = __fadd_rn(gy, __fmul_rn(gc, vb[o + c]));
+      gx = __fadd_rn(gx, product(g[o + c], va[o + c]));
+      gy = __fadd_rn(gy, product(g[o + c], vb[o + c]));
     }
+    gx = rounded(gx, Val());
+    gy = rounded(gy, Val());
     const float mx = (p.x > 0.f && p.x < (float)(W - 1)) ? 1.f : 0.f;
     const float my = (p.y > 0.f && p.y < (float)(H - 1)) ? 1.f : 0.f;
     const float term = __fadd_rn(__fmul_rn(__fmul_rn(gx, mx), dxdd),
@@ -344,23 +366,34 @@ extern "C" int fsnet_warp_depth_fwd_vec(const void* image, const void* depth,
                              band);
 }
 
-// Kernel B. depth [S*B,H,W], g/va/vb [S*F*B,H,W,C], arows [S*F*B,16] f32;
-// writes ddepth [S*B,H,W] f32. All contiguous. Launches on `stream` and
-// returns cudaGetLastError(); never synchronises.
+template <typename Val>
+void launch_bwd(const void* depth, const void* g, const void* va,
+                const void* vb, const void* arows, void* ddepth, int S, int F,
+                int B, int H, int W, int C, unsigned blocks,
+                cudaStream_t stream) {
+  warp_depth_bwd_kernel<Val><<<blocks, kThreadsB, 0, stream>>>(
+      static_cast<const float*>(depth), static_cast<const Val*>(g),
+      static_cast<const Val*>(va), static_cast<const Val*>(vb),
+      static_cast<const float*>(arows), static_cast<float*>(ddepth), S, F, B,
+      H, W, C);
+}
+
+// Kernel B. depth [S*B,H,W], arows [S*F*B,16] f32, g/va/vb [S*F*B,H,W,C]
+// float32 (dtype 0) or bfloat16 (dtype 1); writes ddepth [S*B,H,W] f32.
+// All contiguous. Launches on `stream` and returns cudaGetLastError();
+// never synchronises.
 extern "C" int fsnet_warp_depth_bwd(const void* depth, const void* g,
                                     const void* va, const void* vb,
                                     const void* arows, void* ddepth, int S,
                                     int F, int B, int H, int W, int C,
-                                    void* stream) {
-  if (bad_dims(S, F, B, H, W, C)) return (int)cudaErrorInvalidValue;
+                                    int dtype, void* stream) {
+  if (bad_dims(S, F, B, H, W, C) || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   const long long total = (long long)S * B * H * W;
   const long long blocks = (total + kThreadsB - 1) / kThreadsB;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  warp_depth_bwd_kernel<<<(unsigned)blocks, kThreadsB, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(depth), static_cast<const float*>(g),
-      static_cast<const float*>(va), static_cast<const float*>(vb),
-      static_cast<const float*>(arows), static_cast<float*>(ddepth), S, F, B,
-      H, W, C);
+  (dtype == 0 ? launch_bwd<float> : launch_bwd<__nv_bfloat16>)(
+      depth, g, va, vb, arows, ddepth, S, F, B, H, W, C, (unsigned)blocks,
+      static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }

@@ -252,10 +252,14 @@ def fisheye_batch(batch: int, height: int, width: int) -> Dict:
 
 # the training recipe of bench.py, and the nuScenes configs' (the
 # optimizer, scheduler and trainer.clip_gradients of
-# configs/nusc_wpose_example.py and configs/distill_nusc_example.py)
+# configs/nusc_wpose_example.py and configs/distill_nusc_example.py); the
+# flagship's compute_dtype is every shipped config's training hook's
+# (configs/common.py:163) and bench.py's: the bf16 step of
+# make_train_step(device, compute_dtype=recipe["compute_dtype"]) (the
+# nuScenes steps have no bf16 form yet)
 FLAGSHIP_RECIPE = dict(optimizer=dict(name="adam", lr=1e-4),
                        scheduler=dict(name="StepLR", step_size=8),
-                       clip_gradients=1.0)
+                       clip_gradients=1.0, compute_dtype="bfloat16")
 NUSC_RECIPE = dict(optimizer=dict(name="adam", lr=1e-4, weight_decay=0),
                    scheduler=dict(name="StepLR", step_size=4),
                    clip_gradients=1.0)

@@ -12,13 +12,14 @@ kernels, zero biases, identity BatchNorm) and draws only from the
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.conv3x3 import PAD_MODES, conv3x3, conv3x3_bn
+from ..ops.conv3x3 import PAD_MODES, conv3x3, conv3x3_bn, is_low
 
 
 class BatchNorm(nn.Module):
@@ -26,10 +27,20 @@ class BatchNorm(nn.Module):
 
     Eval (or ``frozen``) uses the running statistics; training normalises
     with the biased batch variance and updates the running statistics as
-    flax does: ``ra = 0.9 * ra + (1 - 0.9) * batch``. eps 1e-5."""
+    flax does: ``ra = 0.9 * ra + (1 - 0.9) * batch``. eps 1e-5.
+
+    On a bfloat16 input (the bf16 train step, whose parameters arrive as
+    bfloat16 copies) this is flax 0.12.3's ``nn.BatchNorm`` on the bf16
+    tree that ``fsnet_tpu.runtime.state`` casts: the running statistics are
+    read rounded to bfloat16; in training the batch statistics are float32
+    (the variance clamped at 0), the normalisation runs in float32 and is
+    rounded to bfloat16, and the update ``bf16(bf16(0.9) * ra) + 0.1 *
+    batch`` is float32, written back to the float32 buffers; in eval every
+    operation is bfloat16."""
 
     momentum = 0.9      # flax convention (torch momentum 0.1)
     eps = 1e-5
+    _deferred = None    # the updates gathered by deferred_updates()
 
     def __init__(self, num_features: int, frozen: bool = False):
         super().__init__()
@@ -39,12 +50,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def update_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        with torch.no_grad():
-            self.running_mean.mul_(self.momentum).add_(
-                mean.detach() * (1 - self.momentum))
-            self.running_var.mul_(self.momentum).add_(
-                var.detach() * (1 - self.momentum))
+    def update_stats(self, mean: torch.Tensor, var: torch.Tensor,
+                     dtype: torch.dtype) -> None:
+        """The momentum update from the batch statistics of an input of
+        ``dtype``: the old statistics are read in ``dtype`` and scaled there
+        by the momentum in ``dtype``, and the sum is taken in the
+        statistics' own dtype (at their own dtype ``0.9 ra + 0.1 batch``;
+        in bfloat16 flax's update on the cast tree)."""
+        if BatchNorm._deferred is not None:
+            BatchNorm._deferred.append((self, mean.detach(), var.detach(),
+                                        dtype))
+            return
+        _momentum_update(self.running_mean, mean.detach(), dtype)
+        _momentum_update(self.running_var, var.detach(), dtype)
 
     def normalize(self, x: torch.Tensor, mean: torch.Tensor,
                   var: torch.Tensor) -> torch.Tensor:
@@ -57,10 +75,59 @@ class BatchNorm(nn.Module):
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             mean = xf.mean(dim=dims)
             var = (xf * xf).mean(dim=dims) - mean * mean
-            self.update_stats(mean, var)
+            if is_low(x.dtype):
+                var = var.clamp_min(0.0)
+            self.update_stats(mean, var, x.dtype)
         else:
             mean, var = self.running_mean, self.running_var
+            if is_low(x.dtype):
+                mean, var = mean.to(x.dtype), var.to(x.dtype)
         return self.normalize(x, mean, var)
+
+
+def _momentum_update(ra: torch.Tensor, batch: torch.Tensor,
+                     dtype: torch.dtype) -> None:
+    """``ra <- (ra in dtype * 0.9 in dtype) + 0.1 batch`` in place, the sum
+    in ``ra``'s dtype, elementwise: the running statistics ``ra`` of one BN,
+    or those of many concatenated."""
+    m = torch.tensor(BatchNorm.momentum, dtype=dtype)
+    with torch.no_grad():
+        torch.add((ra.to(dtype) * m).to(ra.dtype),
+                  batch * (1 - BatchNorm.momentum), out=ra)
+
+
+@contextlib.contextmanager
+def deferred_updates():
+    """Within the block, every :meth:`BatchNorm.update_stats` is gathered
+    and none applied; on a normal exit they are applied in a few launches,
+    in order: a module updated twice takes its second update from the
+    result of its first. (The bf16 train step's forward: no BN reads its
+    running statistics in training.)"""
+    if BatchNorm._deferred is not None:
+        raise RuntimeError("deferred_updates does not nest")
+    BatchNorm._deferred = pending = []
+    try:
+        yield
+    finally:
+        BatchNorm._deferred = None
+    while pending:
+        done, rest = set(), []
+        stats, batch = [], []
+        dtype = pending[0][3]
+        for item in pending:
+            bn, mean, var, dt = item
+            if bn in done or dt != dtype:
+                rest.append(item)
+            else:
+                stats += [bn.running_mean, bn.running_var]
+                batch += [mean, var]
+            done.add(bn)
+        flat = torch.cat([t.reshape(-1) for t in stats])
+        _momentum_update(flat, torch.cat([t.reshape(-1) for t in batch]),
+                         dtype)
+        torch._foreach_copy_(stats, [t.view_as(r) for t, r in zip(
+            flat.split([t.numel() for t in stats]), stats)])
+        pending = rest
 
 
 class Conv(nn.Module):
@@ -113,7 +180,9 @@ class ConvBnReLU(nn.Module):
     In training the batch statistics come with the conv
     (:func:`~fsnet_tpu_torch.ops.conv3x3.conv3x3_bn`, the kernel's moments
     epilogue): mean = s1 / n, var = s2 / n - mean^2 over the n = B*H*W
-    pixels, as ``fsnet_tpu.models.blocks.ConvBnReLU._call_packed``."""
+    pixels, as ``fsnet_tpu.models.blocks.ConvBnReLU._call_packed``; on a
+    bfloat16 input the moments are float32 sums of the stored bf16 output
+    and the variance is clamped at 0, as flax's ``_compute_stats``."""
 
     def __init__(self, input_features: int, output_features: int,
                  padding_mode: str = "zeros"):
@@ -129,7 +198,9 @@ class ConvBnReLU(nn.Module):
         n = y.shape[0] * y.shape[1] * y.shape[2]
         mean = s1 / n
         var = s2 / n - mean * mean
-        self.norm.update_stats(mean, var)
+        if is_low(y.dtype):
+            var = var.clamp_min(0.0)
+        self.norm.update_stats(mean, var, y.dtype)
         return torch.relu(self.norm.normalize(y, mean, var))
 
 

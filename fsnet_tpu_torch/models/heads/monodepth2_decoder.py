@@ -166,7 +166,11 @@ class MonoDepth2Decoder(nn.Module):
                                for f in frames])
         C = sources.shape[-1]
         ft = torch.promote_types(depths_full.dtype, torch.float32)
-        sources = sources.reshape(F * B, H, W, C).to(ft).contiguous()
+        # a bf16 step's images stay bf16 into the warps, which round their
+        # outputs to it as the JAX package's do; depth, rows and grids are
+        # float32 or wider
+        it = torch.bfloat16 if sources.dtype == torch.bfloat16 else ft
+        sources = sources.reshape(F * B, H, W, C).to(it).contiguous()
         pose_const = bool(output_dict.pop("pose_is_const", False))
         if pose_const and "patched_mask" not in input_dict:
             preds, overlap = warp_depth_fused(

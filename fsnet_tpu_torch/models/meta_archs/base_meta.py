@@ -10,7 +10,8 @@ from torch import nn
 class BaseMetaArch(nn.Module):
     """Subclasses implement ``forward_train``, ``forward_test`` and
     ``dummy_forward`` (image-only forward for export). ``forward(data,
-    meta)`` dispatches on ``meta['is_training']``."""
+    meta, **kwargs)`` dispatches on ``meta['is_training']``; the keywords
+    (the train step's ``noise``) go to ``forward_train``."""
 
     def forward_train(self, data: Dict, meta: Dict) -> Dict:
         raise NotImplementedError
@@ -21,7 +22,7 @@ class BaseMetaArch(nn.Module):
     def dummy_forward(self, image) -> Dict:
         raise NotImplementedError
 
-    def forward(self, data: Dict, meta: Dict) -> Dict:
+    def forward(self, data: Dict, meta: Dict, **kwargs) -> Dict:
         if meta["is_training"]:
-            return self.forward_train(data, meta)
+            return self.forward_train(data, meta, **kwargs)
         return self.forward_test(data, meta)

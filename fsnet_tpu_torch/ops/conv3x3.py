@@ -14,22 +14,28 @@ building that concat.
 (``torch.autograd.Function``). Every function here picks its route from the
 device of the tensors it is given: on the CPU it runs the plain version; on
 a CUDA device it launches its kernel or raises. Each wrapper counts its
-kernel's launches in ``<function>.launches``:
+kernel's launches in ``<function>.launches``, and by the dtype of the
+operands the kernel ran on in ``<function>.dtypes``:
 
 * :func:`conv3x3`: ``csrc/conv3x3.cu`` (forward, TPU ``conv3x3_fused_mats``);
 * :func:`conv3x3_bn`: the same kernel with its moments epilogue (TPU
-  ``conv3x3_fused_mats_m``), float32;
+  ``conv3x3_fused_mats_m``), float32 or bfloat16: the moments are float32
+  sums of the stored output, in bfloat16 of each output after its
+  rounding (``conv_kernel.py:196-200``);
 * :func:`conv3x3_dx`: the same kernel in its input-cotangent mode (TPU
   ``conv3x3_fused_mats`` on transposed mats): the output cotangent's zero
   halo, the weight's flip and the replicate halo's fold happen inside the
   kernel, and both parts' cotangents come from one launch per conv; float32
   or bfloat16;
 * :func:`conv3x3_dw`: ``csrc/conv3x3_dw.cu`` (TPU ``conv3x3_fused_dw``),
-  float32.
+  float32 or bfloat16 operands, a float32 cotangent.
 
 Both kernels are implicit GEMMs on the tensor cores (``mma.sync`` m16n8k8
 TF32 fed by a ``cp.async`` ring): float32 runs as 3xTF32 (three products of
-split operands, as accurate as float32 FMA), bfloat16 as one product.
+split operands, as accurate as float32 FMA), bfloat16 as one exact
+product. Both sum each staged chunk's products from zero and add the
+chunk's partial in float32, so a bfloat16 output is the rounding of a sum
+as accurate as the plain version's float32 one.
 """
 from __future__ import annotations
 
@@ -42,6 +48,14 @@ import torch.nn.functional as F
 Parts = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DT_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+
+
+def is_low(dtype: torch.dtype) -> bool:
+    """Whether the port computes on ``dtype`` widened to float32 and rounds
+    its results back to it: bfloat16, the bf16 train step's dtype."""
+    return dtype == torch.bfloat16
+
 PAD_MODES = ("zeros", "replicate")
 
 
@@ -213,6 +227,12 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _counted(fn, dtype: torch.dtype) -> None:
+    """One launch of ``fn``'s kernel on ``dtype`` operands."""
+    fn.launches += 1
+    fn.dtypes[_DT_NAMES[dtype]] += 1
+
+
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
@@ -233,7 +253,8 @@ def _launch_conv(parts, w, bias, pad_mode, mom=None) -> torch.Tensor:
             err = _kernel()(*args, *tail, _DTYPES[x0.dtype], _stream(x0))
         else:
             err = _entry("conv3x3", "fsnet_conv3x3_bn_nhwc",
-                         (0, 2, 4, 5, 6, 7), 14)(*args, mom.data_ptr(), *tail,
+                         (0, 2, 4, 5, 6, 7), 15)(*args, mom.data_ptr(), *tail,
+                                                 _DTYPES[x0.dtype],
                                                  _stream(x0))
     _raise_on(err, "conv3x3")
     return out
@@ -243,7 +264,7 @@ def _forward(parts, w, bias, pad_mode) -> torch.Tensor:
     if not _route(parts[0], "conv3x3"):
         return _conv_core(parts, w, bias, pad_mode)
     out = _launch_conv(parts, w, bias, pad_mode)
-    conv3x3.launches += 1
+    _counted(conv3x3, parts[0].dtype)
     return out
 
 
@@ -251,13 +272,10 @@ def _forward_bn(parts, w, bias, pad_mode):
     if not _route(parts[0], "conv3x3_bn"):
         out = _conv_core(parts, w, bias, pad_mode)
         return (out, *moments_plain(out))
-    if parts[0].dtype != torch.float32:
-        raise TypeError("the moments kernel takes float32, got "
-                        f"{parts[0].dtype}")
     mom = torch.zeros((2, w.shape[3]), dtype=torch.float32,
                       device=parts[0].device)
     out = _launch_conv(parts, w, bias, pad_mode, mom)
-    conv3x3_bn.launches += 1
+    _counted(conv3x3_bn, parts[0].dtype)
     return out, mom[0], mom[1]
 
 
@@ -314,34 +332,38 @@ def conv3x3_dx(g: torch.Tensor, w: torch.Tensor, pad_mode: str,
             Cs[1] if len(Cs) == 2 else 0, B, H, W,
             int(pad_mode == "replicate"), _DTYPES[g.dtype], _stream(g))
     _raise_on(err, "conv3x3_dx")
-    conv3x3_dx.launches += 1
+    _counted(conv3x3_dx, g.dtype)
     return dxs
 
 
 def conv3x3_dw(x: Parts, g: torch.Tensor, pad_mode: str = "zeros"
                ) -> torch.Tensor:
     """Weight cotangent ``[3, 3, sum(C), Co]`` (float32) of the conv of
-    ``x`` (one or two NHWC parts) given the output cotangent ``g``."""
+    ``x`` (one or two NHWC parts) given the output cotangent ``g``, both of
+    one dtype, float32 or bfloat16."""
     parts = _as_parts(x)
     if not _route(g, "conv3x3_dw"):
         return conv3x3_dw_plain(parts, g, pad_mode)
     for t in (*parts, g):
-        if t.dtype != torch.float32 or not t.is_contiguous() or \
-                t.device != g.device or t.shape[:3] != g.shape[:3]:
-            raise TypeError("conv3x3_dw takes contiguous float32 NHWC tensors "
-                            "of one [B, H, W] on one device")
+        if t.dtype not in _DTYPES or t.dtype != g.dtype or \
+                not t.is_contiguous() or t.device != g.device or \
+                t.shape[:3] != g.shape[:3]:
+            raise TypeError("conv3x3_dw takes contiguous NHWC tensors of one "
+                            f"dtype of {sorted(map(str, _DTYPES))} and one "
+                            "[B, H, W] on one device")
     B, H, W, Co = g.shape
     x1 = parts[1] if len(parts) == 2 else None
     dw = torch.zeros((3, 3, sum(p.shape[3] for p in parts), Co),
                      dtype=torch.float32, device=g.device)
     with torch.cuda.device(g.device):
-        err = _entry("conv3x3_dw", "fsnet_conv3x3_dw_nhwc", (0, 2, 4, 5), 12)(
+        err = _entry("conv3x3_dw", "fsnet_conv3x3_dw_nhwc", (0, 2, 4, 5), 13)(
             parts[0].data_ptr(), parts[0].shape[3],
             None if x1 is None else x1.data_ptr(),
             0 if x1 is None else x1.shape[3], g.data_ptr(), dw.data_ptr(),
-            B, H, W, Co, int(pad_mode == "replicate"), _stream(g))
+            B, H, W, Co, int(pad_mode == "replicate"), _DTYPES[g.dtype],
+            _stream(g))
     _raise_on(err, "conv3x3_dw")
-    conv3x3_dw.launches += 1
+    _counted(conv3x3_dw, g.dtype)
     return dw
 
 
@@ -352,8 +374,10 @@ class Conv3x3Function(torch.autograd.Function):
     per-channel sum and sum of squares (``moments=True``). Backward
     (``fast_conv._pallas_cvjp_bwd`` / ``_pallas_bn_cvjp_bwd``): the moment
     cotangents fold into the output cotangent as ``g + gs1 + 2*out*gs2``,
-    then dx of every part (:func:`conv3x3_dx`), dw (:func:`conv3x3_dw`) and
-    dbias ``g.sum((0, 1, 2))``."""
+    formed in float32 or wider and rounded to the cotangent's dtype, then
+    dx of every part (:func:`conv3x3_dx`), dw (:func:`conv3x3_dw`, rounded
+    to the weight's dtype) and dbias ``g.sum((0, 1, 2))`` (summed in
+    float32 or wider)."""
 
     @staticmethod
     def forward(ctx, pad_mode, moments, w, bias, *parts):
@@ -370,15 +394,16 @@ class Conv3x3Function(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, gs1=None, gs2=None):
         w, out, *parts = ctx.saved_tensors
+        acc = _acc_dtype(g.dtype)
         if ctx.moments:
-            g = g + gs1 + 2.0 * out * gs2
+            g = (g.to(acc) + gs1 + 2.0 * out.to(acc) * gs2).to(g.dtype)
         g = g.contiguous()
         need_x = ctx.needs_input_grad[4:]
         dxs = (conv3x3_dx(g, w, ctx.pad_mode, ctx.Cs) if any(need_x)
                else (None,) * len(parts))
         dw = (conv3x3_dw(parts, g, ctx.pad_mode).to(w.dtype)
               if ctx.needs_input_grad[2] else None)
-        db = (g.sum(dim=(0, 1, 2)).to(w.dtype)
+        db = (g.to(acc).sum(dim=(0, 1, 2)).to(w.dtype)
               if ctx.has_bias and ctx.needs_input_grad[3] else None)
         return (None, None, dw, db, *dxs)
 
@@ -407,7 +432,6 @@ def conv3x3_bn(x: Parts, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
     return Conv3x3Function.apply(pad_mode, True, w, bias, *parts)
 
 
-conv3x3.launches = 0
-conv3x3_bn.launches = 0
-conv3x3_dx.launches = 0
-conv3x3_dw.launches = 0
+for _fn in (conv3x3, conv3x3_bn, conv3x3_dx, conv3x3_dw):
+    _fn.launches = 0
+    _fn.dtypes = dict.fromkeys(_DT_NAMES.values(), 0)

@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from .conv3x3 import is_low
 from .warp_fast import grid_sample
 
 
@@ -53,6 +54,9 @@ def modulated_deform_conv(x: torch.Tensor, offset: torch.Tensor,
     pixels), ``mask`` [B, Ho, Wo, K*K] (post-sigmoid), ``weight``
     [K, K, Cin, Cout] (HWIO), ``bias`` [Cout] -> [B, Ho, Wo, Cout],
     ``Ho = (H + 2p - d(K-1) - 1) / s + 1``."""
+    if is_low(x.dtype):
+        raise TypeError(f"the deformable conv takes float32, not {x.dtype}: "
+                        "its kernels have no bfloat16 form yet")
     B, H, W, Cin = x.shape
     K, Cout = weight.shape[0], weight.shape[-1]
     Ho, Wo = offset.shape[1:3]

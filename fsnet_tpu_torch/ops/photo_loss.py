@@ -32,20 +32,30 @@ y - x >= 0. (The TPU kernel's strict gates pass none at a tie.)
 Only ``pred`` gets a cotangent: the target and its stats are dataset
 constants, as in the JAX package. :func:`photo_loss_fwd` and
 :func:`photo_loss_bwd` pick the plain version or a kernel from the device
-of the tensors they are given, count launches in ``<function>.launches``
-and, by route, in ``<function>.routes``; :func:`_launch_fwd` and
+of the tensors they are given, count launches in ``<function>.launches``,
+by dtype in ``<function>.dtypes`` and by route in ``<function>.routes``;
+:func:`_launch_fwd` and
 :func:`_launch_bwd` launch one route's kernel (tests and ``chip_smoke.py``
 hold both routes with them).
+
+In bfloat16 (the bf16 train step: pred, target, stats and the loss
+cotangent all bfloat16) the kernels and the plain versions take every
+value widened to float32, compute exactly as in float32, and round the loss
+and the cotangent to bfloat16 (TPU ``photo_loss_pallas`` writes the loss in
+the prediction's dtype; the JAX caller rounds ``photo_loss_bwd_pallas``'s
+float32 cotangent to it, ``photo_loss.py:110``); both routes take it.
 """
 from __future__ import annotations
 
 import torch
 
-from .conv3x3 import _entry, _raise_on, _route, _stream
+from .conv3x3 import _DT_NAMES, _counted, _entry, _raise_on, _route, _stream
+from .conv3x3 import _DTYPES as _CODES
+from .conv3x3 import is_low
 from .geometry import abs_
 from .ssim import _C1, _C2, _relu0, avg_pool3
 
-_DTYPES = (torch.float32,)
+_DTYPES = (torch.float32, torch.bfloat16)
 ROUTES = ("narrow", "vector")
 _SUFFIX = dict(narrow="", vector="_vec")     # of the routes' C entry points
 
@@ -81,8 +91,9 @@ def _check(pred, target, muy, sy, extra=()):
     for t in (pred, target, muy, sy, *extra):
         if t.dtype not in _DTYPES or t.dtype != pred.dtype or \
                 t.device != pred.device or not t.is_contiguous():
-            raise TypeError("photo_loss takes contiguous float32 tensors on "
-                            "one device")
+            raise TypeError("photo_loss takes contiguous tensors of one "
+                            f"dtype of {sorted(map(str, _DTYPES))} on one "
+                            "device")
 
 
 def _terms(pred, target, muy, sy):
@@ -122,7 +133,11 @@ def photo_loss_plain(pred: torch.Tensor, target: torch.Tensor,
     """Plain version of the forward: the per-pixel loss [N, H, W]. Its
     clamps and abs differentiate as :func:`~fsnet_tpu_torch.ops.ssim.ssim`
     and the JAX package do, so autograd of it is the closed-form cotangent
-    of :func:`photo_loss_bwd_plain`."""
+    of :func:`photo_loss_bwd_plain`. In bfloat16: the float32 loss of the
+    widened inputs, rounded."""
+    if is_low(pred.dtype):
+        return photo_loss_plain(pred.float(), target.float(), muy.float(),
+                                sy.float(), ssim_weight).to(pred.dtype)
     t = _terms(pred, target, muy, sy)
     val = t["val"]
     dis = torch.minimum(_relu0(val), torch.ones((), dtype=val.dtype,
@@ -163,7 +178,12 @@ def photo_loss_bwd_plain(pred: torch.Tensor, target: torch.Tensor,
                          muy: torch.Tensor, sy: torch.Tensor, g: torch.Tensor,
                          ssim_weight: float = 0.85) -> torch.Tensor:
     """Plain version of the cotangent: d loss / d pred [N, H, W, C] for the
-    loss cotangent ``g`` [N, H, W]."""
+    loss cotangent ``g`` [N, H, W]. In bfloat16: the float32 cotangent of
+    the widened inputs, rounded."""
+    if is_low(pred.dtype):
+        return photo_loss_bwd_plain(
+            pred.float(), target.float(), muy.float(), sy.float(), g.float(),
+            ssim_weight).to(pred.dtype)
     N, H, W, C = pred.shape
     t = _terms(pred, target, muy, sy)
     r, u, x, val = t["r"], t["u"], t["x"], t["val"]
@@ -197,15 +217,15 @@ def _launch_fwd(route: str, pred: torch.Tensor, target: torch.Tensor,
     entry point raises where they do not fit it): loss [N, H, W]."""
     _known(route)
     N, H, W, C = pred.shape
-    loss = torch.empty((N, H, W), dtype=torch.float32, device=pred.device)
+    loss = torch.empty((N, H, W), dtype=pred.dtype, device=pred.device)
     fn = "fsnet_photo_loss_fwd" + _SUFFIX[route]
     with torch.cuda.device(pred.device):
-        err = _entry("photo_loss", fn, range(5), 14, floats=(10, 11, 12))(
+        err = _entry("photo_loss", fn, range(5), 15, floats=(10, 11, 12))(
             pred.data_ptr(), target.data_ptr(), muy.data_ptr(), sy.data_ptr(),
             loss.data_ptr(), N, target.shape[0], H, W, C, float(ssim_weight),
-            1.0 - ssim_weight, 1.0 / C, _stream(pred))
+            1.0 - ssim_weight, 1.0 / C, _CODES[pred.dtype], _stream(pred))
     _raise_on(err, fn)
-    photo_loss_fwd.launches += 1
+    _counted(photo_loss_fwd, pred.dtype)
     photo_loss_fwd.routes[route] += 1
     return loss
 
@@ -220,12 +240,13 @@ def _launch_bwd(route: str, pred: torch.Tensor, target: torch.Tensor,
     dpred = torch.empty_like(pred)
     fn = "fsnet_photo_loss_bwd" + _SUFFIX[route]
     with torch.cuda.device(pred.device):
-        err = _entry("photo_loss", fn, range(6), 14, floats=(11, 12))(
+        err = _entry("photo_loss", fn, range(6), 15, floats=(11, 12))(
             pred.data_ptr(), target.data_ptr(), muy.data_ptr(), sy.data_ptr(),
             g.data_ptr(), dpred.data_ptr(), N, target.shape[0], H, W, C,
-            -0.5 * ssim_weight / C, (1.0 - ssim_weight) / C, _stream(pred))
+            -0.5 * ssim_weight / C, (1.0 - ssim_weight) / C,
+            _CODES[pred.dtype], _stream(pred))
     _raise_on(err, fn)
-    photo_loss_bwd.launches += 1
+    _counted(photo_loss_bwd, pred.dtype)
     photo_loss_bwd.routes[route] += 1
     return dpred
 
@@ -289,7 +310,8 @@ def reprojection_loss_fused(pred: torch.Tensor, target: torch.Tensor,
     return PhotoLossFunction.apply(pred, target, muy, sy, ssim_weight)
 
 
-photo_loss_fwd.launches = 0
-photo_loss_bwd.launches = 0
+for _fn in (photo_loss_fwd, photo_loss_bwd):
+    _fn.launches = 0
+    _fn.dtypes = dict.fromkeys(_DT_NAMES.values(), 0)
 photo_loss_fwd.routes = dict.fromkeys(ROUTES, 0)
 photo_loss_bwd.routes = dict.fromkeys(ROUTES, 0)

@@ -22,6 +22,16 @@ pixel projected once, the row written as 16-byte stores) where the row
 fits it, the narrow route for every other shape; ``warp_depth_fwd.routes``
 counts launches by route and :func:`_launch_fwd` launches one route (tests
 and ``chip_smoke.py`` hold both routes with it).
+
+A bfloat16 image (the bf16 train step; depth and rows stay float32) is
+warped as the JAX package's unpacked TPU route does (``warp_depth.py:80``,
+:90-91): widened to float32 (exactly), kernel A in float32, and out, va and
+vb rounded to bfloat16. Kernel B's bfloat16 form then loads g, va and vb
+in bfloat16 and forms ``gfx = sum_c g va`` and ``gfy`` as torch's bfloat16
+ops do (``warp_depth.py:117-120`` forms them in bf16): each product rounded
+to bfloat16, the channels summed in float32 in order, the sum rounded; the
+rest is the float32 kernel's, and the depth cotangent is float32, depth's
+dtype. Kernel A is the float32 one.
 """
 from __future__ import annotations
 
@@ -29,7 +39,9 @@ from typing import Tuple
 
 import torch
 
-from .conv3x3 import _entry, _raise_on, _route, _stream
+from .conv3x3 import _DTYPES as _CODES
+from .conv3x3 import (_DT_NAMES, _counted, _entry, _raise_on, _route,
+                      _stream, is_low)
 from .geometry import project_rows
 # the vector route's row: W / 4 threads of at most 512, and out, va, vb
 # (W C floats each) and the overlap (W bytes) staged in at most
@@ -97,11 +109,14 @@ def _check(image, depth, arows, S, F, extra=()):
         raise ValueError(f"warp_depth: image {tuple(image.shape)}, depth "
                          f"{tuple(depth.shape)}, arows {tuple(arows.shape)} "
                          f"do not fit S={S}, F={F}")
-    for t in (image, depth, arows, *extra):
-        if t.dtype not in _DTYPES or t.dtype != image.dtype or \
+    wide = torch.float32 if is_low(image.dtype) else image.dtype
+    for t, want in ((image, image.dtype), (depth, wide), (arows, wide),
+                    *((e, image.dtype) for e in extra)):
+        if wide not in _DTYPES or t.dtype != want or \
                 t.device != image.device or not t.is_contiguous():
             raise TypeError("warp_depth takes contiguous float32 tensors on "
-                            "one device")
+                            "one device (image, g, va and vb may be "
+                            "bfloat16 together)")
 
 
 def warp_depth_plain(image: torch.Tensor, depth: torch.Tensor,
@@ -117,23 +132,35 @@ def warp_depth_plain(image: torch.Tensor, depth: torch.Tensor,
     return out, overlap, va, vb
 
 
+def _channel_sum(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``sum_c g v`` [N, H, W]: in float32 (or wider) by torch's sum; in
+    bfloat16 each product rounded, the channels summed in float32 in
+    order, the sum rounded and widened (kernel B's bfloat16 form)."""
+    if not is_low(v.dtype):
+        return (g * v).sum(-1)
+    prod = (g * v).float()
+    acc = prod[..., 0]
+    for c in range(1, prod.shape[-1]):
+        acc = acc + prod[..., c]
+    return acc.to(v.dtype).float()
+
+
 def warp_depth_bwd_plain(depth: torch.Tensor, g: torch.Tensor,
                          va: torch.Tensor, vb: torch.Tensor,
                          arows: torch.Tensor, S: int, F: int) -> torch.Tensor:
     """Plain version of the backward: fraction cotangents
-    ``gfx = sum_c g va``, ``gfy = sum_c g vb`` -> d depth [S*B, H, W] f32,
-    masked by the strict border test and summed over the F frames
-    (``prep_kernel._prep_bwd_kernel``)."""
+    ``gfx = sum_c g va``, ``gfy = sum_c g vb`` (:func:`_channel_sum`) -> d
+    depth [S*B, H, W] f32, masked by the strict border test and summed over
+    the F frames (``prep_kernel._prep_bwd_kernel``)."""
     SB, H, W = depth.shape
     p = project_rows(_per_warp_depth(depth, S, F), arows)
     bz = arows[:, 11].view(-1, 1, 1) + 1e-7
     inv2 = p["inv"] * p["inv"]
     dxdd = (p["cx"] * bz - arows[:, 9].view(-1, 1, 1) * p["cz"]) * inv2
     dydd = (p["cy"] * bz - arows[:, 10].view(-1, 1, 1) * p["cz"]) * inv2
-    mx = ((p["x"] > 0.0) & (p["x"] < W - 1)).to(g.dtype)
-    my = ((p["y"] > 0.0) & (p["y"] < H - 1)).to(g.dtype)
-    gx = (g * va).sum(-1)
-    gy = (g * vb).sum(-1)
+    gx, gy = _channel_sum(g, va), _channel_sum(g, vb)
+    mx = ((p["x"] > 0.0) & (p["x"] < W - 1)).to(gx.dtype)
+    my = ((p["y"] > 0.0) & (p["y"] < H - 1)).to(gx.dtype)
     term = gx * mx * dxdd + gy * my * dydd                    # [N, H, W]
     return term.view(S, F, SB // S, H, W).sum(dim=1).reshape(SB, H, W)
 
@@ -163,7 +190,13 @@ def _launch_fwd(route: str, image: torch.Tensor, depth: torch.Tensor,
 def warp_depth_fwd(image: torch.Tensor, depth: torch.Tensor,
                    arows: torch.Tensor, S: int, F: int, band: int):
     """The forward (kernel A on a CUDA device, on the route of
-    :func:`proj_route`): (out, overlap, va, vb)."""
+    :func:`proj_route`): (out, overlap, va, vb); a bfloat16 image is warped
+    widened and out, va and vb are rounded to bfloat16."""
+    if is_low(image.dtype):
+        out, overlap, va, vb = warp_depth_fwd(image.float(), depth, arows, S,
+                                              F, band)
+        return (out.to(image.dtype), overlap, va.to(image.dtype),
+                vb.to(image.dtype))
     _check(image, depth, arows, S, F)
     if not _route(image, "warp_depth_fwd"):
         return warp_depth_plain(image, depth, arows, S, F, band)
@@ -176,7 +209,9 @@ def warp_depth_fwd(image: torch.Tensor, depth: torch.Tensor,
 def warp_depth_bwd(depth: torch.Tensor, g: torch.Tensor, va: torch.Tensor,
                    vb: torch.Tensor, arows: torch.Tensor, S: int,
                    F: int) -> torch.Tensor:
-    """The depth cotangent (kernel B on a CUDA device) -> [S*B, H, W]."""
+    """The depth cotangent (kernel B on a CUDA device) -> [S*B, H, W]
+    float32; g, va and vb float32, or all bfloat16 (kernel B's bfloat16
+    form)."""
     if g.shape != va.shape or vb.shape != va.shape:
         raise ValueError("warp_depth_bwd: g, va and vb must share one shape")
     N, H, W, C = va.shape
@@ -187,12 +222,12 @@ def warp_depth_bwd(depth: torch.Tensor, g: torch.Tensor, va: torch.Tensor,
     ddepth = torch.empty((SB, H, W), dtype=torch.float32, device=depth.device)
     with torch.cuda.device(depth.device):
         err = _entry("warp_depth", "fsnet_warp_depth_bwd",
-                     (0, 1, 2, 3, 4, 5), 13)(
+                     (0, 1, 2, 3, 4, 5), 14)(
             depth.data_ptr(), g.data_ptr(), va.data_ptr(), vb.data_ptr(),
             arows.data_ptr(), ddepth.data_ptr(), S, F, SB // S, H, W, C,
-            _stream(depth))
+            _CODES[g.dtype], _stream(depth))
     _raise_on(err, "warp_depth_bwd")
-    warp_depth_bwd.launches += 1
+    _counted(warp_depth_bwd, g.dtype)
     return ddepth
 
 
@@ -230,3 +265,4 @@ def warp_depth_fused(image: torch.Tensor, depth: torch.Tensor,
 warp_depth_fwd.launches = 0
 warp_depth_fwd.routes = dict.fromkeys(ROUTES, 0)
 warp_depth_bwd.launches = 0
+warp_depth_bwd.dtypes = dict.fromkeys(_DT_NAMES.values(), 0)

@@ -38,6 +38,15 @@ frames and masks. ``grid_band_fwd.routes``, ``grid_band_fused.routes``
 and ``grid_band_bwd.routes`` count the launches of each route, and
 :func:`_launch_grid` launches E or F on one route (the card tests and
 ``chip_smoke.py`` hold the routes against each other with it).
+
+A bfloat16 image (the bf16 train step) takes a float32 grid, as the JAX
+package's grid route hands it one (``reproject`` computes and returns the
+grid in float32): E and F warp it as that route's unpacked TPU kernels do
+(``warp_fast.py:244-263``), the image widened to float32 (exactly), float32
+arithmetic in the float32 kernel, and out, va and vb rounded to bfloat16;
+the grid cotangent is then formed from them in bfloat16 and scaled by the
+bfloat16-rounded ``(W - 1) / 2``, as JAX's weakly typed scalars round. Kernel
+K (``image_grad``, the deformable conv) refuses bfloat16.
 """
 from __future__ import annotations
 
@@ -45,7 +54,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .conv3x3 import _entry, _raise_on, _route, _stream
+from .conv3x3 import _entry, _raise_on, _route, _stream, is_low
 
 MODES = ("bilinear", "nearest")
 PADDINGS = ("border", "zeros")
@@ -133,11 +142,20 @@ def _check(image: torch.Tensor, grid: torch.Tensor, mode: str, padding: str,
             grid.shape[0] % image.shape[0] or not 1 <= band <= image.shape[1]:
         raise ValueError(f"grid warp: image {tuple(image.shape)}, grid "
                          f"{tuple(grid.shape)}, band {band} do not fit")
-    for t in (image, grid):
-        if t.dtype not in _DTYPES or t.dtype != image.dtype or \
-                t.device != image.device or not t.is_contiguous():
-            raise TypeError("grid warp takes contiguous float32 tensors on "
-                            "one device")
+    wide = torch.float32 if is_low(image.dtype) else image.dtype
+    if wide not in _DTYPES or grid.dtype != wide or \
+            grid.device != image.device or not image.is_contiguous() or \
+            not grid.is_contiguous():
+        raise TypeError("grid warp takes contiguous float32 tensors on one "
+                        "device, or a bfloat16 image with a float32 grid")
+
+
+def _refuse_low(image: torch.Tensor) -> None:
+    """Kernel K (the image cotangent, the deformable conv's) has no
+    bfloat16 form."""
+    if is_low(image.dtype):
+        raise TypeError("the image-gradient warp (kernel K) takes float32, "
+                        f"not {image.dtype}")
 
 
 def grid_band_plain(image: torch.Tensor, grid: torch.Tensor, mode: str,
@@ -232,6 +250,9 @@ def grid_band_fwd(image: torch.Tensor, grid: torch.Tensor, mode: str,
     """The forward (kernel E on a CUDA device, on the route of
     :func:`warp_route`): out [N, Ho, Wo, C]."""
     _check(image, grid, mode, padding, band)
+    if is_low(image.dtype):
+        return grid_band_fwd(image.float(), grid, mode, padding, band).to(
+            image.dtype)
     if not _route(image, "grid_band_fwd"):
         return grid_band_plain(image, grid, mode, padding, band, False)[0]
     # the route from the inputs: the output, a fresh CUDA allocation, is
@@ -246,6 +267,9 @@ def grid_band_fused(image: torch.Tensor, grid: torch.Tensor, padding: str,
     device, on the route of :func:`warp_route`): (out, va, vb), each
     [N, Ho, Wo, C]."""
     _check(image, grid, "bilinear", padding, band)
+    if is_low(image.dtype):
+        return tuple(t.to(image.dtype) for t in grid_band_fused(
+            image.float(), grid, padding, band))
     if not _route(image, "grid_band_fused"):
         return grid_band_plain(image, grid, "bilinear", padding, band)
     return _launch_grid(warp_route(image, grid=grid, fused=True), image, grid,
@@ -282,6 +306,7 @@ def grid_band_bwd(image: torch.Tensor, grid: torch.Tensor, g: torch.Tensor,
     """Both cotangents of the warp (kernel K on a CUDA device, on the route
     of :func:`warp_route`): (gfx, gfy, dimage) as
     :func:`grid_band_bwd_plain` gives them."""
+    _refuse_low(image)
     _check(image, grid, mode, padding, band)
     if g.shape != (*grid.shape[:3], image.shape[3]) or \
             g.dtype != image.dtype or g.device != image.device or \
@@ -307,14 +332,18 @@ def _chain_to_grid(grid: torch.Tensor, gfx: torch.Tensor, gfy: torch.Tensor,
                    H: int, W: int, padding: str) -> torch.Tensor:
     """Pixel-space (gfx, gfy) -> the normalized grid's cotangent; under
     border padding zero where the unclamped coordinate is not strictly
-    inside the image (``warp_fast._chain_to_grid``)."""
+    inside the image (``warp_fast._chain_to_grid``). The scales are taken in
+    the cotangents' dtype, as JAX takes a Python scalar."""
     if padding == "border":
         x = unnormalize(grid[..., 0], W)
         y = unnormalize(grid[..., 1], H)
         gfx = torch.where((x > 0) & (x < W - 1), gfx, 0.0)
         gfy = torch.where((y > 0) & (y < H - 1), gfy, 0.0)
-    return torch.stack([gfx * ((W - 1) / 2.0), gfy * ((H - 1) / 2.0)],
-                       dim=-1).to(grid.dtype)
+
+    def scale(s):
+        return torch.tensor(s, dtype=gfx.dtype)
+    return torch.stack([gfx * scale((W - 1) / 2.0),
+                        gfy * scale((H - 1) / 2.0)], dim=-1).to(grid.dtype)
 
 
 class GridSampleBand(torch.autograd.Function):
@@ -328,6 +357,7 @@ class GridSampleBand(torch.autograd.Function):
         ctx.image_grad = image_grad
         ctx.hw = image.shape[1:3]
         if image_grad:
+            _refuse_low(image)
             ctx.save_for_backward(image, grid)
         elif mode == "bilinear" and ctx.needs_input_grad[1]:
             out, va, vb = grid_band_fused(image, grid, padding, band)

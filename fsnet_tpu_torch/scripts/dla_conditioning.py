@@ -46,7 +46,7 @@ def two_pass_variance():
         dims = tuple(range(x.dim() - 1))
         mean = x.mean(dim=dims)
         var = ((x - mean) ** 2).mean(dim=dims)
-        self.update_stats(mean, var)
+        self.update_stats(mean, var, x.dtype)
         return self.normalize(x, mean, var)
 
     BatchNorm.forward = forward

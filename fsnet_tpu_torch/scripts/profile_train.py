@@ -2,7 +2,7 @@
 
     python -m fsnet_tpu_torch.scripts.profile_train [--batch 12] [--iters 5]
         [--model {wpose,learned_pose,fisheye,dla,nusc,distill}]
-        [--route {depth,grid}] [--host-batch]
+        [--route {depth,grid}] [--host-batch] [--dtype {float32,bfloat16}]
 
 Builds the model (seeded random weights) and the ``bench.py`` recipe (Adam
 lr 1e-4, clip 1.0, StepLR) on the CUDA device with TF32 off: the flagship
@@ -23,7 +23,7 @@ batch carries an all-ones ``patched_mask``, as every dataset batch does
 (``--route grid``). Puts the batch on the card (as ``bench.py`` does for the
 JAX step; ``--host-batch`` passes numpy arrays, so each step copies them),
 warms up, then runs ``--iters`` train steps (192x640, or 384x384 for the
-fisheye model) in float32 untraced, and ``--iters`` more under
+fisheye model) untraced, and ``--iters`` more under
 ``torch.profiler``, and prints: the wall time per step of each window
 (the profiler adds host time to the second) and images/s, the
 device's busy and idle share of that window, device time by group (each of
@@ -32,7 +32,11 @@ the deformable convs' image cotangent (kernel K),
 the optimizer's multi-tensor updates, copies, everything else: the rest of
 the loss, the target's SSIM stats, the grid's reprojection, BN, ReLU and
 their gradients), the peak device memory of a step and the kernels with the
-most device time.
+most device time. ``--dtype float32`` (the default) is the float32 step;
+``--dtype bfloat16`` the step of every shipped config,
+``make_train_step(compute_dtype="bfloat16")``: the same groups, the bf16
+forms of the conv and photometric kernels among them (dtype casts fall in
+the elementwise group).
 """
 from __future__ import annotations
 
@@ -99,6 +103,10 @@ def main(argv=None) -> None:
     ap.add_argument("--route", choices=("depth", "grid"), default=None,
                     help="the flagship's (default depth); the other models "
                          "have one each")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32",
+                    help="the step's compute dtype (make_train_step's "
+                         "compute_dtype; bfloat16 is the shipped configs')")
     args = ap.parse_args(argv)
     nusc = args.model in ("nusc", "distill")
     one = dict(learned_pose="grid", fisheye="depth", dla="depth",
@@ -132,7 +140,8 @@ def main(argv=None) -> None:
         model = build(H, W, device="cuda", seed=0)
         opt, _ = (recipe_optimizer(model, NUSC_RECIPE) if nusc
                   else flagship_optimizer(model))
-    step = make_train_step("cuda")
+    step = make_train_step("cuda", compute_dtype=None if args.dtype ==
+                           "float32" else args.dtype)
     mask = "ones" if args.model == "wpose" and route == "grid" else None
     batch = (fisheye_batch(B, H, W) if fisheye else dla_batch(B, H, W)
              if args.model == "dla" else nusc_batch(B, H, W) if nusc
@@ -177,7 +186,7 @@ def main(argv=None) -> None:
              f"{args.model}, "
              + ("" if args.model == "dla" else
                 f"{'norm-direct' if fisheye else route} route, ") +
-             f"bs{B}@{H}x{W} float32, "
+             f"bs{B}@{H}x{W} {args.dtype}, "
              f"batch {where}, {n} steps untraced, then {n} under "
              "torch.profiler",
              f"wall per step untraced {untraced_ms / n:.3f} ms "

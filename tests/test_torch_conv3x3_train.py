@@ -160,9 +160,11 @@ def test_fold_halo_replicate_corners():
 
 
 @pytest.mark.parametrize("entry,lib,nargs,pointers", [
-    ("fsnet_conv3x3_bn_nhwc", "conv3x3", 14, [0, 2, 4, 5, 6, 7, 13]),
-    ("fsnet_conv3x3_dw_nhwc", "conv3x3_dw", 12, [0, 2, 4, 5, 11]),
+    ("fsnet_conv3x3_bn_nhwc", "conv3x3", 15, [0, 2, 4, 5, 6, 7, 14]),
+    ("fsnet_conv3x3_dw_nhwc", "conv3x3_dw", 13, [0, 2, 4, 5, 12]),
     ("fsnet_conv3x3_dx_nhwc", "conv3x3", 13, [0, 2, 3, 5, 12]),
+    ("fsnet_photo_loss_fwd_vec", "photo_loss", 15, [0, 1, 2, 3, 4, 14]),
+    ("fsnet_warp_depth_bwd", "warp_depth", 14, [0, 1, 2, 3, 4, 5, 13]),
 ])
 def test_train_entry_points_declare_their_arguments(monkeypatch, entry, lib,
                                                     nargs, pointers):

@@ -104,8 +104,9 @@ def test_moments_kernel_matches_plain(cuda, shape):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_conv_gradient_kernels_match_plain(cuda, shape, dtype):
     """dx (the conv kernel's input-cotangent mode: one launch for all
-    parts, the halo fold in its epilogue) and dw (csrc/conv3x3_dw.cu,
-    float32 only) against their plain versions."""
+    parts, the halo fold in its epilogue) and dw (csrc/conv3x3_dw.cu, a
+    float32 cotangent of float32 or bfloat16 operands) against their plain
+    versions."""
     from fsnet_tpu_torch.ops import conv3x3 as tc
 
     B, H, W, Cs, Co, pad_mode = shape
@@ -123,16 +124,83 @@ def test_conv_gradient_kernels_match_plain(cuda, shape, dtype):
         assert a.shape == r.shape and a.dtype == dtype
         assert (a.float() - r.float()).abs().max() <= \
             tol * r.float().abs().max()
-    if dtype != torch.float32:
-        with pytest.raises(TypeError):
-            tc.conv3x3_dw(parts, gy, pad_mode)
-        return
     dw = tc.conv3x3_dw(parts, gy, pad_mode)
     torch.cuda.synchronize()
     assert tc.conv3x3_dw.launches == n_dw + 1
     ref_dw = tc.conv3x3_dw_plain(parts, gy, pad_mode)
-    assert dw.shape == ref_dw.shape
+    assert dw.shape == ref_dw.shape and dw.dtype == torch.float32
     assert (dw - ref_dw).abs().max() <= 1e-4 * ref_dw.abs().max()
+
+
+def _bf16_ulp(t):
+    """One bfloat16 ulp at |t| elementwise (0 at 0)."""
+    a = t.float().abs()
+    e = torch.frexp(a).exponent
+    return torch.where(a > 0, torch.ldexp(torch.ones_like(a), e - 8),
+                       torch.zeros_like(a))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bf16_moments_kernel_matches_plain(cuda, shape):
+    """The moments kernel on bfloat16 operands: the stored bf16 output
+    within one bf16 ulp of the plain one beyond 2e-5 of its largest entry
+    (two float32 sums in other orders), the float32 moments the sums of
+    that stored output (1e-5 of the sum of |summands|)."""
+    from fsnet_tpu_torch.ops.conv3x3 import conv3x3_bn, conv3x3_plain
+
+    B, H, W, Cs, Co, pad_mode = shape
+    g = torch.Generator(device=cuda).manual_seed(1)
+    parts = [_randn(g, B, H, W, c).bfloat16() for c in Cs]
+    w = _randn(g, 3, 3, sum(Cs), Co,
+               scale=1 / np.sqrt(9 * sum(Cs))).bfloat16()
+    b = _randn(g, Co, scale=0.1).bfloat16()
+    n0 = conv3x3_bn.dtypes["bfloat16"]
+    out, s1, s2 = conv3x3_bn(parts, w, b, pad_mode)
+    torch.cuda.synchronize()
+    assert conv3x3_bn.dtypes["bfloat16"] == n0 + 1
+    assert out.dtype == torch.bfloat16 and s1.dtype == torch.float32
+    ref = conv3x3_plain(parts, w, b, pad_mode).float()
+    got = out.float()
+    big = torch.maximum(got.abs(), ref.abs())
+    assert bool(((got - ref).abs() <= _bf16_ulp(big)
+                 + 2e-5 * ref.abs().max()).all())
+    assert (s1 - got.sum((0, 1, 2))).abs().max() <= \
+        1e-5 * got.abs().sum((0, 1, 2)).max()
+    assert (s2 - (got * got).sum((0, 1, 2))).abs().max() <= \
+        1e-5 * (got * got).sum((0, 1, 2)).max()
+
+
+@pytest.mark.parametrize("dims", [(4, 2, 16, 64, 3), (6, 3, 9, 33, 3),
+                                  (96, 12, 20, 136, 3)])
+def test_bf16_photo_loss_kernels_match_plain(cuda, dims):
+    """Kernels I and J on bfloat16 operands (both routes: the vector one
+    where it applies) against their plain versions: the loss and the
+    cotangent bitwise equal to the rounding of the float32 kernels'
+    results on the widened operands."""
+    from fsnet_tpu_torch.ops import photo_loss as tpl
+    from fsnet_tpu_torch.ops.ssim import ssim_target_stats
+
+    N, B, H, W, C = dims
+    g = torch.Generator(device=cuda).manual_seed(8)
+    pred, target = (t.bfloat16() for t in _photo_scene(g, N, B, H, W, C))
+    muy, sy = ssim_target_stats(target)
+    cot = torch.randn(N, H, W, generator=g, device=cuda).bfloat16()
+    wide = [t.float() for t in (pred, target, muy, sy, cot)]
+    for route in tpl.ROUTES:
+        if route == "vector" and tpl.photo_route(pred, target, muy, sy,
+                                                 cot) != "vector":
+            continue
+        loss = tpl._launch_fwd(route, pred, target, muy, sy)
+        dx = tpl._launch_bwd(route, pred, target, muy, sy, cot)
+        torch.cuda.synchronize()
+        assert loss.dtype == dx.dtype == torch.bfloat16
+        assert torch.equal(loss, tpl.photo_loss_plain(pred, target, muy,
+                                                      sy))
+        assert torch.equal(loss, tpl._launch_fwd(route, *wide[:4]).bfloat16())
+        assert torch.equal(dx, tpl._launch_bwd(route, *wide).bfloat16())
+        ref = tpl.photo_loss_bwd_plain(pred, target, muy, sy, cot).float()
+        assert (dx.float() - ref).abs().max() <= 1e-5 * ref.abs().max() \
+            + _bf16_ulp(ref).max()
 
 
 def test_conv_autograd_on_card_matches_cpu(cuda):
@@ -199,6 +267,28 @@ def test_warp_kernels_match_plain(cuda, dims):
     for a, r in zip((got[0], got[2], got[3]), (ref[0], ref[2], ref[3])):
         assert (a - r).abs().max() <= 1e-6
     assert (dd - dd_ref).abs().max() <= 1e-5 * dd_ref.abs().max()
+
+
+@pytest.mark.parametrize("dims", [(2, 2, 2, 16, 128, 3),
+                                  (1, 2, 1, 7, 33, 2)])
+def test_bf16_depth_bwd_kernel_matches_plain(cuda, dims):
+    """Kernel B's bfloat16 form (bf16 g, va, vb; gfx, gfy formed in the
+    kernel) against its plain version on the same operands, at the
+    float32 kernel's gate, and counted under bfloat16."""
+    from fsnet_tpu_torch.ops import warp_depth as twd
+
+    S, F, B, H, W, C = dims
+    g = torch.Generator(device=cuda).manual_seed(5)
+    _, depth, arows = _warp_scene(g, S, F, B, H, W, C)
+    gy, va, vb = (torch.randn(S * F * B, H, W, C, generator=g,
+                              device=cuda).bfloat16() for _ in range(3))
+    n0 = twd.warp_depth_bwd.dtypes["bfloat16"]
+    dd = twd.warp_depth_bwd(depth, gy, va, vb, arows, S, F)
+    ref = twd.warp_depth_bwd_plain(depth, gy, va, vb, arows, S, F)
+    torch.cuda.synchronize()
+    assert twd.warp_depth_bwd.dtypes["bfloat16"] == n0 + 1
+    assert dd.dtype == torch.float32
+    assert (dd - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
 def test_train_step_on_card_matches_cpu(cuda):

@@ -274,16 +274,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take(what):
 
 
 @pytest.mark.parametrize("entry,pointers,floats", [
-    ("fsnet_photo_loss_fwd", [0, 1, 2, 3, 4, 13], [10, 11, 12]),
-    ("fsnet_photo_loss_bwd", [0, 1, 2, 3, 4, 5, 13], [11, 12]),
-    ("fsnet_photo_loss_fwd_vec", [0, 1, 2, 3, 4, 13], [10, 11, 12]),
-    ("fsnet_photo_loss_bwd_vec", [0, 1, 2, 3, 4, 5, 13], [11, 12]),
+    ("fsnet_photo_loss_fwd", [0, 1, 2, 3, 4, 14], [10, 11, 12]),
+    ("fsnet_photo_loss_bwd", [0, 1, 2, 3, 4, 5, 14], [11, 12]),
+    ("fsnet_photo_loss_fwd_vec", [0, 1, 2, 3, 4, 14], [10, 11, 12]),
+    ("fsnet_photo_loss_bwd_vec", [0, 1, 2, 3, 4, 5, 14], [11, 12]),
 ])
 def test_entry_points_declare_their_arguments(monkeypatch, entry, pointers,
                                               floats):
     """ctypes passes an undeclared argument as a 32-bit int: the wrappers
     declare every pointer, int and float of each entry point of both routes
-    and call it with all 14 arguments (a stand-in C function, CPU tensors
+    and call it with all 15 arguments, the dtype's code (float32: 0) the
+    last before the stream (a stand-in C function, CPU tensors
     routed as if on the card); aligned operands with C = 3 take the vector
     route (``_vec``) at W = 8 and the narrow one at W = 6, and the launch
     is counted under its route."""
@@ -328,8 +329,8 @@ def test_entry_points_declare_their_arguments(monkeypatch, entry, pointers,
     used = tpl.photo_loss_fwd if fwd else tpl.photo_loss_bwd
     assert used.routes == dict(narrow=int(route == "narrow"),
                                vector=int(route == "vector"))
-    assert len(calls) == 1 and len(calls[0]) == 14
-    assert fn.restype is ctypes.c_int and len(fn.argtypes) == 14
+    assert len(calls) == 1 and len(calls[0]) == 15 and calls[0][13] == 0
+    assert fn.restype is ctypes.c_int and len(fn.argtypes) == 15
     assert [i for i, t in enumerate(fn.argtypes)
             if t is ctypes.c_void_p] == pointers
     assert [i for i, t in enumerate(fn.argtypes)

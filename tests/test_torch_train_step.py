@@ -369,8 +369,9 @@ def _run(name):
             mp.setattr(tpl, "_DTYPES", (torch.float64,))
         if kind == "meta":
             bn = port.pose_backbone.bn1
-            mp.setattr(bn, "update_stats", lambda m, v, _orig=bn.update_stats:
-                       (pose_bn_updates.append(1), _orig(m, v)))
+            mp.setattr(bn, "update_stats",
+                       lambda m, v, d, _orig=bn.update_stats:
+                       (pose_bn_updates.append(1), _orig(m, v, d)))
         metrics = make_train_step("cpu", with_grads=True)(port, opt, batch)
     got = dict(loss=float(metrics["loss"]),
                grad_norm=float(metrics["grad_norm"]),
