@@ -294,7 +294,35 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     step's shapes beside its float32 form, its bounds at bf16 bytes and,
     at the 5 one-part zero-padded conv shapes, cuDNN in bf16; the warps
     through their wrappers on bf16 images, widening and rounding passes
-    included, beside their float32 kernels alone.
+    included, beside their float32 kernels alone;
+36. kernels G and H in bfloat16 against their plain versions at the
+    fisheye recipe's shape, beside a float32 norm (the bf16 step's) and a
+    bfloat16 one: G on both routes 4 times each in turns, out, va, vb and
+    the overlap bitwise; H 4 times within 1e-6 of the largest entry (one
+    bf16 ulp beyond that where d norm is bfloat16); and the conv kernels'
+    bfloat16 forms at the distillation step's four one-channel
+    uncertainty convs (forward and input cotangent within one bf16 ulp
+    beyond 2e-5 and bitwise launch to launch, the weight cotangent within
+    2e-5), 4 launches each;
+37. one bf16 step of the fisheye (bs16 @384x384), ``nusc_wpose`` and
+    ``distill_nusc`` (bs8 @288x512) recipes through ``make_train_step``
+    with each recipe's ``compute_dtype`` and optimizer, the counters set
+    to 0 just before: the launches of its float32 step (phases 19, 27,
+    29), every kernel with a bf16 form (conv, G, H, I, J) on bf16
+    operands, the routes as at float32, bf16 warped frames into the loss,
+    the distillation teacher bitwise unchanged, the lane-window count on
+    the step's own depths;
+38. one bf16 step of each at batch 2 on the card and through the port on
+    the CPU, on smooth textures, held to phase 34's loss gates (the card's
+    float32 step the control that must miss; the distillation step's loss
+    less its distillation terms, which would drown the photometric loss)
+    and cosine, with the
+    gradients held below the control's distances (global rel-L2 under
+    3/4 of the control's, the worst leaf under the control's worst);
+39. times each recipe's step at its batch in float32 and in bf16 as phase
+    35 times the flagship's, and kernels G and H in bf16 on the step's
+    operand types (G on both routes) beside their float32 kernels on the
+    same values, their plain versions and their bounds at bf16 bytes.
 
 Every train step (phases 9, 13, 14, 19, 27, 29) launches the forward
 kernel twice (the warped stack and the identity stack) and the cotangent
@@ -461,14 +489,20 @@ def conv_sass(build):
 # the projecting warps' and the grid warps' narrow kernels, each beside its
 # row-staging kernel at the recipes' channels
 SASS_KERNELS = ("warp_depth_fwd_kernel", "warp_depth_fwd_vec_kernel<3>",
-                "warp_mei_fwd_kernel", "warp_mei_fwd_vec_kernel<3>",
+                "warp_mei_fwd_kernel<float,float>",
+                "warp_mei_fwd_vec_kernel<float,float,3>",
+                "warp_mei_fwd_kernel<bf16,float>",
+                "warp_mei_fwd_vec_kernel<bf16,float,3>",
                 "warp_grid_kernel<true>", "warp_grid_row_kernel<true,3>",
                 "warp_grid_kernel<false>", "warp_grid_row_kernel<false,1>")
 
 
 def kernel_name(mangled):
-    """``warp_grid_row_kernel<true,3>`` from a mangled kernel name (template
-    arguments of bool and int only); None where it names no kernel."""
+    """``warp_grid_row_kernel<true,3>`` or ``warp_mei_fwd_vec_kernel<bf16,
+    float,3>`` from a mangled kernel name (template arguments of bool, int,
+    float and bfloat16; a substitution ``S_``, ``S1_`` names the bfloat16
+    before it, the one type of these kernels that can be substituted);
+    None where it names no kernel."""
     for m in re.finditer(r"_kernel", mangled):
         end = m.end()
         # the name's length prefix ends where the name starts (the
@@ -477,11 +511,15 @@ def kernel_name(mangled):
             start = end - n
             if mangled[start - len(str(n)):start] == str(n) and \
                     mangled[start].isalpha():
-                t = re.match(r"I((?:L[bi]\d+E)+)E", mangled[end:])
-                args = re.findall(r"L([bi])(\d+)E", t.group(1) if t else "")
+                t = re.match(r"I((?:L[bi]\d+E|f|13__nv_bfloat16|S\d*_)+)E",
+                             mangled[end:])
+                args = re.findall(r"L([bi])(\d+)E|(f)|(13__nv_bfloat16|"
+                                  r"S\d*_)", t.group(1) if t else "")
                 return mangled[start:end] + (
-                    "<" + ",".join(("true" if v == "1" else "false")
-                                   if k == "b" else v for k, v in args) + ">"
+                    "<" + ",".join("float" if f else "bf16" if b else
+                                   ("true" if v == "1" else "false")
+                                   if k == "b" else v
+                                   for k, v, f, b in args) + ">"
                     if args else "")
     return None
 
@@ -1064,12 +1102,14 @@ def grad_rel_l2(g_a, g_b):
 
 
 def one_step(build, batch, dev, H, W, dtype=torch.float32, optimizer=None,
-             compute_dtype=None):
+             compute_dtype=None, reprojection=False):
     """(loss, gradients, first Adam updates) of one train step of
     ``build(H, W, ...)`` from its seeded weights, on ``dev`` in ``dtype``
     (float64 only on the CPU, through the plain versions), with
     ``optimizer(model)`` (default the flagship's), through
-    ``make_train_step(compute_dtype=compute_dtype)``."""
+    ``make_train_step(compute_dtype=compute_dtype)``; with
+    ``reprojection`` the loss less its distillation terms (weighted as the
+    head weighs them)."""
     from fsnet_tpu_torch.entry import flagship_optimizer
     from fsnet_tpu_torch.ops import warp_fast as twf
     from fsnet_tpu_torch.runtime.state import make_train_step
@@ -1086,7 +1126,11 @@ def one_step(build, batch, dev, H, W, dtype=torch.float32, optimizer=None,
                               with_grads=True)(m, o, batch)
     finally:
         twf._DTYPES = dtypes
-    return (float(met["loss"]),
+    loss = float(met["loss"])
+    if reprojection:
+        loss -= m.head.distillation_loss_weight * sum(
+            float(v) for k, v in met.items() if k.startswith("distilation/"))
+    return (loss,
             {k: g.detach().cpu().double() for k, g in met["_grads"].items()},
             {k: p.detach().cpu().double() - start[k]
              for k, p in m.named_parameters()})
@@ -3063,15 +3107,7 @@ def template_name(mangled):
     name whose template arguments are types (float, bfloat16), ints and
     bools."""
     name = kernel_name(mangled)
-    m = re.search(r"_kernelI(.*?)EEv", mangled)
-    if name is None or m is None:
-        return mangled
-    args = ["bf16" if "bfloat16" in t.group(0) else "float"
-            if t.group(0) == "f" else t.group(1)
-            or ("true" if t.group(2) == "1" else "false")
-            for t in re.finditer(r"13__nv_bfloat16|Li(\d+)E|Lb([01])E|f",
-                                 m.group(1))]
-    return f"{name.split('<')[0]}<{', '.join(args)}>"
+    return mangled if name is None else name.replace(",", ", ")
 
 
 def bf16_ptxas(logs):
@@ -3371,81 +3407,100 @@ def bf16_steps(counters, record, train):
     return out, batches
 
 
+def bf16_vs_cpu(build, small, what, H, W, compute_dtype, optimizer=None,
+                against_control=False, reprojection=False):
+    """One bf16 step of ``build(H, W, ...)`` at batch 2 on the card and
+    through the port on the CPU, from the same seeded weights, on ``small``
+    (smooth textures), held to the JAX package's own bf16 gates
+    (``scripts/tpu_smoke.py``): loss rel < 2e-2, which the card's float32
+    step (the control: a step that did not compute in bf16) must miss
+    against the CPU's bf16 loss; the card's bf16 gradients against the CPU
+    port's bf16 ones, global rel-L2 < 0.3 and every leaf < 0.6 without the
+    BN-cancelled biases (the flagship measured 0.20 and 0.39: the two round
+    apart, as two bf16 implementations do), gates that the card's float32
+    gradients, the control, must miss one of (the flagship: 0.49 and
+    0.94); with ``against_control`` instead below the control's own
+    distances, global rel-L2 under 3/4 of the control's and the worst leaf
+    under the control's worst (for deeper nets, whose two bf16 gradients
+    lie further apart: ``nusc_wpose`` measured 0.48 and 0.71 beside the
+    control's 0.82 and 1.18); the card's bf16 gradient against the same
+    model's float32 step on the card, cosine > 0.25; every gradient leaf
+    on the card equal to its own bf16 rounding. Prints the bf16/f32 loss
+    ratio (not gated). With ``reprojection`` the losses compared are the
+    steps' losses less their distillation terms, which would drown the
+    photometric loss where bf16 and float32 part (the distillation step:
+    its f32 control's total loss lies within 5.8e-3 of the bf16 one)."""
+    kw = dict(optimizer=optimizer, reprojection=reprojection)
+    l16, g16, _ = one_step(build, small, "cuda", H, W,
+                           compute_dtype=compute_dtype, **kw)
+    l16c, g16c, _ = one_step(build, small, "cpu", H, W,
+                             compute_dtype=compute_dtype, **kw)
+    l32, g32, _ = one_step(build, small, "cuda", H, W, **kw)
+    rel = abs(l16 - l16c) / abs(l16c)
+    control = abs(l32 - l16c) / abs(l16c)
+    a = torch.cat([g16[k].flatten() for k in sorted(g16)])
+    b = torch.cat([g32[k].flatten() for k in sorted(g32)])
+    cos = float(a @ b / (a.norm() * b.norm()))
+    rounded = [k for k, g in g16.items()
+               if not torch.equal(g, g.to(BF16).double())]
+    kept = [k for k in g16c if not bn_cancelled(k) and bool(g16c[k].any())]
+
+    def worst_leaf(g):
+        leaf = {k: float((g[k] - g16c[k]).norm() / g16c[k].norm())
+                for k in kept}
+        worst = max(leaf, key=leaf.get)
+        return worst, leaf[worst]
+
+    grad_rel, (leaf, leaf_rel) = grad_rel_l2(g16, g16c), worst_leaf(g16)
+    c_grad_rel, (_, c_leaf_rel) = grad_rel_l2(g32, g16c), worst_leaf(g32)
+    gate = ((0.75 * c_grad_rel, c_leaf_rel) if against_control
+            else (0.3, 0.6))
+    out = dict(loss_card=l16, loss_cpu=l16c, loss_rel=rel, grad_gates=gate,
+               control_f32_loss_rel=control, grad_rel_l2=grad_rel,
+               worst_leaf=leaf, worst_leaf_rel_l2=leaf_rel,
+               control_f32_grad_rel_l2=c_grad_rel,
+               control_f32_worst_leaf_rel_l2=c_leaf_rel,
+               grad_cosine_vs_f32=cos, loss_f32=l32,
+               bf16_f32_loss_ratio=l16 / l32, leaves_not_bf16=rounded)
+    print(f"bf16 card vs CPU port, {what} bs2@{H}x{W}: "
+          + ("loss less the distillation terms " if reprojection
+             else "loss ")
+          + f"{l16:.6f} vs {l16c:.6f} (rel {rel:.2e}, gate 2e-2; the "
+          f"card's f32 step {l32:.6f}, rel {control:.2e}, must miss); "
+          f"gradients global rel-L2 {grad_rel:.3e} (gate {gate[0]:.3g}), "
+          f"worst leaf {leaf} {leaf_rel:.3e} (gate {gate[1]:.3g}); the "
+          f"card's f32 gradients against the same {c_grad_rel:.3e}, "
+          f"{c_leaf_rel:.3e}; gradient cosine against the card's f32 "
+          f"step {cos:.4f} (gate > 0.25); bf16/f32 loss ratio "
+          f"{l16 / l32:.4f} (not gated); leaves not bf16-valued: "
+          f"{len(rounded)}")
+    check(rel < 2e-2, f"bf16 {what}: card vs CPU loss rel {rel:.2e}")
+    check(control >= 2e-2, f"bf16 {what}: the f32 control's loss rel "
+          f"{control:.2e} passes the bf16 gate")
+    check(grad_rel < gate[0] and leaf_rel < gate[1], f"bf16 {what}: card "
+          f"vs CPU gradients rel-L2 {grad_rel:.3e}, {leaf} {leaf_rel:.3e}, "
+          f"gates {gate}")
+    check(against_control or c_grad_rel >= 0.3 or c_leaf_rel >= 0.6,
+          f"bf16 {what}: the f32 control's gradients pass the bf16 gates: "
+          f"{c_grad_rel:.3e}, {c_leaf_rel:.3e}")
+    check(cos > 0.25, f"bf16 {what}: gradient cosine {cos:.4f}")
+    check(not rounded, f"bf16 {what}: gradient leaves not bf16-valued: "
+          f"{rounded[:5]}")
+    return out
+
+
 def bf16_card_vs_cpu(batches):
-    """Phase 34: one bf16 step at bs2 @192x640 of each route on the card
-    and through the port on the CPU, from the same seeded weights, on the
-    synthetic batch's own images (spatially correlated textures), held to
-    the JAX package's own bf16 gates (``scripts/tpu_smoke.py``): loss rel
-    < 2e-2, which the card's float32 step (the control: a step that did
-    not compute in bf16) must miss against the CPU's bf16 loss; the card's
-    bf16 gradients against the CPU port's bf16 ones, global rel-L2 < 0.3
-    and every leaf < 0.6 without the BN-cancelled biases (measured 0.20
-    and 0.39: the two round apart, as two bf16 implementations do), gates
-    that the card's float32 gradients, the control, miss (0.49 and 0.94);
-    the card's bf16 gradient against the same model's
-    float32 step on the card, cosine > 0.25; every gradient leaf on the
-    card equal to its own bf16 rounding. Prints the bf16/f32 loss ratio
-    (not gated)."""
+    """Phase 34: one bf16 step at bs2 @192x640 of each flagship route on
+    the card and through the port on the CPU, on the synthetic batch's own
+    images (spatially correlated textures), held to
+    :func:`bf16_vs_cpu`'s gates."""
     from fsnet_tpu_torch.entry import FLAGSHIP_RECIPE, flagship_model
 
-    cdt = FLAGSHIP_RECIPE["compute_dtype"]
-    out = {}
-    for route, batch in batches.items():
-        small = {k: v[:2] for k, v in batch.items()}
-        l16, g16, _ = one_step(flagship_model, small, "cuda", HEIGHT, WIDTH,
-                               compute_dtype=cdt)
-        l16c, g16c, _ = one_step(flagship_model, small, "cpu", HEIGHT, WIDTH,
-                                 compute_dtype=cdt)
-        l32, g32, _ = one_step(flagship_model, small, "cuda", HEIGHT, WIDTH)
-        rel = abs(l16 - l16c) / abs(l16c)
-        control = abs(l32 - l16c) / abs(l16c)
-        a = torch.cat([g16[k].flatten() for k in sorted(g16)])
-        b = torch.cat([g32[k].flatten() for k in sorted(g32)])
-        cos = float(a @ b / (a.norm() * b.norm()))
-        rounded = [k for k, g in g16.items()
-                   if not torch.equal(g, g.to(BF16).double())]
-        kept = [k for k in g16c if not bn_cancelled(k) and
-                bool(g16c[k].any())]
-
-        def worst_leaf(g):
-            leaf = {k: float((g[k] - g16c[k]).norm() / g16c[k].norm())
-                    for k in kept}
-            worst = max(leaf, key=leaf.get)
-            return worst, leaf[worst]
-
-        grad_rel, (leaf, leaf_rel) = grad_rel_l2(g16, g16c), worst_leaf(g16)
-        c_grad_rel, (_, c_leaf_rel) = grad_rel_l2(g32, g16c), worst_leaf(g32)
-        out[route] = dict(loss_card=l16, loss_cpu=l16c, loss_rel=rel,
-                          control_f32_loss_rel=control,
-                          grad_rel_l2=grad_rel, worst_leaf=leaf,
-                          worst_leaf_rel_l2=leaf_rel,
-                          control_f32_grad_rel_l2=c_grad_rel,
-                          control_f32_worst_leaf_rel_l2=c_leaf_rel,
-                          grad_cosine_vs_f32=cos, loss_f32=l32,
-                          bf16_f32_loss_ratio=l16 / l32,
-                          leaves_not_bf16=rounded)
-        print(f"bf16 card vs CPU port, {route} bs2@{HEIGHT}x{WIDTH}: loss "
-              f"{l16:.6f} vs {l16c:.6f} (rel {rel:.2e}, gate 2e-2; the "
-              f"card's f32 step {l32:.6f}, rel {control:.2e}, must miss); "
-              f"gradients global rel-L2 {grad_rel:.3e} (gate 0.3), worst "
-              f"leaf {leaf} {leaf_rel:.3e} (gate 0.6); the card's f32 "
-              f"gradients against the same {c_grad_rel:.3e}, "
-              f"{c_leaf_rel:.3e}; gradient cosine against the card's f32 "
-              f"step {cos:.4f} (gate > 0.25); bf16/f32 loss ratio "
-              f"{l16 / l32:.4f} (not gated); leaves not bf16-valued: "
-              f"{len(rounded)}")
-        check(rel < 2e-2, f"bf16 {route}: card vs CPU loss rel {rel:.2e}")
-        check(control >= 2e-2, f"bf16 {route}: the f32 control's loss rel "
-              f"{control:.2e} passes the bf16 gate")
-        check(grad_rel < 0.3 and leaf_rel < 0.6, f"bf16 {route}: card vs "
-              f"CPU gradients rel-L2 {grad_rel:.3e}, {leaf} {leaf_rel:.3e}")
-        check(c_grad_rel >= 0.3 or c_leaf_rel >= 0.6, f"bf16 {route}: the "
-              f"f32 control's gradients pass the bf16 gates: {c_grad_rel:.3e}"
-              f", {c_leaf_rel:.3e}")
-        check(cos > 0.25, f"bf16 {route}: gradient cosine {cos:.4f}")
-        check(not rounded, f"bf16 {route}: gradient leaves not bf16-valued: "
-              f"{rounded[:5]}")
-    return out
+    return {route: bf16_vs_cpu(flagship_model,
+                               {k: v[:2] for k, v in batch.items()}, route,
+                               HEIGHT, WIDTH,
+                               FLAGSHIP_RECIPE["compute_dtype"])
+            for route, batch in batches.items()}
 
 
 def time_steps(batches):
@@ -3681,6 +3736,400 @@ def bf16_phases(counters, record, train, shapes):
         if base == "conv3x3_bn":
             e["max_abs_err_moments"] = errs["conv3x3_bn_mom"]
     return entries, readings
+
+
+# ------------------------------------------------ every recipe's bf16 step
+
+
+def check_mei_bf16(scene):
+    """Phase 36: kernels G and H in bfloat16 against their plain versions on
+    the card at the fisheye recipe's shape (128 warps of 384x384x3 against
+    32 sources and 16 masks, band 16), the bf16 image beside a float32 norm
+    (the bf16 step's: its decoded norms are float32, as the depth bins are)
+    and beside a bfloat16 one: G on each route :data:`PROJ_REPEATS` times in
+    turns, out, va, vb and the overlap bitwise; H :data:`PROJ_REPEATS`
+    times, within B's bf16 gate (1e-6 of the largest entry, and one bf16
+    ulp beyond it where d norm is bfloat16). Then the conv kernels'
+    bfloat16 forms at the distillation step's four Co = 1 uncertainty convs
+    (bs8 @288x512), :data:`REPEATS` launches each: the forward and the input
+    cotangent within one bf16 ulp beyond 2e-5 of the largest entry and
+    bitwise launch to launch, the float32 weight cotangent within 2e-5
+    (phase 32's gates). Returns the max abs errors by kernel and the
+    operands phase 39 times."""
+    from fsnet_tpu_torch.ops import conv3x3 as tc
+    from fsnet_tpu_torch.ops import warp_mei as twm
+    from fsnet_tpu_torch.ops.warp_depth import proj_route
+
+    image, mask, norm, rays, rows = scene
+    S, F, N = S_SCALES, F_FRAMES, rows.shape[0]
+    img = image.to(BF16)
+    errs = dict(warp_mei_fwd=0.0, warp_mei_bwd=0.0)
+    ops = None
+    for tag, nrm in (("float32", norm), ("bfloat16", norm.to(BF16))):
+        route = proj_route(img, mask, nrm, rays, rows)
+        check(route == "vector", f"kernel G bf16, {tag} norm: route {route}")
+        ref = twm.warp_mei_plain(img, mask, nrm, rays, rows, S, F, FISH_BAND,
+                                 True)
+        check_routes(
+            f"kernel G bf16 N={N} {FISH_H}x{FISH_W}, {tag} norm",
+            lambda r: twm._launch_fwd(r, img, mask, nrm, rays, rows, S, F,
+                                      FISH_BAND, True), ref)
+        gb = torch.randn(ref[0].shape, device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(9)).to(BF16)
+        dn_ref = twm.warp_mei_bwd_plain(nrm, rays, gb, ref[2], ref[3], rows,
+                                        S, F)
+        den = dn_ref.float().abs().max().item()
+        worst = 0.0
+        for _ in range(PROJ_REPEATS):
+            dn = twm.warp_mei_bwd(nrm, rays, gb, ref[2], ref[3], rows, S, F)
+            torch.cuda.synchronize()
+            check(dn.dtype == nrm.dtype, f"kernel H bf16, {tag} norm: d norm "
+                  f"{dn.dtype}")
+            diff = (dn.float() - dn_ref.float()).abs()
+            errs["warp_mei_bwd"] = max(errs["warp_mei_bwd"],
+                                       diff.max().item())
+            if nrm.dtype == BF16:
+                big = torch.maximum(dn.float().abs(), dn_ref.float().abs())
+                diff = (diff - bf16_ulp(big)).clamp(min=0.0)
+            worst = max(worst, diff.max().item() / den)
+        print(f"check kernel H bf16 N={N} {FISH_H}x{FISH_W}, {tag} norm "
+              f"x{PROJ_REPEATS}: d norm ({tag}) beyond "
+              + ("one bf16 ulp " if nrm.dtype == BF16 else "")
+              + f"{worst:.2e} of the largest entry (gate 1e-6)")
+        check(worst <= 1e-6, f"kernel H bf16, {tag} norm: {worst:.2e} of "
+              "the largest entry > 1e-6")
+        if ops is None:
+            ops = dict(image=img, mask=mask, norm=nrm, rays=rays, rows=rows,
+                       gb=gb, va=ref[2], vb=ref[3])
+
+    B = NUSC_BATCH
+    for i, (name, H, W, Cs, Co, pad) in enumerate(
+            s for s in DISTILL_SHAPES if s[0].startswith("uncertain_")):
+        parts, w, b = conv_inputs(B, H, W, Cs, Co, BF16, seed=200 + i)
+        gy = torch.randn(B, H, W, Co, device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(300 + i)).to(BF16)
+        inputs = {f"x{j}": p for j, p in enumerate(parts)}
+        inputs.update(w=w, b=b, gy=gy)
+        at = f"bf16_{name}"
+        wide = [p.double() for p in parts]
+        held = dict(
+            conv3x3=HeldUlp(f"{at}_conv", tc.conv3x3_plain(parts, w, b, pad),
+                            2e-5, True, inputs,
+                            lambda: tc._conv_core(wide, w.double(),
+                                                  b.double(), pad)),
+            conv3x3_dx=HeldUlp(f"{at}_dx", tc.conv3x3_dx_plain(gy, w, pad,
+                                                               Cs)[0],
+                               2e-5, True, inputs,
+                               lambda: tc.conv3x3_dx_plain(
+                                   gy.double(), w.double(), pad, Cs)[0]),
+            conv3x3_dw=Held(f"{at}_dw", tc.conv3x3_dw_plain(parts, gy, pad),
+                            2e-5, False, inputs,
+                            lambda: tc.conv3x3_dw_plain(wide, gy.double(),
+                                                        pad)))
+        for _ in range(REPEATS):
+            got = dict(conv3x3=tc.conv3x3(parts, w, b, pad),
+                       conv3x3_dx=tc.conv3x3_dx(gy, w, pad, Cs)[0],
+                       conv3x3_dw=tc.conv3x3_dw(parts, gy, pad))
+            torch.cuda.synchronize()
+            check(got["conv3x3"].dtype == got["conv3x3_dx"].dtype == BF16
+                  and got["conv3x3_dw"].dtype == torch.float32,
+                  f"{at}: output dtypes")
+            for k, v in got.items():
+                held[k](v)
+        for k, h in held.items():
+            errs[f"{k}_co1"] = max(errs.get(f"{k}_co1", 0.0), h.d)
+        print(f"check bf16 {name:17s} B{B} {H}x{W} {Cs[0]}->{Co} "
+              f"x{REPEATS}: rel err conv {held['conv3x3'].e:.2e} "
+              f"({held['conv3x3'].share:.2e} not bitwise equal, all within "
+              f"one bf16 ulp) dx {held['conv3x3_dx'].e:.2e} "
+              f"({held['conv3x3_dx'].share:.2e}) dw "
+              f"{held['conv3x3_dw'].e:.2e}")
+    return errs, ops
+
+
+def recipe_cases(fish):
+    """The shipped recipes that train at bf16 beside the flagship: (build,
+    recipe, meta-arch config for the optimizer, batch, (B, H, W)) by
+    name."""
+    from fsnet_tpu_torch.entry import (FISHEYE_RECIPE, NUSC_RECIPE,
+                                       distill_config, distill_model,
+                                       fisheye_model, flagship_model,
+                                       nusc_model)
+
+    def distill(h, w, device="cuda", seed=0):
+        src = flagship_model(h, w, device="cpu", seed=1).state_dict()
+        return distill_model(h, w, device=device, seed=seed,
+                             teacher_state=src)
+
+    nb = nusc_batch_np()
+    nsize = (NUSC_BATCH, NUSC_H, NUSC_W)
+    return dict(
+        fisheye=(fisheye_model, FISHEYE_RECIPE, None, fish["batch"],
+                 (FISH_BATCH, FISH_H, FISH_W)),
+        nusc=(nusc_model, NUSC_RECIPE, None, nb, nsize),
+        distill=(distill, NUSC_RECIPE, distill_config(NUSC_H, NUSC_W), nb,
+                 nsize))
+
+
+def recipe_bf16_steps(counters, record, cases):
+    """Phase 37: one bf16 step of the fisheye (bs16 @384x384), the
+    ``nusc_wpose`` and the ``distill_nusc`` recipes (bs8 @288x512), each
+    through ``make_train_step("cuda", compute_dtype=recipe[
+    "compute_dtype"])`` with its recipe's optimizer, the launch counters
+    set to 0 just before and read just after: the launches per kernel of
+    the recipe's float32 step (phases 19, 27, 29), every kernel that has a
+    bf16 form (the conv kernels, G, H, I, J) on bf16 operands (the
+    wrappers' counts by dtype), F and E on their float32 kernels (the
+    image widened at the wrapper); the routes as at float32; bf16 warped
+    frames into the loss; the distillation teacher (its parameters and BN
+    statistics) bitwise unchanged; the lane-window count on the step's own
+    depths."""
+    from fsnet_tpu_torch.entry import recipe_optimizer
+    from fsnet_tpu_torch.ops import warp_fast as twf
+    from fsnet_tpu_torch.ops import warp_mei as twm
+    from fsnet_tpu_torch.runtime.state import make_train_step
+
+    wants = dict(fisheye=record["fisheye_path"]["launches_per_step"],
+                 nusc=record["nusc_path"]["launches_per_step"],
+                 distill=record["distill_path"]["launches_per_step"])
+    out = {}
+    for name, (build, recipe, cfg, batch, (B, H, W)) in cases.items():
+        want = wants[name]
+        model = build(H, W, device="cuda", seed=0)
+        opt, _ = recipe_optimizer(model, recipe, cfg)
+        step = make_train_step("cuda", compute_dtype=recipe["compute_dtype"])
+        kept = {n: t.clone() for n, t in model.state_dict().items()
+                if n.startswith("teacher_net.")}
+        p0 = [p.detach().clone() for p in opt.params]
+        seen, release = capture_warp(model)
+        zero(counters)
+        met = step(model, opt, batch)
+        torch.cuda.synchronize()
+        counts = read(counters)
+        dtypes = {k: dict(fn.dtypes) for k, fn in counters.items()
+                  if hasattr(fn, "dtypes")}
+        rts = routes(counters)
+        release()
+        loss = float(met["loss"])
+        what = f"bf16 {name} step bs{B}@{H}x{W}"
+        check(np.isfinite(loss), f"{what}: loss {loss}")
+        check(counts == want, f"{what}: launches {counts}, expected {want}")
+        bad = {k: d for k, d in dtypes.items()
+               if d != dict(float32=0, bfloat16=want[k])}
+        check(not bad, f"{what}: launches by dtype {bad}")
+        check(all(counts[k] for k in ("conv3x3", "conv3x3_bn", "conv3x3_dx",
+                                      "conv3x3_dw", "photo_loss_fwd",
+                                      "photo_loss_bwd")),
+              f"{what}: a bf16 kernel of the path did not launch: {counts}")
+        wanted = dict(photo_loss_fwd=dict(narrow=0, vector=2),
+                      photo_loss_bwd=dict(narrow=0, vector=1))
+        if want["warp_mei_fwd"]:
+            wanted["warp_mei_fwd"] = dict(narrow=0, vector=1)
+        if want["warp_grid_fused"]:
+            wanted["warp_grid_fused"] = dict(narrow=0, row=1)
+            wanted["warp_grid_fwd"] = dict(narrow=0, vector=0,
+                                           row=want["warp_grid_fwd"])
+        bad = {k: rts[k] for k, r in wanted.items() if rts[k] != r}
+        check(not bad, f"{what}: routes {bad}, expected {wanted}")
+        check(seen["preds"].dtype == BF16, f"{what}: the loss saw "
+              f"{seen['preds'].dtype} warped frames")
+        state = model.state_dict()
+        moved_teacher = [n for n, t in kept.items()
+                         if not torch.equal(state[n], t)]
+        check(not moved_teacher, f"{what}: {len(moved_teacher)} of the "
+              f"teacher's {len(kept)} tensors changed: {moved_teacher[:5]}")
+        moved = sum(int(not torch.equal(p.detach(), q))
+                    for p, q in zip(opt.params, p0))
+        check(moved >= len(p0) - 10, f"{what}: {moved} of {len(p0)} "
+              "parameters moved")
+        depth = seen["depths"].reshape(S_SCALES * B, H, W)
+        t = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        if name == "fisheye":
+            # the step's own norms through the cast batch's rays, camera
+            # and poses, widened
+            rays = t["fisheye_rays"].to(BF16).float()
+            mrows = twm.make_mei_rows(
+                t["P2"].to(BF16).float(),
+                t["fisheye_params"].to(BF16).float(),
+                torch.stack([t[f"relative_pose/{f}"] for f in (1, -1)])
+                .to(BF16).float(), S_SCALES)
+            x = twm.mei_pix(depth, rays[..., :3].permute(0, 3, 1, 2)
+                            .contiguous(), mrows, S_SCALES, F_FRAMES)["x"]
+            lane = dict(photometric=lane_window_moves(x, W))
+        else:
+            sources = torch.cat([t[f"original_image/{f}"] for f in (1, -1)])
+            grid = grid_scene(batch, sources, depth)[2]
+            x = twf.unnormalize(grid[..., 0], W)
+            lane = dict(photometric=lane_window_moves(x, W),
+                        mask=lane_window_moves(x, W, nearest=True))
+        out[name] = dict(loss=loss, launches=counts, dtypes=dtypes,
+                         routes={k: rts[k] for k in wanted},
+                         params_moved=moved, params=len(p0),
+                         teacher_bitwise=len(kept), lane_window_moves=lane,
+                         samples=x.numel(), depth_min=float(depth.min()),
+                         depth_max=float(depth.max()))
+        print(f"{what} (compute_dtype {recipe['compute_dtype']!r}): loss "
+              f"{loss:.6f}, launches {counts}, by dtype "
+              f"{ {k: d for k, d in dtypes.items() if want[k]} }, routes "
+              f"{out[name]['routes']}, {moved} of {len(p0)} parameters "
+              f"moved" + (f", the teacher's {len(kept)} tensors bitwise "
+                          "unchanged" if kept else "")
+              + f"; on the step's own depths (in "
+              f"[{out[name]['depth_min']:.3f}, {out[name]['depth_max']:.3f}]"
+              f" m) the TPU lane-window clamp would move {lane} of "
+              f"{x.numel()} samples")
+        del model, opt, seen, x
+    return out
+
+
+def recipe_bf16_vs_cpu(cases):
+    """Phase 38: one bf16 step of each recipe at batch 2 on the card and
+    through the port on the CPU, from the same seeded weights, on smooth
+    textures (the nuScenes batch's own; the synthetic batch's in place of
+    the fisheye batch's white noise, on which the float32 and bf16 losses
+    lie within 2e-4), held to phase 34's loss gates (for the distillation
+    step on its loss less the distillation terms) and its gradient gates
+    against the control (:func:`bf16_vs_cpu`'s ``against_control``)."""
+    from fsnet_tpu_torch.entry import recipe_optimizer, synthetic_batch
+
+    out = {}
+    for name, (build, recipe, cfg, batch, (_, H, W)) in cases.items():
+        small = {k: v[:2] for k, v in batch.items()}
+        if name == "fisheye":
+            small.update((k, v) for k, v in synthetic_batch(2, H, W).items()
+                         if k.startswith(("image/", "original_image/")))
+        out[name] = bf16_vs_cpu(
+            build, small, name, H, W, recipe["compute_dtype"],
+            lambda m, recipe=recipe, cfg=cfg: recipe_optimizer(m, recipe,
+                                                               cfg),
+            against_control=True, reprojection=name == "distill")
+    return out
+
+
+def time_recipe_steps(cases):
+    """Phase 39: each recipe's step at its batch in float32 and in bf16,
+    the batch on the card, as phase 35 times the flagship's (3 warm-up
+    steps, the fastest of 4 windows of 20; device-busy ms a step under
+    ``torch.profiler`` over 3 steps; peak memory over the windows)."""
+    from fsnet_tpu_torch.entry import recipe_optimizer
+    from fsnet_tpu_torch.runtime.state import make_train_step
+
+    out = {}
+    for name, (build, recipe, cfg, batch, (B, H, W)) in cases.items():
+        on_card = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        for tag, cdt in (("f32", None), ("bf16", recipe["compute_dtype"])):
+            model = build(H, W, device="cuda", seed=0)
+            opt, _ = recipe_optimizer(model, recipe, cfg)
+            step = make_train_step("cuda", compute_dtype=cdt)
+            for _ in range(3):
+                step(model, opt, on_card)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            windows = []
+            for _ in range(4):
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    step(model, opt, on_card)
+                torch.cuda.synchronize()
+                windows.append((time.perf_counter() - t0) / 20 * 1e3)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            busy = sum(e.self_device_time_total for e in cuda_kernels(
+                lambda: step(model, opt, on_card), calls=3)) / 1e3 / 3
+            check(busy > 0, f"{name} {tag}: the profiler saw no device time")
+            ms = min(windows)
+            out[f"{name}_{tag}"] = dict(ms=ms, windows_ms=windows,
+                                        imgs_per_s=B / ms * 1e3,
+                                        device_busy_ms=busy,
+                                        peak_mem_gb=peak)
+            print(f"train step {name} {tag} bs{B}@{H}x{W} (fastest of 4 "
+                  f"windows of 20, batch on the card): {ms:.3f} ms = "
+                  f"{B / ms * 1e3:.2f} imgs/s, windows "
+                  f"{[round(w, 3) for w in windows]}; device busy "
+                  f"{busy:.3f} ms a step; peak memory {peak:.3f} GB")
+            del model, opt
+    return out
+
+
+def time_mei_bf16(ops, steps, errs):
+    """Phase 39: kernels G and H in bfloat16 at the fisheye recipe's shape
+    on the bf16 step's operand types (a float32 norm), for the kernel line:
+    G on each route in turns, H; beside the float32 kernels on the same
+    values, the plain versions and the bounds at bf16 bytes."""
+    from fsnet_tpu_torch.ops import warp_mei as twm
+
+    o = ops
+    img, mask, norm, rays, rows = (o[k] for k in ("image", "mask", "norm",
+                                                  "rays", "rows"))
+    S, F, N = S_SCALES, F_FRAMES, rows.shape[0]
+    FB, C, SB, B = img.shape[0], img.shape[-1], norm.shape[0], rays.shape[0]
+    plane, px, nb = FISH_H * FISH_W, N * FISH_H * FISH_W, norm.element_size()
+    # the bytes G and H must move: the image, g, va, vb and the outputs in
+    # bf16, the norm (and d norm) in its dtype, rays, mask and rows float32
+    g_bytes = (2.0 * FB * plane * C + nb * SB * plane
+               + 4.0 * (4 * B * plane + N * 24) + px * (3 * 2.0 * C + 1))
+    h_bytes = (2.0 * nb * SB * plane + 4.0 * (3 * B * plane + N * 24)
+               + 3 * 2.0 * px * C)
+    fish = steps["fisheye"]
+    # the float32 kernels' operands, widened once outside the timings
+    img32, gb32, va32, vb32 = (t.float() for t in (img, o["gb"], o["va"],
+                                                   o["vb"]))
+    src = "fsnet_tpu_torch/csrc/warp_mei.cu"
+    note = (f"bfloat16 image (g, va, vb) beside a float32 norm, the bf16 "
+            f"step's operands: N={N} warps of {FISH_H}x{FISH_W}x{C}, band "
+            f"{FISH_BAND}; launches: one bf16 fisheye step (phase 37); "
+            "f32_kernel_ms: the float32 kernel on the same values; bound at "
+            "bf16 bytes")
+    g = dict(name="warp_mei_fwd_bf16", form="bf16", route="cuda", source=src,
+             replaces="fsnet_tpu/ops/pallas/mei_prep_kernel.py:99 + "
+                      "fsnet_tpu/ops/pallas/warp_kernel.py:1022",
+             launches=fish["dtypes"]["warp_mei_fwd"]["bfloat16"],
+             max_abs_err=errs["warp_mei_fwd"],
+             plain_ms=cuda_ms(lambda: twm.warp_mei_plain(
+                 img, mask, norm, rays, rows, S, F, FISH_BAND, True),
+                 iters=3, warmup=1),
+             f32_kernel_ms=cuda_ms(lambda: twm._launch_fwd(
+                 "vector", img32, mask, norm, rays, rows, S, F, FISH_BAND,
+                 True), iters=10),
+             library_ms=None, note=note)
+    g["bound_ms"], g["bound_by"] = ms_bound(px * (80.0 + 15.0 * C), g_bytes)
+    time_routes(g, {r: (lambda r=r: twm._launch_fwd(
+        r, img, mask, norm, rays, rows, S, F, FISH_BAND, True))
+        for r in PROJ_ROUTES}, fish["routes"]["warp_mei_fwd"])
+    h = dict(name="warp_mei_bwd_bf16", form="bf16", route="cuda", source=src,
+             replaces="fsnet_tpu/ops/pallas/mei_prep_kernel.py:209",
+             launches=fish["dtypes"]["warp_mei_bwd"]["bfloat16"],
+             max_abs_err=errs["warp_mei_bwd"],
+             ms=cuda_ms(lambda: twm.warp_mei_bwd(norm, rays, o["gb"], o["va"],
+                                                 o["vb"], rows, S, F),
+                        iters=10),
+             plain_ms=cuda_ms(lambda: twm.warp_mei_bwd_plain(
+                 norm, rays, o["gb"], o["va"], o["vb"], rows, S, F),
+                 iters=3, warmup=1),
+             f32_kernel_ms=cuda_ms(lambda: twm.warp_mei_bwd(
+                 norm, rays, gb32, va32, vb32, rows, S, F), iters=10),
+             library_ms=None, note=note)
+    h["bound_ms"], h["bound_by"] = ms_bound(px * (101.0 + 4.0 * C), h_bytes)
+    for e in (g, h):
+        print(f"time  {e['name']:17s} {e['ms']:.4f} ms" + route_line(e)
+              + f"  f32 kernel {e['f32_kernel_ms']:.4f} ms  plain "
+              f"{e['plain_ms']:.4f} ms  bound at bf16 bytes "
+              f"{e['bound_ms']:.4f} ms ({e['bound_by']})  library none")
+    return [g, h]
+
+
+def recipe_bf16_phases(counters, record, fish):
+    """Phases 36-39. Returns the kernel line's entries of the bf16 forms of
+    kernels G and H, and the conv kernels' errors at Co = 1 in bf16."""
+    errs, ops = check_mei_bf16(fish["scene"])
+    record["bf16_mei_errs"] = errs
+    cases = recipe_cases(fish)
+    steps = record["bf16_recipe_steps"] = recipe_bf16_steps(counters, record,
+                                                            cases)
+    record["bf16_recipe_card_vs_cpu"] = recipe_bf16_vs_cpu(cases)
+    record["bf16_recipe_train_step"] = time_recipe_steps(cases)
+    return time_mei_bf16(ops, steps, errs), errs
 
 
 def main() -> int:
@@ -3946,6 +4395,15 @@ def main() -> int:
                 "ms through the wrapper with those passes beside the "
                 "kernel alone, the bound at bf16 bytes (phases 33, 35)")
     kernels += bf16_entries
+
+    # 36-39. every shipped recipe's step at its shipped dtype: kernels G and
+    # H in bf16 against their plain versions (and the conv kernels at the
+    # one-channel uncertainty convs), one bf16 step of the fisheye and the
+    # two nuScenes recipes with launches by dtype, each against the CPU
+    # port, and the steps timed in float32 and bf16
+    mei_bf16, record["bf16_co1_errs"] = recipe_bf16_phases(counters, record,
+                                                           fish)
+    kernels += mei_bf16
 
     print(json.dumps(record))
     print(json.dumps({"kernels": kernels}))

@@ -250,20 +250,8 @@ warp_depth_fwd_vec_kernel(const float* __restrict__ image,
   row_flush(st, (size_t)n * H + i, W, C, out, va, vb, overlap);
 }
 
-// kernel B's channel products: float32 as they are; bfloat16 operands
-// widened (exactly), their product rounded to bfloat16 and widened back
-__device__ __forceinline__ float product(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ float product(__nv_bfloat16 a, __nv_bfloat16 b) {
-  return __bfloat162float(__float2bfloat16_rn(
-      __fmul_rn(__bfloat162float(a), __bfloat162float(b))));
-}
-__device__ __forceinline__ float rounded(float v, float) { return v; }
-__device__ __forceinline__ float rounded(float v, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
+// kernel B's channel products and sums: product() and rounded() of
+// csrc/warp_rows.cuh
 template <typename Val>
 __global__ void __launch_bounds__(kThreadsB)
 warp_depth_bwd_kernel(const float* __restrict__ depth,
@@ -297,8 +285,8 @@ warp_depth_bwd_kernel(const float* __restrict__ depth,
       gx = __fadd_rn(gx, product(g[o + c], va[o + c]));
       gy = __fadd_rn(gy, product(g[o + c], vb[o + c]));
     }
-    gx = rounded(gx, Val());
-    gy = rounded(gy, Val());
+    gx = rounded<Val>(gx);
+    gy = rounded<Val>(gy);
     const float mx = (p.x > 0.f && p.x < (float)(W - 1)) ? 1.f : 0.f;
     const float my = (p.y > 0.f && p.y < (float)(H - 1)) ? 1.f : 0.f;
     const float term = __fadd_rn(__fmul_rn(__fmul_rn(gx, mx), dxdd),

@@ -11,9 +11,15 @@
 // contiguous 16-byte streaming stores (each warp store covers 512 bytes of
 // the row; a thread storing its own 4 pixels' 4C floats would cover a
 // 16C-byte stride per lane, as many sectors as scalar stores) and 4-byte
-// overlap stores of 4 pixels.
+// overlap stores of 4 pixels. Kernel G's bfloat16 form stages its outputs
+// as bfloat16 (2-byte elements: a 16-byte store carries 8 values), which
+// needs W C a multiple of 8 (the fisheye row, 384 x 3 x 2 = 2304 bytes).
+// The element-type helpers below serve the bfloat16 forms of kernels B, G
+// and H: operands widened exactly to float32, float32 arithmetic, results
+// rounded once.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -39,9 +45,11 @@ constexpr int kRowMaxSmem = 232448 - 1024;
 // threads of a row's block: W / 4 rounded up to whole warps
 inline int row_threads(int W) { return (W / kRowPix + 31) / 32 * 32; }
 
-// the projecting warps' staged row: out, va, vb (W C floats each), then W
-// overlap bytes
-inline long row_smem(int W, int C) { return 12L * W * C + W; }
+// the projecting warps' staged row: out, va, vb (W C elements of `elem`
+// bytes each), then W overlap bytes
+inline long row_smem(int W, int C, int elem = 4) {
+  return 3L * elem * W * C + W;
+}
 
 // the rows a row-staging kernel takes: W / 4 threads of at most 512 and
 // `smem` bytes of staged row
@@ -50,10 +58,43 @@ inline bool row_fits_bytes(int W, long smem) {
          smem <= kRowMaxSmem;
 }
 
-// the shapes the projecting warps' vector route takes (the host's
+// the shapes the projecting warps' vector route takes at `elem`-byte
+// outputs: each output row a whole number of 16-byte stores (the host's
 // proj_route mirrors this)
-inline bool row_fits(int W, int C) {
-  return C > 0 && row_fits_bytes(W, row_smem(W, C));
+inline bool row_fits(int W, int C, int elem = 4) {
+  return C > 0 && (long)W * C * elem % 16 == 0 &&
+         row_fits_bytes(W, row_smem(W, C, elem));
+}
+
+// float32 as it is, a bfloat16 widened (exactly)
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// a float32 result stored as T: as it is, or rounded to nearest bfloat16
+template <typename T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// the channel products of kernels B and H (gfx = sum_c g va): float32 as
+// they are; on bfloat16 operands each product rounded to bfloat16, as
+// PyTorch's bfloat16 multiply rounds it, and widened back
+__device__ __forceinline__ float product(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float product(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return widen(narrow<__nv_bfloat16>(__fmul_rn(widen(a), widen(b))));
+}
+// their channel sum, taken in float32, as stored in T and widened back
+template <typename T>
+__device__ __forceinline__ float rounded(float v) {
+  return widen(narrow<T>(v));
 }
 
 // The band start of the row from each thread's min floor(y): the block's
@@ -72,36 +113,42 @@ __device__ __forceinline__ int row_band_start(int lo, int H, int band) {
   return ymin - (ymin & 1);
 }
 
-// The staged row in dynamic shared memory.
-struct RowStage {
-  float *out, *va, *vb;
+// The staged row in dynamic shared memory, of T elements.
+template <typename T>
+struct RowStageOf {
+  T *out, *va, *vb;
   uint8_t* overlap;
 };
+using RowStage = RowStageOf<float>;
 
-__device__ __forceinline__ RowStage row_stage(float4* smem, int W, int C) {
-  float* s = reinterpret_cast<float*>(smem);
+template <typename T = float>
+__device__ __forceinline__ RowStageOf<T> row_stage(float4* smem, int W,
+                                                   int C) {
+  T* s = reinterpret_cast<T*>(smem);
   const int wc = W * C;
-  return RowStage{s, s + wc, s + 2 * wc,
-                  reinterpret_cast<uint8_t*>(s + 3 * wc)};
+  return RowStageOf<T>{s, s + wc, s + 2 * wc,
+                       reinterpret_cast<uint8_t*>(s + 3 * wc)};
 }
 
 // Writes the staged row to row `row` (= n H + i) of out [., W, C], where
 // `va` is not null of va and vb [., W, C] too (kernel E's row route stages
 // out alone), and where `overlap` is not null of overlap [., W]; every
 // thread of the block calls it after the barrier that ends the staging.
-__device__ __forceinline__ void row_flush(const RowStage& st, size_t row,
-                                          int W, int C, float* out, float* va,
-                                          float* vb, uint8_t* overlap) {
-  const int q4 = W * C / 4;
-  const size_t o4 = row * (size_t)q4;
+// Each 16-byte store carries 16 / sizeof(T) elements.
+template <typename T>
+__device__ __forceinline__ void row_flush(const RowStageOf<T>& st,
+                                          size_t row, int W, int C, T* out,
+                                          T* va, T* vb, uint8_t* overlap) {
+  const int q16 = W * C * (int)sizeof(T) / 16;
+  const size_t o16 = row * (size_t)q16;
   const float4* so = reinterpret_cast<const float4*>(st.out);
   const float4* sa = reinterpret_cast<const float4*>(st.va);
   const float4* sb = reinterpret_cast<const float4*>(st.vb);
-  for (int q = threadIdx.x; q < q4; q += blockDim.x) {
-    __stcs(reinterpret_cast<float4*>(out) + o4 + q, so[q]);
+  for (int q = threadIdx.x; q < q16; q += blockDim.x) {
+    __stcs(reinterpret_cast<float4*>(out) + o16 + q, so[q]);
     if (va != nullptr) {
-      __stcs(reinterpret_cast<float4*>(va) + o4 + q, sa[q]);
-      __stcs(reinterpret_cast<float4*>(vb) + o4 + q, sb[q]);
+      __stcs(reinterpret_cast<float4*>(va) + o16 + q, sa[q]);
+      __stcs(reinterpret_cast<float4*>(vb) + o16 + q, sb[q]);
     }
   }
   if (overlap != nullptr) {
@@ -128,12 +175,12 @@ inline int row_launch_bytes(K kern, unsigned& smem_set, long smem, int N,
   return (int)cudaGetLastError();
 }
 
-// the same with the projecting warps' staged row
-template <typename K, typename... Args>
+// the same with the projecting warps' staged row of T outputs
+template <typename T = float, typename K, typename... Args>
 inline int row_launch(K kern, unsigned& smem_set, int N, int H, int W, int C,
                       void* stream, Args... args) {
-  return row_launch_bytes(kern, smem_set, row_smem(W, C), N, H, W, stream,
-                          args...);
+  return row_launch_bytes(kern, smem_set, row_smem(W, C, (int)sizeof(T)), N,
+                          H, W, stream, args...);
 }
 
 }  // namespace

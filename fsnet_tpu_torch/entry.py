@@ -12,10 +12,11 @@ under ``MonoDepthWPose``. The learned-pose baseline is ``MonoDepthMeta``
 with the same depth net, a ResNet-18 pose encoder over frame pairs (six
 input channels) and a ``PoseDecoder`` for two frames. The fisheye model is
 the flagship with the ``FishEyeDecoder`` head of
-``configs/kitti360_fisheye_example.py`` (depth 0.1-150, band 16). All are
-built through the builder. The DLA model is ``dlanet(34)`` under
-``DLASegUpsample`` (the composition of ``tests/test_backbones.py:114-125``),
-trained on the sum of its output weighted by a seeded tensor.
+``configs/kitti360_fisheye_example.py`` (depth 0.1-150, band 16), which
+trains with :data:`FISHEYE_RECIPE`. All are built through the builder.
+The DLA model is ``dlanet(34)`` under ``DLASegUpsample`` (the composition
+of ``tests/test_backbones.py:114-125``), trained on the sum of its output
+weighted by a seeded tensor.
 
 The nuScenes recipes (bs8 @288x512, the nuScenes patched mask, so the loss
 takes the grid route) are copies of two shipped configs' ``meta_arch``:
@@ -250,19 +251,23 @@ def fisheye_batch(batch: int, height: int, width: int) -> Dict:
     return encode_batch(data)
 
 
-# the training recipe of bench.py, and the nuScenes configs' (the
+# the training recipe of bench.py, the KITTI-360 fisheye config's (the
 # optimizer, scheduler and trainer.clip_gradients of
+# configs/kitti360_fisheye_example.py) and the nuScenes configs' (those of
 # configs/nusc_wpose_example.py and configs/distill_nusc_example.py); the
-# flagship's compute_dtype is every shipped config's training hook's
-# (configs/common.py:163) and bench.py's: the bf16 step of
-# make_train_step(device, compute_dtype=recipe["compute_dtype"]) (the
-# nuScenes steps have no bf16 form yet)
+# compute_dtype of each is every shipped config's training hook's
+# (configs/common.py:163, through trainer_section) and bench.py's: the bf16
+# step of make_train_step(device, compute_dtype=recipe["compute_dtype"])
 FLAGSHIP_RECIPE = dict(optimizer=dict(name="adam", lr=1e-4),
                        scheduler=dict(name="StepLR", step_size=8),
                        clip_gradients=1.0, compute_dtype="bfloat16")
+FISHEYE_RECIPE = dict(optimizer=dict(name="adam", lr=1e-4,
+                                     weight_decay=1e-5),
+                      scheduler=dict(name="StepLR", step_size=8),
+                      clip_gradients=1.0, compute_dtype="bfloat16")
 NUSC_RECIPE = dict(optimizer=dict(name="adam", lr=1e-4, weight_decay=0),
                    scheduler=dict(name="StepLR", step_size=4),
-                   clip_gradients=1.0)
+                   clip_gradients=1.0, compute_dtype="bfloat16")
 
 
 def recipe_optimizer(model: torch.nn.Module, recipe: Dict,

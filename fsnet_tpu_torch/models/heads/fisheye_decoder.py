@@ -21,6 +21,14 @@ the JAX head's two routes:
   and the overlap is the nearest/zeros warp of ``patched * valid`` tested
   ``== 1.0``.
 
+In the bf16 step (a bfloat16 batch; the decoded norms are float32, as
+the depth bins are) both routes keep the sources in bfloat16, as the JAX
+head does: the norm-direct route gives kernel G the bfloat16 sources
+beside the norms and float32 rays, validity and Mei rows (widened from
+the cast batch's values), and the grid route builds its grids in float32
+(``fsnet_tpu/models/heads/fisheye_decoder.py:138-166``) and warps the
+bfloat16 sources and validity; the predictions are bfloat16.
+
 The rest of the loss (min-reprojection, automask, the patched-mask
 normaliser, smoothness) is :class:`MonoDepth2Decoder`'s. ``get_prediction``
 returns the z-depth, the norm and the fisheye validity mask.
@@ -31,6 +39,7 @@ from typing import Dict
 
 import torch
 
+from ...ops.conv3x3 import is_low
 from ...ops.warp_fast import grid_sample
 from ...ops.warp_mei import make_mei_rows, warp_mei_fused
 from ..blocks import interpolate_bilinear
@@ -92,8 +101,11 @@ class FishEyeDecoder(MonoDepth2Decoder):
         sources = torch.stack([input_dict[("original_image", f)]
                                for f in frames])
         C = sources.shape[-1]
+        # the grid math's dtype (the decoded norms': float32, or wider) and
+        # the sources' (bfloat16 in the bf16 step, else the grid math's)
         ft = torch.promote_types(norms_full.dtype, torch.float32)
-        sources = sources.reshape(F * B, H, W, C).to(ft).contiguous()
+        cdt = sources.dtype if is_low(sources.dtype) else ft
+        sources = sources.reshape(F * B, H, W, C).to(cdt).contiguous()
         rays = input_dict["fisheye_rays"].to(ft)
         valid = rays[..., 3]
         if "patched_mask" in input_dict:
@@ -102,7 +114,7 @@ class FishEyeDecoder(MonoDepth2Decoder):
         if bool(output_dict.pop("pose_is_const", False)):
             preds, overlap = warp_mei_fused(
                 sources, valid.contiguous(),
-                norms_full.reshape(S * B, H, W).to(ft).contiguous(),
+                norms_full.reshape(S * B, H, W).contiguous(),
                 rays[..., 0:3].permute(0, 3, 1, 2).contiguous(),
                 make_mei_rows(P, params, Ts, S).to(ft), S, F, self.warp_band,
                 bool(self.overlapped_mask))
@@ -136,8 +148,8 @@ class FishEyeDecoder(MonoDepth2Decoder):
         overlap = None
         if self.overlapped_mask:
             # warp n reads mask n mod B
-            warped = grid_sample(valid[..., None].contiguous(), grids,
-                                 mode="nearest", padding_mode="zeros",
+            warped = grid_sample(valid[..., None].to(cdt).contiguous(),
+                                 grids, mode="nearest", padding_mode="zeros",
                                  impl=self.warp_impl, band=self.warp_band)
             overlap = (warped == 1.0).reshape(S, F, B, H, W)
         return preds, overlap, norms_full

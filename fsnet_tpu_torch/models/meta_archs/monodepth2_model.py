@@ -217,7 +217,11 @@ class DistillWPoseMeta(BaseMetaArch):
         depth of frame 0 (BN on its running statistics; without autograd
         where the teacher produces detached depth, which gives the numbers
         ``.detach()`` would), then the head's loss with the dataset's GT
-        relative poses as the warp poses."""
+        relative poses as the warp poses. In the bf16 step the teacher runs,
+        as the student does, on the step's bfloat16 copies of its
+        parameters, its eval-mode BN reading its float32 statistics rounded
+        to bfloat16 (flax on JAX's cast tree); its parameters and statistics
+        are never written."""
         data = _decode(data)
         image_0 = data[("image", 0)]
         features = self.depth_backbone(image_0, train=True)

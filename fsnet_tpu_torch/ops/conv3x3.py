@@ -285,14 +285,17 @@ def conv3x3_dx_plain(g: torch.Tensor, w: torch.Tensor, pad_mode: str,
     channels: the conv of the zero-padded output cotangent ``g``
     [B, H, W, Co] with the flipped, io-transposed weight slice of each part
     gives the cotangent of the padded input [B, H+2, W+2, C], which
-    :func:`_fold_halo` folds to [B, H, W, C]."""
-    gp = F.pad(g, (0, 0, 1, 1, 1, 1))
-    wf = _flip_w(w)
+    :func:`_fold_halo` folds to [B, H, W, C], in float32 or wider; the
+    result is cast to ``g``'s dtype once (a bfloat16 edge pixel is the
+    rounding of its whole sum, as the kernel's epilogue folds it)."""
+    acc = _acc_dtype(g.dtype)
+    gp = F.pad(g.to(acc), (0, 0, 1, 1, 1, 1))
+    wf = _flip_w(w.to(acc))
     dxs = []
     off = 0
     for c in Cs:
         e = _conv_core((gp,), wf[..., off:off + c].contiguous(), None, "zeros")
-        dxs.append(_fold_halo(e, pad_mode))
+        dxs.append(_fold_halo(e, pad_mode).to(g.dtype))
         off += c
     return tuple(dxs)
 

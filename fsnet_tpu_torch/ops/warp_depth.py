@@ -44,7 +44,7 @@ from .conv3x3 import (_DT_NAMES, _counted, _entry, _raise_on, _route,
                       _stream, is_low)
 from .geometry import project_rows
 # the vector route's row: W / 4 threads of at most 512, and out, va, vb
-# (W C floats each) and the overlap (W bytes) staged in at most
+# (W C elements each) and the overlap (W bytes) staged in at most
 # _ROW_MAX_SMEM bytes of shared memory (csrc/warp_rows.cuh row_fits)
 from .warp_fast import (_ROW_MAX_SMEM, _ROW_MAX_W, band_sample,
                         indices_and_weights)
@@ -57,11 +57,15 @@ _SUFFIX = dict(narrow="", vector="_vec")     # of the routes' C entry points
 def proj_route(image: torch.Tensor, *others: torch.Tensor) -> str:
     """The route of the projecting warps (kernels A and G) for these
     operands: ``'vector'`` when ``image`` [., H, W, C] has W % 4 == 0,
-    W <= 2048 and 12 W C + W bytes of staged row within the shared-memory
-    limit, and every tensor's data is 16-byte aligned; else ``'narrow'``."""
+    W <= 2048, an output row of whole 16-byte stores (W C e bytes, e the
+    image's element size, which the outputs share: in bfloat16 W C a
+    multiple of 8) and 3 W C e + W bytes of staged row within the
+    shared-memory limit, and every tensor's data is 16-byte aligned; else
+    ``'narrow'``."""
     W, C = image.shape[2], image.shape[3]
-    vec = W % 4 == 0 and W <= _ROW_MAX_W and \
-        12 * W * C + W <= _ROW_MAX_SMEM and \
+    row = W * C * image.element_size()
+    vec = W % 4 == 0 and W <= _ROW_MAX_W and row % 16 == 0 and \
+        3 * row + W <= _ROW_MAX_SMEM and \
         all(t.data_ptr() % 16 == 0 for t in (image, *others))
     return "vector" if vec else "narrow"
 

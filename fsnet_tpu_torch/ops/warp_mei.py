@@ -40,6 +40,18 @@ vector route (each pixel projected once, the row written as 16-byte
 stores) where the row fits it, the narrow route for every other shape;
 ``warp_mei_fwd.routes`` counts launches by route and :func:`_launch_fwd`
 launches one route.
+
+A bfloat16 image (the bf16 train step) is warped as the JAX package's
+unpacked route warps it (``fsnet_tpu/ops/warp_mei.py:147-148``): the image
+and a bfloat16 or float32 norm widened (exactly), the projection and the
+bilinear arithmetic in float32 on the float32 rays, mask and rows, and out,
+va and vb rounded once to bfloat16 (the overlap as at float32). The
+cotangent's bfloat16 form loads bfloat16 g, va and vb, forms ``gfx`` and
+``gfy`` as PyTorch's bfloat16 ops form them (kernel B's bfloat16 form,
+:func:`~fsnet_tpu_torch.ops.warp_depth._channel_sum`), runs the float32
+derivative and rounds d norm to the norm's dtype (``warp_mei.py:186``).
+Kernels G and H have bfloat16 forms of their own; ``<function>.dtypes``
+counts launches by the dtype of the image (g, va, vb).
 """
 from __future__ import annotations
 
@@ -47,8 +59,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .conv3x3 import _entry, _raise_on, _route, _stream
-from .warp_depth import ROUTES, _SUFFIX, _known, proj_route
+from .conv3x3 import (_DT_NAMES, _counted, _entry, _raise_on, _route,
+                      _stream, is_low)
+from .warp_depth import ROUTES, _SUFFIX, _channel_sum, _known, proj_route
 from .warp_fast import band_sample, indices_and_weights
 
 _DTYPES = (torch.float32,)
@@ -104,7 +117,11 @@ def mei_pix(norm: torch.Tensor, rays_cf: torch.Tensor, mrows: torch.Tensor,
                 rho2=rho2, fac=fac, k1=m[13], k2=m[14], g1=m[15], g2=m[16])
 
 
-def _check(image, norm, rays_cf, mrows, S, F, extra=()):
+def _check(image, norm, rays_cf, mrows, S, F, like_image=(), wide=()):
+    """Shapes, and the dtypes: ``image`` and ``like_image`` (g, va, vb) of
+    one dtype, float32 or bfloat16; ``norm`` of that dtype or, beside a
+    bfloat16 image, float32; ``rays_cf``, ``mrows`` and ``wide`` (the mask)
+    float32 beside a bfloat16 image, else of the image's dtype."""
     FB, H, W, C = image.shape
     B = FB // F
     if FB % F or tuple(norm.shape) != (S * B, H, W) or \
@@ -113,11 +130,25 @@ def _check(image, norm, rays_cf, mrows, S, F, extra=()):
         raise ValueError(f"warp_mei: image {tuple(image.shape)}, norm "
                          f"{tuple(norm.shape)}, rays {tuple(rays_cf.shape)}, "
                          f"mrows {tuple(mrows.shape)} do not fit S={S}, F={F}")
-    for t in (image, norm, rays_cf, mrows, *extra):
-        if t.dtype not in _DTYPES or t.dtype != image.dtype or \
-                t.device != image.device or not t.is_contiguous():
-            raise TypeError("warp_mei takes contiguous float32 tensors on one "
-                            "device")
+    dt = image.dtype
+    fp = torch.float32 if is_low(dt) else dt
+    if fp not in _DTYPES or norm.dtype not in (dt, fp) or \
+            any(t.dtype != dt for t in like_image) or \
+            any(t.dtype != fp for t in (rays_cf, mrows, *wide)):
+        raise TypeError("warp_mei takes float32 tensors (an image, g, va and "
+                        "vb in bfloat16 beside a bfloat16 or float32 norm; "
+                        "rays, mask and rows float32 always)")
+    for t in (image, norm, rays_cf, mrows, *like_image, *wide):
+        if t.device != image.device or not t.is_contiguous():
+            raise TypeError("warp_mei takes contiguous tensors on one device")
+
+
+def _code(image: torch.Tensor, norm: torch.Tensor) -> int:
+    """The C entry points' ``dtype``: 0 float32, 1 a bfloat16 image (g, va,
+    vb) and norm, 2 a bfloat16 image with a float32 norm."""
+    if not is_low(image.dtype):
+        return 0
+    return 1 if norm.dtype == image.dtype else 2
 
 
 def _clamp(v: torch.Tensor, hi: int) -> torch.Tensor:
@@ -130,8 +161,15 @@ def warp_mei_plain(image: torch.Tensor, mask: torch.Tensor,
                    mrows: torch.Tensor, S: int, F: int, band: int,
                    with_mask: bool):
     """Plain version of the forward: (out, overlap, va, vb) with out, va, vb
-    [S*F*B, H, W, C] and overlap [S*F*B, H, W] bool (None without
-    ``with_mask``)."""
+    [S*F*B, H, W, C] in the image's dtype and overlap [S*F*B, H, W] bool
+    (None without ``with_mask``); a bfloat16 image's outputs are the
+    float32 ones of the widened image, rounded."""
+    if is_low(image.dtype):
+        out, overlap, va, vb = warp_mei_plain(image.float(), mask, norm,
+                                              rays_cf, mrows, S, F, band,
+                                              with_mask)
+        return (out.to(image.dtype), overlap, va.to(image.dtype),
+                vb.to(image.dtype))
     FB, H, W, C = image.shape
     N = mrows.shape[0]
     p = mei_pix(norm, rays_cf, mrows, S, F)
@@ -154,10 +192,12 @@ def warp_mei_bwd_plain(norm: torch.Tensor, rays_cf: torch.Tensor,
                        g: torch.Tensor, va: torch.Tensor, vb: torch.Tensor,
                        mrows: torch.Tensor, S: int, F: int) -> torch.Tensor:
     """Plain version of the backward: the fraction cotangents
-    ``gfx = sum_c g va``, ``gfy = sum_c g vb`` -> d norm [S*B, H, W], through
-    the closed-form derivative of the projection
-    (``mei_prep_kernel._mei_prep_bwd_kernel``), masked by the strict border
-    test 0 < x < W-1, 0 < y < H-1 and summed over the F frames."""
+    ``gfx = sum_c g va``, ``gfy = sum_c g vb`` (in bfloat16 as
+    :func:`~fsnet_tpu_torch.ops.warp_depth._channel_sum` forms them) -> d
+    norm [S*B, H, W] in the norm's dtype, through the closed-form
+    derivative of the projection (``mei_prep_kernel._mei_prep_bwd_kernel``,
+    float32 or wider), masked by the strict border test 0 < x < W-1,
+    0 < y < H-1 and summed over the F frames."""
     SB, H, W = norm.shape
     q = mei_pix(norm, rays_cf, mrows, S, F)
     dnn = (q["px"] * q["gx"] + q["py"] * q["gy"] + q["pz"] * q["gz"]) \
@@ -174,10 +214,10 @@ def warp_mei_bwd_plain(norm: torch.Tensor, rays_cf: torch.Tensor,
     x, y = q["x"], q["y"]
     mx = ((x > 0.0) & (x < W - 1)).to(dux.dtype)
     my = ((y > 0.0) & (y < H - 1)).to(dux.dtype)
-    gfx = (g * va).sum(-1)
-    gfy = (g * vb).sum(-1)
+    gfx, gfy = _channel_sum(g, va), _channel_sum(g, vb)
     term = gfx * mx * dux + gfy * my * dvy                    # [N, H, W]
-    return term.view(S, F, SB // S, H, W).sum(dim=1).reshape(SB, H, W)
+    return term.view(S, F, SB // S, H, W).sum(dim=1).reshape(
+        SB, H, W).to(norm.dtype)
 
 
 def warp_mei_fwd(image: torch.Tensor, mask: torch.Tensor, norm: torch.Tensor,
@@ -185,8 +225,8 @@ def warp_mei_fwd(image: torch.Tensor, mask: torch.Tensor, norm: torch.Tensor,
                  band: int, with_mask: bool):
     """The forward (kernel G on a CUDA device, on the route of
     :func:`~fsnet_tpu_torch.ops.warp_depth.proj_route`): (out, overlap, va,
-    vb)."""
-    _check(image, norm, rays_cf, mrows, S, F, extra=(mask,))
+    vb), out, va and vb in the image's dtype."""
+    _check(image, norm, rays_cf, mrows, S, F, wide=(mask,))
     if tuple(mask.shape) != (rays_cf.shape[0], *image.shape[1:3]) or \
             not 1 <= band <= image.shape[1]:
         raise ValueError(f"warp_mei: mask {tuple(mask.shape)} or band {band} "
@@ -209,20 +249,21 @@ def _launch_fwd(route: str, image: torch.Tensor, mask: torch.Tensor,
     FB, H, W, C = image.shape
     N = S * FB
     dev = image.device
-    out, va, vb = (torch.empty((N, H, W, C), dtype=torch.float32, device=dev)
+    out, va, vb = (torch.empty((N, H, W, C), dtype=image.dtype, device=dev)
                    for _ in range(3))
     overlap = (torch.empty((N, H, W), dtype=torch.bool, device=dev)
                if with_mask else None)
     fn = "fsnet_warp_mei_fwd" + _SUFFIX[route]
     with torch.cuda.device(dev):
-        err = _entry("warp_mei", fn, range(9), 18)(
+        err = _entry("warp_mei", fn, range(9), 19)(
             image.data_ptr(), mask.data_ptr(), norm.data_ptr(),
             rays_cf.data_ptr(), mrows.data_ptr(), out.data_ptr(),
             va.data_ptr(), vb.data_ptr(),
             overlap.data_ptr() if with_mask else None,
-            S, F, FB // F, H, W, C, band, int(with_mask), _stream(image))
+            S, F, FB // F, H, W, C, band, int(with_mask), _code(image, norm),
+            _stream(image))
     _raise_on(err, fn)
-    warp_mei_fwd.launches += 1
+    _counted(warp_mei_fwd, image.dtype)
     warp_mei_fwd.routes[route] += 1
     return out, overlap, va, vb
 
@@ -230,22 +271,24 @@ def _launch_fwd(route: str, image: torch.Tensor, mask: torch.Tensor,
 def warp_mei_bwd(norm: torch.Tensor, rays_cf: torch.Tensor, g: torch.Tensor,
                  va: torch.Tensor, vb: torch.Tensor, mrows: torch.Tensor,
                  S: int, F: int) -> torch.Tensor:
-    """The norm cotangent (kernel H on a CUDA device) -> [S*B, H, W]."""
+    """The norm cotangent (kernel H on a CUDA device) -> [S*B, H, W] in the
+    norm's dtype; g, va and vb float32, or all bfloat16 (kernel H's
+    bfloat16 form)."""
     if g.shape != va.shape or vb.shape != va.shape:
         raise ValueError("warp_mei_bwd: g, va and vb must share one shape")
     N, H, W, C = va.shape
     B = rays_cf.shape[0]
-    _check(va[:N // S], norm, rays_cf, mrows, S, F, extra=(g, vb))
+    _check(va[:N // S], norm, rays_cf, mrows, S, F, like_image=(g, vb))
     if not _route(norm, "warp_mei_bwd"):
         return warp_mei_bwd_plain(norm, rays_cf, g, va, vb, mrows, S, F)
-    dnorm = torch.empty((S * B, H, W), dtype=torch.float32, device=norm.device)
+    dnorm = torch.empty((S * B, H, W), dtype=norm.dtype, device=norm.device)
     with torch.cuda.device(norm.device):
-        err = _entry("warp_mei", "fsnet_warp_mei_bwd", range(7), 14)(
+        err = _entry("warp_mei", "fsnet_warp_mei_bwd", range(7), 15)(
             norm.data_ptr(), rays_cf.data_ptr(), g.data_ptr(), va.data_ptr(),
             vb.data_ptr(), mrows.data_ptr(), dnorm.data_ptr(), S, F, B, H, W,
-            C, _stream(norm))
+            C, _code(va, norm), _stream(norm))
     _raise_on(err, "warp_mei_bwd")
-    warp_mei_bwd.launches += 1
+    _counted(warp_mei_bwd, va.dtype)
     return dnorm
 
 
@@ -291,4 +334,6 @@ def warp_mei_fused(image: torch.Tensor, mask: torch.Tensor,
 
 warp_mei_fwd.launches = 0
 warp_mei_fwd.routes = dict.fromkeys(ROUTES, 0)
+warp_mei_fwd.dtypes = dict.fromkeys(_DT_NAMES.values(), 0)
 warp_mei_bwd.launches = 0
+warp_mei_bwd.dtypes = dict.fromkeys(_DT_NAMES.values(), 0)

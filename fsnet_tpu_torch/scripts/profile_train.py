@@ -4,14 +4,16 @@
         [--model {wpose,learned_pose,fisheye,dla,nusc,distill}]
         [--route {depth,grid}] [--host-batch] [--dtype {float32,bfloat16}]
 
-Builds the model (seeded random weights) and the ``bench.py`` recipe (Adam
-lr 1e-4, clip 1.0, StepLR) on the CUDA device with TF32 off: the flagship
-``MonoDepthWPose`` (``--model wpose``) or the learned-pose
-``MonoDepthMeta`` (``--model learned_pose``, always the grid route), or the
-KITTI-360 fisheye ``MonoDepthWPose`` (``--model fisheye``: ``FishEyeDecoder``
-at 384x384 on the fisheye batch, always its norm-direct route; the recipe's
-batch is 16), or ``dlanet(34)`` under ``DLASegUpsample`` (``--model dla``:
-16 deformable convs, kernels E and K, on ``entry.dla_batch``), or a
+Builds the model (seeded random weights) and its recipe's optimizer on the
+CUDA device with TF32 off: the flagship ``MonoDepthWPose`` (``--model
+wpose``) or the learned-pose ``MonoDepthMeta`` (``--model learned_pose``,
+always the grid route) with the ``bench.py`` recipe (Adam lr 1e-4, clip
+1.0, StepLR), or the KITTI-360 fisheye ``MonoDepthWPose`` (``--model
+fisheye``: ``FishEyeDecoder`` at 384x384 on the fisheye batch, always its
+norm-direct route, with ``entry.FISHEYE_RECIPE``: weight decay 1e-5; the
+recipe's batch is 16), or ``dlanet(34)`` under ``DLASegUpsample``
+(``--model dla``: 16 deformable convs, kernels E and K, on
+``entry.dla_batch``), or a
 nuScenes recipe at 288x512 on ``entry.nusc_batch`` with its own optimizer
 (``entry.NUSC_RECIPE``; the recipe's batch is 8; the patched mask sends
 the loss down the grid route): ``--model nusc`` (``entry.nusc_model``:
@@ -33,10 +35,10 @@ the optimizer's multi-tensor updates, copies, everything else: the rest of
 the loss, the target's SSIM stats, the grid's reprojection, BN, ReLU and
 their gradients), the peak device memory of a step and the kernels with the
 most device time. ``--dtype float32`` (the default) is the float32 step;
-``--dtype bfloat16`` the step of every shipped config,
-``make_train_step(compute_dtype="bfloat16")``: the same groups, the bf16
-forms of the conv and photometric kernels among them (dtype casts fall in
-the elementwise group).
+``--dtype bfloat16`` the step of every shipped config (the recipes'
+``compute_dtype``), ``make_train_step(compute_dtype="bfloat16")``: the
+same groups, the bf16 forms of the conv, photometric and (fisheye) Mei
+warp kernels among them (dtype casts fall in the elementwise group).
 """
 from __future__ import annotations
 
@@ -94,7 +96,8 @@ def _group(name: str) -> str:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=None,
-                    help="default: 8 for nusc and distill, else 12")
+                    help="default: the recipe's: 8 for nusc and distill, 16 "
+                         "for fisheye, else 12")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--host-batch", action="store_true")
     ap.add_argument("--model", choices=("wpose", "learned_pose", "fisheye",
@@ -115,9 +118,9 @@ def main(argv=None) -> None:
         ap.error(f"the {args.model} model has one route: leave --route out")
     route = args.route or one or "depth"
 
-    from ..entry import (NUSC_RECIPE, distill_config, distill_model,
-                         dla_batch, dla_model, fisheye_batch, fisheye_model,
-                         flagship_model, flagship_optimizer,
+    from ..entry import (FISHEYE_RECIPE, NUSC_RECIPE, distill_config,
+                         distill_model, dla_batch, dla_model, fisheye_batch,
+                         fisheye_model, flagship_model, flagship_optimizer,
                          learned_pose_model, nusc_batch, nusc_model,
                          recipe_optimizer, synthetic_batch)
     from ..runtime.state import make_train_step
@@ -127,7 +130,7 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     fisheye = args.model == "fisheye"
     H, W = (384, 384) if fisheye else (288, 512) if nusc else (192, 640)
-    B = args.batch or (8 if nusc else 12)
+    B = args.batch or (8 if nusc else 16 if fisheye else 12)
     if args.model == "distill":
         teacher = flagship_model(H, W, device="cuda", seed=1).state_dict()
         model = distill_model(H, W, device="cuda", seed=0,
@@ -138,7 +141,8 @@ def main(argv=None) -> None:
                      fisheye=fisheye_model, dla=dla_model,
                      nusc=nusc_model)[args.model]
         model = build(H, W, device="cuda", seed=0)
-        opt, _ = (recipe_optimizer(model, NUSC_RECIPE) if nusc
+        opt, _ = (recipe_optimizer(model, NUSC_RECIPE) if nusc else
+                  recipe_optimizer(model, FISHEYE_RECIPE) if fisheye
                   else flagship_optimizer(model))
     step = make_train_step("cuda", compute_dtype=None if args.dtype ==
                            "float32" else args.dtype)

@@ -384,8 +384,9 @@ def test_grid_warps_bf16_match_jax(monkeypatch):
 
 
 def test_bf16_refused_where_there_is_no_bf16_form():
+    """Kernel K and the deformable conv have no bfloat16 form (kernel G's
+    has one: ``tests/test_torch_bf16_recipes.py`` holds what it refuses)."""
     from fsnet_tpu_torch.ops import dcn
-    from fsnet_tpu_torch.ops import warp_mei as twm
 
     image = torch.rand(2, 8, 16, 3, dtype=BF)
     grid = torch.zeros(4, 8, 16, 2)
@@ -398,11 +399,6 @@ def test_bf16_refused_where_there_is_no_bf16_form():
         dcn.modulated_deform_conv(image, torch.zeros(2, 8, 16, 18, dtype=BF),
                                   torch.ones(2, 8, 16, 9, dtype=BF),
                                   torch.zeros(3, 3, 3, 4, dtype=BF))
-    with pytest.raises(TypeError):
-        twm.warp_mei_fwd(image, torch.ones(2, 8, 16, dtype=BF),
-                         torch.zeros(2, 8, 16, 4, dtype=BF),
-                         torch.zeros(4, 3, 4, dtype=BF),
-                         torch.zeros(4, 3, dtype=BF), 1, 2, 4)
     with pytest.raises(ValueError):
         tstate.make_train_step("cpu", compute_dtype="float16")
 

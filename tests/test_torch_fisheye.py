@@ -328,8 +328,8 @@ def test_warp_mei_clamps_non_finite_coordinates():
 
 
 @pytest.mark.parametrize("entry,nargs,pointers", [
-    ("fsnet_warp_mei_fwd", 18, list(range(9)) + [17]),
-    ("fsnet_warp_mei_bwd", 14, list(range(7)) + [13]),
+    ("fsnet_warp_mei_fwd", 19, list(range(9)) + [18]),
+    ("fsnet_warp_mei_bwd", 15, list(range(7)) + [14]),
 ])
 def test_warp_mei_entry_points_declare_their_arguments(monkeypatch, entry,
                                                        nargs, pointers):
@@ -366,6 +366,8 @@ def test_warp_mei_entry_points_declare_their_arguments(monkeypatch, entry,
                              torch.from_numpy(Ts), S)
     img, mask, nrm, rays, rows = _port_args(image, norm, rays4, rows)
     n_fwd, n_bwd = twm.warp_mei_fwd.launches, twm.warp_mei_bwd.launches
+    for wrapper in (twm.warp_mei_fwd, twm.warp_mei_bwd):
+        monkeypatch.setattr(wrapper, "dtypes", dict(wrapper.dtypes))
     try:
         if entry == "fsnet_warp_mei_fwd":
             twm.warp_mei_fwd(img, mask, nrm, rays, rows, S, F, 4, True)

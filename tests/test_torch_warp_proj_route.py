@@ -91,6 +91,8 @@ def _stub(monkeypatch, mod, calls, fn):
     and restored after the test."""
     monkeypatch.setattr(fn, "launches", 0)
     monkeypatch.setattr(fn, "routes", dict.fromkeys(twd.ROUTES, 0))
+    if hasattr(fn, "dtypes"):
+        monkeypatch.setattr(fn, "dtypes", dict.fromkeys(fn.dtypes, 0))
     monkeypatch.setattr(mod, "_entry", lambda lib, name, ptrs, n: (
         calls.append((lib, name, tuple(ptrs), n)), lambda *args: 0)[1])
     monkeypatch.setattr(mod, "_route", lambda t, name: True)
@@ -102,8 +104,8 @@ def _stub(monkeypatch, mod, calls, fn):
 @pytest.mark.parametrize("kernel, W, entry, nargs, pointers", [
     ("A", 16, "fsnet_warp_depth_fwd_vec", 15, [0, 1, 2, 3, 4, 5, 6, 14]),
     ("A", 18, "fsnet_warp_depth_fwd", 15, [0, 1, 2, 3, 4, 5, 6, 14]),
-    ("G", 16, "fsnet_warp_mei_fwd_vec", 18, list(range(9)) + [17]),
-    ("G", 18, "fsnet_warp_mei_fwd", 18, list(range(9)) + [17]),
+    ("G", 16, "fsnet_warp_mei_fwd_vec", 19, list(range(9)) + [18]),
+    ("G", 18, "fsnet_warp_mei_fwd", 19, list(range(9)) + [18]),
 ])
 def test_route_entry_points_declare_their_arguments(
         monkeypatch, kernel, W, entry, nargs, pointers):
@@ -147,3 +149,56 @@ def test_launchers_refuse_an_unknown_route(kernel):
             twm._launch_fwd("wide", image, torch.rand(1, 8, 16),
                             torch.rand(2, 8, 16), torch.rand(1, 3, 8, 16),
                             torch.rand(4, 24), 2, 2, 4, True)
+
+
+@pytest.mark.parametrize("W, C, want", [
+    (384, 3, "vector"), (640, 3, "vector"), (388, 3, "narrow"),
+    (4, 2, "vector"), (4, 1, "narrow"),
+], ids=lambda v: str(v))
+def test_proj_route_at_bf16_row_bytes(W, C, want):
+    """Kernel G's bfloat16 form stages a row of 2-byte outputs and writes it
+    as 16-byte stores of 8 values: the vector route takes W C a multiple of
+    8 (the fisheye recipe's 384 x 3), where float32 takes every W % 4 == 0
+    row."""
+    image = torch.empty(2, 3, W, C, dtype=torch.bfloat16)
+    assert twd.proj_route(image, torch.rand(2, 3, W)) == want
+    assert twd.proj_route(image.float(), torch.rand(2, 3, W)) == "vector"
+
+
+@pytest.mark.parametrize("image_dtype, norm_dtype, code", [
+    (torch.float32, torch.float32, 0), (torch.bfloat16, torch.bfloat16, 1),
+    (torch.bfloat16, torch.float32, 2),
+], ids=["float32", "bfloat16", "bfloat16_image_float32_norm"])
+def test_warp_mei_entry_points_take_the_dtype(monkeypatch, image_dtype,
+                                              norm_dtype, code):
+    """Kernels G and H are told the operands' types in one ``dtype``
+    argument (0, 1 or 2: ``csrc/warp_mei.cu``), allocate their outputs in
+    the image's and the norm's dtypes and count the launch by the image's
+    dtype (CPU tensors routed as if on the card)."""
+    args = []
+    S, F, B, H, W, C = 2, 2, 1, 8, 16, 3
+    for fn in (twm.warp_mei_fwd, twm.warp_mei_bwd):
+        monkeypatch.setattr(fn, "launches", 0)
+        monkeypatch.setattr(fn, "dtypes", dict.fromkeys(fn.dtypes, 0))
+    monkeypatch.setattr(twm.warp_mei_fwd, "routes",
+                        dict.fromkeys(twd.ROUTES, 0))
+    monkeypatch.setattr(twm, "_entry", lambda lib, name, ptrs, n: (
+        lambda *a: (args.append((name, a)), 0)[1]))
+    monkeypatch.setattr(twm, "_route", lambda t, name: True)
+    monkeypatch.setattr(twm, "_stream", lambda t: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    image = torch.rand(F * B, H, W, C).to(image_dtype)
+    norm = torch.rand(S * B, H, W).to(norm_dtype)
+    rays, rows = torch.rand(B, 3, H, W), torch.rand(S * F * B, 24)
+    out, _, va, vb = twm.warp_mei_fwd(image, torch.rand(B, H, W), norm,
+                                      rays, rows, S, F, 4, True)
+    dn = twm.warp_mei_bwd(norm, rays, out, va, vb, rows, S, F)
+    assert out.dtype == va.dtype == vb.dtype == image_dtype
+    assert dn.dtype == norm_dtype
+    (fwd, a_fwd), (bwd, a_bwd) = args
+    assert fwd == "fsnet_warp_mei_fwd_vec" and bwd == "fsnet_warp_mei_bwd"
+    assert a_fwd[17] == a_bwd[13] == code
+    name = str(image_dtype).split(".")[1]
+    for fn in (twm.warp_mei_fwd, twm.warp_mei_bwd):
+        assert fn.launches == 1 and fn.dtypes[name] == 1
