@@ -322,7 +322,30 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 39. times each recipe's step at its batch in float32 and in bf16 as phase
     35 times the flagship's, and kernels G and H in bf16 on the step's
     operand types (G on both routes) beside their float32 kernels on the
-    same values, their plain versions and their bounds at bf16 bytes.
+    same values, their plain versions and their bounds at bf16 bytes;
+40. the flagship recipe trained from its dataset through the port's
+    ``scripts/train.py`` ``main`` on ``configs/synthetic_flagship.py``
+    (``configs/kitti_wpose_example.py``'s recipe on the synthetic dataset
+    rendered at 375x1242: bf16, bs12 @192x640, the train augmentation
+    graph, 4 loader workers) with 36 samples (3 steps an epoch) for 2
+    epochs, then resumed from its ``_latest`` checkpoint for one more; the
+    counters set to 0 just before each step and read just after: every
+    step's launches, launches by dtype and routes equal phase 33's
+    grid-route bf16 step's; each loss finite; the tie-break noise different
+    at every step; ``_latest`` equal to the trained model and optimizer
+    bitwise, and the resumed run's model and optimizer (parameters, BN
+    statistics, mu, nu, count) equal to it bitwise at its first step, whose
+    learning rate is ``schedule(count)``; then ``scripts/test.py``'s
+    ``main`` on the resumed run's checkpoint over 4 val samples: 14
+    conv3x3 launches a sample and nothing else, the depth finite and within
+    [min_depth, max_depth];
+41. readings, beside the card's name and power limit: ``dataset[i]``
+    alone (ms a sample), the loader alone (4 workers, ms a batch over the
+    last 20 of an epoch of 24), the loop (``train.main``, one epoch of 24
+    steps): step wall, loader wait and imgs/s over the last 20 steps, and
+    its first step apart, the epoch-boundary reading that phase 40's
+    epochs of 3 steps also give; and phase 35's grid-route bf16 step with
+    the batch on the card.
 
 Every train step (phases 9, 13, 14, 19, 27, 29) launches the forward
 kernel twice (the warped stack and the identity stack) and the cotangent
@@ -4132,6 +4155,297 @@ def recipe_bf16_phases(counters, record, fish):
     return time_mei_bf16(ops, steps, errs), errs
 
 
+# ----------------------------------------------- training from a dataset
+
+# the flagship recipe on the synthetic dataset (phases 40-41)
+FLAGSHIP_CONFIG = (Path(__file__).resolve().parent / "fsnet_tpu_torch"
+                   / "configs" / "synthetic_flagship.py")
+LOOP_DIR = Path(__file__).resolve().parent / "build" / "train_loop"
+# phase 40: 36 training samples (3 steps an epoch), 2 epochs, then one more
+# from the checkpoint; the val split's samples
+LOOP_SAMPLES, LOOP_EPOCHS, LOOP_VAL = 36, 2, 4
+
+
+class LoopWatch:
+    """Wraps the training hook and the optimizer for phase 40: the launch
+    counters set to 0 just before each step and read just after (by dtype
+    and route too), each step's tie-break noise, the (count, lr) of each
+    update, and, at the first step of a run given ``expect``, the model's
+    state_dict and the optimizer's moments and count against it."""
+
+    def __init__(self, counters):
+        from fsnet_tpu_torch.pipeline_hooks import train_val_hooks as hooks
+        from fsnet_tpu_torch.runtime import optim
+
+        self.counters, self.hooks, self.optim = counters, hooks, optim
+        self.steps, self.noise, self.lrs = [], [], []
+        self.expect, self.restored = None, None
+        hook_call, noise, step = (hooks.BaseTrainingHook.__call__,
+                                  hooks.BaseTrainingHook.noise,
+                                  optim.Adam.step)
+        self.saved = hook_call, noise, step
+        watch = self
+
+        def counted(hook, data, model, optimizer, **kw):
+            if watch.expect is not None:
+                watch.restored = restored_bitwise(model, optimizer,
+                                                  watch.expect)
+                watch.expect = None
+            zero(counters)
+            out = hook_call(hook, data, model, optimizer, **kw)
+            torch.cuda.synchronize()
+            watch.steps.append(dict(
+                launches=read(counters), routes=routes(counters),
+                dtypes={k: dict(fn.dtypes) for k, fn in counters.items()
+                        if hasattr(fn, "dtypes")}))
+            return out
+
+        def drawn(hook, model, data, step):
+            n = noise(hook, model, data, step)
+            watch.noise.append(n.clone())
+            return n
+
+        def stepped(opt, grads):
+            watch.lrs.append((opt.count, opt.schedule(opt.count)))
+            return step(opt, grads)
+
+        hooks.BaseTrainingHook.__call__ = counted
+        hooks.BaseTrainingHook.noise = drawn
+        optim.Adam.step = stepped
+
+    def close(self):
+        (self.hooks.BaseTrainingHook.__call__,
+         self.hooks.BaseTrainingHook.noise, self.optim.Adam.step) = self.saved
+
+
+def restored_bitwise(model, optimizer, payload):
+    """Whether ``model`` and ``optimizer`` hold ``payload`` (a checkpoint's)
+    bit for bit: every state_dict tensor, mu, nu and count."""
+    state = model.state_dict()
+    if sorted(state) != sorted(payload["model"]) or \
+            optimizer.count != payload["optimizer"]["count"]:
+        return False
+    if not all(torch.equal(state[k].cpu(), v)
+               for k, v in payload["model"].items()):
+        return False
+    names = {id(p): n for n, p in model.named_parameters()}
+    for i, p in enumerate(optimizer.params):
+        n = names[id(p)]
+        if not (torch.equal(optimizer.mu[i].cpu(), payload["optimizer"]["mu"][n])
+                and torch.equal(optimizer.nu[i].cpu(),
+                                payload["optimizer"]["nu"][n])):
+            return False
+    return True
+
+
+def loop_overrides(cfg, ckpt_dir, epochs, resume="", samples=LOOP_SAMPLES):
+    return {"train_dataset.cfg_list": [dict(cfg.train_dataset.cfg_list[0],
+                                            length=samples)],
+            "val_dataset.length": LOOP_VAL, "trainer.max_epochs": epochs,
+            "trainer.disp_iter": 1, "path.checkpoint_path": str(ckpt_dir),
+            "path.pretrained_checkpoint": resume}
+
+
+def train_loop_phase(counters, record):
+    """Phase 40: the flagship recipe trained from its dataset through the
+    port's ``train.main`` (``configs/synthetic_flagship.py``: bf16, bs12
+    @192x640, 4 loader workers, 36 samples, 2 epochs), then resumed from
+    ``_latest`` for one more epoch; ``test.main`` on that checkpoint."""
+    import shutil
+
+    from fsnet_tpu_torch.runtime.checkpoint import load_checkpoint
+    from fsnet_tpu_torch.scripts import test as test_script
+    from fsnet_tpu_torch.scripts import train as train_script
+    from fsnet_tpu_torch.utils import cfg_from_file
+
+    cfg = cfg_from_file(str(FLAGSHIP_CONFIG))
+    shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    want = record["bf16_steps"]["grid"]
+    steps_per_epoch = LOOP_SAMPLES // cfg.data.batch_size
+    watch = LoopWatch(counters)
+    runs = {}
+    try:
+        t0 = time.perf_counter()
+        runs["first"] = train_script.main(
+            config=str(FLAGSHIP_CONFIG), device="cuda",
+            **loop_overrides(cfg, LOOP_DIR / "a", LOOP_EPOCHS))
+        first_s = time.perf_counter() - t0
+        latest = runs["first"]["checkpoint"]
+        saved = load_checkpoint(latest)
+        check(restored_bitwise(runs["first"]["model"],
+                               runs["first"]["optimizer"], saved),
+              "phase 40: _latest differs from the trained model")
+        first_steps = len(watch.steps)
+        watch.expect = saved
+        t0 = time.perf_counter()
+        runs["resumed"] = train_script.main(
+            config=str(FLAGSHIP_CONFIG), device="cuda",
+            **loop_overrides(cfg, LOOP_DIR / "b", LOOP_EPOCHS + 1, latest))
+        resumed_s = time.perf_counter() - t0
+    finally:
+        watch.close()
+    n_steps = (LOOP_EPOCHS + 1) * steps_per_epoch
+    check(len(watch.steps) == n_steps and first_steps == LOOP_EPOCHS
+          * steps_per_epoch, f"phase 40: {len(watch.steps)} steps, "
+          f"{first_steps} before the resume")
+    for i, s in enumerate(watch.steps):
+        check(s["launches"] == want["launches"], f"phase 40 step {i}: "
+              f"launches {s['launches']}, phase 33's {want['launches']}")
+        check(all(s["dtypes"][k] == v for k, v in want["dtypes"].items()),
+              f"phase 40 step {i}: launches by dtype {s['dtypes']}")
+        check(s["routes"] == want["routes"], f"phase 40 step {i}: routes "
+              f"{s['routes']}, phase 33's {want['routes']}")
+    losses = [e["loss"] for r in runs.values() for e in r["log"]]
+    check(len(losses) == n_steps and all(np.isfinite(losses)),
+          f"phase 40: losses {losses}")
+    check(len(watch.noise) == n_steps and all(
+        not torch.equal(a, b) for i, a in enumerate(watch.noise)
+        for b in watch.noise[i + 1:]), "phase 40: the noise repeated")
+    check(watch.restored is True, "phase 40: the resumed model and "
+          "optimizer differ from _latest")
+    resumed = runs["resumed"]
+    count0, lr0 = watch.lrs[first_steps]
+    check(count0 == saved["optimizer"]["count"] == first_steps
+          and lr0 == resumed["schedule"](count0),
+          f"phase 40: resumed at count {count0}, lr {lr0}")
+    check(resumed["epoch"] == LOOP_EPOCHS + 1
+          and resumed["global_step"] == n_steps,
+          f"phase 40: resumed run ended at epoch {resumed['epoch']}, step "
+          f"{resumed['global_step']}")
+
+    # test.main on the resumed run's checkpoint
+    head = cfg.meta_arch.head_cfg
+    zero(counters)
+    ev = test_script.main(config=str(FLAGSHIP_CONFIG),
+                          checkpoint=resumed["checkpoint"], device="cuda",
+                          **{"val_dataset.length": LOOP_VAL})
+    torch.cuda.synchronize()
+    ev_counts = read(counters)
+    check(ev_counts == dict(dict.fromkeys(ev_counts, 0),
+                            conv3x3=len(SHAPES) * LOOP_VAL),
+          f"phase 40: test.main launched {ev_counts}")
+    check(ev["samples"] == LOOP_VAL and ev["epoch"] == LOOP_EPOCHS + 1
+          and np.isfinite([ev["min"], ev["mean"], ev["max"]]).all()
+          and head.min_depth <= ev["min"] and ev["max"] <= head.max_depth,
+          f"phase 40: evaluation {ev}")
+    out = dict(steps=n_steps, losses=losses, launches=want["launches"],
+               resumed_count=count0, resumed_lr=lr0, eval=ev,
+               first_run_s=first_s, resumed_run_s=resumed_s,
+               log=[dict(e, run=name) for name, r in runs.items()
+                    for e in r["log"]])
+    print(f"phase 40: train.main on {FLAGSHIP_CONFIG.name} (bf16 bs"
+          f"{cfg.data.batch_size}@{cfg.data.rgb_shape[0]}x"
+          f"{cfg.data.rgb_shape[1]}, {cfg.data.num_workers} workers): "
+          f"{n_steps} steps, losses {[round(x, 6) for x in losses]}, "
+          f"launches per step {want['launches']} (phase 33's grid step), "
+          f"fresh noise each step, _latest reloaded bitwise, resumed at "
+          f"count {count0} lr {lr0:.3e}; test.main over {LOOP_VAL} val "
+          f"samples: {ev_counts['conv3x3']} conv3x3 launches, depth "
+          f"[{ev['min']:.3f}, {ev['max']:.3f}]; runs {first_s:.1f} s and "
+          f"{resumed_s:.1f} s")
+    return out
+
+
+# phase 41: one epoch long enough that the wait at its start (one worker
+# makes the first batch alone, the loader drains at each epoch's end) is
+# paid once: RATE_BATCHES batches, the steady pace read over the last
+# RATE_STEADY; dataset[i] timed over RATE_SAMPLES samples
+RATE_BATCHES, RATE_STEADY, RATE_SAMPLES = 24, 20, 12
+
+
+def sample_ms(config=FLAGSHIP_CONFIG, samples=RATE_SAMPLES) -> float:
+    """``dataset[i]`` of ``config``'s train dataset (rendering and the
+    augmentation graph) in one process: ms a sample, the mean over
+    ``samples`` after one call that is not timed."""
+    from fsnet_tpu_torch.utils import build, cfg_from_file
+
+    cfg = cfg_from_file(str(config))
+    cfg.train_dataset.cfg_list[0].length = samples + 1
+    dataset = build(**cfg.train_dataset)
+    dataset[samples]
+    t0 = time.perf_counter()
+    for i in range(samples):
+        dataset[i]
+    return (time.perf_counter() - t0) / samples * 1e3
+
+
+def loop_readings(record, loop):
+    """Phase 41, readings only: ``dataset[i]`` alone (one process, ms a
+    sample); the loader alone (4 workers, one epoch of 24 batches, ms a
+    batch over the last 20); the loop, ``train.main`` over one epoch of 24
+    steps: its step wall, loader wait and imgs/s over the last 20 steps,
+    and its first step apart (the epoch-boundary reading, as are phase
+    40's epochs of 3 steps); and phase 35's grid-route bf16 step with the
+    batch on the card."""
+    from fsnet_tpu_torch.data.dataloader import build_dataloader
+    from fsnet_tpu_torch.scripts import train as train_script
+    from fsnet_tpu_torch.utils import build, cfg_from_file
+
+    sample = sample_ms()
+    cfg = cfg_from_file(str(FLAGSHIP_CONFIG))
+    bs = cfg.data.batch_size
+    cfg.train_dataset.cfg_list[0].length = RATE_BATCHES * bs
+    dataset = build(**cfg.train_dataset)
+
+    warm = RATE_BATCHES - RATE_STEADY
+    loader = build_dataloader(dataset, num_workers=cfg.data.num_workers,
+                              batch_size=bs, pin_memory=True)
+    try:
+        it = iter(loader)
+        t0 = time.perf_counter()
+        for _ in range(warm):
+            next(it)
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        check(sum(1 for _ in it) == RATE_STEADY, "phase 41: the epoch is "
+              f"not {RATE_BATCHES} batches")
+        loader_ms = (time.perf_counter() - t0) / RATE_STEADY * 1e3
+    finally:
+        loader.close()
+
+    run = train_script.main(
+        config=str(FLAGSHIP_CONFIG), device="cuda",
+        **loop_overrides(cfg, LOOP_DIR / "rate", 1,
+                         samples=RATE_BATCHES * bs))
+    log = run["log"]
+    check(len(log) == RATE_BATCHES and all(np.isfinite([e["loss"]
+                                                        for e in log])),
+          f"phase 41: {len(log)} steps, losses {[e['loss'] for e in log]}")
+    wall = float(np.mean([e["wall_ms"] for e in log[warm:]]))
+    wait = float(np.mean([e["wait_ms"] for e in log[warm:]]))
+    # phase 40's epochs of 3 steps: epoch-boundary readings
+    epochs = {}
+    for e in loop["log"]:
+        epochs.setdefault((e["run"], e["epoch"]), []).append(e)
+    per_epoch = [dict(run=r, epoch=ep,
+                      wall_ms=float(np.mean([e["wall_ms"] for e in es])),
+                      wait_ms=float(np.mean([e["wait_ms"] for e in es])))
+                 for (r, ep), es in epochs.items()]
+    on_card = record["bf16_train_step"]["grid_bf16"]
+    out = dict(card=record["card"], sample_ms=sample,
+               loader_ms_per_batch=loader_ms, loader_first_s=warm_s,
+               loop_wall_ms=wall, loop_wait_ms=wait,
+               loop_imgs_per_s=bs / wall * 1e3,
+               first_step_wall_ms=log[0]["wall_ms"],
+               first_step_wait_ms=log[0]["wait_ms"],
+               walls_ms=[e["wall_ms"] for e in log],
+               waits_ms=[e["wait_ms"] for e in log],
+               epoch_boundary=per_epoch,
+               batch_on_card_ms=on_card["ms"],
+               batch_on_card_imgs_per_s=on_card["imgs_per_s"])
+    print(f"phase 41 ({record['card']}): dataset[i] {sample:.1f} ms a "
+          f"sample (one process); loader alone {loader_ms:.1f} ms a batch "
+          f"of {bs} ({cfg.data.num_workers} workers, last {RATE_STEADY} of "
+          f"{RATE_BATCHES}; first {warm} in {warm_s:.1f} s); the loop over "
+          f"the last {RATE_STEADY} of {RATE_BATCHES} steps: step wall "
+          f"{wall:.1f} ms = {bs / wall * 1e3:.2f} imgs/s, loader wait "
+          f"{wait:.1f} ms; its first step (the epoch boundary) "
+          f"{log[0]['wall_ms']:.1f} ms, {log[0]['wait_ms']:.1f} ms of it "
+          f"waiting; phase 35's grid bf16 step, batch on the card: "
+          f"{on_card['ms']:.3f} ms = {on_card['imgs_per_s']:.2f} imgs/s")
+    return out
+
+
 def main() -> int:
     global REPEATS
     import argparse
@@ -4404,6 +4718,13 @@ def main() -> int:
     mei_bf16, record["bf16_co1_errs"] = recipe_bf16_phases(counters, record,
                                                            fish)
     kernels += mei_bf16
+
+    # 40-41. the flagship recipe trained from its dataset through the
+    # port's train.py and evaluated through its test.py; the loop's
+    # readings
+    record["train_loop"] = train_loop_phase(counters, record)
+    record["train_loop_readings"] = loop_readings(record,
+                                                  record["train_loop"])
 
     print(json.dumps(record))
     print(json.dumps({"kernels": kernels}))

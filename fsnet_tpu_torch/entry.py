@@ -18,6 +18,9 @@ The DLA model is ``dlanet(34)`` under ``DLASegUpsample`` (the composition
 of ``tests/test_backbones.py:114-125``), trained on the sum of its output
 weighted by a seeded tensor.
 
+:func:`train` and :func:`test` run the port's training and checkpoint
+evaluation scripts on a config file (``fsnet_tpu_torch/configs/``).
+
 The nuScenes recipes (bs8 @288x512, the nuScenes patched mask, so the loss
 takes the grid route) are copies of two shipped configs' ``meta_arch``:
 ``configs/nusc_wpose_example.py`` (:func:`nusc_config`: ResNet-34, 64
@@ -476,3 +479,24 @@ def dla_batch(batch: int, height: int, width: int) -> Dict:
     return {"image/0": rng.rand(batch, height, width, 3).astype(np.float32),
             "target_weight": rng.rand(batch, height // 4, width // 4,
                                       DLA_CHANNELS[2]).astype(np.float32)}
+
+
+def train(config: str, device: DeviceLike = "cuda", **overrides) -> Dict:
+    """Trains as the config file ``config`` says, on ``device`` (a CUDA
+    device unless the caller asks for the CPU; raises when CUDA is asked for
+    and absent), with dotted-key ``overrides`` (``**{"trainer.max_epochs":
+    2}``): :func:`fsnet_tpu_torch.scripts.train.main`."""
+    from .scripts.train import main
+
+    return main(config=config, device=str(resolve_device(device)),
+                **overrides)
+
+
+def test(config: str, checkpoint: str = "", device: DeviceLike = "cuda",
+         split: str = "val", **overrides) -> Dict:
+    """Evaluates ``checkpoint`` on the config's ``split`` on ``device`` (as
+    :func:`train`): :func:`fsnet_tpu_torch.scripts.test.main`."""
+    from .scripts.test import main
+
+    return main(config=config, checkpoint=checkpoint, split=split,
+                device=str(resolve_device(device)), **overrides)

@@ -3,7 +3,10 @@
 * A static scan (the container may preload jax, so importing and then
   checking ``sys.modules`` proves nothing): no file of ``fsnet_tpu_torch``
   and not ``chip_smoke.py`` imports ``jax``, ``flax``, ``optax`` or
-  ``fsnet_tpu``.
+  ``fsnet_tpu``; and none imports, at module level, a package the machine
+  with the card lacks: ``cv2``, ``PIL``, the pip ``easydict`` or
+  ``tensorboard`` (the training script imports its optional writer
+  inside a function).
 * Entry points called without ``device=`` raise when no CUDA device is
   present, instead of quietly running on the CPU.
 * ``chip_smoke.py`` fails, and prints no result, without a CUDA device.
@@ -23,6 +26,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "fsnet_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "fsnet_tpu"}
+HOST_ONLY = {"cv2", "PIL", "easydict", "tensorboard"}
 
 
 def _imported_roots(path: Path):
@@ -42,6 +46,31 @@ def _imported_roots(path: Path):
 def test_no_jax_import(path):
     bad = FORBIDDEN.intersection(_imported_roots(path))
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def _module_level_imports(path: Path):
+    """Module names imported by the statements of the module body (also
+    inside a top-level ``if`` or ``try``), not inside functions."""
+    def walk(stmts):
+        for node in stmts:
+            if isinstance(node, ast.Import):
+                yield from (alias.name for alias in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                yield node.module
+            elif isinstance(node, (ast.If, ast.Try)):
+                for block in ("body", "orelse", "finalbody"):
+                    yield from walk(getattr(node, block, []))
+                for handler in getattr(node, "handlers", []):
+                    yield from walk(handler.body)
+    yield from walk(ast.parse(path.read_text(), str(path)).body)
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_host_only_import_at_module_level(path):
+    bad = sorted(name for name in _module_level_imports(path)
+                 if name.split(".")[0] in HOST_ONLY
+                 or "tensorboard" in name.split("."))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
 def _no_cuda():
@@ -104,6 +133,17 @@ def test_entry_without_device_raises():
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
+
+
+@pytest.mark.parametrize("name", ["train", "test"])
+def test_train_and_test_without_device_raise(name):
+    _no_cuda()
+    from fsnet_tpu_torch import entry
+
+    config = str(ROOT / "fsnet_tpu_torch" / "configs" /
+                 "synthetic_smoke_example.py")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(entry, name)(config)
 
 
 def _run_smoke(cwd: Path):
