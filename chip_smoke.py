@@ -345,7 +345,30 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     steps): step wall, loader wait and imgs/s over the last 20 steps, and
     its first step apart, the epoch-boundary reading that phase 40's
     epochs of 3 steps also give; and phase 35's grid-route bf16 step with
-    the batch on the card.
+    the batch on the card;
+42. the port's PNG reader: its C unfilter (built by ``cc`` at first use)
+    bitwise equal to its plain version, and both to the samples written,
+    on 375x1242 8-bit RGB, 8-bit grey, 16-bit grey and 16-bit RGB files
+    whose rows cycle through the five PNG filters (written by
+    ``tests/disk_trees.py``: numpy filters and zlib, no cv2 or PIL on the
+    card machine) and on ``meta_data/kitti360_trainsub/fisheye_mask.png``;
+    readings: the build, one RGB frame's and one 16-bit depth map's read,
+    and ``dataset[i]`` of a written KITTI raw tree (375x1242, the
+    flagship's train augmentation) beside ``sample_ms`` of the synthetic
+    render, in turns;
+43. the KITTI raw recipe from that tree: the ground truth of its 24
+    Eigen-style test frames projected from their velodyne scans into a
+    ``.npz`` in the tree; ``scripts/train.py``'s ``main`` on the port's
+    ``configs/kitti_wpose_example.py`` (bf16, bs12 @192x640, 4 loader
+    workers, 36 samples: one epoch of 3 steps, ``test_iter=1``) with the
+    counters set to 0 just before each step and each evaluation forward
+    and read just after: every step launches what phase 33's grid-route
+    bf16 step launches, each evaluation forward 14 conv3x3 and nothing
+    else; the 7 metrics of both suites finite; ``scripts/test.py``'s
+    ``main`` on the saved checkpoint gives the loop's evaluation (1e-6
+    relative) and, on the CPU port, the continuous metrics within phase
+    6's 1e-3; readings: the loop's step walls and loader waits, the
+    evaluation's frames per second, the ground truth's seconds.
 
 Every train step (phases 9, 13, 14, 19, 27, 29) launches the forward
 kernel twice (the warped stack and the identity stack) and the cotangent
@@ -2764,19 +2787,31 @@ def capture_warp(model):
     return seen, lambda: delattr(head, "_warp_all")
 
 
-def cuda_kernels(fn, calls=1):
+# profiler windows that came back holding no device event at all
+EMPTY_PROFILES = []
+
+
+def cuda_kernels(fn, calls=1, tries=3):
     """The CUDA kernels ``torch.profiler`` sees over ``calls`` calls of
-    ``fn`` (its ``key_averages``: name, count, device time)."""
+    ``fn`` (its ``key_averages``: name, count, device time). The profiler
+    has returned a window with no device event at all for work that
+    launched kernels (phase 28, once); such a window is profiled again, up
+    to ``tries`` times, and counted in ``EMPTY_PROFILES``."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return events
+        EMPTY_PROFILES.append(getattr(fn, "__name__", repr(fn)))
+    return events
 
 
 CONV_KERNEL = re.compile(r"(conv3x3_mma_kernel|conv3x3_dw_kernel)<([^>]*)>")
@@ -4446,6 +4481,314 @@ def loop_readings(record, loop):
     return out
 
 
+# phases 42-43: the KITTI raw recipe from a PNG tree written on disk
+ROOT = Path(__file__).resolve().parent
+KITTI_CONFIG = ROOT / "fsnet_tpu_torch" / "configs" / "kitti_wpose_example.py"
+DISK_DIR = ROOT / "build" / "disk_tree"
+KITTI_H, KITTI_W = 375, 1242
+DISK_DATE = "2011_09_26"
+DISK_TRAIN = f"{DISK_DATE}/{DISK_DATE}_drive_0001_sync"
+DISK_TEST = f"{DISK_DATE}/{DISK_DATE}_drive_0002_sync"
+# 36 training samples (3 steps of 12), 24 Eigen-style test frames;
+# dataset[i] timed over DISK_SAMPLES samples a run, two runs of each tree
+DISK_STEPS, DISK_EVAL, DISK_SAMPLES, READ_REPEATS = 3, 24, 8, 20
+
+
+def disk_trees():
+    """The tree writers of ``tests/disk_trees.py`` (numpy, zlib and
+    scipy.io only)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import disk_trees
+
+    return disk_trees
+
+
+def write_disk_tree(dt, batch):
+    """A KITTI raw tree at 375x1242 under ``build/disk_tree``: one date with
+    KITTI's calibration; a training drive of 36 samples (frames 1-36 of 38,
+    both cameras, sides alternating) and a test drive of 24 frames with
+    velodyne scans; the two split files. Returns the paths and the
+    seconds it took."""
+    import shutil
+
+    shutil.rmtree(DISK_DIR, ignore_errors=True)
+    raw = DISK_DIR / "raw"
+    t0 = time.perf_counter()
+    dt.write_kitti_date(str(raw / DISK_DATE), KITTI_H, KITTI_W)
+    n_train = DISK_STEPS * batch
+    dt.write_kitti_drive(str(raw), DISK_TRAIN, n_train + 2, KITTI_H, KITTI_W,
+                         seed=1)
+    dt.write_kitti_drive(str(raw), DISK_TEST, DISK_EVAL + 1, KITTI_H,
+                         KITTI_W, seed=2, cams=("image_02",), velodyne=True)
+    train = dt.write_split(DISK_DIR / "train_files.txt", [
+        f"{DISK_TRAIN} {i} {'lr'[i % 2]}" for i in range(1, n_train + 1)])
+    test = dt.write_split(DISK_DIR / "test_files.txt", [
+        f"{DISK_TEST} {i} l" for i in range(1, DISK_EVAL + 1)])
+    return dict(raw=str(raw), train=train, test=test,
+                gt=str(DISK_DIR / "gt_depths.npz"),
+                seconds=time.perf_counter() - t0)
+
+
+def disk_overrides(tree, ckpt_dir, **extra):
+    """``kitti_wpose_example.py`` pointed at the written tree: its paths and
+    split files, the ground truth in the tree, an evaluation after every
+    epoch of one, the encoder from seeded random weights (no ImageNet file
+    on the machine) and the evaluation loader in-process (the training
+    loader's workers are the run's only ones)."""
+    ev = "trainer.evaluate_hook."
+    return {"train_dataset.cfg_list": [dict(
+                name="fsnet_tpu_torch.data.datasets.mono_dataset."
+                     "KittiDepthMonoDataset",
+                raw_path=tree["raw"], split_file=tree["train"])],
+            "val_dataset.raw_path": tree["raw"],
+            "val_dataset.split_file": tree["test"],
+            ev + "dataset_eval_cfg.data_path": tree["raw"],
+            ev + "dataset_eval_cfg.split_file": tree["test"],
+            ev + "dataset_eval_cfg.gt_saved_file": tree["gt"],
+            ev + "num_workers": 0,
+            "meta_arch.depth_backbone_cfg.pretrained": False,
+            "trainer.max_epochs": 1, "trainer.test_iter": 1,
+            "trainer.disp_iter": 1, "path.checkpoint_path": str(ckpt_dir),
+            **extra}
+
+
+def disk_sample_ms(tree, samples=DISK_SAMPLES) -> float:
+    """``dataset[i]`` of the recipe's train dataset on the written tree
+    (three PNG reads and the flagship's train augmentation) in one process:
+    ms a sample, the mean over the first ``samples`` after one call on the
+    last, not timed."""
+    from fsnet_tpu_torch.utils import build, cfg_from_file, update_cfg
+
+    cfg = update_cfg(cfg_from_file(str(KITTI_CONFIG)),
+                     **disk_overrides(tree, DISK_DIR / "unused"))
+    dataset = build(**cfg.train_dataset)
+    dataset[len(dataset) - 1]
+    t0 = time.perf_counter()
+    for i in range(samples):
+        dataset[i]
+    return (time.perf_counter() - t0) / samples * 1e3
+
+
+def reader_phase(record):
+    """Phase 42: the port's PNG reader on the card machine. The C unfilter
+    (built here by ``cc``) bitwise equal to the plain version, and both to
+    the written samples, on 375x1242 8-bit RGB, 8-bit grey, 16-bit grey
+    and 16-bit RGB files whose rows cycle through the five filters, and on
+    the repo's ``fisheye_mask.png`` (every row Sub); readings: the build,
+    one RGB frame and one 16-bit depth map read, ``dataset[i]`` of the
+    written KITTI raw tree beside ``sample_ms`` of the synthetic render,
+    alternated."""
+    import shutil
+
+    from fsnet_tpu_torch.data.datasets import image_io
+    from fsnet_tpu_torch.data.datasets.io_utils import read_depth, read_image
+
+    dt = disk_trees()
+    t0 = time.perf_counter()
+    image_io._library()
+    build_s = time.perf_counter() - t0
+    files = DISK_DIR / "reader"
+    shutil.rmtree(files, ignore_errors=True)
+    files.mkdir(parents=True)
+    rng = np.random.RandomState(42)
+    samples = {
+        "rgb8": dt.texture(KITTI_H, KITTI_W, 0.0, 7),
+        "grey8": dt.texture(KITTI_H, KITTI_W, 3.0, 8)[..., 1],
+        "grey16": dt.sparse_depth_png(KITTI_H, KITTI_W, 9),
+        "rgb16": rng.randint(0, 65536, (KITTI_H, KITTI_W, 3)
+                             ).astype(np.uint16)}
+    paths = {}
+    for name, img in samples.items():
+        paths[name] = files / f"{name}.png"
+        dt.write_png(paths[name], img)
+    paths["fisheye_mask"] = (ROOT / "meta_data" / "kitti360_trainsub"
+                             / "fisheye_mask.png")
+    checked = {}
+    for name, path in paths.items():
+        got = image_io.read_png(str(path))
+        ref = image_io.read_png(str(path), plain=True)
+        check(got.dtype == ref.dtype and np.array_equal(got, ref),
+              f"phase 42: the C unfilter differs from the plain version on "
+              f"{name}")
+        if name in samples:
+            check(np.array_equal(got, samples[name]),
+                  f"phase 42: {name} read back differs from what was "
+                  "written")
+        checked[name] = f"{got.shape} {got.dtype}"
+    check(paths["fisheye_mask"].exists() and checked["fisheye_mask"]
+          == "(700, 700) uint8", f"phase 42: fisheye mask {checked}")
+
+    def read_ms(fn, path):
+        fn(str(path))
+        t0 = time.perf_counter()
+        for _ in range(READ_REPEATS):
+            fn(str(path))
+        return (time.perf_counter() - t0) / READ_REPEATS * 1e3
+
+    rgb_ms = read_ms(read_image, paths["rgb8"])
+    depth_ms = read_ms(read_depth, paths["grey16"])
+    from fsnet_tpu_torch.utils import cfg_from_file
+
+    tree = write_disk_tree(dt, cfg_from_file(str(KITTI_CONFIG)
+                                             ).data.batch_size)
+    synth, disk = [], []
+    for _ in range(2):               # in turns: synthetic, disk, ...
+        synth.append(sample_ms(samples=DISK_SAMPLES))
+        disk.append(disk_sample_ms(tree, DISK_SAMPLES))
+    out = dict(card=record["card"], cc_build_s=build_s, files=checked,
+               read_rgb_ms=rgb_ms, read_depth16_ms=depth_ms,
+               tree_write_s=tree["seconds"], disk_sample_ms=disk,
+               synthetic_sample_ms=synth, tree=tree)
+    print(f"phase 42 ({record['card']}): the C unfilter bitwise equal to "
+          f"the plain version and to the written samples on {checked}; cc "
+          f"build {build_s:.2f} s; read one 375x1242 RGB PNG "
+          f"{rgb_ms:.2f} ms, one 16-bit depth PNG {depth_ms:.2f} ms; "
+          f"dataset[i] from the written KITTI raw tree "
+          f"{', '.join(f'{v:.1f}' for v in disk)} ms a sample against the "
+          f"synthetic render's {', '.join(f'{v:.1f}' for v in synth)} "
+          f"(alternated, {DISK_SAMPLES} samples each); tree written in "
+          f"{tree['seconds']:.1f} s")
+    return out
+
+
+class EvalWatch:
+    """Wraps the validation hook for phase 43: the launch counters set to 0
+    just before each evaluation forward and read just after."""
+
+    def __init__(self, counters):
+        from fsnet_tpu_torch.pipeline_hooks import train_val_hooks as hooks
+
+        self.hooks, self.forwards = hooks, []
+        self.saved = call = hooks.BaseValidationHook.__call__
+        watch = self
+
+        def counted(hook, data, model, *args, **kw):
+            zero(counters)
+            out = call(hook, data, model, *args, **kw)
+            torch.cuda.synchronize()
+            watch.forwards.append(read(counters))
+            return out
+
+        hooks.BaseValidationHook.__call__ = counted
+
+    def close(self):
+        self.hooks.BaseValidationHook.__call__ = self.saved
+
+
+def rel_max(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def disk_recipe_phase(counters, record, tree):
+    """Phase 43: ``train.main`` on the port's ``kitti_wpose_example.py``
+    pointed at the written tree (bf16, bs12 @192x640, 4 loader workers, one
+    epoch of 3 steps, then the evaluation of 24 frames through
+    ``KittiEvaluationHook`` and ``KittiEigenEvaluator``, the ground truth
+    precomputed first); ``test.main`` on the saved checkpoint on the card
+    and on the CPU."""
+    from fsnet_tpu_torch.evaluation.kitti_unsupervised_eval import \
+        KittiEigenEvaluator
+    from fsnet_tpu_torch.scripts import test as test_script
+    from fsnet_tpu_torch.scripts import train as train_script
+    from fsnet_tpu_torch.utils import cfg_from_file, update_cfg
+
+    t0 = time.perf_counter()
+    gt = KittiEigenEvaluator(tree["raw"], tree["test"], tree["gt"])
+    gt_s = time.perf_counter() - t0
+    check(len(gt.gt_depths) == DISK_EVAL and all(
+        d.shape == (KITTI_H, KITTI_W) and (d > 0).sum() > 1000
+        for d in gt.gt_depths), "phase 43: ground truth "
+        f"{[(d.shape, int((d > 0).sum())) for d in gt.gt_depths]}")
+    want = record["bf16_steps"]["grid"]
+    over = disk_overrides(tree, DISK_DIR / "ckpt")
+    loop, ev_watch = LoopWatch(counters), EvalWatch(counters)
+    try:
+        t0 = time.perf_counter()
+        run = train_script.main(config=str(KITTI_CONFIG), device="cuda",
+                                **over)
+        run_s = time.perf_counter() - t0
+    finally:
+        loop.close()
+        ev_watch.close()
+    check(len(loop.steps) == DISK_STEPS and run["global_step"]
+          == DISK_STEPS, f"phase 43: {len(loop.steps)} steps")
+    for i, s in enumerate(loop.steps):
+        check(s["launches"] == want["launches"], f"phase 43 step {i}: "
+              f"launches {s['launches']}, phase 33's {want['launches']}")
+        check(all(s["dtypes"][k] == v for k, v in want["dtypes"].items()),
+              f"phase 43 step {i}: launches by dtype {s['dtypes']}")
+        check(s["routes"] == want["routes"], f"phase 43 step {i}: routes "
+              f"{s['routes']}, phase 33's {want['routes']}")
+    losses = [e["loss"] for e in run["log"]]
+    check(len(losses) == DISK_STEPS and all(np.isfinite(losses)),
+          f"phase 43: losses {losses}")
+    one = dict(dict.fromkeys(ev_watch.forwards[0], 0), conv3x3=len(SHAPES))
+    check(len(ev_watch.forwards) == DISK_EVAL
+          and all(f == one for f in ev_watch.forwards),
+          f"phase 43: {len(ev_watch.forwards)} evaluation forwards, "
+          f"launches {ev_watch.forwards[:2]}")
+    check(len(run["evals"]) == 1, f"phase 43: {len(run['evals'])} "
+          "evaluations")
+    ev = run["evals"][0]
+    check(all(np.isfinite(ev[k]).all() and ev[k].shape == (7,)
+              for k in ("errors", "abs_errors")), f"phase 43: {ev}")
+
+    t0 = time.perf_counter()
+    card = test_script.main(config=str(KITTI_CONFIG),
+                            checkpoint=run["checkpoint"], device="cuda",
+                            **over)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = test_script.main(config=str(KITTI_CONFIG),
+                           checkpoint=run["checkpoint"], device="cpu", **over)
+    cpu_s = time.perf_counter() - t0
+    same = max(rel_max(card[k], ev[k]) for k in ("errors", "abs_errors"))
+    check(card["samples"] == DISK_EVAL and same <= 1e-6,
+          f"phase 43: test.main {card} against the loop's evaluation {ev}")
+    # the continuous metrics (abs_rel, sq_rel, rmse, rmse_log): phase 6's
+    # depth gate
+    vs_cpu = max(rel_max(card[k][:4], cpu[k][:4])
+                 for k in ("errors", "abs_errors"))
+    a_vs_cpu = max(float(np.abs(card[k][4:] - cpu[k][4:]).max())
+                   for k in ("errors", "abs_errors"))
+    check(vs_cpu <= 1e-3, f"phase 43: card vs CPU metrics rel {vs_cpu:.3e}"
+          f" > 1e-3: card {card}, CPU {cpu}")
+    log = run["log"]
+    out = dict(card=record["card"], gt_precompute_s=gt_s, run_s=run_s,
+               losses=losses, launches=want["launches"],
+               eval_launches_per_frame=one,
+               errors=ev["errors"].tolist(),
+               abs_errors=ev["abs_errors"].tolist(),
+               eval_s=ev["seconds"],
+               eval_frames_per_s=DISK_EVAL / ev["seconds"],
+               test_main_card_s=card_s, test_main_cpu_s=cpu_s,
+               test_main_vs_loop_rel=same, card_vs_cpu_rel=vs_cpu,
+               card_vs_cpu_a_abs=a_vs_cpu,
+               walls_ms=[e["wall_ms"] for e in log],
+               waits_ms=[e["wait_ms"] for e in log])
+    cfg = update_cfg(cfg_from_file(str(KITTI_CONFIG)), **over)
+    print(f"phase 43 ({record['card']}): train.main on "
+          f"{KITTI_CONFIG.name} from the written tree "
+          f"({cfg.trainer.training_hook.compute_dtype} bs"
+          f"{cfg.data.batch_size}@{cfg.data.rgb_shape[0]}x"
+          f"{cfg.data.rgb_shape[1]}, {cfg.data.num_workers} workers): "
+          f"{DISK_STEPS} steps, losses "
+          f"{[round(x, 6) for x in losses]}, launches per step phase 33's "
+          f"grid step; step walls {[round(v, 1) for v in out['walls_ms']]} "
+          f"ms, loader waits {[round(v, 1) for v in out['waits_ms']]} ms; "
+          f"evaluation of {DISK_EVAL} frames, {one['conv3x3']} conv3x3 "
+          f"launches each and nothing else, {ev['seconds']:.2f} s = "
+          f"{out['eval_frames_per_s']:.2f} frames/s; abs_rel "
+          f"{ev['errors'][0]:.4f} (scaled) {ev['abs_errors'][0]:.4f} "
+          f"(absolute); test.main on the card equal to the loop's within "
+          f"{same:.1e}, against the CPU port's {vs_cpu:.2e} rel (a1-a3 "
+          f"{a_vs_cpu:.2e}); ground truth precomputed in {gt_s:.2f} s; "
+          f"run {run_s:.1f} s, test.main {card_s:.1f} s card, {cpu_s:.1f} "
+          "s CPU")
+    return out
+
+
 def main() -> int:
     global REPEATS
     import argparse
@@ -4726,6 +5069,18 @@ def main() -> int:
     record["train_loop_readings"] = loop_readings(record,
                                                   record["train_loop"])
 
+    # 42-43. the KITTI raw recipe from a PNG tree written on disk: the
+    # port's PNG reader, then train.main with the evaluation hook and
+    # test.main on the card and on the CPU
+    record["png_reader"] = reader_phase(record)
+    record["disk_recipe"] = disk_recipe_phase(counters, record,
+                                              record["png_reader"]["tree"])
+    kernel["launches_kitti_eval_per_frame"] = \
+        record["disk_recipe"]["eval_launches_per_frame"]["conv3x3"]
+
+    record["empty_profiles"] = len(EMPTY_PROFILES)
+    print(f"profiler windows with no device event, profiled again: "
+          f"{len(EMPTY_PROFILES)}")
     print(json.dumps(record))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Shared config pieces (counterpart of ``configs/common.py`` with
 ``fsnet_tpu_torch`` names and this package's EasyDict): the project paths,
-the flagship's train and val augmentation graphs, its ``MonoDepthWPose``
-and the trainer section."""
+the flagship's train and val augmentation graphs, its ``MonoDepthWPose``,
+the trainer section and the KITTI evaluation hook."""
 import os
 
 import numpy as np
@@ -141,10 +141,11 @@ def wpose_meta_arch(data, min_depth=0.5, max_depth=100.0, resnet_depth=18,
     )
 
 
-def trainer_section(clip_gradients):
-    """20 epochs, logging every 50 steps, a checkpoint every 5 epochs, the
-    bf16 step (every shipped config's ``compute_dtype``)."""
-    return edict(
+def trainer_section(clip_gradients, evaluate_hook=None):
+    """20 epochs, logging every 50 steps, a checkpoint and an evaluation
+    (where ``evaluate_hook`` is given) every 5 epochs, the bf16 step (every
+    shipped config's ``compute_dtype``)."""
+    section = edict(
         max_epochs=20,
         disp_iter=50,
         save_iter=5,
@@ -154,5 +155,29 @@ def trainer_section(clip_gradients):
                   "BaseTrainingHook"),
             clip_gradients=clip_gradients,
             compute_dtype="bfloat16",
+        ),
+    )
+    if evaluate_hook is not None:
+        section.evaluate_hook = evaluate_hook
+    return section
+
+
+def kitti_evaluate_hook(evaluator, data_path, split_file, gt_saved_file,
+                        preprocessed_path):
+    """``KittiEvaluationHook`` on the validation hook with the evaluator
+    ``evaluator`` (``KittiEigenEvaluator`` or ``Kitti360Evaluator``)."""
+    return edict(
+        name="fsnet_tpu_torch.pipeline_hooks.evaluation_hooks."
+             "KittiEvaluationHook",
+        test_run_hook_cfg=edict(
+            name="fsnet_tpu_torch.pipeline_hooks.train_val_hooks."
+                 "BaseValidationHook"),
+        preprocessed_path=preprocessed_path,
+        dataset_eval_cfg=edict(
+            name="fsnet_tpu_torch.evaluation.kitti_unsupervised_eval."
+                 f"{evaluator}",
+            data_path=data_path,
+            split_file=split_file,
+            gt_saved_file=gt_saved_file,
         ),
     )

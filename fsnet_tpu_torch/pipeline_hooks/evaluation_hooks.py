@@ -1,0 +1,119 @@
+"""Dataset evaluation hooks (counterpart of
+``fsnet_tpu.pipeline_hooks.evaluation_hooks``).
+
+:class:`KittiEvaluationHook` runs one evaluation pass: a loader over the
+validation dataset (:class:`~fsnet_tpu_torch.data.dataloader.Dataloader`
+on an :class:`~fsnet_tpu_torch.data.dataloader.InferenceSampler`, its
+workers stopped at the pass's end), the validation hook's forward on the
+model's device, per frame the unpad by ``image_resize/effective_size``, the
+inverse-space resize ``1 / resize(1 / depth)`` to the original image's
+size (it keeps near structure), the evaluator's ``single_call``, then the
+means of both error suites and the evaluator's log. The hook takes the
+model where the JAX hook takes the train state. :class:`BaseEvaluationHook`
+is the generic pass, one sample at a time. ``KittiEvaluationHook_postopt``
+(SLIC post-optimisation) and ``FastNuscEvaluationHook`` are not ported.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..data.augmentations import resize_linear
+from ..data.dataloader import Dataloader, InferenceSampler
+from ..data.datasets.dataset_utils import collate_fn
+from ..utils.builder import build
+from ..utils.device import DeviceLike, resolve_device
+from ..utils.keys import encode_batch
+
+
+def _host(value) -> np.ndarray:
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
+class KittiEvaluationHook:
+    """One evaluation pass over a validation dataset with a KITTI-style
+    evaluator (``dataset_eval_cfg``) on ``device``. ``preprocessed_path``,
+    which the configs pass, is not read (the JAX hook does not read it
+    either)."""
+
+    def __init__(self, test_run_hook_cfg: Dict,
+                 dataset_eval_cfg: Optional[Dict] = None,
+                 preprocessed_path: str = "", batch_size: int = 1,
+                 num_workers: int = 4, device: DeviceLike = "cuda"):
+        self.device = resolve_device(device)
+        self.test_hook = build(**dict(test_run_hook_cfg), device=self.device)
+        self.dataset_eval_func = (None if dataset_eval_cfg is None
+                                  else build(**dict(dataset_eval_cfg)))
+        self.batch_size = batch_size
+        self.num_workers = num_workers
+
+    def __call__(self, model, dataset_val, writer=None, global_step: int = 0,
+                 epoch_num: int = 0):
+        """Returns the mean median-scaled and absolute errors, each [7]."""
+        loader = Dataloader(dataset_val, batch_size=self.batch_size,
+                            sampler=InferenceSampler(len(dataset_val)),
+                            collate=collate_fn, num_workers=self.num_workers,
+                            drop_last=False,
+                            pin_memory=self.device.type == "cuda")
+        errors, abs_errors = [], []
+        frame_index = 0
+        try:
+            for batched_data in loader:
+                output_dict = self.test_hook(batched_data, model,
+                                             global_step, epoch_num)
+                depth_batch = _host(output_dict["depth"].float())[..., 0]
+                eff = batched_data.get("image_resize/effective_size")
+                originals = batched_data["original_image/0"]
+                for i in range(depth_batch.shape[0]):
+                    depth = depth_batch[i]
+                    if eff is not None:
+                        h_eff, w_eff = (int(v) for v in _host(eff[i])[:2])
+                        depth = depth[0:h_eff, 0:w_eff]
+                    h, w = originals[i].shape[:2]
+                    depth_0 = 1.0 / resize_linear(1.0 / depth, w, h)
+                    result = self.dataset_eval_func.single_call(depth_0,
+                                                                frame_index)
+                    frame_index += 1
+                    errors.append(result["error"])
+                    abs_errors.append(result["abs_error"])
+        finally:
+            loader.close()
+
+        mean_errors = np.array(errors).mean(0)
+        mean_abs_errors = np.array(abs_errors).mean(0)
+        self.dataset_eval_func.log(writer, mean_errors, mean_abs_errors,
+                                   global_step=global_step,
+                                   epoch_num=epoch_num)
+        return mean_errors, mean_abs_errors
+
+
+class BaseEvaluationHook:
+    """The generic pass: the validation hook on each sample in turn, its
+    output handed to ``result_write_cfg``'s writer, then the evaluator over
+    the written results."""
+
+    def __init__(self, test_run_hook_cfg: Dict,
+                 result_write_cfg: Optional[Dict] = None,
+                 dataset_eval_cfg: Optional[Dict] = None,
+                 device: DeviceLike = "cuda"):
+        self.test_hook = build(**dict(test_run_hook_cfg), device=device)
+        self.result_processor = (None if result_write_cfg is None
+                                 else build(**dict(result_write_cfg)))
+        self.dataset_eval_func = (None if dataset_eval_cfg is None
+                                  else build(**dict(dataset_eval_cfg)))
+
+    def __call__(self, model, dataset_val, writer=None, global_step: int = 0,
+                 epoch_num: int = 0):
+        for index in range(len(dataset_val)):
+            batch = encode_batch(collate_fn([dataset_val[index]]))
+            output = self.test_hook(batch, model, global_step, epoch_num)
+            if self.result_processor is not None:
+                self.result_processor(output, batch, index)
+        if (self.dataset_eval_func is not None
+                and self.result_processor is not None):
+            self.dataset_eval_func(self.result_processor.result_path, writer,
+                                   global_step, epoch_num)

@@ -1,15 +1,17 @@
-"""Checkpoint evaluation of the port (counterpart of ``scripts/test.py``)
-on the path with no evaluator configured: restore a checkpoint, run the
-validation hook (``make_eval_step``) over a split one sample at a time and
-print the predicted depth's min, mean and max.
+"""Checkpoint evaluation of the port (counterpart of ``scripts/test.py``):
+restore a checkpoint and run the config's ``evaluate_hook`` on a split
+(the KITTI raw and KITTI-360 recipes: the Eigen-style error suites, as the
+training loop evaluates); a config with no evaluator runs the validation
+hook (``make_eval_step``) over the split one sample at a time and prints
+the predicted depth's min, mean and max.
 
 Usage, from the root of the repo:
 
     python -m fsnet_tpu_torch.scripts.test --config CFG \
         --checkpoint PATH [--split val] [--device cpu] [--a.b.c value]
 
-A config with an ``evaluate_hook`` raises: the evaluators are not ported
-yet.
+A config whose ``evaluate_hook`` or ``precompute_hook`` names something the
+port does not have raises, as ``train.py`` does.
 """
 from __future__ import annotations
 
@@ -21,20 +23,22 @@ def main(config: str, checkpoint: str = "", split: str = "val",
          device: str = "cuda", **kwargs) -> Dict:
     """Evaluates ``checkpoint`` (or the seeded initial weights) on the
     config's ``split`` on ``device`` (CUDA unless the caller asks for the
-    CPU). Returns the depth's ``min``, ``mean`` (of the per-sample means)
-    and ``max``, the ``samples`` count and the ``epoch`` restored."""
+    CPU). Returns the ``samples`` count and the ``epoch`` restored, and,
+    with an ``evaluate_hook``, its mean ``errors`` and ``abs_errors``
+    (median-scaled and absolute, [7] each), else the depth's ``min``,
+    ``mean`` (of the per-sample means) and ``max``."""
     from ..data.datasets.dataset_utils import collate_fn
     from ..pipeline_hooks.train_val_hooks import BaseValidationHook
     from ..runtime.checkpoint import load_models
     from ..utils import (build, cfg_from_file, encode_batch, resolve_device,
                          update_cfg)
-    from .train import no_evaluator
+    from .train import check_hooks
 
     dev = resolve_device(device)
     if split not in ("train", "val", "test"):
         raise ValueError(f"split {split!r}: train, val or test")
     cfg = update_cfg(cfg_from_file(config), **kwargs)
-    no_evaluator(cfg)
+    check_hooks(cfg)
     dataset = build(**cfg[f"{split}_dataset"])
     print(f"{split} dataset: {len(dataset)} samples")
     model = build(**cfg.meta_arch, device=dev,
@@ -43,6 +47,12 @@ def main(config: str, checkpoint: str = "", split: str = "val",
     if checkpoint:
         epoch = load_models(checkpoint, model, strict=False)
         print(f"Restored {checkpoint} (epoch {epoch})")
+
+    if cfg.trainer.get("evaluate_hook"):
+        evaluate_hook = build(**cfg.trainer.evaluate_hook, device=dev)
+        errors, abs_errors = evaluate_hook(model, dataset, None, 0, 0)
+        return dict(errors=errors, abs_errors=abs_errors,
+                    samples=len(dataset), epoch=epoch)
 
     hook = BaseValidationHook(device=dev)
     mins, means, maxs = [], [], []

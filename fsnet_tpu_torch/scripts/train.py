@@ -20,8 +20,11 @@ last, as ``<checkpoint_path>/<model_name>_latest.pth``; set
 statistics, Adam's moments and count, the epoch). ``--debug_nans`` (or
 ``DEBUGGING=1``) turns on ``torch.autograd.set_detect_anomaly``;
 ``--profile_dir DIR`` writes a ``torch.profiler`` trace of steps 10-13.
-An ``evaluate_hook`` in the config raises: the evaluators are not ported
-yet.
+The config's ``evaluate_hook`` is built on the device before the first
+step (a KITTI evaluator precomputes its ground truth then) and run on
+``val_dataset`` after the checkpoint of every ``test_iter``-th epoch
+(default 5). A config whose ``evaluate_hook`` or ``precompute_hook`` names
+something the port does not have raises before anything is built.
 """
 from __future__ import annotations
 
@@ -82,13 +85,48 @@ def _writer(cfg, experiment_name: str, config: str):
     return writer
 
 
-def no_evaluator(cfg) -> None:
-    """Raises where the config names an evaluator: none is ported yet."""
-    if cfg.trainer.get("evaluate_hook"):
+def _names(node):
+    """Every ``name`` of a config subtree."""
+    if isinstance(node, dict):
+        if isinstance(node.get("name"), str):
+            yield node["name"]
+        for value in node.values():
+            yield from _names(value)
+    elif isinstance(node, (list, tuple)):
+        for value in node:
+            yield from _names(value)
+
+
+def check_hooks(cfg) -> None:
+    """Raises where the config asks for a hook the port does not have: any
+    ``trainer.precompute_hook`` (the motion-mask and flow precompute is not
+    ported), and an ``evaluate_hook`` that names anything outside the
+    port's modules (``KittiEvaluationHook_postopt``, the nuScenes,
+    fisheye and FusionPortable evaluators, a JAX package's name)."""
+    from ..utils.builder import find_object
+
+    if cfg.trainer.get("precompute_hook"):
         raise NotImplementedError(
-            f"evaluate_hook {cfg.trainer.evaluate_hook.get('name')!r}: the "
-            "port's evaluators are not written yet; drop evaluate_hook from "
+            f"trainer.precompute_hook "
+            f"{cfg.trainer.precompute_hook.get('name')!r}: the precompute "
+            "hooks (motion masks, flow) are not ported yet; drop it from "
             "the config")
+    hook = cfg.trainer.get("evaluate_hook")
+    if not hook:
+        return
+    for name in _names(hook):
+        ported = name.startswith("fsnet_tpu_torch.")
+        if ported:
+            try:
+                find_object(name)
+            except ModuleNotFoundError:
+                ported = False
+        if not ported:
+            raise NotImplementedError(
+                f"evaluate_hook {hook.get('name')!r}: {name!r} is not "
+                "ported; the port evaluates through fsnet_tpu_torch."
+                "pipeline_hooks.evaluation_hooks.KittiEvaluationHook with "
+                "the KITTI raw or KITTI-360 evaluator")
 
 
 def main(config: str = "fsnet_tpu_torch/configs/synthetic_smoke_example.py",
@@ -98,9 +136,11 @@ def main(config: str = "fsnet_tpu_torch/configs/synthetic_smoke_example.py",
     """Trains as the config says, on ``device`` (CUDA unless the caller
     asks for the CPU; raises when CUDA is asked for and absent). Returns
     ``model``, ``optimizer``, ``schedule``, ``hook``, ``epoch`` (epochs
-    done), ``global_step``, ``checkpoint`` (the last ``_latest`` path) and
+    done), ``global_step``, ``checkpoint`` (the last ``_latest`` path),
     ``log``: one dict per printed window (step, loss, wait_ms, wall_ms,
-    steps)."""
+    steps), and ``evals``: one dict per evaluation (epoch, global_step,
+    errors and abs_errors, the evaluator's two mean error suites, and
+    seconds)."""
     import torch
 
     from ..data.dataloader import build_dataloader, device_prefetch
@@ -112,7 +152,7 @@ def main(config: str = "fsnet_tpu_torch/configs/synthetic_smoke_example.py",
 
     dev = resolve_device(device)
     cfg = update_cfg(cfg_from_file(config), **kwargs)
-    no_evaluator(cfg)
+    check_hooks(cfg)
     if debug_nans or os.environ.get("DEBUGGING", "").lower() in ("1",
                                                                   "true"):
         torch.autograd.set_detect_anomaly(True)
@@ -156,15 +196,18 @@ def main(config: str = "fsnet_tpu_torch/configs/synthetic_smoke_example.py",
               f"{schedule(optimizer.count):.3e})")
 
     hook = build(**cfg.trainer.training_hook, device=dev, seed=seed)
+    evaluate_hook = (build(**cfg.trainer.evaluate_hook, device=dev)
+                     if cfg.trainer.get("evaluate_hook") else None)
     logger = LossLogger(writer, "training")
     disp_iter = cfg.trainer.disp_iter
     save_iter = getattr(cfg.trainer, "save_iter", 5)
+    test_iter = getattr(cfg.trainer, "test_iter", 5)
     ckpt_dir = cfg.path.checkpoint_path
     model_name = getattr(cfg.trainer, "model_name", type(model).__name__)
     latest = os.path.join(ckpt_dir, f"{model_name}_latest.pth")
     global_step = optimizer.count
     timer = Timer()
-    log = []
+    log, evals = [], []
     prof = None
     done_epochs = start_epoch
     try:
@@ -222,6 +265,16 @@ def main(config: str = "fsnet_tpu_torch/configs/synthetic_smoke_example.py",
                 save_models(os.path.join(ckpt_dir,
                                          f"{model_name}_{epoch}.pth"),
                             model, optimizer, done_epochs)
+            if evaluate_hook is not None and done_epochs % test_iter == 0:
+                print(f"\n============ evaluate at epoch {epoch} "
+                      "============")
+                t0 = time.perf_counter()
+                errors, abs_errors = evaluate_hook(model, dataset_val,
+                                                   writer, global_step,
+                                                   epoch)
+                evals.append(dict(epoch=epoch, global_step=global_step,
+                                  errors=errors, abs_errors=abs_errors,
+                                  seconds=time.perf_counter() - t0))
     finally:
         if prof is not None:
             prof.__exit__(None, None, None)
@@ -231,7 +284,7 @@ def main(config: str = "fsnet_tpu_torch/configs/synthetic_smoke_example.py",
     print("Training complete")
     return dict(model=model, optimizer=optimizer, schedule=schedule,
                 hook=hook, epoch=done_epochs, global_step=global_step,
-                checkpoint=latest, log=log)
+                checkpoint=latest, log=log, evals=evals)
 
 
 if __name__ == "__main__":

@@ -1,12 +1,14 @@
 """The port stands alone and runs on the card unless told otherwise.
 
 * A static scan (the container may preload jax, so importing and then
-  checking ``sys.modules`` proves nothing): no file of ``fsnet_tpu_torch``
-  and not ``chip_smoke.py`` imports ``jax``, ``flax``, ``optax`` or
-  ``fsnet_tpu``; and none imports, at module level, a package the machine
-  with the card lacks: ``cv2``, ``PIL``, the pip ``easydict`` or
+  checking ``sys.modules`` proves nothing): no file of ``fsnet_tpu_torch``,
+  not ``chip_smoke.py`` and not the tree writers it runs
+  (``tests/disk_trees.py``) imports ``jax``, ``flax``, ``optax`` or
+  ``fsnet_tpu``; none imports, at module level, a package the machine
+  with the card lacks: ``cv2``, ``PIL``, ``yaml``, the pip ``easydict`` or
   ``tensorboard`` (the training script imports its optional writer
-  inside a function).
+  inside a function); and none imports ``cv2``, ``PIL`` or ``yaml``
+  anywhere: the images are read by the port's own PNG reader.
 * Entry points called without ``device=`` raise when no CUDA device is
   present, instead of quietly running on the CPU.
 * ``chip_smoke.py`` fails, and prints no result, without a CUDA device.
@@ -24,9 +26,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "fsnet_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "disk_trees.py"]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "fsnet_tpu"}
-HOST_ONLY = {"cv2", "PIL", "easydict", "tensorboard"}
+HOST_ONLY = {"cv2", "PIL", "yaml", "easydict", "tensorboard"}
+DECODERS = {"cv2", "PIL", "yaml"}
 
 
 def _imported_roots(path: Path):
@@ -45,6 +48,12 @@ def _imported_roots(path: Path):
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import(path):
     bad = FORBIDDEN.intersection(_imported_roots(path))
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_decoder_import(path):
+    bad = DECODERS.intersection(_imported_roots(path))
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
