@@ -368,7 +368,36 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     ``main`` on the saved checkpoint gives the loop's evaluation (1e-6
     relative) and, on the CPU port, the continuous metrics within phase
     6's 1e-3; readings: the loop's step walls and loader waits, the
-    evaluation's frames per second, the ground truth's seconds.
+    evaluation's frames per second, the ground truth's seconds;
+44. the port's JPEG reader: its C decoder (built by ``cc`` at first use)
+    on files written by ``tests/disk_trees.py`` (a numpy baseline encoder
+    in integer arithmetic: 900x1600 at 4:2:0, 4:2:2, 4:4:4 and grey, and
+    a 451x803 4:2:0 file with restart markers): each file's sha256 and
+    that of its decode equal to the digests of the file and of PIL's
+    decode recorded where PIL is (the card machine has none), the decode
+    bitwise equal to ``decode_plain`` on the C decoder's coefficients; a
+    progressive header refused; readings: the build, one 900x1600 4:2:0
+    frame's decode, a nuScenes tree's writing (24 samples of CAM_FRONT and
+    CAM_BACK at 900x1600, 8 val frames with ground truth) and
+    ``dataset[i]`` of it beside ``sample_ms`` of the synthetic render, in
+    turns;
+45. the ``nusc_wpose`` recipe from that tree: ``scripts/train.py``'s
+    ``main`` on the port's ``configs/nusc_wpose_example.py`` (bf16, bs8
+    @288x512, 4 loader workers, one epoch of 3 steps, ``test_iter=1``),
+    the counters set to 0 just before each step and each evaluation
+    forward and read just after: every step launches what phase 37's
+    ``nusc_wpose`` bf16 step launches; every CAM_BACK sample's
+    ``patched_mask`` reaches the step zero from the row its warp maps
+    source row 700 to; each evaluation forward 14 conv3x3 and nothing
+    else; the metrics of each camera and their mean finite;
+    ``scripts/test.py``'s ``main`` on the saved checkpoint gives the
+    loop's evaluation (1e-6 relative) and, on the CPU port, the
+    continuous metrics within phase 6's 1e-3; readings as phase 43's;
+46. the ``distill_nusc`` recipe from the same tree, its teacher a
+    checkpoint of seeded weights written by the port's checkpoint save:
+    every step launches what phase 37's ``distill_nusc`` step launches,
+    the teacher bitwise unchanged after the steps, the evaluation's
+    metrics finite.
 
 Every train step (phases 9, 13, 14, 19, 27, 29) launches the forward
 kernel twice (the warped stack and the identity stack) and the cotangent
@@ -4204,16 +4233,19 @@ LOOP_SAMPLES, LOOP_EPOCHS, LOOP_VAL = 36, 2, 4
 class LoopWatch:
     """Wraps the training hook and the optimizer for phase 40: the launch
     counters set to 0 just before each step and read just after (by dtype
-    and route too), each step's tie-break noise, the (count, lr) of each
-    update, and, at the first step of a run given ``expect``, the model's
-    state_dict and the optimizer's moments and count against it."""
+    and route too), the batch's ``keep`` keys, each step's tie-break noise,
+    the (count, lr) of each update, and, at the first step of a run given
+    ``expect``, the model's state_dict and the optimizer's moments and
+    count against it."""
 
-    def __init__(self, counters):
+    def __init__(self, counters, keep=()):
         from fsnet_tpu_torch.pipeline_hooks import train_val_hooks as hooks
         from fsnet_tpu_torch.runtime import optim
 
         self.counters, self.hooks, self.optim = counters, hooks, optim
         self.steps, self.noise, self.lrs = [], [], []
+        # batch keys whose values each step's entry keeps (on the host)
+        self.keep = tuple(keep)
         self.expect, self.restored = None, None
         hook_call, noise, step = (hooks.BaseTrainingHook.__call__,
                                   hooks.BaseTrainingHook.noise,
@@ -4232,7 +4264,9 @@ class LoopWatch:
             watch.steps.append(dict(
                 launches=read(counters), routes=routes(counters),
                 dtypes={k: dict(fn.dtypes) for k, fn in counters.items()
-                        if hasattr(fn, "dtypes")}))
+                        if hasattr(fn, "dtypes")},
+                batch={k: (data[k].cpu() if isinstance(data[k], torch.Tensor)
+                           else data[k]) for k in watch.keep}))
             return out
 
         def drawn(hook, model, data, step):
@@ -4789,6 +4823,424 @@ def disk_recipe_phase(counters, record, tree):
     return out
 
 
+# phases 44-46: the nuScenes recipes from a JPEG tree written on disk
+NUSC_CONFIG = ROOT / "fsnet_tpu_torch" / "configs" / "nusc_wpose_example.py"
+DISTILL_CONFIG = (ROOT / "fsnet_tpu_torch" / "configs"
+                  / "distill_nusc_example.py")
+NUSC_DIR = ROOT / "build" / "nusc_tree"
+NUSC_FRAME_H, NUSC_FRAME_W = 900, 1600
+# 24 training samples (3 steps of 8, CAM_FRONT and CAM_BACK in turn), 8
+# val frames; dataset[i] timed over NUSC_SAMPLES samples a run, two runs
+NUSC_STEPS, NUSC_VAL, NUSC_SAMPLES = 3, 8, 6
+# phase 44's files: name -> (H, W, subsampling, quality, restart interval)
+JPEG_FILES = {
+    "420": (900, 1600, "4:2:0", 90, 0),
+    "422": (900, 1600, "4:2:2", 90, 0),
+    "444": (900, 1600, "4:4:4", 90, 0),
+    "grey": (900, 1600, "grey", 90, 0),
+    "odd_420_rst": (451, 803, "4:2:0", 75, 7),
+}
+# sha256 of each file as tests/disk_trees.write_jpeg writes it, and of
+# np.array(PIL.Image.open(file)) (C order), both recorded on a machine with
+# PIL (Pillow 12.1.0, libjpeg-turbo); the card machine has no PIL
+JPEG_DIGESTS = {
+    "420": ("8397e3046dbd848640774a51e37db2643c31143e48a23fff94571aebbee71e1d",
+            "3a6366ba4bfcd20b3be2b193961031d22ad4fbbbc188566f8fbff50a6582cf75"),
+    "422": ("3ea0b2780746ae857aa77261cb6b2198248fc1abfe656cbffe0eb36f1f925638",
+            "1cd93409ecd39fb623c9f3d1ac991119b99001cd6d14ac177c95fb59c6718b0a"),
+    "444": ("fe7d2da14db2c4b6b328cccca63ffc1e2be0bd6c05a35b96cacb86fa5f192373",
+            "5e50c1be3eba4525a7e79a6f03db86f495d03620b813f06b809a74843449291e"),
+    "grey": ("a0995ba0e38d5e40217f624cd9ba186e31fa12c4a391abfcc6621ec6416d55e2",
+             "58506a3be1a188951e374710f54ecfd688d1496d608cf0e5d059d361e7cc56fe"),
+    "odd_420_rst": (
+        "2de025213f317260e15c7f5a66763fd6409710cb3e6311f5bc99f1dd336b1980",
+        "efe76646e9137e5e7e52128fc8dd117e3046048e58f6fa58eafb32289607c62f"),
+}
+
+
+def jpeg_sample_image(H, W, seed, grey=False):
+    """An [H, W, 3] (or [H, W]) ``uint8`` frame made in integers only, so
+    that it and the JPEG written from it are the same bytes on every
+    machine: ramps that wrap (sharp edges), 8x8 blocks, seeded noise."""
+    y, x = np.mgrid[0:H, 0:W]
+    base = np.stack([(3 * x + y) % 256, (x // 8 * 37 + y // 8 * 91) % 256,
+                     255 - (x + 2 * y) % 256], -1)
+    noise = np.random.RandomState(seed).randint(-16, 17, (H, W, 3))
+    img = np.clip(base + noise, 0, 255).astype(np.uint8)
+    return img[..., 0].copy() if grey else img
+
+
+def write_jpeg_files(dt, out_dir):
+    """Phase 44's files under ``out_dir``: name -> path."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for i, (name, (H, W, sub, quality, restart)) in enumerate(
+            JPEG_FILES.items()):
+        grey = sub == "grey"
+        paths[name] = out_dir / f"{name}.jpg"
+        dt.write_jpeg(paths[name], jpeg_sample_image(H, W, 60 + i, grey),
+                      quality, "4:2:0" if grey else sub, restart)
+    return paths
+
+
+def sha256(data) -> str:
+    import hashlib
+
+    return hashlib.sha256(data).hexdigest()
+
+
+def write_nusc_tree(dt, batch):
+    """The nuScenes tree of phases 44-46 under ``build/nusc_tree``: 900x1600
+    JPEG frames (4:2:0, quality 90) of CAM_FRONT and CAM_BACK, 24 training
+    samples and 8 val samples in JSON, the val frames' 16-bit ground truth
+    from ``generate_depth_map`` of seeded scans. Returns the paths and
+    the seconds it took."""
+    import shutil
+
+    from fsnet_tpu_torch.evaluation.nuscenes_unsupervised_eval import \
+        generate_depth_map
+
+    shutil.rmtree(NUSC_DIR / "tree", ignore_errors=True)
+    t0 = time.perf_counter()
+    tree = dt.write_nusc_json_tree(
+        NUSC_DIR / "tree", NUSC_FRAME_H, NUSC_FRAME_W, NUSC_STEPS * batch,
+        NUSC_VAL, seed=3, depth_map=generate_depth_map)
+    tree["seconds"] = time.perf_counter() - t0
+    return tree
+
+
+def nusc_overrides(tree, ckpt_dir, **extra):
+    """A nuScenes config pointed at the written tree: its JSON files, the
+    evaluator's split and ground truth in the tree, one epoch evaluated
+    after it, the encoder from seeded random weights (no ImageNet file on
+    the machine) and the evaluation loader in-process."""
+    ev = "trainer.evaluate_hook."
+    return {"train_dataset.cfg_list": [dict(
+                name="fsnet_tpu_torch.data.datasets.nuscene_dataset."
+                     "NusceneJsonDataset", json_path=tree["train"])],
+            "val_dataset.json_path": tree["val"],
+            ev + "dataset_eval_cfg.split_file": tree["split"],
+            ev + "dataset_eval_cfg.gt_saved_dir": tree["gt"],
+            ev + "num_workers": 0,
+            "meta_arch.depth_backbone_cfg.pretrained": False,
+            "trainer.max_epochs": 1, "trainer.test_iter": 1,
+            "trainer.disp_iter": 1, "path.checkpoint_path": str(ckpt_dir),
+            **extra}
+
+
+def nusc_sample_ms(tree, samples=NUSC_SAMPLES) -> float:
+    """``dataset[i]`` of ``nusc_wpose_example.py``'s train dataset on the
+    written tree (three JPEG decodes and the recipe's train augmentation
+    to 288x512) in one process: ms a sample, the mean over the first
+    ``samples`` after one call on the last, not timed."""
+    from fsnet_tpu_torch.utils import build, cfg_from_file, update_cfg
+
+    cfg = update_cfg(cfg_from_file(str(NUSC_CONFIG)),
+                     **nusc_overrides(tree, NUSC_DIR / "unused"))
+    dataset = build(**cfg.train_dataset)
+    dataset[len(dataset) - 1]
+    t0 = time.perf_counter()
+    for i in range(samples):
+        dataset[i]
+    return (time.perf_counter() - t0) / samples * 1e3
+
+
+def jpeg_phase(record):
+    """Phase 44: the port's JPEG reader on the card machine. The C decoder
+    (built here by ``cc``) on files written by ``tests/disk_trees.py``
+    (900x1600 at 4:2:0, 4:2:2, 4:4:4 and grey, and a 451x803 4:2:0 file
+    with a restart interval of 7 MCUs): each file's sha256 the one recorded
+    where it was first written, the decode's sha256 that of PIL's decode
+    recorded there, and the decode bitwise equal to ``decode_plain`` on the
+    C decoder's coefficients; a progressive header refused. Readings: the
+    build, one 900x1600 4:2:0 frame's decode, the nuScenes tree's writing
+    and ``dataset[i]`` of it beside ``sample_ms`` of the synthetic render,
+    in turns."""
+    from fsnet_tpu_torch.data.datasets import image_io
+    from fsnet_tpu_torch.utils import cfg_from_file
+
+    dt = disk_trees()
+    t0 = time.perf_counter()
+    image_io._library(image_io.JPEG_SOURCE)
+    build_s = time.perf_counter() - t0
+    paths = write_jpeg_files(dt, NUSC_DIR / "jpeg")
+    checked = {}
+    for name, path in paths.items():
+        file_sha, pil_sha = JPEG_DIGESTS[name]
+        check(sha256(path.read_bytes()) == file_sha,
+              f"phase 44: {name}: the written file differs from the one "
+              "whose PIL decode was recorded")
+        H, W, sub = JPEG_FILES[name][:3]
+        got = image_io.read_jpeg(str(path))
+        check(got.shape == ((H, W) if sub == "grey" else (H, W, 3))
+              and got.dtype == np.uint8, f"phase 44: {name}: {got.shape} "
+              f"{got.dtype}")
+        check(sha256(np.ascontiguousarray(got).tobytes()) == pil_sha,
+              f"phase 44: {name}: the C decode differs from PIL's")
+        plain = image_io.read_jpeg(str(path), plain=True)
+        check(np.array_equal(plain, got), f"phase 44: {name}: the C decode "
+              "differs from decode_plain")
+        checked[name] = f"{got.shape} {sub}"
+    blob = bytearray(paths["420"].read_bytes())
+    sof = blob.index(b"\xff\xc0")
+    blob[sof + 1] = 0xC2
+    progressive = NUSC_DIR / "jpeg" / "progressive.jpg"
+    progressive.write_bytes(bytes(blob))
+    try:
+        image_io.read_jpeg(str(progressive))
+        refused = None
+    except image_io.JPEGError as e:
+        refused = str(e)
+    check(refused is not None and "progressive" in refused
+          and str(progressive) in refused,
+          f"phase 44: a progressive header was not refused: {refused}")
+
+    image_io.read_jpeg(str(paths["420"]))
+    t0 = time.perf_counter()
+    for _ in range(READ_REPEATS):
+        image_io.read_jpeg(str(paths["420"]))
+    decode_ms = (time.perf_counter() - t0) / READ_REPEATS * 1e3
+    tree = write_nusc_tree(dt, cfg_from_file(str(NUSC_CONFIG)
+                                             ).data.batch_size)
+    synth, disk = [], []
+    for _ in range(2):               # in turns: synthetic, JPEG tree, ...
+        synth.append(sample_ms(samples=NUSC_SAMPLES))
+        disk.append(nusc_sample_ms(tree))
+    out = dict(card=record["card"], cc_build_s=build_s, files=checked,
+               decode_420_ms=decode_ms, tree_write_s=tree["seconds"],
+               nusc_sample_ms=disk, synthetic_sample_ms=synth, tree=tree)
+    print(f"phase 44 ({record['card']}): the C JPEG decoder equal to PIL's "
+          f"recorded decode and to decode_plain on {checked}; a "
+          f"progressive header refused; cc build {build_s:.2f} s; decode "
+          f"one 900x1600 4:2:0 frame {decode_ms:.2f} ms; dataset[i] from "
+          f"the written nuScenes tree "
+          f"{', '.join(f'{v:.1f}' for v in disk)} ms a sample against the "
+          f"synthetic render's {', '.join(f'{v:.1f}' for v in synth)} "
+          f"(alternated, {NUSC_SAMPLES} samples each); tree written in "
+          f"{tree['seconds']:.1f} s")
+    return out
+
+
+def back_mask_rows(batch):
+    """For each CAM_BACK sample of a step's batch: the first output row
+    whose source row (through the warp that ``P2`` records against
+    ``original_P2``) is 700 or below, and whether every row from one past
+    it is 0 in ``patched_mask`` while some row above it is not."""
+    out = []
+    for i, cam in enumerate(batch["camera_type"]):
+        if cam != "CAM_BACK":
+            continue
+        P2 = batch["P2"][i].double().numpy()
+        P0 = batch["original_P2"][i].double().numpy()
+        scale = P2[1, 1] / P0[1, 1]
+        row = scale * 699.5 + (P2[1, 2] - scale * P0[1, 2])
+        mask = batch["patched_mask"][i].numpy()
+        start = max(int(np.ceil(row)) + 1, 0)
+        ok = (not mask[start:].any()
+              and (start == 0 or mask[:max(int(row) - 1, 0)].any()))
+        out.append(dict(row=float(row), ok=bool(ok),
+                        visible=bool(start < mask.shape[0])))
+    return out
+
+
+def nusc_loop(counters, config, tree, want, what, teacher=None):
+    """``train.main`` on ``config`` pointed at the written tree (one epoch
+    of 3 steps, then the evaluation of 8 frames), each step and each
+    evaluation forward watched; the checks every nuScenes recipe shares.
+    Returns the run, the watches and the seconds."""
+    from fsnet_tpu_torch.scripts import train as train_script
+
+    extra = {} if teacher is None else {"meta_arch.teacher_net_path":
+                                        str(teacher)}
+    over = nusc_overrides(tree, NUSC_DIR / f"ckpt_{what.split()[-1]}",
+                          **extra)
+    loop = LoopWatch(counters, keep=("camera_type", "patched_mask", "P2",
+                                     "original_P2"))
+    ev_watch = EvalWatch(counters)
+    try:
+        t0 = time.perf_counter()
+        run = train_script.main(config=str(config), device="cuda", **over)
+        run_s = time.perf_counter() - t0
+    finally:
+        loop.close()
+        ev_watch.close()
+    check(len(loop.steps) == NUSC_STEPS and run["global_step"]
+          == NUSC_STEPS, f"{what}: {len(loop.steps)} steps")
+    for i, s in enumerate(loop.steps):
+        check(s["launches"] == want["launches"], f"{what} step {i}: "
+              f"launches {s['launches']}, phase 37's {want['launches']}")
+        check(all(s["dtypes"][k] == v for k, v in want["dtypes"].items()),
+              f"{what} step {i}: launches by dtype {s['dtypes']}")
+        check(all(s["routes"][k] == v for k, v in want["routes"].items()),
+              f"{what} step {i}: routes {s['routes']}, phase 37's "
+              f"{want['routes']}")
+    losses = [e["loss"] for e in run["log"]]
+    check(len(losses) == NUSC_STEPS and all(np.isfinite(losses)),
+          f"{what}: losses {losses}")
+    check(len(run["evals"]) == 1, f"{what}: {len(run['evals'])} "
+          "evaluations")
+    ev = run["evals"][0]
+    check(sorted(ev["channels"]) == ["CAM_BACK", "CAM_FRONT"]
+          and all(np.isfinite(s).all() and s.shape == (7,)
+                  for suites in [(ev["errors"], ev["abs_errors"])]
+                  + list(ev["channels"].values()) for s in suites),
+          f"{what}: evaluation {ev}")
+    return run, loop, ev_watch, over, run_s
+
+
+def nusc_recipe_phase(counters, record, tree):
+    """Phase 45: ``train.main`` on the port's ``nusc_wpose_example.py``
+    pointed at the written JPEG tree (bf16, bs8 @288x512, 4 loader
+    workers, one epoch of 3 steps, then the evaluation of 8 frames through
+    ``FastNuscEvaluationHook`` and ``NuscenesEvaluator``); ``test.main`` on
+    the saved checkpoint on the card and on the CPU."""
+    from fsnet_tpu_torch.scripts import test as test_script
+    from fsnet_tpu_torch.utils import cfg_from_file, update_cfg
+
+    want = record["bf16_recipe_steps"]["nusc"]
+    run, loop, ev_watch, over, run_s = nusc_loop(
+        counters, NUSC_CONFIG, tree, want, "phase 45")
+    masks = [m for s in loop.steps for m in back_mask_rows(s["batch"])]
+    check(masks and all(m["ok"] for m in masks)
+          and any(m["visible"] for m in masks),
+          f"phase 45: CAM_BACK masks {masks}")
+    one = dict(dict.fromkeys(ev_watch.forwards[0], 0), conv3x3=len(SHAPES))
+    check(ev_watch.forwards and all(f == one for f in ev_watch.forwards),
+          f"phase 45: evaluation forwards' launches {ev_watch.forwards}")
+    ev = run["evals"][0]
+
+    def suites(res):
+        out = {"all": (res["errors"], res["abs_errors"])}
+        out.update(res["channels"])
+        return out
+
+    t0 = time.perf_counter()
+    card = test_script.main(config=str(NUSC_CONFIG),
+                            checkpoint=run["checkpoint"], device="cuda",
+                            **over)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = test_script.main(config=str(NUSC_CONFIG),
+                           checkpoint=run["checkpoint"], device="cpu", **over)
+    cpu_s = time.perf_counter() - t0
+    loop_s, card_r, cpu_r = suites(ev), suites(card), suites(cpu)
+    check(sorted(card_r) == sorted(loop_s) == sorted(cpu_r),
+          f"phase 45: test.main's cameras {sorted(card_r)}")
+    same = max(rel_max(a, b) for k in loop_s
+               for a, b in zip(card_r[k], loop_s[k]))
+    check(card["samples"] == NUSC_VAL and same <= 1e-6,
+          f"phase 45: test.main {card} against the loop's evaluation {ev}")
+    # the continuous metrics (abs_rel, sq_rel, rmse, rmse_log): phase 6's
+    # depth gate
+    vs_cpu = max(rel_max(a[:4], b[:4]) for k in card_r
+                 for a, b in zip(card_r[k], cpu_r[k]))
+    a_vs_cpu = max(float(np.abs(a[4:] - b[4:]).max()) for k in card_r
+                   for a, b in zip(card_r[k], cpu_r[k]))
+    check(vs_cpu <= 1e-3, f"phase 45: card vs CPU metrics rel {vs_cpu:.3e}"
+          f" > 1e-3: card {card}, CPU {cpu}")
+    log = run["log"]
+    out = dict(card=record["card"], run_s=run_s, losses=[e["loss"]
+                                                         for e in log],
+               launches=want["launches"], eval_launches_per_forward=one,
+               eval_forwards=len(ev_watch.forwards), back_masks=masks,
+               errors={k: [s.tolist() for s in v] for k, v in loop_s.items()},
+               eval_s=ev["seconds"], eval_frames_per_s=NUSC_VAL
+               / ev["seconds"], test_main_card_s=card_s,
+               test_main_cpu_s=cpu_s, test_main_vs_loop_rel=same,
+               card_vs_cpu_rel=vs_cpu, card_vs_cpu_a_abs=a_vs_cpu,
+               walls_ms=[e["wall_ms"] for e in log],
+               waits_ms=[e["wait_ms"] for e in log])
+    cfg = update_cfg(cfg_from_file(str(NUSC_CONFIG)), **over)
+    print(f"phase 45 ({record['card']}): train.main on {NUSC_CONFIG.name} "
+          f"from the written JPEG tree "
+          f"({cfg.trainer.training_hook.compute_dtype} bs"
+          f"{cfg.data.batch_size}@{cfg.data.rgb_shape[0]}x"
+          f"{cfg.data.rgb_shape[1]}, {cfg.data.num_workers} workers): "
+          f"{NUSC_STEPS} steps, losses "
+          f"{[round(x, 6) for x in out['losses']]}, launches per step phase "
+          f"37's nusc_wpose bf16 step; {len(masks)} CAM_BACK masks zero "
+          f"from the warped row 700 on (rows "
+          f"{[round(m['row'], 1) for m in masks]}); step walls "
+          f"{[round(v, 1) for v in out['walls_ms']]} ms, loader waits "
+          f"{[round(v, 1) for v in out['waits_ms']]} ms; evaluation of "
+          f"{NUSC_VAL} frames in {len(ev_watch.forwards)} forwards, "
+          f"{one['conv3x3']} conv3x3 launches each and nothing else, "
+          f"{ev['seconds']:.2f} s = {out['eval_frames_per_s']:.2f} "
+          f"frames/s; abs_rel {ev['errors'][0]:.4f} (scaled, all mean) "
+          f"{ev['abs_errors'][0]:.4f} (absolute), per camera "
+          f"{ {k: round(float(v[0][0]), 4) for k, v in ev['channels'].items()} }"
+          f"; test.main on the card equal to the loop's within {same:.1e}, "
+          f"against the CPU port's {vs_cpu:.2e} rel (a1-a3 "
+          f"{a_vs_cpu:.2e}); run {run_s:.1f} s, test.main {card_s:.1f} s "
+          f"card, {cpu_s:.1f} s CPU")
+    return out
+
+
+def distill_recipe_phase(counters, record, tree):
+    """Phase 46: ``train.main`` on the port's ``distill_nusc_example.py``
+    pointed at the same tree, its teacher a checkpoint of seeded weights
+    written by the port's checkpoint save; every step launches what phase
+    37's ``distill_nusc`` step launches, the teacher is bitwise unchanged
+    after the steps, and the evaluation's metrics are finite."""
+    from fsnet_tpu_torch.entry import flagship_model
+    from fsnet_tpu_torch.runtime import checkpoint
+
+    teacher_path = NUSC_DIR / "teacher.pth"
+    checkpoint.save_models(str(teacher_path),
+                           flagship_model(288, 512, device="cpu", seed=11))
+    loaded = {}
+    load_teacher = checkpoint.load_teacher
+
+    def watched(model, path):
+        out = load_teacher(model, path)
+        loaded.update({n: t.detach().cpu().clone()
+                       for n, t in model.state_dict().items()
+                       if n.startswith("teacher_net.")})
+        return out
+
+    checkpoint.load_teacher = watched
+    try:
+        run, loop, ev_watch, over, run_s = nusc_loop(
+            counters, DISTILL_CONFIG, tree,
+            record["bf16_recipe_steps"]["distill"], "phase 46",
+            teacher=teacher_path)
+    finally:
+        checkpoint.load_teacher = load_teacher
+    state = run["model"].state_dict()
+    moved = [n for n, t in loaded.items() if not torch.equal(state[n].cpu(),
+                                                             t)]
+    check(loaded and not moved, f"phase 46: {len(moved)} of the teacher's "
+          f"{len(loaded)} tensors changed: {moved[:5]}")
+    first = ev_watch.forwards[0]
+    check(first["conv3x3"] > 0 and all(
+        f == first for f in ev_watch.forwards) and all(
+        n == 0 for k, n in first.items() if k != "conv3x3"),
+        f"phase 46: evaluation forwards' launches {ev_watch.forwards}")
+    ev = run["evals"][0]
+    log = run["log"]
+    out = dict(card=record["card"], run_s=run_s,
+               losses=[e["loss"] for e in log],
+               launches=record["bf16_recipe_steps"]["distill"]["launches"],
+               teacher_tensors=len(loaded),
+               eval_launches_per_forward=first,
+               errors=ev["errors"].tolist(),
+               abs_errors=ev["abs_errors"].tolist(),
+               channels={k: [s.tolist() for s in v]
+                         for k, v in ev["channels"].items()},
+               eval_s=ev["seconds"], walls_ms=[e["wall_ms"] for e in log],
+               waits_ms=[e["wait_ms"] for e in log])
+    print(f"phase 46 ({record['card']}): train.main on "
+          f"{DISTILL_CONFIG.name} from the written JPEG tree: "
+          f"{NUSC_STEPS} steps, losses "
+          f"{[round(x, 6) for x in out['losses']]}, launches per step phase "
+          f"37's distill_nusc bf16 step; the teacher's {len(loaded)} "
+          f"tensors (from {teacher_path.name}) bitwise unchanged; step "
+          f"walls {[round(v, 1) for v in out['walls_ms']]} ms; evaluation "
+          f"forwards {first} each, {ev['seconds']:.2f} s, abs_rel "
+          f"{ev['errors'][0]:.4f} (scaled, all mean); run {run_s:.1f} s")
+    return out
+
+
 def main() -> int:
     global REPEATS
     import argparse
@@ -5077,6 +5529,17 @@ def main() -> int:
                                               record["png_reader"]["tree"])
     kernel["launches_kitti_eval_per_frame"] = \
         record["disk_recipe"]["eval_launches_per_frame"]["conv3x3"]
+
+    # 44-46. the nuScenes recipes from a JPEG tree written on disk: the
+    # port's JPEG decoder, then train.main on nusc_wpose with the
+    # per-camera evaluation and test.main on the card and on the CPU, then
+    # train.main on distill_nusc with a teacher from a checkpoint
+    record["jpeg_reader"] = jpeg_phase(record)
+    tree = record["jpeg_reader"]["tree"]
+    record["nusc_recipe"] = nusc_recipe_phase(counters, record, tree)
+    record["distill_recipe"] = distill_recipe_phase(counters, record, tree)
+    kernel["launches_nusc_eval_per_forward"] = \
+        record["nusc_recipe"]["eval_launches_per_forward"]["conv3x3"]
 
     record["empty_profiles"] = len(EMPTY_PROFILES)
     print(f"profiler windows with no device event, profiled again: "

@@ -1,7 +1,8 @@
 """Shared config pieces (counterpart of ``configs/common.py`` with
 ``fsnet_tpu_torch`` names and this package's EasyDict): the project paths,
 the flagship's train and val augmentation graphs, its ``MonoDepthWPose``,
-the trainer section and the KITTI evaluation hook."""
+the self-distillation ``DistillWPoseMeta``, the trainer section and the
+KITTI and nuScenes evaluation hooks."""
 import os
 
 import numpy as np
@@ -102,10 +103,11 @@ def wpose_augmentation(data, frame_idxs, train=True, extra_image_keys=()):
 
 def wpose_meta_arch(data, min_depth=0.5, max_depth=100.0, resnet_depth=18,
                     pretrained=True, num_output_channels=16,
-                    overlapped_mask=True):
-    """The flagship ``MonoDepthWPose`` graph."""
+                    overlapped_mask=True, base_fx=None):
+    """The flagship ``MonoDepthWPose`` graph; ``base_fx`` scales the
+    decoder's bins by each frame's focal length where given."""
     models = "fsnet_tpu_torch.models"
-    return edict(
+    cfg = edict(
         name=f"{models}.meta_archs.monodepth2_model.MonoDepthWPose",
         depth_backbone_cfg=edict(
             name=f"{models}.backbones.resnet.resnet",
@@ -135,6 +137,65 @@ def wpose_meta_arch(data, min_depth=0.5, max_depth=100.0, resnet_depth=18,
                 min_depth=min_depth,
                 max_depth=max_depth,
             ),
+        ),
+        train_cfg=edict(frame_ids=data.frame_idxs),
+        test_cfg=edict(),
+    )
+    if base_fx is not None:
+        cfg.head_cfg.depth_decoder_cfg.base_fx = base_fx
+    return cfg
+
+
+def distill_meta_arch(data, teacher_net_path):
+    """The self-distillation ``DistillWPoseMeta``: a frozen
+    ``MonoDepthInference`` teacher (ResNet-18, 16 bins) loaded from
+    ``teacher_net_path``, a ResNet-18 student decoding through
+    ``MultiChannelDepthDecoderUncertain`` under the head with the overlap
+    mask and the uncertainty-weighted distillation loss at 0.3."""
+    models = "fsnet_tpu_torch.models"
+    backbone = edict(
+        name=f"{models}.backbones.resnet.resnet",
+        depth=18,
+        pretrained=False,
+        frozen_stages=-1,
+        num_stages=4,
+        out_indices=(-1, 0, 1, 2, 3),
+        norm_eval=False,
+        dilations=(1, 1, 1, 1),
+    )
+
+    def decoder(kind):
+        return edict(
+            name=f"{models}.heads.depth_decoder.{kind}",
+            num_ch_enc=np.array([64, 64, 128, 256, 512]),
+            num_output_channels=16,
+            use_skips=True,
+            scales=[0, 1, 2, 3],
+            min_depth=0.5,
+            max_depth=100,
+        )
+
+    return edict(
+        name=f"{models}.meta_archs.monodepth2_model.DistillWPoseMeta",
+        teacher_net_cfg=edict(
+            name=f"{models}.meta_archs.monodepth2_model.MonoDepthInference",
+            backbone_cfg=backbone,
+            depth_head_cfg=decoder("MultiChannelDepthDecoder"),
+        ),
+        teacher_net_path=teacher_net_path,
+        depth_backbone_cfg=backbone,
+        head_cfg=edict(
+            name=f"{models}.heads.monodepth2_decoder.MonoDepth2Decoder",
+            scales=[0, 1, 2, 3],
+            height=data.rgb_shape[0],
+            width=data.rgb_shape[1],
+            min_depth=0.5,
+            max_depth=100.0,
+            is_log_image=False,
+            overlapped_mask=True,
+            distillation_loss_weight=0.3,
+            is_uncertain_distill=True,
+            depth_decoder_cfg=decoder("MultiChannelDepthDecoderUncertain"),
         ),
         train_cfg=edict(frame_ids=data.frame_idxs),
         test_cfg=edict(),
@@ -179,5 +240,26 @@ def kitti_evaluate_hook(evaluator, data_path, split_file, gt_saved_file,
             data_path=data_path,
             split_file=split_file,
             gt_saved_file=gt_saved_file,
+        ),
+    )
+
+
+def nusc_evaluate_hook(data_path, base_path):
+    """``FastNuscEvaluationHook`` on the validation hook with
+    ``NuscenesEvaluator``: the nuScenes train subset's val tokens and its
+    ground-truth depth PNGs under ``<base_path>/meta_data/nusc_trainsub``."""
+    sub = os.path.join(base_path, "meta_data", "nusc_trainsub")
+    return edict(
+        name="fsnet_tpu_torch.pipeline_hooks.evaluation_hooks."
+             "FastNuscEvaluationHook",
+        test_run_hook_cfg=edict(
+            name="fsnet_tpu_torch.pipeline_hooks.train_val_hooks."
+                 "BaseValidationHook"),
+        dataset_eval_cfg=edict(
+            name="fsnet_tpu_torch.evaluation.nuscenes_unsupervised_eval."
+                 "NuscenesEvaluator",
+            data_path=data_path,
+            split_file=os.path.join(sub, "nusc_val.txt"),
+            gt_saved_dir=os.path.join(sub, "samples_depth_gt"),
         ),
     )

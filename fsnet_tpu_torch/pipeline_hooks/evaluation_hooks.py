@@ -9,12 +9,19 @@ model's device, per frame the unpad by ``image_resize/effective_size``, the
 inverse-space resize ``1 / resize(1 / depth)`` to the original image's
 size (it keeps near structure), the evaluator's ``single_call``, then the
 means of both error suites and the evaluator's log. The hook takes the
-model where the JAX hook takes the train state. :class:`BaseEvaluationHook`
-is the generic pass, one sample at a time. ``KittiEvaluationHook_postopt``
-(SLIC post-optimisation) and ``FastNuscEvaluationHook`` are not ported.
+model where the JAX hook takes the train state.
+:class:`FastNuscEvaluationHook` is the nuScenes pass: batches of 16, the
+depth resized linearly (not in inverse space) to the original image's
+size, the evaluator's ``single_call`` on each frame's file name, the errors
+grouped by ``camera_type``, each camera's means logged, then their mean.
+:class:`BaseEvaluationHook` is the generic pass, one sample at a time.
+``KittiEvaluationHook_postopt`` and ``PostOptFastNuscEvaluationHook`` (SLIC
+post-optimisation) are not ported.
 """
 from __future__ import annotations
 
+import warnings
+from contextlib import closing
 from typing import Dict, Optional
 
 import numpy as np
@@ -32,6 +39,35 @@ def _host(value) -> np.ndarray:
     if isinstance(value, torch.Tensor):
         return value.detach().cpu().numpy()
     return np.asarray(value)
+
+
+def _predicted_frames(hook, model, dataset_val, global_step, epoch_num):
+    """One pass of ``hook``'s validation forward over ``dataset_val`` in
+    batches of ``hook.batch_size``: per frame (the batch, its index in the
+    batch, the float32 depth unpadded by ``image_resize/effective_size``,
+    and the original image's (width, height)); the loader's workers are
+    stopped when the generator ends or is closed."""
+    loader = Dataloader(dataset_val, batch_size=hook.batch_size,
+                        sampler=InferenceSampler(len(dataset_val)),
+                        collate=collate_fn, num_workers=hook.num_workers,
+                        drop_last=False,
+                        pin_memory=hook.device.type == "cuda")
+    try:
+        for batched_data in loader:
+            output_dict = hook.test_hook(batched_data, model, global_step,
+                                         epoch_num)
+            depth_batch = _host(output_dict["depth"].float())[..., 0]
+            eff = batched_data.get("image_resize/effective_size")
+            originals = batched_data["original_image/0"]
+            for i in range(depth_batch.shape[0]):
+                depth = depth_batch[i]
+                if eff is not None:
+                    h_eff, w_eff = (int(v) for v in _host(eff[i])[:2])
+                    depth = depth[0:h_eff, 0:w_eff]
+                h, w = originals[i].shape[:2]
+                yield batched_data, i, depth, (w, h)
+    finally:
+        loader.close()
 
 
 class KittiEvaluationHook:
@@ -54,34 +90,15 @@ class KittiEvaluationHook:
     def __call__(self, model, dataset_val, writer=None, global_step: int = 0,
                  epoch_num: int = 0):
         """Returns the mean median-scaled and absolute errors, each [7]."""
-        loader = Dataloader(dataset_val, batch_size=self.batch_size,
-                            sampler=InferenceSampler(len(dataset_val)),
-                            collate=collate_fn, num_workers=self.num_workers,
-                            drop_last=False,
-                            pin_memory=self.device.type == "cuda")
         errors, abs_errors = [], []
-        frame_index = 0
-        try:
-            for batched_data in loader:
-                output_dict = self.test_hook(batched_data, model,
-                                             global_step, epoch_num)
-                depth_batch = _host(output_dict["depth"].float())[..., 0]
-                eff = batched_data.get("image_resize/effective_size")
-                originals = batched_data["original_image/0"]
-                for i in range(depth_batch.shape[0]):
-                    depth = depth_batch[i]
-                    if eff is not None:
-                        h_eff, w_eff = (int(v) for v in _host(eff[i])[:2])
-                        depth = depth[0:h_eff, 0:w_eff]
-                    h, w = originals[i].shape[:2]
-                    depth_0 = 1.0 / resize_linear(1.0 / depth, w, h)
-                    result = self.dataset_eval_func.single_call(depth_0,
-                                                                frame_index)
-                    frame_index += 1
-                    errors.append(result["error"])
-                    abs_errors.append(result["abs_error"])
-        finally:
-            loader.close()
+        with closing(_predicted_frames(self, model, dataset_val, global_step,
+                                       epoch_num)) as frames:
+            for frame_index, (_, _, depth, size) in enumerate(frames):
+                depth_0 = 1.0 / resize_linear(1.0 / depth, *size)
+                result = self.dataset_eval_func.single_call(depth_0,
+                                                            frame_index)
+                errors.append(result["error"])
+                abs_errors.append(result["abs_error"])
 
         mean_errors = np.array(errors).mean(0)
         mean_abs_errors = np.array(abs_errors).mean(0)
@@ -89,6 +106,65 @@ class KittiEvaluationHook:
                                    global_step=global_step,
                                    epoch_num=epoch_num)
         return mean_errors, mean_abs_errors
+
+
+class FastNuscEvaluationHook:
+    """One evaluation pass over a nuScenes validation dataset with
+    ``NuscenesEvaluator`` on ``device``, the errors grouped by camera.
+    After a call, ``channel_means`` maps each camera to its two mean error
+    suites."""
+
+    def __init__(self, test_run_hook_cfg: Dict,
+                 dataset_eval_cfg: Optional[Dict] = None,
+                 batch_size: int = 16, num_workers: int = 4,
+                 device: DeviceLike = "cuda"):
+        self.device = resolve_device(device)
+        self.test_hook = build(**dict(test_run_hook_cfg), device=self.device)
+        self.dataset_eval_func = (None if dataset_eval_cfg is None
+                                  else build(**dict(dataset_eval_cfg)))
+        self.batch_size = batch_size
+        self.num_workers = num_workers
+        self.channel_means: Dict = {}
+
+    def __call__(self, model, dataset_val, writer=None, global_step: int = 0,
+                 epoch_num: int = 0):
+        """Returns the mean over the cameras of each camera's mean
+        median-scaled and absolute errors, each [7]."""
+        errors: Dict = {}
+        abs_errors: Dict = {}
+        with closing(_predicted_frames(self, model, dataset_val, global_step,
+                                       epoch_num)) as frames:
+            for batched_data, i, depth, size in frames:
+                depth_0 = resize_linear(depth, *size)
+                camera_type = batched_data["camera_type"][i]
+                errors.setdefault(camera_type, [])
+                abs_errors.setdefault(camera_type, [])
+                filename = batched_data["filename/0"][i]
+                try:
+                    result = self.dataset_eval_func.single_call(depth_0,
+                                                                filename)
+                except ValueError:
+                    warnings.warn(f"sample {filename} has no usable points")
+                    continue
+                errors[camera_type].append(result["error"])
+                abs_errors[camera_type].append(result["abs_error"])
+
+        self.channel_means = {}
+        for cam in errors:
+            mean_errors = np.array(errors[cam]).mean(0)
+            mean_abs = np.array(abs_errors[cam]).mean(0)
+            self.dataset_eval_func.log(writer, cam, mean_errors, mean_abs,
+                                       global_step=global_step,
+                                       epoch_num=epoch_num)
+            self.channel_means[cam] = (mean_errors, mean_abs)
+        all_mean = np.array([m for m, _ in self.channel_means.values()]
+                            ).mean(0)
+        all_mean_abs = np.array([a for _, a in self.channel_means.values()]
+                                ).mean(0)
+        self.dataset_eval_func.log(writer, "all mean", all_mean,
+                                   all_mean_abs, global_step=global_step,
+                                   epoch_num=epoch_num)
+        return all_mean, all_mean_abs
 
 
 class BaseEvaluationHook:

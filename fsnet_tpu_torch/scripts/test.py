@@ -1,6 +1,7 @@
 """Checkpoint evaluation of the port (counterpart of ``scripts/test.py``):
 restore a checkpoint and run the config's ``evaluate_hook`` on a split
-(the KITTI raw and KITTI-360 recipes: the Eigen-style error suites, as the
+(the KITTI raw and KITTI-360 recipes: the Eigen-style error suites; the
+nuScenes recipes: the same suites per camera and their mean; as the
 training loop evaluates); a config with no evaluator runs the validation
 hook (``make_eval_step``) over the split one sample at a time and prints
 the predicted depth's min, mean and max.
@@ -25,7 +26,8 @@ def main(config: str, checkpoint: str = "", split: str = "val",
     config's ``split`` on ``device`` (CUDA unless the caller asks for the
     CPU). Returns the ``samples`` count and the ``epoch`` restored, and,
     with an ``evaluate_hook``, its mean ``errors`` and ``abs_errors``
-    (median-scaled and absolute, [7] each), else the depth's ``min``,
+    (median-scaled and absolute, [7] each) and ``channels`` (each camera's
+    two suites where the hook groups by camera), else the depth's ``min``,
     ``mean`` (of the per-sample means) and ``max``."""
     from ..data.datasets.dataset_utils import collate_fn
     from ..pipeline_hooks.train_val_hooks import BaseValidationHook
@@ -52,6 +54,8 @@ def main(config: str, checkpoint: str = "", split: str = "val",
         evaluate_hook = build(**cfg.trainer.evaluate_hook, device=dev)
         errors, abs_errors = evaluate_hook(model, dataset, None, 0, 0)
         return dict(errors=errors, abs_errors=abs_errors,
+                    channels=dict(getattr(evaluate_hook, "channel_means",
+                                          {})),
                     samples=len(dataset), epoch=epoch)
 
     hook = BaseValidationHook(device=dev)

@@ -101,8 +101,12 @@ def check_hooks(cfg) -> None:
     """Raises where the config asks for a hook the port does not have: any
     ``trainer.precompute_hook`` (the motion-mask and flow precompute is not
     ported), and an ``evaluate_hook`` that names anything outside the
-    port's modules (``KittiEvaluationHook_postopt``, the nuScenes,
-    fisheye and FusionPortable evaluators, a JAX package's name)."""
+    port's modules (``KittiEvaluationHook_postopt``,
+    ``PostOptFastNuscEvaluationHook``, the fisheye, FusionPortable and
+    supervised evaluators, a JAX package's name). The port has
+    ``KittiEvaluationHook`` with ``KittiEigenEvaluator`` and
+    ``Kitti360Evaluator``, and ``FastNuscEvaluationHook`` with
+    ``NuscenesEvaluator``."""
     from ..utils.builder import find_object
 
     if cfg.trainer.get("precompute_hook"):
@@ -126,7 +130,8 @@ def check_hooks(cfg) -> None:
                 f"evaluate_hook {hook.get('name')!r}: {name!r} is not "
                 "ported; the port evaluates through fsnet_tpu_torch."
                 "pipeline_hooks.evaluation_hooks.KittiEvaluationHook with "
-                "the KITTI raw or KITTI-360 evaluator")
+                "the KITTI raw or KITTI-360 evaluator, or "
+                "FastNuscEvaluationHook with NuscenesEvaluator")
 
 
 def main(config: str = "fsnet_tpu_torch/configs/synthetic_smoke_example.py",
@@ -139,7 +144,8 @@ def main(config: str = "fsnet_tpu_torch/configs/synthetic_smoke_example.py",
     done), ``global_step``, ``checkpoint`` (the last ``_latest`` path),
     ``log``: one dict per printed window (step, loss, wait_ms, wall_ms,
     steps), and ``evals``: one dict per evaluation (epoch, global_step,
-    errors and abs_errors, the evaluator's two mean error suites, and
+    errors and abs_errors, the evaluator's two mean error suites, channels,
+    each camera's two suites where the hook groups by camera, and
     seconds)."""
     import torch
 
@@ -272,9 +278,12 @@ def main(config: str = "fsnet_tpu_torch/configs/synthetic_smoke_example.py",
                 errors, abs_errors = evaluate_hook(model, dataset_val,
                                                    writer, global_step,
                                                    epoch)
-                evals.append(dict(epoch=epoch, global_step=global_step,
-                                  errors=errors, abs_errors=abs_errors,
-                                  seconds=time.perf_counter() - t0))
+                evals.append(dict(
+                    epoch=epoch, global_step=global_step, errors=errors,
+                    abs_errors=abs_errors,
+                    channels=dict(getattr(evaluate_hook, "channel_means",
+                                          {})),
+                    seconds=time.perf_counter() - t0))
     finally:
         if prof is not None:
             prof.__exit__(None, None, None)

@@ -1,14 +1,20 @@
-"""Writers of small on-disk dataset trees in the layouts of KITTI raw and
-KITTI-360, with numpy, ``zlib`` and ``scipy.io`` only (no ``cv2`` or
-``PIL``), so that ``chip_smoke.py`` can write them on a machine that has
-neither. Nothing is downloaded: the images are seeded textures, the poses
-1 m steps, the velodyne scans seeded points on a ground plane and walls.
+"""Writers of small on-disk dataset trees in the layouts of KITTI raw,
+KITTI-360 and nuScenes, with numpy, ``zlib``, ``json`` and ``scipy.io``
+only (no ``cv2`` or ``PIL``), so that ``chip_smoke.py`` can write them on a
+machine that has neither. Nothing is downloaded: the images are seeded
+textures, the poses 1 m steps, the velodyne scans seeded points on a
+ground plane and walls.
 
 * :func:`write_png`: a PNG file of 8- or 16-bit grey, RGB or RGBA samples;
   its rows cycle through the five scanline filters (None, Sub, Up,
   Average, Paeth) unless told otherwise, so that every branch of a reader
   runs. Forward filtering needs only the original bytes, so it is
   vectorised.
+* :func:`write_jpeg`: a baseline JPEG file (grey, or YCbCr at 4:4:4,
+  4:2:2, 4:2:0 or 4:4:0), in integer arithmetic throughout (IJG's
+  colour tables and ``jfdctint`` forward DCT), so that its bytes are the
+  same on every machine; the Annex K tables scaled by quality as IJG scales
+  them, optional restart markers; the bit packing is vectorised.
 * :func:`write_kitti_date`, :func:`write_kitti_drive`: the KITTI raw layout
   of ``tests/test_kitti_dataset.py`` (calibration text files of one date,
   ``image_02``/``image_03`` frames, ``oxts/pose.mat``, velodyne ``.bin``
@@ -17,9 +23,14 @@ neither. Nothing is downloaded: the images are seeded textures, the poses
 * :func:`write_kitti360`: the KITTI-360 layout of
   ``tests/test_kitti360_dataset.py`` (``calibration/``, ``data_poses/``,
   ``data_2d_raw/``, ``data_3d_raw/``).
+* :func:`write_nusc_json_tree`: nuScenes ``samples/<CAM>/<name>.jpg``
+  frames, the train and val JSON files that ``NusceneJsonDataset`` reads
+  and 16-bit ground-truth depth PNGs (metres x 256) under the evaluator's
+  ``gt_saved_dir``.
 """
 from __future__ import annotations
 
+import json
 import os
 import struct
 import zlib
@@ -87,6 +98,288 @@ def write_png(path, img: np.ndarray, level: int = 6,
         for i in range(0, len(stream), 1 << 16):
             f.write(_chunk(b"IDAT", stream[i:i + (1 << 16)]))
         f.write(_chunk(b"IEND", b""))
+
+
+# ------------------------------------------------------------ JPEG writer
+
+# ITU T.81 Annex K: the example quantisation tables (natural order) and
+# Huffman tables (counts of codes of length 1-16, then the symbols)
+_K_QUANT = np.array([
+    [16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+     14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+     18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+     49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99],
+    [17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+     24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99]
+    + [99] * 32], np.int64)
+_K_HUFF = {
+    ("dc", 0): ("00010501010101010100000000000000",
+                "000102030405060708090a0b"),
+    ("dc", 1): ("00030101010101010101010000000000",
+                "000102030405060708090a0b"),
+    ("ac", 0): ("0002010303020403050504040000017d",
+                "01020300041105122131410613516107227114328191a1082342b1c115"
+                "52d1f02433627282090a161718191a25262728292a3435363738393a43"
+                "4445464748494a535455565758595a636465666768696a737475767778"
+                "797a838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2"
+                "b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3"
+                "e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa"),
+    ("ac", 1): ("00020102040403040705040400010277",
+                "000102031104052131061241510761711322328108144291a1b1c10923"
+                "3352f0156272d10a162434e125f11718191a262728292a35363738393a"
+                "434445464748494a535455565758595a636465666768696a7374757677"
+                "78797a82838485868788898a92939495969798999aa2a3a4a5a6a7a8a9"
+                "aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2"
+                "e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa"),
+}
+_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+# luma (h, v) sampling factors; chroma is 1x1
+JPEG_SAMPLING = {"4:4:4": (1, 1), "4:2:2": (2, 1), "4:2:0": (2, 2),
+                 "4:4:0": (1, 2)}
+
+
+def jpeg_quant(quality: int) -> np.ndarray:
+    """[2, 64] the Annex K tables scaled by ``quality`` as IJG's
+    ``jpeg_quality_scaling`` does, limited to 1-255 (baseline)."""
+    quality = min(max(int(quality), 1), 100)
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return np.clip((_K_QUANT * scale + 50) // 100, 1, 255)
+
+
+def _huff_codes(key):
+    """symbol -> (code, length) of an Annex K table."""
+    bits = bytes.fromhex(_K_HUFF[key][0])
+    vals = bytes.fromhex(_K_HUFF[key][1])
+    code_of = np.zeros(256, np.int64)
+    len_of = np.zeros(256, np.int64)
+    code, p = 0, 0
+    for length in range(1, 17):
+        for _ in range(bits[length - 1]):
+            code_of[vals[p]], len_of[vals[p]] = code, length
+            code += 1
+            p += 1
+        code <<= 1
+    return code_of, len_of
+
+
+def _ycbcr(rgb: np.ndarray) -> np.ndarray:
+    """IJG ``jccolor.c``: RGB -> YCbCr in 16-bit fixed point."""
+    fix = lambda v: int(v * 65536 + 0.5)                 # noqa: E731
+    r, g, b = (rgb[..., c].astype(np.int64) for c in range(3))
+    half, off = 1 << 15, 128 << 16
+    y = (fix(0.299) * r + fix(0.587) * g + fix(0.114) * b + half) >> 16
+    cb = (-fix(0.16874) * r - fix(0.33126) * g + fix(0.5) * b + off + half
+          - 1) >> 16
+    cr = (fix(0.5) * r - fix(0.41869) * g - fix(0.08131) * b + off + half
+          - 1) >> 16
+    return np.stack([y, cb, cr], -1)
+
+
+def _fdct(blocks: np.ndarray) -> np.ndarray:
+    """IJG ``jfdctint.c`` on [n, 8, 8] level-shifted samples: the
+    coefficients scaled by 8, in integers."""
+    def descale(x, n):
+        return (x + (1 << (n - 1))) >> n
+
+    def one_d(d, final):
+        s0, s1, s2, s3, s4, s5, s6, s7 = (d[..., i] for i in range(8))
+        t0, t7, t1, t6 = s0 + s7, s0 - s7, s1 + s6, s1 - s6
+        t2, t5, t3, t4 = s2 + s5, s2 - s5, s3 + s4, s3 - s4
+        t10, t13, t11, t12 = t0 + t3, t0 - t3, t1 + t2, t1 - t2
+        sh = 15 if final else 11         # CONST_BITS +- PASS1_BITS
+        out = [None] * 8
+        if final:
+            out[0], out[4] = descale(t10 + t11, 2), descale(t10 - t11, 2)
+        else:
+            out[0], out[4] = (t10 + t11) << 2, (t10 - t11) << 2
+        z1 = (t12 + t13) * 4433
+        out[2] = descale(z1 + t13 * 6270, sh)
+        out[6] = descale(z1 - t12 * 15137, sh)
+        z1, z2, z3, z4 = t4 + t7, t5 + t6, t4 + t6, t5 + t7
+        z5 = (z3 + z4) * 9633
+        t4, t5, t6, t7 = t4 * 2446, t5 * 16819, t6 * 25172, t7 * 12299
+        z1, z2 = z1 * -7373, z2 * -20995
+        z3, z4 = z3 * -16069 + z5, z4 * -3196 + z5
+        out[7] = descale(t4 + z1 + z3, sh)
+        out[5] = descale(t5 + z2 + z4, sh)
+        out[3] = descale(t6 + z2 + z3, sh)
+        out[1] = descale(t7 + z1 + z4, sh)
+        return np.stack(out, -1)
+
+    rows = one_d(blocks.astype(np.int64), False)             # along rows
+    return np.swapaxes(one_d(np.swapaxes(rows, 1, 2), True), 1, 2)
+
+
+def _blocks(plane: np.ndarray) -> np.ndarray:
+    """[bh, bw, 8, 8] blocks of a plane whose sides are multiples of 8."""
+    H, W = plane.shape
+    return plane.reshape(H // 8, 8, W // 8, 8).transpose(0, 2, 1, 3)
+
+
+def _category(v: np.ndarray) -> np.ndarray:
+    """The bit length of |v| (0 for 0)."""
+    return np.frexp(np.abs(v).astype(np.float64))[1].astype(np.int64)
+
+
+def _pack(vals: np.ndarray, nbits: np.ndarray) -> np.ndarray:
+    """The bit fields (``vals``, ``nbits`` <= 32 each, MSB first) as bytes;
+    every field lies within 5 bytes of its start, so each adds its share
+    to those 5 bytes (the fields do not overlap, so adding is OR-ing)."""
+    ends = np.cumsum(nbits)
+    starts = ends - nbits
+    nbytes = int(-(-ends[-1] // 8)) if len(ends) else 0
+    shift = 40 - (starts % 8) - nbits
+    window = vals << shift                       # a 40-bit window
+    idx = (starts // 8)[:, None] + np.arange(5)
+    part = (window[:, None] >> (32 - 8 * np.arange(5))) & 0xFF
+    keep = idx < nbytes
+    out = np.bincount(idx[keep], weights=part[keep], minlength=nbytes)
+    return out.astype(np.uint8)
+
+
+def write_jpeg(path, img: np.ndarray, quality: int = 90,
+               subsampling: str = "4:2:0", restart_interval: int = 0
+               ) -> None:
+    """Writes ``img`` ([H, W, 3] RGB or [H, W] grey ``uint8``) as a
+    baseline JFIF JPEG with the Annex K Huffman tables. ``subsampling``:
+    the chroma planes' resolution (``JPEG_SAMPLING``; ignored for grey);
+    ``restart_interval``: MCUs between RSTn markers (0: none)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3):
+        raise TypeError(f"write_jpeg takes [H, W(, 3)] uint8, got "
+                        f"{img.dtype} {img.shape}")
+    H, W = img.shape[:2]
+    grey = img.ndim == 2
+    hs, vs = (1, 1) if grey else JPEG_SAMPLING[subsampling]
+    mx, my = -(-W // (8 * hs)), -(-H // (8 * vs))
+    Hp, Wp = my * 8 * vs, mx * 8 * hs
+    padded = np.pad(img, ((0, Hp - H), (0, Wp - W))
+                    + ((), ((0, 0),))[not grey], mode="edge")
+    planes = ([padded.astype(np.int64)] if grey
+              else list(np.moveaxis(_ycbcr(padded), -1, 0)))
+    # chroma: the mean of each hs x vs cell, rounded half up
+    for c in range(1, len(planes)):
+        cell = planes[c].reshape(Hp // vs, vs, Wp // hs, hs)
+        planes[c] = (cell.sum((1, 3)) + (hs * vs) // 2) // (hs * vs)
+    quant = jpeg_quant(quality)
+    comps = [(hs, vs, 0)] + [(1, 1, 1)] * (len(planes) - 1)
+    coefs = []                    # per component: [my, mx, v, h, 64] zigzag
+    for plane, (h, v, t) in zip(planes, comps):
+        blocks = _blocks(plane - 128)
+        bh, bw = blocks.shape[:2]
+        c = _fdct(blocks.reshape(-1, 8, 8)).reshape(-1, 64)
+        q = quant[t] * 8
+        c = np.sign(c) * ((np.abs(c) + q // 2) // q)
+        c = c[:, _ZIGZAG].reshape(bh // v, v, bw // h, h, 64)
+        coefs.append(c.transpose(0, 2, 1, 3, 4).reshape(my, mx, v * h, 64))
+    # the blocks in scan order: MCU by MCU, each component's blocks in turn
+    order = np.concatenate(coefs, 2).reshape(-1, 64)
+    per_mcu = order.shape[0] // (mx * my)
+    table = np.concatenate([np.full(h * v, t) for h, v, t in comps])
+    comp_of = np.concatenate([np.full(h * v, i)
+                              for i, (h, v, _) in enumerate(comps)])
+    mcu = np.arange(order.shape[0]) // per_mcu
+    interval = mcu // restart_interval if restart_interval else 0 * mcu
+    # DC differences, predictors reset at each restart interval
+    dc = order[:, 0]
+    diff = np.empty_like(dc)
+    for i in range(len(comps)):
+        sel = np.flatnonzero(comp_of[np.arange(len(dc)) % per_mcu] == i)
+        prev = np.concatenate([[0], dc[sel][:-1]])
+        first = np.concatenate([[True], interval[sel][1:]
+                                != interval[sel][:-1]])
+        diff[sel] = dc[sel] - np.where(first, 0, prev)
+    tables = np.tile(table, mx * my)
+    codes = {k: _huff_codes(k) for k in _K_HUFF}
+    # every field: (sort key, value, bits); key = (block, position, sub)
+    keys, vals, nbits = [], [], []
+
+    def add(key, sym, extra, size, kind, tab):
+        code = np.where(tab == 0, codes[(kind, 0)][0][sym],
+                        codes[(kind, 1)][0][sym])
+        length = np.where(tab == 0, codes[(kind, 0)][1][sym],
+                          codes[(kind, 1)][1][sym])
+        keys.append(key)
+        vals.append((code << size) | (extra & ((1 << size) - 1)))
+        nbits.append(length + size)
+
+    blocks = np.arange(len(dc))
+    s = _category(diff)
+    add(blocks * 260, s, np.where(diff < 0, diff - 1, diff), s, "dc",
+        tables)
+    b, k = np.nonzero(order[:, 1:])
+    k = k + 1
+    v = order[b, k]
+    prev_k = np.where(np.concatenate([[True], b[1:] != b[:-1]]), 0,
+                      np.concatenate([[0], k[:-1]]))
+    run = k - prev_k - 1
+    zrl = run // 16
+    for z in range(1, 4):                    # runs of 16 zeros first
+        sel = zrl >= z
+        add((b[sel] * 65 + k[sel]) * 4 + z - 1, np.full(sel.sum(), 0xF0),
+            np.zeros(sel.sum(), np.int64), np.zeros(sel.sum(), np.int64),
+            "ac", tables[b[sel]])
+    s = _category(v)
+    add((b * 65 + k) * 4 + 3, ((run % 16) << 4) | s,
+        np.where(v < 0, v - 1, v), s, "ac", tables[b])
+    last = np.zeros(len(dc), np.int64)
+    last[b] = k                              # k ascends within a block
+    eob = np.flatnonzero(last < 63)
+    add(eob * 260 + 259, np.zeros(len(eob), np.int64),
+        np.zeros(len(eob), np.int64), np.zeros(len(eob), np.int64), "ac",
+        tables[eob])
+    keys = np.concatenate(keys)
+    order_ = np.argsort(keys, kind="stable")
+    vals = np.concatenate(vals)[order_]
+    nbits = np.concatenate(nbits)[order_]
+    field_interval = interval[keys[order_] // 260]
+    # each interval padded with 1-bits to a whole byte
+    n_int = int(field_interval.max()) + 1
+    bits_per = np.bincount(field_interval, weights=nbits, minlength=n_int
+                           ).astype(np.int64)
+    pad = (-bits_per) % 8
+    ends = np.searchsorted(field_interval, np.arange(n_int), side="right")
+    vals = np.insert(vals, ends, (1 << pad) - 1)
+    nbits = np.insert(nbits, ends, pad)
+    data = _pack(vals, nbits)
+    # stuff a 00 after every FF, then an RSTn after each interval but the
+    # last
+    interval_end = np.cumsum((bits_per + pad) // 8)
+    ff = np.flatnonzero(data == 0xFF)
+    data = np.insert(data, ff + 1, 0)
+    at = interval_end[:-1] + np.searchsorted(ff, interval_end[:-1])
+    rst = 0xD0 + np.arange(n_int - 1) % 8
+    data = np.insert(data, np.repeat(at, 2),
+                     np.stack([np.full(n_int - 1, 0xFF), rst], 1).ravel())
+
+    def segment(marker, payload):
+        return struct.pack(">BBH", 0xFF, marker, len(payload) + 2) + payload
+
+    head = [b"\xff\xd8", segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00"
+                                 b"\x01\x00\x00")]
+    for t in range(1 if grey else 2):
+        head.append(segment(0xDB, bytes([t]) + bytes(
+            quant[t][_ZIGZAG].astype(np.uint8))))
+    sof = struct.pack(">BHHB", 8, H, W, len(comps)) + b"".join(
+        bytes([i + 1, (h << 4) | v, t]) for i, (h, v, t) in enumerate(comps))
+    head.append(segment(0xC0, sof))
+    for (kind, t), (bits, syms) in sorted(_K_HUFF.items()):
+        if t and grey:
+            continue
+        head.append(segment(0xC4, bytes([(kind == "ac") << 4 | t])
+                            + bytes.fromhex(bits) + bytes.fromhex(syms)))
+    if restart_interval:
+        head.append(segment(0xDD, struct.pack(">H", restart_interval)))
+    sos = bytes([len(comps)]) + b"".join(
+        bytes([i + 1, (t << 4) | t]) for i, (_, _, t) in enumerate(comps)
+    ) + b"\x00\x3f\x00"
+    head.append(segment(0xDA, sos))
+    with open(path, "wb") as f:
+        f.write(b"".join(head) + data.tobytes() + b"\xff\xd9")
 
 
 def texture(H: int, W: int, shift: float, seed: int) -> np.ndarray:
@@ -284,3 +577,98 @@ def write_kitti360(root, H: int, W: int, xs: Sequence[float],
         for i in range(len(xs)):
             velodyne_scan(seed * 1000 + i).tofile(
                 os.path.join(d, "%010d.bin" % i))
+
+
+# nuScenes' CAM_FRONT intrinsics at 1600x900 (the devkit's v1.0 calibration)
+NUSC_W, NUSC_H = 1600, 900
+_NUSC_K = [1266.417, 0.0, 816.267, 0.0, 1266.417, 491.507, 0.0, 0.0, 1.0]
+# the devkit's channel order (``camera_type_indexes``)
+NUSC_CHANNELS = ("CAM_FRONT", "CAM_FRONT_RIGHT", "CAM_BACK_RIGHT",
+                 "CAM_BACK", "CAM_BACK_LEFT", "CAM_FRONT_LEFT")
+
+
+def nusc_intrinsics(H: int, W: int) -> np.ndarray:
+    K = np.asarray(_NUSC_K, np.float64).reshape(3, 3).copy()
+    K[0] *= W / NUSC_W
+    K[1] *= H / NUSC_H
+    return K
+
+
+def nusc_extrinsics(cam: str) -> np.ndarray:
+    """camera -> ego, 4x4: CAM_FRONT looks along the ego's x axis,
+    CAM_BACK against it, both level and at the ego's origin (the two
+    cameras the trees hold)."""
+    T = np.eye(4)
+    sign = 1.0 if cam == "CAM_FRONT" else -1.0
+    # columns: the camera's x (right), y (down) and z (forward) in the ego
+    T[:3, :3] = [[0.0, 0.0, sign], [-sign, 0.0, 0.0], [0.0, -1.0, 0.0]]
+    return T
+
+
+def _nusc_pose(step: float) -> np.ndarray:
+    T = np.eye(4)
+    T[2, 3] = -step
+    return T
+
+
+def write_nusc_json_tree(root, H: int, W: int, n_train: int, n_val: int,
+                         seed: int = 0, quality: int = 90,
+                         subsampling: str = "4:2:0",
+                         restart_interval: int = 0, depth_map=None,
+                         cams: Sequence[str] = ("CAM_FRONT", "CAM_BACK")
+                         ) -> dict:
+    """A nuScenes tree under ``root``: per camera of ``cams`` a sequence of
+    JPEG frames ``samples/<CAM>/<CAM>__<k>.jpg`` (H x W seeded textures, 4
+    pixels apart); ``n_train`` training samples, the cameras in turn, each
+    a frame and its two neighbours in ``json_train.json``, and ``n_val`` of
+    the same frames in ``json_val.json`` (the keys ``NusceneJsonDataset``
+    reads, absolute paths); ``nusc_val.txt`` of one token a val sample;
+    with ``depth_map`` (``generate_depth_map``'s signature), each val
+    frame's ground truth from a seeded scan as a 16-bit PNG (metres x 256)
+    under ``samples_depth_gt/<CAM>/``. Returns the paths and the frames
+    written."""
+    root = str(root)
+    per_cam = -(-max(n_train, n_val) // len(cams))
+    frames = {}
+    for c, cam in enumerate(cams):
+        d = os.path.join(root, "samples", cam)
+        os.makedirs(d, exist_ok=True)
+        for k in range(per_cam + 2):
+            path = os.path.join(d, f"{cam}__{k:06d}.jpg")
+            write_jpeg(path, texture(H, W, 4.0 * k, seed * 1000 + 10 * k + c),
+                       quality, subsampling, restart_interval)
+            frames[cam, k] = path
+    K = nusc_intrinsics(H, W)
+    pose = _nusc_pose(0.9)
+
+    def sample(i):
+        cam = cams[i % len(cams)]
+        k = i // len(cams) + 1
+        return {"frame0": frames[cam, k], "frame1": frames[cam, k + 1],
+                "frame-1": frames[cam, k - 1], "P2": K.ravel().tolist(),
+                "pose01": pose.ravel().tolist(),
+                "pose0-1": np.linalg.inv(pose).ravel().tolist(),
+                "camera_type_indexes": NUSC_CHANNELS.index(cam),
+                "camera_type": cam}
+
+    out = dict(root=root, frames=sorted(frames.values()))
+    for split, n in (("train", n_train), ("val", n_val)):
+        out[split] = os.path.join(root, f"json_{split}.json")
+        with open(out[split], "w") as f:
+            json.dump({"samples": [sample(i) for i in range(n)]}, f)
+    out["split"] = write_split(os.path.join(root, "nusc_val.txt"),
+                               [f"token{i:04d}" for i in range(n_val)])
+    out["gt"] = os.path.join(root, "samples_depth_gt")
+    if depth_map is not None:
+        for i in range(n_val):
+            s = sample(i)
+            cam = s["camera_type"]
+            os.makedirs(os.path.join(out["gt"], cam), exist_ok=True)
+            velo = velodyne_scan(seed * 1000 + 500 + i)
+            if cam == "CAM_BACK":              # the scan turned to face it
+                velo[:, :2] = -velo[:, :2]
+            depth = depth_map(velo, nusc_extrinsics(cam), K, im_shape=(H, W))
+            name = os.path.basename(s["frame0"])[:-4] + ".png"
+            write_png(os.path.join(out["gt"], cam, name),
+                      (depth * 256).astype(np.uint16), level=1)
+    return out

@@ -18,8 +18,11 @@ loop's evaluation, on the CPU, on trees written by ``tests/disk_trees.py``
   then an evaluation of 2 frames, equal to ``test.main`` on the saved
   checkpoint, in-process and with a loader worker; ``train.main`` and ``test.main`` raise at config load on a
   ``precompute_hook`` and on an evaluator the port lacks;
-* the port's copies of ``configs/kitti_wpose_example.py`` and
-  ``configs/kitti360_wpose_example.py`` equal to them, names aside.
+* the port's copies of ``configs/kitti_wpose_example.py``,
+  ``kitti360_wpose_example.py``, ``nusc_wpose_example.py``,
+  ``distill_nusc_example.py``, ``multi_dataset_example.py``,
+  ``distill_kitti_example.py`` and ``distill_kitti360_example.py`` equal
+  to them, names aside.
 """
 import os
 
@@ -316,8 +319,8 @@ HOOK = "fsnet_tpu_torch.pipeline_hooks.evaluation_hooks"
     ("train", "trainer.evaluate_hook.name",
      f"{HOOK}.KittiEvaluationHook_postopt", "KittiEvaluationHook_postopt"),
     ("test", "trainer.evaluate_hook.dataset_eval_cfg.name",
-     "fsnet_tpu_torch.evaluation.nuscenes_unsupervised_eval."
-     "NuscenesEvaluator", "NuscenesEvaluator"),
+     "fsnet_tpu_torch.evaluation.kitti360_fisheye_eval."
+     "Kitti360FisheyeEvaluator", "Kitti360FisheyeEvaluator"),
 ])
 def test_unported_hooks_raise(tmp_path, no_writer, script, key, value,
                               match):
@@ -344,8 +347,18 @@ def _plain(node):
     return node
 
 
+# the evaluation hook of each copy (KittiEvaluationHook where not named)
+COPY_HOOKS = {"nusc_wpose_example.py": "FastNuscEvaluationHook",
+              "distill_nusc_example.py": "FastNuscEvaluationHook"}
+
+
 @pytest.mark.parametrize("name", ["kitti_wpose_example.py",
-                                  "kitti360_wpose_example.py"])
+                                  "kitti360_wpose_example.py",
+                                  "nusc_wpose_example.py",
+                                  "distill_nusc_example.py",
+                                  "multi_dataset_example.py",
+                                  "distill_kitti_example.py",
+                                  "distill_kitti360_example.py"])
 def test_config_copy_matches_shipped(name):
     from fsnet_tpu.utils import cfg_from_file as jax_cfg
 
@@ -355,4 +368,4 @@ def test_config_copy_matches_shipped(name):
     for key in ref:
         assert got[key] == ref[key], key
     assert got["trainer"]["evaluate_hook"]["name"].endswith(
-        "KittiEvaluationHook")
+        COPY_HOOKS.get(name, "KittiEvaluationHook"))
