@@ -341,8 +341,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     [min_depth, max_depth];
 41. readings, beside the card's name and power limit: ``dataset[i]``
     alone (ms a sample), the loader alone (4 workers, ms a batch over the
-    last 20 of an epoch of 24), the loop (``train.main``, one epoch of 24
-    steps): step wall, loader wait and imgs/s over the last 20 steps, and
+    last 12 of an epoch of 16), the loop (``train.main``, one epoch of 16
+    steps): step wall, loader wait and imgs/s over the last 12 steps, and
     its first step apart, the epoch-boundary reading that phase 40's
     epochs of 3 steps also give; and phase 35's grid-route bf16 step with
     the batch on the card;
@@ -397,7 +397,39 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     checkpoint of seeded weights written by the port's checkpoint save:
     every step launches what phase 37's ``distill_nusc`` step launches,
     the teacher bitwise unchanged after the steps, the evaluation's
-    metrics finite.
+    metrics finite;
+47. the KITTI-360 fisheye recipe from a PNG tree written by
+    ``tests/disk_trees.py`` (two Mei cameras, ``image_02`` and
+    ``image_03``, 16 frames of each at 1400x1400, the cameras'
+    extrinsics, poses 0.8 m apart, 30,000-point scans of the 8 val
+    frames): ``dataset[i]`` beside the synthetic render, in turns; the
+    ground truth of ``Kitti360FisheyeEvaluator`` (close-range pixels in
+    every frame); ``scripts/train.py``'s ``main`` on the port's
+    ``configs/kitti360_fisheye_example.py`` (bf16, bs16 @384x384, 4 loader
+    workers, 48 samples: one epoch of 3 steps, ``test_iter=1``), the
+    counters set to 0 just before each step and each evaluation forward
+    and read just after: every step launches what phase 37's fisheye bf16
+    step launches, by dtype and route, every batch holds both cameras, and
+    kernels G and H of the first step equal their plain versions on that
+    step's own operands (per-sample camera rows; phase 36's gates); each
+    evaluation forward 14 conv3x3 and nothing else; ``scripts/test.py`` on
+    the checkpoint gives the loop's evaluation (1e-6 relative) and, on the
+    CPU port, the continuous metrics within 1e-3; readings: each step's
+    wall and loader wait, the evaluation's frames per second;
+48. FusionPortable: a written tree (OpenCV yaml calibration, TUM
+    odometry, 7 PNG frames a camera at 768x1024, Ouster scans as ASCII and
+    binary PCD); ``dataset[i]`` under an identity augmentation (both
+    cameras drawn) and ``FusionPortableEvaluator``'s ground truth equal to
+    SHA-256 digests recorded on the CPU, where the JAX package computed
+    them; one ``KittiEvaluationHook`` pass of the flagship model over 4
+    frames, each forward 14 conv3x3 and nothing else;
+49. export: the flagship's ``dummy_forward`` at bs1 @192x640 float32
+    exported with ``torch.export`` on the card (the decoder's 14 convs as
+    the registered operator ``torch.ops.fsnet_tpu_torch.conv3x3``), saved,
+    reloaded and run in a fresh Python process: within 1e-4 of the live
+    model, 14 conv3x3 launches a run; the export, the reloaded and the live
+    forward timed; the bs1 ``forward_test`` wall with the operator's
+    dispatch and with the wrapper's launch alone, in turns.
 
 Every train step (phases 9, 13, 14, 19, 27, 29) launches the forward
 kernel twice (the warped stack and the identity stack) and the cotangent
@@ -4419,7 +4451,7 @@ def train_loop_phase(counters, record):
 # makes the first batch alone, the loader drains at each epoch's end) is
 # paid once: RATE_BATCHES batches, the steady pace read over the last
 # RATE_STEADY; dataset[i] timed over RATE_SAMPLES samples
-RATE_BATCHES, RATE_STEADY, RATE_SAMPLES = 24, 20, 12
+RATE_BATCHES, RATE_STEADY, RATE_SAMPLES = 16, 12, 12
 
 
 def sample_ms(config=FLAGSHIP_CONFIG, samples=RATE_SAMPLES) -> float:
@@ -4440,9 +4472,9 @@ def sample_ms(config=FLAGSHIP_CONFIG, samples=RATE_SAMPLES) -> float:
 
 def loop_readings(record, loop):
     """Phase 41, readings only: ``dataset[i]`` alone (one process, ms a
-    sample); the loader alone (4 workers, one epoch of 24 batches, ms a
-    batch over the last 20); the loop, ``train.main`` over one epoch of 24
-    steps: its step wall, loader wait and imgs/s over the last 20 steps,
+    sample); the loader alone (4 workers, one epoch of 16 batches, ms a
+    batch over the last 12); the loop, ``train.main`` over one epoch of 16
+    steps: its step wall, loader wait and imgs/s over the last 12 steps,
     and its first step apart (the epoch-boundary reading, as are phase
     40's epochs of 3 steps); and phase 35's grid-route bf16 step with the
     batch on the card."""
@@ -5241,6 +5273,610 @@ def distill_recipe_phase(counters, record, tree):
     return out
 
 
+# phase 47: the KITTI-360 fisheye recipe from a PNG tree written on disk
+FISH_CONFIG = (ROOT / "fsnet_tpu_torch" / "configs"
+               / "kitti360_fisheye_example.py")
+FISH_MASK = ROOT / "meta_data" / "kitti360_trainsub" / "fisheye_mask.png"
+FISH_DIR = ROOT / "build" / "fisheye_tree"
+# 16 frames a camera at 1400x1400; 48 training samples (3 steps of 16) on
+# the 14 frames that have both neighbours, 8 val frames with scans;
+# dataset[i] timed over FISH_SAMPLES samples a run, two runs
+FISH_FRAMES, FISH_STEPS, FISH_SAMPLES = 16, 3, 4
+FISH_VAL_FRAMES = (1, 3, 5, 7, 9, 11, 13, 14)
+
+
+def write_fisheye_tree(dt, batch):
+    """A KITTI-360 fisheye tree at 1400x1400 under ``build/fisheye_tree``
+    (``disk_trees.write_kitti360_fisheye``: two Mei cameras, 16 frames of
+    each, scans of the val frames), a train meta file of ``FISH_STEPS *
+    batch`` samples and a val list. Returns the paths and the seconds it
+    took."""
+    import shutil
+
+    shutil.rmtree(FISH_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    out = dt.write_kitti360_fisheye(str(FISH_DIR), dt.FISHEYE_H,
+                                    dt.FISHEYE_W, FISH_FRAMES,
+                                    velodyne=FISH_VAL_FRAMES)
+    centres = range(1, FISH_FRAMES - 1)
+    out["train"] = dt.write_split(FISH_DIR / "train.txt", [
+        dt.fisheye_meta(centres[i % len(centres)])
+        for i in range(FISH_STEPS * batch)])
+    out["val"] = dt.write_split(FISH_DIR / "val.txt", [
+        dt.fisheye_meta(k) for k in FISH_VAL_FRAMES])
+    out["gt"] = str(FISH_DIR / "fisheye_gt_depth.npz")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def fish_overrides(tree, ckpt_dir, **extra):
+    """``kitti360_fisheye_example.py`` pointed at the written tree, one
+    epoch evaluated after it, the encoder from seeded random weights and
+    the evaluation loader in-process."""
+    ev = "trainer.evaluate_hook."
+    return {"train_dataset.cfg_list": [dict(
+                name="fsnet_tpu_torch.data.datasets.fisheye_dataset."
+                     "KITTI360FisheyeDataset", raw_path=tree["root"],
+                split_file=tree["train"], fisheye_mask=str(FISH_MASK))],
+            "val_dataset.raw_path": tree["root"],
+            "val_dataset.split_file": tree["val"],
+            ev + "dataset_eval_cfg.data_path": tree["root"],
+            ev + "dataset_eval_cfg.split_file": tree["val"],
+            ev + "dataset_eval_cfg.gt_saved_file": tree["gt"],
+            ev + "num_workers": 0,
+            "meta_arch.depth_backbone_cfg.pretrained": False,
+            "trainer.max_epochs": 1, "trainer.test_iter": 1,
+            "trainer.disp_iter": 1, "path.checkpoint_path": str(ckpt_dir),
+            **extra}
+
+
+def fish_sample_ms(tree, samples=FISH_SAMPLES):
+    """``dataset[i]`` of the fisheye recipe's train dataset on the written
+    tree (three 1400x1400 PNG reads, the mask's resize, the train graph to
+    384x384 and the ray map) in one process: (ms of the first call, whose
+    ray map is computed cold, and ms a sample over the next ``samples``)."""
+    from fsnet_tpu_torch.utils import build, cfg_from_file, update_cfg
+
+    cfg = update_cfg(cfg_from_file(str(FISH_CONFIG)),
+                     **fish_overrides(tree, FISH_DIR / "unused"))
+    dataset = build(**cfg.train_dataset)
+    t0 = time.perf_counter()
+    dataset[len(dataset) - 1]
+    first = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for i in range(samples):
+        dataset[i]
+    return first, (time.perf_counter() - t0) / samples * 1e3
+
+
+class MeiWatch:
+    """Keeps kernel G's operands and outputs and kernel H's of the first
+    train step, by wrapping ``warp_mei._launch_fwd`` and
+    ``WarpMeiFunction.backward``; the wrappers' counters are not touched
+    and no launch is added."""
+
+    def __init__(self):
+        from fsnet_tpu_torch.ops import warp_mei as twm
+
+        self.twm, self.fwd, self.bwd = twm, None, None
+        self.saved = launch, backward = (twm._launch_fwd,
+                                         twm.WarpMeiFunction.backward)
+        watch = self
+
+        def launched(route, image, mask, norm, rays, rows, S, F, band,
+                     with_mask):
+            out = launch(route, image, mask, norm, rays, rows, S, F, band,
+                         with_mask)
+            if watch.fwd is None:
+                watch.fwd = dict(
+                    args=[t.clone() for t in (image, mask, norm, rays,
+                                              rows)],
+                    meta=(S, F, band, with_mask, route),
+                    out=[None if t is None else t.clone() for t in out])
+            return out
+
+        def watched(ctx, g, o):
+            grads = backward(ctx, g, o)
+            if watch.bwd is None:
+                norm, rays, rows, va, vb = ctx.saved_tensors
+                watch.bwd = dict(args=[t.clone() for t in (
+                    norm, rays, g.contiguous(), va, vb, rows)],
+                    meta=(ctx.S, ctx.F), dnorm=grads[2].clone())
+            return grads
+
+        twm._launch_fwd = launched
+        twm.WarpMeiFunction.backward = staticmethod(watched)
+
+    def close(self):
+        self.twm._launch_fwd = self.saved[0]
+        self.twm.WarpMeiFunction.backward = staticmethod(self.saved[1])
+
+
+def check_step_mei(watch):
+    """Phase 47: kernel G's and H's launches of one loop step against
+    their plain versions on the same operands, at phase 36's gates (G's
+    out, va, vb and overlap bitwise; H within 1e-6 of the largest entry,
+    one bf16 ulp beyond it where d norm is bfloat16). Returns the
+    readings."""
+    twm = watch.twm
+    image, mask, norm, rays, rows = watch.fwd["args"]
+    S, F, band, with_mask, route = watch.fwd["meta"]
+    ref = twm.warp_mei_plain(image, mask, norm, rays, rows, S, F, band,
+                             with_mask)
+    out = watch.fwd["out"]
+    fwd = max(float((a.float() - r.float()).abs().max())
+              for a, r in zip((out[0], out[2], out[3]),
+                              (ref[0], ref[2], ref[3])))
+    ov = int((out[1] != ref[1]).sum())
+    nrm, rays_b, g, va, vb, rows_b = watch.bwd["args"]
+    dn_ref = twm.warp_mei_bwd_plain(nrm, rays_b, g, va, vb, rows_b,
+                                    *watch.bwd["meta"])
+    dn = watch.bwd["dnorm"]
+    diff = (dn.float() - dn_ref.float()).abs()
+    if dn.dtype == BF16:
+        big = torch.maximum(dn.float().abs(), dn_ref.float().abs())
+        diff = (diff - bf16_ulp(big)).clamp(min=0.0)
+    bwd = diff.max().item() / dn_ref.float().abs().max().item()
+    B = rays.shape[0]
+    cams = rows[:B, 12:19].double().cpu().numpy()
+    out = dict(route=route, image_dtype=str(image.dtype).split(".")[-1],
+               norm_dtype=str(norm.dtype).split(".")[-1],
+               fwd_max_abs_err=fwd, overlap_mismatches=ov,
+               bwd_rel_err=bwd, warps=int(rows.shape[0]),
+               cameras=len({tuple(c[:3]) for c in cams}),
+               camera_rows=len({tuple(c) for c in cams}))
+    check(fwd == 0 and ov == 0, f"phase 47: kernel G on the step's "
+          f"operands: max abs err {fwd:.2e}, {ov} overlap mismatches")
+    check(bwd <= 1e-6, f"phase 47: kernel H on the step's operands: "
+          f"{bwd:.2e} of the largest entry > 1e-6")
+    check(out["cameras"] == 2, f"phase 47: the step's rows hold "
+          f"{out['cameras']} cameras")
+    return out
+
+
+def fisheye_recipe_phase(counters, record):
+    """Phase 47: ``train.main`` on the port's
+    ``kitti360_fisheye_example.py`` pointed at a written 1400x1400 tree
+    (bf16, bs16 @384x384, 4 loader workers, one epoch of 3 steps, then the
+    evaluation of 8 frames through ``KittiEvaluationHook`` and
+    ``Kitti360FisheyeEvaluator``); every step's launches, dtypes and routes
+    phase 37's fisheye step's, both cameras in every batch, G and H of the
+    first step against their plain versions on its own operands; each
+    evaluation forward 14 conv3x3 and nothing else; ``test.main`` on the
+    saved checkpoint on the card and on the CPU; readings."""
+    from fsnet_tpu_torch.evaluation.kitti360_fisheye_eval import \
+        Kitti360FisheyeEvaluator
+    from fsnet_tpu_torch.scripts import test as test_script
+    from fsnet_tpu_torch.scripts import train as train_script
+    from fsnet_tpu_torch.utils import cfg_from_file, update_cfg
+
+    dt = disk_trees()
+    cfg0 = cfg_from_file(str(FISH_CONFIG))
+    tree = write_fisheye_tree(dt, cfg0.data.batch_size)
+    synth, disk, first = [], [], []
+    for _ in range(2):               # in turns: synthetic, fisheye tree
+        synth.append(sample_ms(samples=FISH_SAMPLES))
+        f, d = fish_sample_ms(tree)
+        first.append(f)
+        disk.append(d)
+    t0 = time.perf_counter()
+    gt = Kitti360FisheyeEvaluator(tree["root"], tree["val"], tree["gt"])
+    gt_s = time.perf_counter() - t0
+    close = [int(m.sum()) for m in gt.close_masks]
+    check(len(gt.gt_depths) == len(FISH_VAL_FRAMES) and all(
+        d.shape == (dt.FISHEYE_H, dt.FISHEYE_W) for d in gt.gt_depths)
+        and min(close) > 100, f"phase 47: ground truth "
+        f"{[(d.shape, int((d > 0).sum())) for d in gt.gt_depths]}, close "
+        f"{close}")
+
+    want = record["bf16_recipe_steps"]["fisheye"]
+    over = fish_overrides(tree, FISH_DIR / "ckpt")
+    loop = LoopWatch(counters, keep=("fisheye_params", "P2"))
+    ev_watch, mei = EvalWatch(counters), MeiWatch()
+    try:
+        t0 = time.perf_counter()
+        run = train_script.main(config=str(FISH_CONFIG), device="cuda",
+                                **over)
+        run_s = time.perf_counter() - t0
+    finally:
+        loop.close()
+        ev_watch.close()
+        mei.close()
+    check(len(loop.steps) == FISH_STEPS and run["global_step"]
+          == FISH_STEPS, f"phase 47: {len(loop.steps)} steps")
+    batch_cams = []
+    for i, s in enumerate(loop.steps):
+        check(s["launches"] == want["launches"], f"phase 47 step {i}: "
+              f"launches {s['launches']}, phase 37's {want['launches']}")
+        check(all(s["dtypes"][k] == v for k, v in want["dtypes"].items()),
+              f"phase 47 step {i}: launches by dtype {s['dtypes']}")
+        check(all(s["routes"][k] == v for k, v in want["routes"].items()),
+              f"phase 47 step {i}: routes {s['routes']}, phase 37's "
+              f"{want['routes']}")
+        params = s["batch"]["fisheye_params"].double().numpy()
+        u0 = s["batch"]["P2"][:, 0, 2].double().numpy()
+        batch_cams.append(dict(cameras=len({tuple(p) for p in params}),
+                               u0=len(set(u0.tolist()))))
+        check(batch_cams[-1]["cameras"] == 2, f"phase 47 step {i}: the "
+              f"batch holds {batch_cams[-1]['cameras']} cameras")
+    mei_check = check_step_mei(mei)
+    losses = [e["loss"] for e in run["log"]]
+    check(len(losses) == FISH_STEPS and all(np.isfinite(losses)),
+          f"phase 47: losses {losses}")
+    one = dict(dict.fromkeys(ev_watch.forwards[0], 0), conv3x3=len(SHAPES))
+    check(len(ev_watch.forwards) == len(FISH_VAL_FRAMES)
+          and all(f == one for f in ev_watch.forwards),
+          f"phase 47: {len(ev_watch.forwards)} evaluation forwards, "
+          f"launches {ev_watch.forwards[:2]}")
+    check(len(run["evals"]) == 1, f"phase 47: {len(run['evals'])} "
+          "evaluations")
+    ev = run["evals"][0]
+    check(all(np.isfinite(ev[k]).all() and ev[k].shape == (7,)
+              for k in ("errors", "abs_errors")), f"phase 47: {ev}")
+
+    t0 = time.perf_counter()
+    card = test_script.main(config=str(FISH_CONFIG),
+                            checkpoint=run["checkpoint"], device="cuda",
+                            **over)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = test_script.main(config=str(FISH_CONFIG),
+                           checkpoint=run["checkpoint"], device="cpu", **over)
+    cpu_s = time.perf_counter() - t0
+    same = max(rel_max(card[k], ev[k]) for k in ("errors", "abs_errors"))
+    check(card["samples"] == len(FISH_VAL_FRAMES) and same <= 1e-6,
+          f"phase 47: test.main {card} against the loop's evaluation {ev}")
+    vs_cpu = max(rel_max(card[k][:4], cpu[k][:4])
+                 for k in ("errors", "abs_errors"))
+    a_vs_cpu = max(float(np.abs(card[k][4:] - cpu[k][4:]).max())
+                   for k in ("errors", "abs_errors"))
+    check(vs_cpu <= 1e-3, f"phase 47: card vs CPU metrics rel {vs_cpu:.3e}"
+          f" > 1e-3: card {card}, CPU {cpu}")
+    log = run["log"]
+    n_val = len(FISH_VAL_FRAMES)
+    out = dict(card=record["card"], tree_write_s=tree["seconds"],
+               gt_precompute_s=gt_s, close_pixels=close,
+               fish_sample_ms=disk, fish_first_sample_ms=first,
+               synthetic_sample_ms=synth, run_s=run_s, losses=losses,
+               launches=want["launches"], batch_cameras=batch_cams,
+               mei_step=mei_check, eval_launches_per_frame=one,
+               errors=ev["errors"].tolist(),
+               abs_errors=ev["abs_errors"].tolist(), eval_s=ev["seconds"],
+               eval_frames_per_s=n_val / ev["seconds"],
+               test_main_card_s=card_s, test_main_cpu_s=cpu_s,
+               test_main_vs_loop_rel=same, card_vs_cpu_rel=vs_cpu,
+               card_vs_cpu_a_abs=a_vs_cpu,
+               walls_ms=[e["wall_ms"] for e in log],
+               waits_ms=[e["wait_ms"] for e in log])
+    cfg = update_cfg(cfg0, **over)
+    print(f"phase 47 ({record['card']}): tree of {FISH_FRAMES} 1400x1400 "
+          f"frames a camera written in {tree['seconds']:.1f} s; dataset[i] "
+          f"{', '.join(f'{v:.1f}' for v in disk)} ms a sample (first, cold "
+          f"ray map: {', '.join(f'{v:.1f}' for v in first)}) against the "
+          f"synthetic render's {', '.join(f'{v:.1f}' for v in synth)} "
+          f"(alternated, {FISH_SAMPLES} samples each); train.main on "
+          f"{FISH_CONFIG.name} ({cfg.trainer.training_hook.compute_dtype} "
+          f"bs{cfg.data.batch_size}@{cfg.data.rgb_shape[0]}x"
+          f"{cfg.data.rgb_shape[1]}, {cfg.data.num_workers} workers): "
+          f"{FISH_STEPS} steps, losses {[round(x, 6) for x in losses]}, "
+          f"launches per step phase 37's fisheye step, cameras per batch "
+          f"{batch_cams}; the first step's G ({mei_check['route']} route, "
+          f"{mei_check['image_dtype']} image, {mei_check['norm_dtype']} "
+          f"norm, {mei_check['camera_rows']} distinct camera rows) bitwise "
+          f"equal to its plain version, H {mei_check['bwd_rel_err']:.2e} of "
+          f"the largest entry; step walls "
+          f"{[round(v, 1) for v in out['walls_ms']]} ms, loader waits "
+          f"{[round(v, 1) for v in out['waits_ms']]} ms; evaluation of "
+          f"{n_val} frames, {one['conv3x3']} conv3x3 launches each and "
+          f"nothing else, {ev['seconds']:.2f} s = "
+          f"{out['eval_frames_per_s']:.2f} frames/s; abs_rel "
+          f"{ev['errors'][0]:.4f} (scaled) {ev['abs_errors'][0]:.4f} "
+          f"(absolute); test.main on the card equal to the loop's within "
+          f"{same:.1e}, against the CPU port's {vs_cpu:.2e} rel (a1-a3 "
+          f"{a_vs_cpu:.2e}); ground truth in {gt_s:.2f} s ({close} close "
+          f"pixels); run {run_s:.1f} s, test.main {card_s:.1f} s card, "
+          f"{cpu_s:.1f} s CPU")
+    return out
+
+
+# phase 48: FusionPortable on the card machine
+FUSION_DIR = ROOT / "build" / "fusion_tree"
+FUSION_FRAMES, FUSION_VAL = 7, (1, 2, 3, 4)
+FUSION_SEEDS = (0, 1, 2)
+
+
+def write_fusion_tree(dt, root):
+    """The FusionPortable tree of phase 48 under ``root``: 7 frames a
+    camera at 768x1024 (frame 5 repeats frame 4's pose, so the static
+    filter drops the samples centred on 4 and 5), 30,000-point Ouster
+    scans (ASCII PCD for even frames, binary for odd ones), a train split
+    of the 5 frames with both neighbours and a val split of 4. Returns the
+    paths."""
+    out = dt.write_fusionportable(str(root), dt.FUSION_H, dt.FUSION_W,
+                                  FUSION_FRAMES, static=(5,))
+    out["train"] = dt.write_split(Path(root) / "train.txt",
+                                  map(str, range(1, FUSION_FRAMES - 1)))
+    out["val"] = dt.write_split(Path(root) / "val.txt",
+                                map(str, FUSION_VAL))
+    out["gt"] = str(Path(root) / "fusion_gt.npz")
+    return out
+
+
+def fusion_digests(dataset, evaluator):
+    """SHA-256 of ``dataset[i]`` under an identity augmentation, sample i
+    drawn after its camera generator is set to ``RandomState(FUSION_SEEDS
+    [i])`` (every key; the relative poses, whose rotations come from
+    scipy, rounded to 1e-6 first), and of each ground-truth map of
+    ``evaluator``. Works on the JAX package's dataset too (its generator
+    is numpy's global state)."""
+    samples = []
+    for i, seed in enumerate(FUSION_SEEDS):
+        if hasattr(dataset, "rng"):
+            dataset.rng = np.random.RandomState(seed)
+        np.random.seed(seed)
+        sample = dataset[i]
+        keys = {}
+        for k in sorted(sample, key=str):
+            v = np.asarray(sample[k])
+            if k[0] == "relative_pose":
+                v = np.round(v.astype(np.float64), 6)
+            keys[str(k)] = (f"{v.dtype}{v.shape}:"
+                            f"{sha256(np.ascontiguousarray(v).tobytes())}")
+        samples.append(sha256(json.dumps(keys, sort_keys=True).encode()))
+    return dict(samples=samples, gt=[
+        sha256(np.ascontiguousarray(d, np.float32).tobytes())
+        for d in evaluator.gt_depths])
+
+
+# recorded on the CPU (numpy 2.0.2, scipy 1.17.0, PyYAML 6.0.3) from the JAX
+# package's dataset and evaluator, which the port's equal there
+# (tests/test_torch_fusionportable.py); the card machine has no JAX
+FUSION_DIGESTS = dict(
+    samples=[
+        "55a8493ef83b7d8457f1cdc58651ce19a6ff6504f93f66782607517ee46fd135",
+        "d43f5fec007801d2631f5b3126dfa7b50a42431df2b1d76f4abb689b6a5220ee",
+        "f5b3ecc067536857c5dbd229fd61395e82c355aac362221d7a97c86b14a94933"],
+    gt=["f5d307ee8993941f93d6c21afc085344ca58345f7c5faefe73d6d0d42df68bf3",
+        "32bc96a01277a733651fb0d553ae994cee174f1832a9526f54274c2bbb9d9746",
+        "55d300db247888b333da81dfa4028e85bc19e7ca4db5c9c930fd4394121766f7",
+        "de59f31739c471a135581222ac3fd9716093241c2c8493d9bdc224804df73f8b"])
+
+
+def fusion_phase(counters, record):
+    """Phase 48: FusionPortable on the card machine: a written tree
+    (OpenCV yaml calibration, TUM odometry, PNG frames, PCD scans in ASCII
+    and binary); ``dataset[i]`` and ``FusionPortableEvaluator``'s ground
+    truth against the digests recorded on the CPU; one
+    ``KittiEvaluationHook`` pass of the flagship model over the 4 val
+    frames, each forward 14 conv3x3 and nothing else."""
+    import shutil
+
+    from fsnet_tpu_torch.configs.common import wpose_augmentation
+    from fsnet_tpu_torch.entry import flagship_model
+    from fsnet_tpu_torch.evaluation.fusionportable_eval import \
+        FusionPortableEvaluator
+    from fsnet_tpu_torch.utils import build
+    from fsnet_tpu_torch.utils.easydict import EasyDict as edict
+
+    dt = disk_trees()
+    shutil.rmtree(FUSION_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    tree = write_fusion_tree(dt, FUSION_DIR)
+    write_s = time.perf_counter() - t0
+    ds_name = ("fsnet_tpu_torch.data.datasets.fusionportable_dataset."
+               "FusionportableMonoDataset")
+    dataset = build(name=ds_name, base_path=tree["root"],
+                    split_file=tree["train"], odom_file=tree["odom"],
+                    frame_idxs=[0, 1, -1], augmentation=edict(
+                        name="fsnet_tpu_torch.data.augmentations.EmptyAug"))
+    t0 = time.perf_counter()
+    gt = FusionPortableEvaluator(tree["root"], tree["val"], tree["gt"])
+    gt_s = time.perf_counter() - t0
+    digests = fusion_digests(dataset, gt)
+    check(len(dataset) == FUSION_FRAMES - 4, f"phase 48: {len(dataset)} "
+          "samples after the static filter")
+    check(digests == FUSION_DIGESTS, f"phase 48: digests {digests} "
+          f"differ from those recorded on the CPU {FUSION_DIGESTS}")
+    filled = [int((d > 0).sum()) for d in gt.gt_depths]
+    check(min(filled) > 1000, f"phase 48: ground truth filled {filled}")
+
+    model = flagship_model(HEIGHT, WIDTH, device="cuda", seed=0)
+    val = build(name=ds_name, base_path=tree["root"], split_file=tree["val"],
+                odom_file=tree["odom"], frame_idxs=[0, 1, -1],
+                is_filter_static=False, use_right_image=False,
+                augmentation=wpose_augmentation(
+                    edict(rgb_shape=(HEIGHT, WIDTH, 3)), [0, 1, -1],
+                    train=False))
+    hook = build(
+        name="fsnet_tpu_torch.pipeline_hooks.evaluation_hooks."
+             "KittiEvaluationHook",
+        test_run_hook_cfg=dict(
+            name="fsnet_tpu_torch.pipeline_hooks.train_val_hooks."
+                 "BaseValidationHook"),
+        dataset_eval_cfg=dict(
+            name="fsnet_tpu_torch.evaluation.fusionportable_eval."
+                 "FusionPortableEvaluator", data_path=tree["root"],
+            split_file=tree["val"], gt_saved_file=tree["gt"]),
+        num_workers=0, device="cuda")
+    ev_watch = EvalWatch(counters)
+    try:
+        t0 = time.perf_counter()
+        errors, abs_errors = hook(model, val)
+        eval_s = time.perf_counter() - t0
+    finally:
+        ev_watch.close()
+    one = dict(dict.fromkeys(ev_watch.forwards[0], 0), conv3x3=len(SHAPES))
+    check(len(ev_watch.forwards) == len(FUSION_VAL)
+          and all(f == one for f in ev_watch.forwards),
+          f"phase 48: {len(ev_watch.forwards)} evaluation forwards, "
+          f"launches {ev_watch.forwards[:2]}")
+    check(all(np.isfinite(s).all() and s.shape == (7,)
+              for s in (errors, abs_errors)), f"phase 48: {errors}, "
+          f"{abs_errors}")
+    out = dict(card=record["card"], tree_write_s=write_s, gt_s=gt_s,
+               gt_filled=filled, digests=digests,
+               eval_launches_per_frame=one, errors=errors.tolist(),
+               abs_errors=abs_errors.tolist(), eval_s=eval_s,
+               eval_frames_per_s=len(FUSION_VAL) / eval_s)
+    print(f"phase 48 ({record['card']}): FusionPortable tree of "
+          f"{FUSION_FRAMES} frames a camera at {dt.FUSION_H}x{dt.FUSION_W} "
+          f"written in {write_s:.1f} s; {len(dataset)} samples after the "
+          f"static filter, dataset[i] of {len(FUSION_SEEDS)} samples and the "
+          f"ground truth of {len(FUSION_VAL)} frames ({filled} pixels, "
+          f"{gt_s:.2f} s) equal to the digests recorded on the CPU; "
+          f"KittiEvaluationHook with FusionPortableEvaluator over "
+          f"{len(FUSION_VAL)} frames, {one['conv3x3']} conv3x3 launches a "
+          f"forward and nothing else, abs_rel {errors[0]:.4f} (scaled) "
+          f"{abs_errors[0]:.4f} (absolute), {eval_s:.2f} s")
+    return out
+
+
+# phase 49: the exported dummy_forward program
+EXPORT_DIR = ROOT / "build" / "export"
+EXPORT_REPEATS, DISPATCH_ITERS = 20, 50
+
+
+def forward_test_walls(model, batch, turns=("op", "direct", "direct", "op"),
+                       iters=DISPATCH_ITERS):
+    """Phase 49: the bs1 ``forward_test`` wall (host clock, the device
+    synchronised after each call), ms a call over ``iters`` calls after
+    3 warm-up calls, with the conv forward through the registered operator
+    (``op``) and through the wrapper's launch alone (``direct``), in
+    turns."""
+    from fsnet_tpu_torch.ops import conv3x3 as tc
+    from fsnet_tpu_torch.runtime.state import make_eval_step
+
+    step = make_eval_step("cuda")
+    saved = tc._forward
+
+    def direct(parts, w, bias, pad_mode):
+        tc._route(parts[0], "conv3x3")
+        out = tc._launch_conv(parts, w, bias, pad_mode)
+        tc._counted(tc.conv3x3, parts[0].dtype)
+        return out
+
+    walls = {k: [] for k in set(turns)}
+    try:
+        for turn in turns:
+            tc._forward = saved if turn == "op" else direct
+            for _ in range(3):
+                step(model, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                step(model, batch)
+                torch.cuda.synchronize()
+            walls[turn].append((time.perf_counter() - t0) / iters * 1e3)
+    finally:
+        tc._forward = saved
+    return walls
+
+
+def export_phase(counters, record):
+    """Phase 49: the flagship's ``dummy_forward`` at bs1 @192x640 float32
+    exported on the card (``runtime.export``), its graph calling the
+    registered conv operator 14 times, saved, reloaded and run in a fresh
+    Python process (``runtime.export``'s command line, TF32 off as in this
+    run): equal to the live model within 1e-4 and 14 conv3x3 launches a
+    run; the export,
+    the reloaded and the live forward timed; the bs1 ``forward_test`` wall
+    with and without the operator's dispatch, in turns."""
+    import shutil
+
+    from fsnet_tpu_torch.entry import flagship_model
+    from fsnet_tpu_torch.ops import conv3x3 as tc
+    from fsnet_tpu_torch.runtime import export
+
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    EXPORT_DIR.mkdir(parents=True)
+    model = flagship_model(HEIGHT, WIDTH, device="cuda", seed=0)
+    shape = (1, HEIGHT, WIDTH, 3)
+    path = EXPORT_DIR / "flagship_dummy_forward.pt2"
+    t0 = time.perf_counter()
+    program = export.export_dummy_forward(model, shape, str(path))
+    export_s = time.perf_counter() - t0
+    ops = export.conv_ops(program)
+    check(ops == len(SHAPES), f"phase 49: the exported graph calls the "
+          f"conv operator {ops} times")
+    aten_convs = sum(1 for n in program.graph.nodes
+                     if n.op == "call_function"
+                     and str(n.target).startswith("aten.conv"))
+    smoke = export.smoke_check(str(path), model, shape)
+    image = torch.from_numpy(np.random.RandomState(1).rand(*shape).astype(
+        np.float32)).cuda()
+    with torch.no_grad():
+        live = {k: v.cpu() for k, v in model.dummy_forward(image).items()}
+    torch.save(image, EXPORT_DIR / "image.pt")
+    # the command line of runtime.export in a fresh interpreter, TF32 off
+    # as in this run (phase 3), so that both sides compute in float32
+    cmd = [sys.executable, "-c",
+           "import sys, torch\n"
+           "torch.backends.cuda.matmul.allow_tf32 = False\n"
+           "torch.backends.cudnn.allow_tf32 = False\n"
+           "from fsnet_tpu_torch.runtime import export\n"
+           "export.main(sys.argv[1:])",
+           str(path), str(EXPORT_DIR / "image.pt"),
+           str(EXPORT_DIR / "result.pt"), "--repeats", str(EXPORT_REPEATS)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          cwd=str(ROOT))
+    proc_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"phase 49: the reload process failed: "
+          f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    res = torch.load(EXPORT_DIR / "result.pt")
+    diff = max(float((res["outputs"][k] - live[k]).abs().max())
+               for k in live)
+    check(sorted(res["outputs"]) == sorted(live) and diff <= 1e-4,
+          f"phase 49: the reloaded program {diff:.2e} from the live model")
+    check(res["launches"] == len(SHAPES), f"phase 49: the reloaded "
+          f"program launched conv3x3 {res['launches']} times")
+    zero(counters)
+    with torch.no_grad():
+        model.dummy_forward(image)
+    torch.cuda.synchronize()
+    live_counts = read(counters)
+    check(live_counts["conv3x3"] == len(SHAPES), f"phase 49: live forward "
+          f"{live_counts}")
+
+    def live_forward():
+        with torch.no_grad():
+            model.dummy_forward(image)
+
+    live_ms = cuda_ms(live_forward, iters=EXPORT_REPEATS, warmup=3)
+    walls = forward_test_walls(model, flagship_batch(1))
+    op_ms = float(np.mean(walls["op"]))
+    direct_ms = float(np.mean(walls["direct"]))
+    reloaded_ms = res["ms"][1:]
+    out = dict(card=record["card"], export_s=export_s, conv_ops=ops,
+               aten_convolutions=aten_convs,
+               smoke_max_diff=smoke["max_diff"], reload_max_abs_diff=diff,
+               reload_launches=res["launches"],
+               reload_load_ms=res["load_ms"],
+               reloaded_forward_ms=float(np.median(reloaded_ms)),
+               reloaded_first_ms=res["ms"][0], live_forward_ms=live_ms,
+               reload_process_s=proc_s, forward_test_bs1_walls=walls,
+               dispatch_ms_per_forward=op_ms - direct_ms,
+               dispatch_us_per_conv=(op_ms - direct_ms) / len(SHAPES) * 1e3,
+               size_bytes=path.stat().st_size)
+    print(f"phase 49 ({record['card']}): dummy_forward bs1@{HEIGHT}x{WIDTH} "
+          f"f32 exported in {export_s:.2f} s ({ops} calls of "
+          f"torch.ops.fsnet_tpu_torch.conv3x3 in the graph beside the "
+          f"encoder's {aten_convs} aten convolutions, "
+          f"{out['size_bytes'] / 2**20:.1f} MiB saved), in-process smoke "
+          f"check {smoke['max_diff']:.2e}; reloaded in a fresh process "
+          f"({proc_s:.1f} s in all, load {res['load_ms']:.1f} ms): "
+          f"{diff:.2e} from the live model, {res['launches']} conv3x3 "
+          f"launches a run, forward {out['reloaded_forward_ms']:.3f} ms "
+          f"(median of {len(reloaded_ms)}, host wall; first "
+          f"{res['ms'][0]:.1f}) against the live forward's "
+          f"{live_ms:.3f} ms (CUDA events); forward_test bs1 wall with the "
+          f"registered operator {[round(v, 3) for v in walls['op']]} ms, "
+          f"with the launch alone {[round(v, 3) for v in walls['direct']]} "
+          f"ms (in turns): dispatch {out['dispatch_ms_per_forward']:.3f} ms "
+          f"a forward, {out['dispatch_us_per_conv']:.1f} us a conv")
+    return out
+
+
 def main() -> int:
     global REPEATS
     import argparse
@@ -5540,6 +6176,23 @@ def main() -> int:
     record["distill_recipe"] = distill_recipe_phase(counters, record, tree)
     kernel["launches_nusc_eval_per_forward"] = \
         record["nusc_recipe"]["eval_launches_per_forward"]["conv3x3"]
+
+    # 47-49. the KITTI-360 fisheye recipe from a PNG tree (the last shipped
+    # config without a run from disk), FusionPortable's dataset and
+    # evaluator, and the exported dummy_forward program
+    record["fisheye_recipe"] = fisheye_recipe_phase(counters, record)
+    record["fusion"] = fusion_phase(counters, record)
+    record["export"] = export_phase(counters, record)
+    kernel["launches_fisheye_eval_per_frame"] = \
+        record["fisheye_recipe"]["eval_launches_per_frame"]["conv3x3"]
+    kernel["launches_fusion_eval_per_frame"] = \
+        record["fusion"]["eval_launches_per_frame"]["conv3x3"]
+    kernel["launches_exported_program"] = record["export"]["reload_launches"]
+    loop_step = record["fisheye_recipe"]["launches"]
+    for e in kernels:
+        base = e["name"].removesuffix("_bf16")
+        if loop_step.get(base):
+            e["launches_fisheye_loop_per_step"] = loop_step[base]
 
     record["empty_profiles"] = len(EMPTY_PROFILES)
     print(f"profiler windows with no device event, profiled again: "

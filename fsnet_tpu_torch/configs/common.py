@@ -103,9 +103,11 @@ def wpose_augmentation(data, frame_idxs, train=True, extra_image_keys=()):
 
 def wpose_meta_arch(data, min_depth=0.5, max_depth=100.0, resnet_depth=18,
                     pretrained=True, num_output_channels=16,
-                    overlapped_mask=True, base_fx=None):
+                    overlapped_mask=True, base_fx=None, head_name=None):
     """The flagship ``MonoDepthWPose`` graph; ``base_fx`` scales the
-    decoder's bins by each frame's focal length where given."""
+    decoder's bins by each frame's focal length where given; ``head_name``
+    replaces the ``MonoDepth2Decoder`` head (the fisheye config's
+    ``FishEyeDecoder``)."""
     models = "fsnet_tpu_torch.models"
     cfg = edict(
         name=f"{models}.meta_archs.monodepth2_model.MonoDepthWPose",
@@ -120,7 +122,8 @@ def wpose_meta_arch(data, min_depth=0.5, max_depth=100.0, resnet_depth=18,
             dilations=(1, 1, 1, 1),
         ),
         head_cfg=edict(
-            name=f"{models}.heads.monodepth2_decoder.MonoDepth2Decoder",
+            name=(head_name
+                  or f"{models}.heads.monodepth2_decoder.MonoDepth2Decoder"),
             scales=[0, 1, 2, 3],
             height=data.rgb_shape[0],
             width=data.rgb_shape[1],

@@ -205,10 +205,12 @@ class ConvBnReLU(nn.Module):
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
-    """2x nearest-neighbour upsample of an NHWC tensor (contiguous result)."""
+    """2x nearest-neighbour upsample of an NHWC tensor (contiguous result:
+    from a 1x1 map ``reshape`` returns a view of stride 0, which the conv
+    kernel's wrapper refuses)."""
     B, H, W, C = x.shape
     x = x[:, :, None, :, None, :].expand(B, H, 2, W, 2, C)
-    return x.reshape(B, H * 2, W * 2, C)
+    return x.reshape(B, H * 2, W * 2, C).contiguous()
 
 
 def _interp_matrix(in_size: int, out_size: int, align_corners: bool,

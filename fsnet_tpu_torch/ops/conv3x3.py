@@ -17,7 +17,12 @@ a CUDA device it launches its kernel or raises. Each wrapper counts its
 kernel's launches in ``<function>.launches``, and by the dtype of the
 operands the kernel ran on in ``<function>.dtypes``:
 
-* :func:`conv3x3`: ``csrc/conv3x3.cu`` (forward, TPU ``conv3x3_fused_mats``);
+* :func:`conv3x3`: ``csrc/conv3x3.cu`` (forward, TPU ``conv3x3_fused_mats``),
+  launched through the registered operator ``torch.ops.fsnet_tpu_torch.
+  conv3x3`` (:func:`conv3x3_op`: the plain version on the CPU, the kernel
+  on a CUDA device, a shape function for ``torch.export``); where no
+  gradient is needed :func:`conv3x3` calls the operator itself, so an
+  exported inference program records it;
 * :func:`conv3x3_bn`: the same kernel with its moments epilogue (TPU
   ``conv3x3_fused_mats_m``), float32 or bfloat16: the moments are float32
   sums of the stored output, in bfloat16 of each output after its
@@ -40,7 +45,7 @@ as accurate as the plain version's float32 one.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -260,12 +265,34 @@ def _launch_conv(parts, w, bias, pad_mode, mom=None) -> torch.Tensor:
     return out
 
 
-def _forward(parts, w, bias, pad_mode) -> torch.Tensor:
-    if not _route(parts[0], "conv3x3"):
-        return _conv_core(parts, w, bias, pad_mode)
+@torch.library.custom_op("fsnet_tpu_torch::conv3x3", mutates_args=(),
+                         device_types="cpu")
+def conv3x3_op(parts: List[torch.Tensor], w: torch.Tensor,
+               bias: Optional[torch.Tensor], pad_mode: str) -> torch.Tensor:
+    """The forward as a registered operator, ``torch.ops.fsnet_tpu_torch.
+    conv3x3`` (so that ``torch.export`` records it and a saved program
+    calls it): on the CPU the plain version, on a CUDA device the kernel,
+    counted in ``conv3x3.launches``; on any other device it raises."""
+    return _conv_core(tuple(parts), w, bias, pad_mode)
+
+
+@conv3x3_op.register_kernel("cuda")
+def _conv3x3_cuda(parts, w, bias, pad_mode):
+    parts = tuple(parts)
     out = _launch_conv(parts, w, bias, pad_mode)
     _counted(conv3x3, parts[0].dtype)
     return out
+
+
+@conv3x3_op.register_fake
+def _conv3x3_fake(parts, w, bias, pad_mode):
+    B, H, W, _ = parts[0].shape
+    return parts[0].new_empty((B, H, W, w.shape[3]))
+
+
+def _forward(parts, w, bias, pad_mode) -> torch.Tensor:
+    _route(parts[0], "conv3x3")
+    return conv3x3_op(list(parts), w, bias, pad_mode)
 
 
 def _forward_bn(parts, w, bias, pad_mode):
@@ -421,7 +448,10 @@ def conv3x3(x: Parts, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
     dtype. Differentiable."""
     parts = _as_parts(x)
     _check(parts, w, bias, pad_mode)
-    return Conv3x3Function.apply(pad_mode, False, w, bias, *parts)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (w, bias, *parts)):
+        return Conv3x3Function.apply(pad_mode, False, w, bias, *parts)
+    return _forward(parts, w, bias, pad_mode)
 
 
 def conv3x3_bn(x: Parts, w: torch.Tensor, bias: Optional[torch.Tensor] = None,

@@ -1,14 +1,16 @@
-"""Mei unified camera model (fisheye): the forward projection in torch and the
-host-side inverse that backtracks a whole pixel grid to unit rays
-(counterpart of ``fsnet_tpu.ops.fisheye``: ``mei_distort``, ``cam2image``,
-``_newton_radial_np``, ``_bisection_mirror_np``, ``backtrack_ray_map`` and
-``MeiCameraProjection.get_ray_map``, ``fisheye.py:29-166``).
+"""Mei unified camera model (fisheye): the forward projection in torch, the
+host-side inverse that backtracks a whole pixel grid to unit rays, and the
+in-graph inverse (counterpart of ``fsnet_tpu.ops.fisheye``: ``mei_distort``,
+``cam2image``, ``_newton_radial_np``, ``_bisection_mirror_np``,
+``backtrack_ray_map``, ``MeiCameraProjection`` and ``image2cam_fixed_iter``,
+``fisheye.py:29-234``).
 
-The inverse is numpy and runs once per (H, W, intrinsics) on the host; its
-ray maps enter a batch as ``'fisheye_rays'`` [B, H, W, 4] = (X, Y, Z, mask).
-The code of the inverse is the JAX package's, so both packages build the
-same rays bit for bit. The in-graph inverse for traced intrinsics
-(``image2cam_fixed_iter``) is not ported.
+The host inverse is numpy and runs once per (H, W, intrinsics); its ray maps
+enter a batch as ``'fisheye_rays'`` [B, H, W, 4] = (X, Y, Z, mask). The code
+of the inverse is the JAX package's, so both packages build the same rays
+bit for bit. :func:`image2cam_fixed_iter` is the same solve in torch with
+fixed iteration counts (20 Newton, 30 bisection steps), differentiable in
+the norm and the intrinsics.
 
 Calib dict layout as the reference yaml:
 ``{"mirror_parameters": {"xi": ...}, "distortion_parameters": {"k1": ...,
@@ -133,7 +135,8 @@ def backtrack_ray_map(H: int, W: int, P: np.ndarray, xi: float, k1: float,
 
 
 class MeiCameraProjection:
-    """Host cache of inverse ray maps, one entry per camera."""
+    """Host cache of inverse ray maps, one entry per camera, and the forward
+    model."""
 
     def __init__(self):
         self.cache: Dict = {}
@@ -153,3 +156,72 @@ class MeiCameraProjection:
         if key not in self.cache:
             self.cache[key] = backtrack_ray_map(H, W, P, xi, k1, k2)
         return self.cache[key]
+
+    def image2cam(self, norm: torch.Tensor, P, calib_list):
+        """norm [B, H, W, 1] (NHWC) + per-sample calib dicts -> (points
+        [B, H, W, 3], mask [B, H, W]), from the cached ray maps, on the
+        norm's device and in its dtype."""
+        B, H, W, _ = norm.shape
+        maps = [self.get_ray_map(H, W, np.asarray(P[b]), calib_list[b])
+                for b in range(B)]
+        X, Y, Z, mask = (torch.from_numpy(np.concatenate(m, axis=0)).to(
+            device=norm.device, dtype=norm.dtype) for m in zip(*maps))
+        points = torch.cat([X[..., None] * norm, Y[..., None] * norm,
+                            Z[..., None] * norm], dim=-1)
+        return points, mask
+
+    def cam2image(self, points: torch.Tensor, P, calib: Dict) -> torch.Tensor:
+        """Forward projection of one sample's points (:func:`cam2image`)."""
+        xi, k1, k2 = self._calib_params(calib)
+        P = torch.as_tensor(np.asarray(P), dtype=points.dtype,
+                            device=points.device)
+        return cam2image(points, P, xi, k1, k2)
+
+
+def image2cam_fixed_iter(norm: torch.Tensor, P: torch.Tensor, xi, k1, k2,
+                         newton_iters: int = 20, bisect_iters: int = 30):
+    """In-graph inverse with fixed iteration counts: norm [B, H, W, 1] and
+    P [B, 3+, 4] -> (points [B, H, W, 3], mask [B, H, W]); ``xi``, ``k1``,
+    ``k2`` scalars (numbers or 0-d tensors). Differentiable."""
+    B, H, W, _ = norm.shape
+    u0, v0 = P[..., 0, 2], P[..., 1, 2]
+    gamma1, gamma2 = P[..., 0, 0], P[..., 1, 1]
+
+    vv, uu = torch.meshgrid(
+        torch.arange(H, dtype=norm.dtype, device=norm.device),
+        torch.arange(W, dtype=norm.dtype, device=norm.device), indexing="ij")
+    X = (uu[None] - u0[:, None, None]) / gamma1[:, None, None]
+    Y = (vv[None] - v0[:, None, None]) / gamma2[:, None, None]
+
+    r1 = torch.sqrt(X ** 2 + Y ** 2)
+    r0 = r1
+    eps = 1e-6
+    for _ in range(newton_iters):          # Newton on the radial model
+        f = r0 - r1 / (1.0 + k1 * r0 ** 2 + k2 * r0 ** 4)
+        df = ((r0 + eps) - r1 / (1.0 + k1 * (r0 + eps) ** 2
+                                 + k2 * (r0 + eps) ** 4) - f) / eps
+        r0 = r0 - f / torch.where(torch.abs(df) > 1e-12, df,
+                                  torch.ones_like(df))
+
+    def g(Z):
+        return r0 ** 2 - (1.0 - Z ** 2) / (xi + Z) ** 2
+
+    lo = torch.zeros_like(r0)
+    hi = torch.ones_like(r0)
+    valid = g(lo) * g(hi) <= 0
+    for _ in range(bisect_iters):
+        mid = (lo + hi) / 2.0
+        go_right = g(mid) * g(lo) < 0
+        hi = torch.where(go_right, mid, hi)
+        lo = torch.where(go_right, lo, mid)
+    Z = (lo + hi) / 2.0
+
+    mask = (valid & (Z >= 0.05)).to(norm.dtype)
+    on = mask > 0
+    minus = torch.full_like(Z, -1.0)
+    Z = torch.where(on, Z, minus)
+    r1c = torch.clamp(r1, min=1e-12)
+    Xn = torch.where(on, X * r0 / r1c * (Z + xi), minus)
+    Yn = torch.where(on, Y * r0 / r1c * (Z + xi), minus)
+    rays = torch.stack([Xn, Yn, Z], dim=-1)             # [B, H, W, 3]
+    return rays * norm, mask

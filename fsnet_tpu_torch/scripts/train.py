@@ -102,10 +102,10 @@ def check_hooks(cfg) -> None:
     ``trainer.precompute_hook`` (the motion-mask and flow precompute is not
     ported), and an ``evaluate_hook`` that names anything outside the
     port's modules (``KittiEvaluationHook_postopt``,
-    ``PostOptFastNuscEvaluationHook``, the fisheye, FusionPortable and
-    supervised evaluators, a JAX package's name). The port has
-    ``KittiEvaluationHook`` with ``KittiEigenEvaluator`` and
-    ``Kitti360Evaluator``, and ``FastNuscEvaluationHook`` with
+    ``PostOptFastNuscEvaluationHook``, a JAX package's name). The port has
+    ``KittiEvaluationHook`` with ``KittiEigenEvaluator``,
+    ``Kitti360Evaluator``, ``Kitti360FisheyeEvaluator`` and
+    ``FusionPortableEvaluator``, and ``FastNuscEvaluationHook`` with
     ``NuscenesEvaluator``."""
     from ..utils.builder import find_object
 
@@ -130,8 +130,9 @@ def check_hooks(cfg) -> None:
                 f"evaluate_hook {hook.get('name')!r}: {name!r} is not "
                 "ported; the port evaluates through fsnet_tpu_torch."
                 "pipeline_hooks.evaluation_hooks.KittiEvaluationHook with "
-                "the KITTI raw or KITTI-360 evaluator, or "
-                "FastNuscEvaluationHook with NuscenesEvaluator")
+                "the KITTI raw, KITTI-360, KITTI-360 fisheye or "
+                "FusionPortable evaluator, or FastNuscEvaluationHook with "
+                "NuscenesEvaluator")
 
 
 def main(config: str = "fsnet_tpu_torch/configs/synthetic_smoke_example.py",

@@ -672,3 +672,202 @@ def write_nusc_json_tree(root, H: int, W: int, n_train: int, n_val: int,
             write_png(os.path.join(out["gt"], cam, name),
                       (depth * 256).astype(np.uint16), level=1)
     return out
+
+
+# ------------------------------------------------- KITTI-360 fisheye tree
+
+# threads that make and write a tree's frames
+THREADS = 8
+
+# two Mei cameras for 1400x1400 frames, of the size KITTI-360's fisheye
+# calibration has (xi about 2.2 and 2.6, the fisheye disc about 640 px in
+# radius): image_02 looks to the left of the car, image_03 to the right
+FISHEYE_H = FISHEYE_W = 1400
+FISHEYE_CAMS = {
+    "image_02": dict(xi=2.2134047507854890, k1=1.6798235660113681e-02,
+                     k2=1.6548773243373522, gamma1=1336.3220825849971,
+                     gamma2=1335.7883350012958, u0=716.94323510126321,
+                     v0=705.76498308221585),
+    "image_03": dict(xi=2.5535139132482758, k1=4.9370396274089505e-02,
+                     k2=4.5068455478645308, gamma1=1485.4388981875156,
+                     gamma2=1484.9477411748708, u0=698.88316784030962,
+                     v0=698.14541887723055),
+}
+# cam -> pose (baselink x forward, y left, z up), row-major 3x4: the
+# perspective pair looking ahead, image_02 to the left, image_03 to the
+# right
+_FISHEYE_EXT = {
+    "image_00": "0 0 1 0.5 -1 0 0 0.1 0 -1 0 -0.2",
+    "image_01": "0 0 1 0.5 -1 0 0 -0.5 0 -1 0 -0.2",
+    "image_02": "1 0 0 0.7 0 0 1 0.8 0 -1 0 0",
+    "image_03": "-1 0 0 0.7 0 0 -1 -0.8 0 -1 0 0",
+}
+
+
+def fisheye_meta(k: int) -> str:
+    """The meta line of the sample centred on frame ``k`` (pose row and
+    image ``k``, neighbours ``k - 1`` and ``k + 1``)."""
+    return f"{KITTI360_SEQ},{k},{k},{k - 1},{k + 1}"
+
+
+def write_kitti360_fisheye(root, H: int, W: int, n: int, step: float = 0.8,
+                           seed: int = 1, velodyne: Sequence[int] = ()
+                           ) -> dict:
+    """A KITTI-360 fisheye tree of one sequence under ``root``: the Mei
+    yaml of ``image_02`` and ``image_03`` (:data:`FISHEYE_CAMS` scaled to
+    H x W; the first line ``%YAML:1.0``, which the readers skip),
+    ``calib_cam_to_pose.txt`` of ``image_00``-``image_03``,
+    ``calib_cam_to_velo.txt``, ``poses.txt`` with baselink x at ``step``
+    metres a frame (inside the static filter's 0.03-3 m), ``n`` frames of
+    each fisheye camera under ``data_2d_raw/<seq>/image_0x/data_rgb`` and a
+    30,000-point velodyne scan for each frame in ``velodyne``; the frames
+    are made and written by :data:`THREADS` threads (numpy and zlib release
+    the GIL). Returns the paths."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    root = str(root)
+    calib = os.path.join(root, "calibration")
+    os.makedirs(calib, exist_ok=True)
+    for cam, p in FISHEYE_CAMS.items():
+        with open(os.path.join(calib, f"{cam}.yaml"), "w") as f:
+            f.write("%YAML:1.0\n---\nmodel_type: MEI\n")
+            f.write(f"camera_name: {cam}\nimage_width: {W}\n"
+                    f"image_height: {H}\n")
+            f.write(f"mirror_parameters:\n   xi: {p['xi']!r}\n")
+            f.write(f"distortion_parameters:\n   k1: {p['k1']!r}\n"
+                    f"   k2: {p['k2']!r}\n   p1: 0.0\n   p2: 0.0\n")
+            f.write("projection_parameters:\n"
+                    f"   gamma1: {p['gamma1'] * W / FISHEYE_W!r}\n"
+                    f"   gamma2: {p['gamma2'] * H / FISHEYE_H!r}\n"
+                    f"   u0: {p['u0'] * W / FISHEYE_W!r}\n"
+                    f"   v0: {p['v0'] * H / FISHEYE_H!r}\n")
+    with open(os.path.join(calib, "calib_cam_to_pose.txt"), "w") as f:
+        for cam, ext in _FISHEYE_EXT.items():
+            f.write(f"{cam}: {ext}\n")
+    with open(os.path.join(calib, "calib_cam_to_velo.txt"), "w") as f:
+        f.write("0 0 1 0.8 -1 0 0 0.3 0 -1 0 -0.7\n")
+    pose_dir = os.path.join(root, "data_poses", KITTI360_SEQ)
+    os.makedirs(pose_dir, exist_ok=True)
+    with open(os.path.join(pose_dir, "poses.txt"), "w") as f:
+        for i in range(n):
+            f.write(f"{i} 1 0 0 {step * i} 0 1 0 0 0 0 1 0\n")
+    jobs = []
+    for c, cam in enumerate(("image_02", "image_03")):
+        d = os.path.join(root, "data_2d_raw", KITTI360_SEQ, cam, "data_rgb")
+        os.makedirs(d, exist_ok=True)
+        jobs += [(os.path.join(d, "%010d.png" % i), 4.0 * i + 20 * c,
+                  seed * 1000 + 10 * i + c) for i in range(n)]
+    with ThreadPoolExecutor(THREADS) as pool:
+        list(pool.map(lambda j: write_png(j[0], texture(H, W, j[1], j[2]),
+                                          level=1), jobs))
+    d = os.path.join(root, "data_3d_raw", KITTI360_SEQ, "velodyne_points",
+                     "data")
+    os.makedirs(d, exist_ok=True)
+    for i in velodyne:
+        velodyne_scan(seed * 1000 + i).tofile(
+            os.path.join(d, "%010d.bin" % i))
+    return dict(root=root, seq=KITTI360_SEQ, n=n)
+
+
+# ---------------------------------------------------- FusionPortable tree
+
+# FusionPortable's frame cameras: 1024x768; intrinsics of that order
+FUSION_W, FUSION_H = 1024, 768
+_FUSION_K = [606.0, 0.0, 518.5, 0.0, 605.5, 380.5, 0.0, 0.0, 1.0]
+# quaternions (w, x, y, z): body IMU (x forward, y left, z up) -> camera
+# (x right, y down, z forward), and camera -> Ouster (x forward)
+_IMU2CAM_Q = [0.5, 0.5, -0.5, 0.5]
+_CAM2OUSTER_Q = [0.5, -0.5, 0.5, -0.5]
+
+
+def _opencv_matrix(f, name: str, rows: int, cols: int, data) -> None:
+    f.write(f"{name}: !!opencv-matrix\n   rows: {rows}\n   cols: {cols}\n"
+            f"   dt: d\n   data: [{', '.join(repr(float(v)) for v in data)}]\n")
+
+
+def write_pcd(path, points: np.ndarray, binary: bool) -> None:
+    """A PCD file of [N, 4] float32 (x, y, z, intensity), ``DATA ascii``
+    (``%.6f``) or ``DATA binary``."""
+    pts = np.ascontiguousarray(points, np.float32)
+    head = ("# .PCD v0.7 - Point Cloud Data file format\nVERSION 0.7\n"
+            "FIELDS x y z intensity\nSIZE 4 4 4 4\nTYPE F F F F\n"
+            "COUNT 1 1 1 1\n"
+            f"WIDTH {len(pts)}\nHEIGHT 1\nVIEWPOINT 0 0 0 1 0 0 0\n"
+            f"POINTS {len(pts)}\nDATA {'binary' if binary else 'ascii'}\n")
+    with open(path, "wb") as f:
+        f.write(head.encode("ascii"))
+        if binary:
+            f.write(pts.tobytes())
+        else:
+            f.write((("%.6f %.6f %.6f %.6f\n" * len(pts))
+                     % tuple(pts.astype(np.float64).ravel())).encode("ascii"))
+
+
+def write_fusionportable(root, H: int, W: int, n: int, seed: int = 0,
+                         static: Sequence[int] = (), scan_points: int = 30000
+                         ) -> dict:
+    """A FusionPortable sequence under ``root``: the OpenCV yaml of
+    ``frame_cam00``, ``frame_cam01`` (a 0.25 m stereo baseline in P) and
+    ``ouster00``, TUM odometry ``odom.txt`` (0.5 m forward a frame with a
+    slight yaw; frame k in ``static`` repeats frame k - 1), ``n`` PNG frames
+    of each camera and an Ouster scan a frame as PCD, ASCII for even
+    frames and binary for odd ones; the frames are made and written by
+    :data:`THREADS` threads. Returns the paths."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    root = str(root)
+    calib = os.path.join(root, "calib")
+    os.makedirs(calib, exist_ok=True)
+    K = np.asarray(_FUSION_K).reshape(3, 3).copy()
+    K[0] *= W / FUSION_W
+    K[1] *= H / FUSION_H
+    for c, cam in enumerate(("frame_cam00", "frame_cam01")):
+        P = np.zeros((3, 4))
+        P[:, :3] = K
+        P[0, 3] = -0.25 * K[0, 0] * c
+        with open(os.path.join(calib, f"{cam}.yaml"), "w") as f:
+            f.write(f"%YAML:1.0\nimage_height: {H}\nimage_width: {W}\n"
+                    "distortion_model: plumb_bob\n")
+            _opencv_matrix(f, "camera_matrix", 3, 3, K.ravel())
+            _opencv_matrix(f, "rectification_matrix", 3, 3,
+                           np.eye(3).ravel())
+            _opencv_matrix(f, "distortion_coefficients", 1, 5, [0.0] * 5)
+            _opencv_matrix(f, "projection_matrix", 3, 4, P.ravel())
+            _opencv_matrix(f, "quaternion_sensor_bodyimu", 1, 4, _IMU2CAM_Q)
+            _opencv_matrix(f, "translation_sensor_bodyimu", 1, 3,
+                           [0.1, -0.05 - 0.25 * c, 0.2])
+    with open(os.path.join(calib, "ouster00.yaml"), "w") as f:
+        f.write("%YAML:1.0\n")
+        _opencv_matrix(f, "quaternion_sensor_bodyimu", 1, 4,
+                       [1.0, 0.0, 0.0, 0.0])
+        _opencv_matrix(f, "translation_sensor_bodyimu", 1, 3,
+                       [0.0, 0.0, 0.3])
+        _opencv_matrix(f, "quaternion_sensor_frame_cam00", 1, 4,
+                       _CAM2OUSTER_Q)
+        _opencv_matrix(f, "translation_sensor_frame_cam00", 1, 3,
+                       [0.1, 0.05, -0.1])
+    xs = [0.5 * i for i in range(n)]
+    for k in static:
+        xs[k] = xs[k - 1]
+    with open(os.path.join(root, "odom.txt"), "w") as f:
+        for i, x in enumerate(xs):
+            a = 0.01 * i
+            f.write(f"{1646000000.0 + 0.1 * i:.6f} {x:.6f} {0.02 * i:.6f} "
+                    f"0.000000 0.000000 0.000000 {np.sin(a / 2):.9f} "
+                    f"{np.cos(a / 2):.9f}\n")
+    jobs = []
+    for c, cam in enumerate(("frame_cam00", "frame_cam01")):
+        d = os.path.join(root, cam, "image", "data")
+        os.makedirs(d, exist_ok=True)
+        jobs += [(os.path.join(d, "%06d.png" % i), 4.0 * i + 12 * c,
+                  seed * 1000 + 10 * i + c) for i in range(n)]
+    d = os.path.join(root, "ouster00", "point", "data")
+    os.makedirs(d, exist_ok=True)
+    with ThreadPoolExecutor(THREADS) as pool:
+        list(pool.map(lambda j: write_png(j[0], texture(H, W, j[1], j[2]),
+                                          level=1), jobs))
+    for i in range(n):
+        write_pcd(os.path.join(d, "%06d.pcd" % i),
+                  velodyne_scan(seed * 1000 + 500 + i, scan_points),
+                  binary=bool(i % 2))
+    return dict(root=root, odom="odom.txt", n=n)

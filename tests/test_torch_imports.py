@@ -5,10 +5,14 @@
   not ``chip_smoke.py`` and not the tree writers it runs
   (``tests/disk_trees.py``) imports ``jax``, ``flax``, ``optax`` or
   ``fsnet_tpu``; none imports, at module level, a package the machine
-  with the card lacks: ``cv2``, ``PIL``, ``yaml``, the pip ``easydict`` or
-  ``tensorboard`` (the training script imports its optional writer
-  inside a function); and none imports ``cv2``, ``PIL`` or ``yaml``
-  anywhere: the images are read by the port's own PNG reader.
+  with the card lacks: ``cv2``, ``PIL``, ``open3d``, the pip ``easydict``
+  or ``tensorboard`` (the training script imports its optional writer
+  inside a function); and none imports ``cv2``, ``PIL`` or ``open3d``
+  anywhere: the images are read by the port's own PNG and JPEG readers,
+  the point clouds by its own PCD reader. PyYAML, which that machine has,
+  reads the fisheye and FusionPortable calibration.
+* In a fresh interpreter whose imports of those packages raise, every
+  module of ``fsnet_tpu_torch`` imports.
 * Entry points called without ``device=`` raise when no CUDA device is
   present, instead of quietly running on the CPU.
 * ``chip_smoke.py`` fails, and prints no result, without a CUDA device.
@@ -28,8 +32,8 @@ ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "fsnet_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "disk_trees.py"]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "fsnet_tpu"}
-HOST_ONLY = {"cv2", "PIL", "yaml", "easydict", "tensorboard"}
-DECODERS = {"cv2", "PIL", "yaml"}
+HOST_ONLY = {"cv2", "PIL", "open3d", "easydict", "tensorboard"}
+DECODERS = {"cv2", "PIL", "open3d"}
 
 
 def _imported_roots(path: Path):
@@ -80,6 +84,39 @@ def test_no_host_only_import_at_module_level(path):
                  if name.split(".")[0] in HOST_ONLY
                  or "tensorboard" in name.split("."))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_every_module_imports_without_jax():
+    """Each module of the port, the fisheye, FusionPortable, evaluation
+    and export modules among them, imported in one fresh interpreter
+    that refuses ``jax``, ``fsnet_tpu``, ``cv2``, ``PIL`` and
+    ``open3d``."""
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in (ROOT / "fsnet_tpu_torch").rglob("*.py"))
+    for name in ("fsnet_tpu_torch.data.datasets.fisheye_dataset",
+                 "fsnet_tpu_torch.data.datasets.fusionportable_dataset",
+                 "fsnet_tpu_torch.evaluation.kitti360_fisheye_eval",
+                 "fsnet_tpu_torch.evaluation.fusionportable_eval",
+                 "fsnet_tpu_torch.evaluation.kitti_supervised_eval",
+                 "fsnet_tpu_torch.runtime.export",
+                 "fsnet_tpu_torch.configs.kitti360_fisheye_example"):
+        assert name in modules, name
+    code = (
+        "import importlib, sys\n"
+        "class Refuse:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in %r:\n"
+        "            raise ImportError('refused: ' + name)\n"
+        "sys.meta_path.insert(0, Refuse())\n"
+        "for m in %r:\n"
+        "    importlib.import_module(m)\n"
+        % (sorted(FORBIDDEN | DECODERS), modules))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
 
 
 def _no_cuda():

@@ -390,8 +390,13 @@ def test_check_hooks_takes_nusc(no_writer):
             ("trainer.evaluate_hook.name",
              hooks + "PostOptFastNuscEvaluationHook"),
             ("trainer.evaluate_hook.dataset_eval_cfg.name",
-             "fsnet_tpu_torch.evaluation.fusionportable_eval."
+             "fsnet_tpu.evaluation.fusionportable_eval."
              "FusionPortableEvaluator")):
         with pytest.raises(NotImplementedError, match=value.split(".")[-1]):
             check_hooks(update_cfg(cfg_from_file(NUSC_CONFIG),
                                    **{key: value}))
+    # the port's FusionPortable evaluator (ported since) passes
+    check_hooks(update_cfg(cfg_from_file(NUSC_CONFIG), **{
+        "trainer.evaluate_hook.dataset_eval_cfg.name":
+            "fsnet_tpu_torch.evaluation.fusionportable_eval."
+            "FusionPortableEvaluator"}))
