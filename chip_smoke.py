@@ -289,12 +289,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     ratio;
 35. times the flagship step at batch 12 in float32 and in bf16 on both
     routes as ``bench.py`` times the JAX step (the batch on the card, 3
-    warm-up steps, the fastest of 4 windows of 20 steps; device-busy ms
-    under ``torch.profiler``; peak memory), and each bf16 form at the
-    step's shapes beside its float32 form, its bounds at bf16 bytes and,
-    at the 5 one-part zero-padded conv shapes, cuDNN in bf16; the warps
-    through their wrappers on bf16 images, widening and rounding passes
-    included, beside their float32 kernels alone;
+    warm-up steps, the fastest of 2 windows of 20 steps, where bench.py
+    takes 4; device-busy ms under ``torch.profiler``; peak memory), and
+    each bf16 form at the step's shapes beside its float32 form, its
+    bounds at bf16 bytes and, at the 5 one-part zero-padded conv shapes,
+    cuDNN in bf16; the warps through their wrappers on bf16 images,
+    widening and rounding passes included, beside their float32 kernels
+    alone;
 36. kernels G and H in bfloat16 against their plain versions at the
     fisheye recipe's shape, beside a float32 norm (the bf16 step's) and a
     bfloat16 one: G on both routes 4 times each in turns, out, va, vb and
@@ -341,8 +342,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     [min_depth, max_depth];
 41. readings, beside the card's name and power limit: ``dataset[i]``
     alone (ms a sample), the loader alone (4 workers, ms a batch over the
-    last 12 of an epoch of 16), the loop (``train.main``, one epoch of 16
-    steps): step wall, loader wait and imgs/s over the last 12 steps, and
+    last 6 of an epoch of 10), the loop (``train.main``, one epoch of 10
+    steps): step wall, loader wait and imgs/s over the last 6 steps, and
     its first step apart, the epoch-boundary reading that phase 40's
     epochs of 3 steps also give; and phase 35's grid-route bf16 step with
     the batch on the card;
@@ -429,11 +430,32 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     reloaded and run in a fresh Python process: within 1e-4 of the live
     model, 14 conv3x3 launches a run; the export, the reloaded and the live
     forward timed; the bs1 ``forward_test`` wall with the operator's
-    dispatch and with the wrapper's launch alone, in turns.
+    dispatch and with the wrapper's launch alone, in turns;
+50. the port's motion-mask tools on the card: ``bgr_to_gray`` bitwise to
+    its CPU run; ``farneback`` (OpenCV's example settings) at 192x640 and
+    375x1242 against the same code on the CPU within 1e-3 px; the masks
+    of the two flows differing only within 1e-2 of the threshold;
+    ``write_png`` read back bitwise; ms a frame pair;
+51. the KITTI raw recipe on motion masks: ``scripts/train.py`` runs
+    ``MotionMaskPrecomputeHook`` over a drive of 36 training samples with
+    an object that moves on its own (resized to 192x640), then one epoch
+    of 3 steps with ``is_motion_mask=True``: every mask marks the object,
+    every step launches phase 43's kernels but the photometric forward
+    once (no identity stack), every batch carries a mask; the f32 bs2 step
+    with a mask on the card against the CPU port at phase 10's gate;
+52. ``scripts/test.py`` on phase 45's checkpoint with
+    ``PostOptFastNuscEvaluationHook`` over 8 frames a camera of the
+    nuScenes tree with VO maps at 288x512 on the card, and over 2 of them
+    on the card and on the CPU: 14 conv3x3 a forward and nothing else, no
+    frame left unrefined, the metrics within 1e-3 relative, the first
+    frame's SLIC assignment
+    equal on >= 99.9% of the pixels; post-opt ms a frame, frames/s.
 
 Every train step (phases 9, 13, 14, 19, 27, 29) launches the forward
 kernel twice (the warped stack and the identity stack) and the cotangent
-kernel once, on the vector route; ``forward_test`` launches neither.
+kernel once, on the vector route (the step on motion masks, phase 51,
+the forward once); ``forward_test`` launches neither. The run prints its
+seconds after each group of phases.
 
 It prints the record and the kernel line as JSON lines and, last, the
 result line ``{"ok": true, "device": {...}}``. It imports nothing of JAX or
@@ -443,6 +465,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -453,6 +476,9 @@ import numpy as np
 import torch
 
 BATCH, HEIGHT, WIDTH = 12, 192, 640
+# phases 35 and 39: windows of 20 steps timed, the fastest kept (bench.py
+# times 4; 2 keep the whole run inside its time limit)
+TIMING_WINDOWS = 2
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores, bf16 dense tensor cores, HBM3 bandwidth
@@ -1425,13 +1451,13 @@ def time_conv_kernels(B, shapes, rows, forward=False, dtype=torch.float32):
 def train_phases(counters, record):
     """Phases 8-11. Returns the launch counts of the train path and the
     kernel line's entries of the training kernels."""
-    from fsnet_tpu_torch.entry import (flagship_model, flagship_optimizer,
-                                       synthetic_batch)
+    from fsnet_tpu_torch.entry import flagship_model, flagship_optimizer
     from fsnet_tpu_torch.ops import warp_depth as twd
     from fsnet_tpu_torch.runtime.state import make_train_step
 
     rows = [dict(name=n) for n, *_ in SHAPES]
-    batch = synthetic_batch(BATCH, HEIGHT, WIDTH)
+    batch = {k: v for k, v in flagship_masked_np().items()
+             if k != "patched_mask"}
 
     # 8. training kernels against their plain versions
     errs, warp_in = check_training_kernels(batch, rows)
@@ -1614,6 +1640,18 @@ def grid_scene(batch_np, image, depth, mask=None):
 
 
 @functools.lru_cache(maxsize=1)
+def flagship_masked_np():
+    """``entry.synthetic_batch`` at bs12 @192x640 with the ``"ones"``
+    patched mask, made once: its textures take the host about a minute.
+    Less ``patched_mask`` it is the batch without a mask (the mask is drawn
+    after all else). Phases 8-16, 32-35 and 51 read it and change none of
+    its arrays."""
+    from fsnet_tpu_torch.entry import synthetic_batch
+
+    return synthetic_batch(BATCH, HEIGHT, WIDTH, patched_mask="ones")
+
+
+@functools.lru_cache(maxsize=1)
 def nusc_batch_np():
     """``entry.nusc_batch()`` (bs8 @288x512, the ``"nuscenes"`` patched
     mask), made once: its textures take the host a while. Phases 12 and
@@ -1697,7 +1735,7 @@ def grid_phases(counters, record, train):
     import torch.nn.functional as F
 
     from fsnet_tpu_torch.entry import (flagship_model, flagship_optimizer,
-                                       learned_pose_model, synthetic_batch)
+                                       learned_pose_model)
     from fsnet_tpu_torch.ops import warp_fast as twf
     from fsnet_tpu_torch.runtime.state import make_train_step
 
@@ -1713,7 +1751,7 @@ def grid_phases(counters, record, train):
     errs = {k: max(v, errs_n[k]) for k, v in errs.items()}
 
     # 13. the flagship on the grid route: a batch with a patched mask
-    masked = synthetic_batch(BATCH, HEIGHT, WIDTH, patched_mask="ones")
+    masked = flagship_masked_np()
     want_mask = dict(train["want"], warp_depth_fwd=0, warp_depth_bwd=0,
                      warp_grid_fused=1, warp_grid_fwd=1)
     model = flagship_model(HEIGHT, WIDTH, device="cuda", seed=0)
@@ -3448,7 +3486,7 @@ def bf16_steps(counters, record, train):
     kernels, the routes as at float32, the warped frames the loss saw
     bf16; the lane-window count on the step's own depths."""
     from fsnet_tpu_torch.entry import (FLAGSHIP_RECIPE, flagship_model,
-                                       flagship_optimizer, synthetic_batch)
+                                       flagship_optimizer)
     from fsnet_tpu_torch.ops import warp_depth as twd
     from fsnet_tpu_torch.ops import warp_fast as twf
     from fsnet_tpu_torch.ops.geometry import project_rows
@@ -3462,9 +3500,7 @@ def bf16_steps(counters, record, train):
     want_dd = train["want"]
     want_grid = dict(want_dd, warp_depth_fwd=0, warp_depth_bwd=0,
                      warp_grid_fused=1, warp_grid_fwd=1)
-    batches = dict(depth_direct=train["batch"],
-                   grid=synthetic_batch(BATCH, HEIGHT, WIDTH,
-                                        patched_mask="ones"))
+    batches = dict(depth_direct=train["batch"], grid=flagship_masked_np())
     for route, want in (("depth_direct", want_dd), ("grid", want_grid)):
         model = flagship_model(HEIGHT, WIDTH, device="cuda", seed=0)
         opt, _ = flagship_optimizer(model)
@@ -3625,7 +3661,8 @@ def bf16_card_vs_cpu(batches):
 def time_steps(batches):
     """Phase 35: the flagship step at bs12 @192x640 in float32 and in bf16
     on each route, the batch on the card, as ``bench.py`` times the JAX
-    step: 3 warm-up steps, 4 windows of 20 steps, the fastest window;
+    step (3 warm-up steps, then windows of 20 steps, the fastest): 2
+    windows (``bench.py`` takes 4; cut to keep the run inside its limit);
     device-busy ms a step under ``torch.profiler`` over 3 steps; peak
     memory over the windows."""
     from fsnet_tpu_torch.entry import (FLAGSHIP_RECIPE, flagship_model,
@@ -3645,7 +3682,7 @@ def time_steps(batches):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             windows = []
-            for _ in range(4):
+            for _ in range(TIMING_WINDOWS):
                 t0 = time.perf_counter()
                 for _ in range(20):
                     step(model, opt, on_card)
@@ -3661,7 +3698,8 @@ def time_steps(batches):
                                          device_busy_ms=busy,
                                          peak_mem_gb=peak)
             print(f"train step {route} {tag} bs{BATCH}@{HEIGHT}x{WIDTH} "
-                  f"(fastest of 4 windows of 20, batch on the card): "
+                  f"(fastest of {TIMING_WINDOWS} windows of 20, batch on "
+                  "the card): "
                   f"{ms:.3f} ms = {BATCH / ms * 1e3:.2f} imgs/s, windows "
                   f"{[round(w, 3) for w in windows]}; device busy "
                   f"{busy:.3f} ms a step; peak memory {peak:.3f} GB")
@@ -4130,7 +4168,7 @@ def recipe_bf16_vs_cpu(cases):
 def time_recipe_steps(cases):
     """Phase 39: each recipe's step at its batch in float32 and in bf16,
     the batch on the card, as phase 35 times the flagship's (3 warm-up
-    steps, the fastest of 4 windows of 20; device-busy ms a step under
+    steps, the fastest of 2 windows of 20; device-busy ms a step under
     ``torch.profiler`` over 3 steps; peak memory over the windows)."""
     from fsnet_tpu_torch.entry import recipe_optimizer
     from fsnet_tpu_torch.runtime.state import make_train_step
@@ -4147,7 +4185,7 @@ def time_recipe_steps(cases):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             windows = []
-            for _ in range(4):
+            for _ in range(TIMING_WINDOWS):
                 t0 = time.perf_counter()
                 for _ in range(20):
                     step(model, opt, on_card)
@@ -4162,7 +4200,8 @@ def time_recipe_steps(cases):
                                         imgs_per_s=B / ms * 1e3,
                                         device_busy_ms=busy,
                                         peak_mem_gb=peak)
-            print(f"train step {name} {tag} bs{B}@{H}x{W} (fastest of 4 "
+            print(f"train step {name} {tag} bs{B}@{H}x{W} (fastest of "
+                  f"{TIMING_WINDOWS} "
                   f"windows of 20, batch on the card): {ms:.3f} ms = "
                   f"{B / ms * 1e3:.2f} imgs/s, windows "
                   f"{[round(w, 3) for w in windows]}; device busy "
@@ -4451,7 +4490,7 @@ def train_loop_phase(counters, record):
 # makes the first batch alone, the loader drains at each epoch's end) is
 # paid once: RATE_BATCHES batches, the steady pace read over the last
 # RATE_STEADY; dataset[i] timed over RATE_SAMPLES samples
-RATE_BATCHES, RATE_STEADY, RATE_SAMPLES = 16, 12, 12
+RATE_BATCHES, RATE_STEADY, RATE_SAMPLES = 10, 6, 6
 
 
 def sample_ms(config=FLAGSHIP_CONFIG, samples=RATE_SAMPLES) -> float:
@@ -4472,9 +4511,9 @@ def sample_ms(config=FLAGSHIP_CONFIG, samples=RATE_SAMPLES) -> float:
 
 def loop_readings(record, loop):
     """Phase 41, readings only: ``dataset[i]`` alone (one process, ms a
-    sample); the loader alone (4 workers, one epoch of 16 batches, ms a
-    batch over the last 12); the loop, ``train.main`` over one epoch of 16
-    steps: its step wall, loader wait and imgs/s over the last 12 steps,
+    sample); the loader alone (4 workers, one epoch of 10 batches, ms a
+    batch over the last 6); the loop, ``train.main`` over one epoch of 10
+    steps: its step wall, loader wait and imgs/s over the last 6 steps,
     and its first step apart (the epoch-boundary reading, as are phase
     40's epochs of 3 steps); and phase 35's grid-route bf16 step with the
     batch on the card."""
@@ -5173,6 +5212,7 @@ def nusc_recipe_phase(counters, record, tree):
     log = run["log"]
     out = dict(card=record["card"], run_s=run_s, losses=[e["loss"]
                                                          for e in log],
+               checkpoint=run["checkpoint"],
                launches=want["launches"], eval_launches_per_forward=one,
                eval_forwards=len(ev_watch.forwards), back_masks=masks,
                errors={k: [s.tolist() for s in v] for k, v in loop_s.items()},
@@ -5877,6 +5917,416 @@ def export_phase(counters, record):
     return out
 
 
+# --------------------------------- motion masks and post-opt (phases 50-52)
+
+# phase 50: OpenCV's example settings, the precompute's default threshold
+# (pixels at the flow's size); phase 51 scales it to its 192x640 masks
+MASK_THRESHOLD, FLOW_REPEATS = 5.0, 3
+TRAIN_THRESHOLD = MASK_THRESHOLD * HEIGHT / KITTI_H
+MASK_DIR = DISK_DIR / "motion_masks"
+# phase 51: a KITTI raw drive of its own with an object that moves on its
+# own; each mask marks at least MOVER_INSIDE of the object, MOVER_RATIO
+# times as densely as the rest
+MOVER_DIR = DISK_DIR / "mover"
+MOVER_INSIDE, MOVER_RATIO = 0.9, 3.0
+# phase 52: the VO maps at nuScenes' unpadded evaluation input, 900x1600
+# scaled by 0.32; val splits of its own over phase 45's frames: 8 frames
+# a camera, and the first 2 for the card against the CPU
+VO_H, VO_W = 288, 512
+POSTOPT_VAL, POSTOPT_PAIR = 16, 2
+
+
+def flow_pairs(tree):
+    """(tag, grey frame 0, grey frame 1, P2, relative pose) of a 192x640
+    pair of the synthetic render at two times and of the written KITTI
+    tree's first training sample at 375x1242, the grey frames uint8 on the
+    host through ``bgr_to_gray``."""
+    from fsnet_tpu_torch.data.datasets.mono_dataset import \
+        KittiDepthMonoDataset
+    from fsnet_tpu_torch.data.datasets.synthetic_dataset import \
+        SyntheticMonoDataset
+    from fsnet_tpu_torch.ops.optical_flow import bgr_to_gray
+
+    render = SyntheticMonoDataset(length=1, height=HEIGHT, width=WIDTH,
+                                  frame_idxs=[0, 1], seed=4)[0]
+    kitti = KittiDepthMonoDataset(
+        raw_path=tree["raw"], split_file=tree["train"], frame_idxs=[0, 1, -1],
+        augmentation=dict(name="fsnet_tpu_torch.data.augmentations."
+                               "EmptyAug"))[0]
+    out = []
+    for tag, data in ((f"{HEIGHT}x{WIDTH}", render),
+                      (f"{KITTI_H}x{KITTI_W}", kitti)):
+        grey = [bgr_to_gray(torch.from_numpy(np.ascontiguousarray(
+            data[("image", f)]))) for f in (0, 1)]
+        out.append((tag, grey[0], grey[1], data["P2"],
+                    data[("relative_pose", 1)]))
+    return out
+
+
+def flow_phase(record, tree):
+    """Phase 50: the port's grey conversion, Farneback flow and PNG writer
+    on the card. ``bgr_to_gray`` bitwise to its CPU run on a random
+    375x1242 frame; ``farneback`` (OpenCV's example settings) on the card
+    against the same code on the CPU at 192x640 and 375x1242, within 1e-3
+    px (the two sum in other orders); the motion masks of the two flows
+    (threshold 5) differ only where the CPU's |distance| lies within 1e-2
+    of the threshold; ``write_png`` of the card's mask read back bitwise.
+    Readings: ms a frame pair on the card (the flow and the mask)."""
+    from fsnet_tpu_torch.configs.common import FARNEBACK_EXAMPLE
+    from fsnet_tpu_torch.data.datasets import image_io
+    from fsnet_tpu_torch.ops.optical_flow import bgr_to_gray, farneback
+    from fsnet_tpu_torch.pipeline_hooks.precompute_hooks import \
+        _epipolar_distance
+
+    frame = torch.from_numpy(np.random.RandomState(50).randint(
+        0, 256, (KITTI_H, KITTI_W, 3)).astype(np.uint8))
+    grey_same = torch.equal(bgr_to_gray(frame.cuda()).cpu(),
+                            bgr_to_gray(frame))
+    check(grey_same, "phase 50: bgr_to_gray on the card differs from the "
+          "CPU's")
+    out = dict(card=record["card"], grey_bitwise=grey_same, pairs={})
+    MASK_DIR.mkdir(parents=True, exist_ok=True)
+    for tag, a, b, P2, pose in flow_pairs(tree):
+        card = farneback(a.cuda(), b.cuda(), **FARNEBACK_EXAMPLE)
+        torch.cuda.synchronize()
+        cpu = farneback(a, b, **FARNEBACK_EXAMPLE)
+        diff = (card.cpu() - cpu).abs()
+        check(card.shape == cpu.shape and bool(torch.isfinite(card).all())
+              and float(diff.max()) <= 1e-3, f"phase 50 {tag}: card vs CPU "
+              f"flow max {float(diff.max()):.3e} px > 1e-3")
+        d_card = _epipolar_distance(card, P2, pose)
+        d_cpu = _epipolar_distance(cpu, P2, pose)
+        m_card = (d_card.abs() > MASK_THRESHOLD).cpu()
+        m_cpu = d_cpu.abs() > MASK_THRESHOLD
+        differ = m_card != m_cpu
+        edge = float((d_cpu.abs()[differ] - MASK_THRESHOLD).abs().max()
+                     ) if bool(differ.any()) else 0.0
+        check(edge <= 1e-2, f"phase 50 {tag}: masks differ {edge:.3e} from "
+              "the threshold")
+        path = str(MASK_DIR / f"check_{tag}.png")
+        image_io.write_png(path, m_card.numpy().astype(np.uint8))
+        back = image_io.read_png(path)
+        check(np.array_equal(back, m_card.numpy().astype(np.uint8)),
+              f"phase 50 {tag}: the written mask reads back otherwise")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FLOW_REPEATS):
+            f = farneback(a.cuda(), b.cuda(), **FARNEBACK_EXAMPLE)
+            (_epipolar_distance(f, P2, pose).abs() > MASK_THRESHOLD).cpu()
+        ms = (time.perf_counter() - t0) / FLOW_REPEATS * 1e3
+        out["pairs"][tag] = dict(
+            flow_max_abs=float(diff.max()), flow_mean_abs=float(diff.mean()),
+            mask_pixels_differ=int(differ.sum()), mask_edge=edge,
+            mask_share=float(m_card.float().mean()), pair_ms=ms)
+    print(f"phase 50 ({record['card']}): bgr_to_gray bitwise to the CPU; "
+          "farneback (OpenCV's example settings) on the card against the "
+          "CPU: " + "; ".join(
+              f"{t} max {v['flow_max_abs']:.2e} px, mean "
+              f"{v['flow_mean_abs']:.2e} px, masks differ at "
+              f"{v['mask_pixels_differ']} pixels (within {v['mask_edge']:.1e}"
+              f" of the threshold), share of ones {v['mask_share']:.4f}, "
+              f"{v['pair_ms']:.2f} ms a frame pair (flow and mask)"
+              for t, v in out["pairs"].items())
+          + "; write_png read back bitwise")
+    return out
+
+
+def halved_photo_fwd(want):
+    """Phase 43's step with the photometric forward I launched once (the
+    warped stack only, no identity stack)."""
+    out = {k: (dict(v) if isinstance(v, dict) else v)
+           for k, v in want.items()}
+    out["launches"] = dict(want["launches"])
+    out["launches"]["photo_loss_fwd"] //= 2
+    for key in ("dtypes", "routes"):
+        out[key] = {k: dict(v) for k, v in want[key].items()}
+        if "photo_loss_fwd" in out[key]:
+            out[key]["photo_loss_fwd"] = {
+                r: n // 2 for r, n in want[key]["photo_loss_fwd"].items()}
+    return out
+
+
+def write_mover_tree(dt, batch):
+    """Phase 51's KITTI raw tree at 375x1242 under ``build/disk_tree/mover``:
+    one date with KITTI's calibration and a drive of 36 training samples
+    (frames 1-36 of 38, the left camera) whose frames carry
+    ``disk_trees.moving_object``, and its split file. Returns the paths and
+    the seconds it took."""
+    import shutil
+
+    shutil.rmtree(MOVER_DIR, ignore_errors=True)
+    raw = MOVER_DIR / "raw"
+    t0 = time.perf_counter()
+    dt.write_kitti_date(str(raw / DISK_DATE), KITTI_H, KITTI_W)
+    n_train = DISK_STEPS * batch
+    dt.write_kitti_drive(str(raw), DISK_TRAIN, n_train + 2, KITTI_H, KITTI_W,
+                         seed=1, cams=("image_02",), mover=True)
+    train = dt.write_split(MOVER_DIR / "train_files.txt", [
+        f"{DISK_TRAIN} {i} l" for i in range(1, n_train + 1)])
+    return dict(raw=str(raw), train=train,
+                seconds=time.perf_counter() - t0)
+
+
+def mover_shares(dt, masks, n):
+    """(share of ones inside the moving object, share in the rest) of each
+    of the ``n`` written 192x640 masks, mask k of frame k + 1: the object's
+    box at 375x1242 scaled to the mask, its edges rounded inwards."""
+    from fsnet_tpu_torch.data.datasets import image_io
+
+    sy, sx = HEIGHT / KITTI_H, WIDTH / KITTI_W
+    out = []
+    for k in range(n):
+        m = image_io.read_png(str(masks / f"{k:08d}.png")) > 0
+        y0, x0, h, w = dt.mover_box(KITTI_H, KITTI_W, k + 1)
+        box = np.zeros_like(m)
+        box[math.ceil(y0 * sy):math.floor((y0 + h) * sy),
+            math.ceil(x0 * sx):math.floor((x0 + w) * sx)] = True
+        out.append((float(m[box].mean()), float(m[~box].mean())))
+    return out
+
+
+def motion_mask_phase(counters, record, tree):
+    """Phase 51: ``train.main`` on the port's ``kitti_wpose_example.py``
+    (bf16, bs12 @192x640, 4 loader workers) with ``is_motion_mask=True``
+    on a 375x1242 drive of its own whose frames carry an object that
+    moves on its own (phase 42's tree serves the validation split):
+    ``MotionMaskPrecomputeHook`` (OpenCV's example settings, a resize-only
+    augmentation to 192x640, phase 50's threshold of 5 px at 375x1242
+    scaled to 192x640) writes the 36 masks before the datasets are built,
+    then one epoch of 3 steps (no evaluation). Every mask marks at least
+    90% of the object, at least 3 times as densely as the rest; every step
+    launches phase 43's kernels but I once (no identity stack) and every
+    batch carries a mask; the f32 bs2 step with a mask on the card against
+    the CPU port at phase 10's gate."""
+    import shutil
+
+    from fsnet_tpu_torch.configs.common import motion_mask_hook
+    from fsnet_tpu_torch.entry import flagship_model
+    from fsnet_tpu_torch.scripts import train as train_script
+
+    want = halved_photo_fwd(record["bf16_steps"]["grid"])
+    check(want["launches"]["photo_loss_fwd"] == 1,
+          f"phase 51: expected I once, from {want['launches']}")
+    dt = disk_trees()
+    mover = write_mover_tree(dt, BATCH)
+    masks = MOVER_DIR / "masks"
+    shutil.rmtree(masks, ignore_errors=True)
+    child = dict(name="fsnet_tpu_torch.data.datasets.mono_dataset."
+                      "KittiDepthMonoDataset",
+                 raw_path=mover["raw"], split_file=mover["train"])
+    over = disk_overrides(tree, DISK_DIR / "ckpt_mask", **{
+        "train_dataset.cfg_list": [child],
+        "train_dataset.is_motion_mask": True,
+        "train_dataset.motion_mask_path": str(masks),
+        "trainer.precompute_hook": motion_mask_hook(
+            dict(child, frame_idxs=[0, 1, -1]), (HEIGHT, WIDTH), str(masks),
+            distance_threshold=TRAIN_THRESHOLD),
+        "trainer.test_iter": 2})
+    loop = LoopWatch(counters, keep=("motion_mask",))
+    try:
+        t0 = time.perf_counter()
+        run = train_script.main(config=str(KITTI_CONFIG), device="cuda",
+                                **over)
+        run_s = time.perf_counter() - t0
+    finally:
+        loop.close()
+    pre = run["precompute"]
+    n_train = DISK_STEPS * BATCH
+    check(pre.written == n_train
+          and len(list(masks.iterdir())) == n_train,
+          f"phase 51: {pre.written} masks written of {n_train}")
+    marked = mover_shares(dt, masks, n_train)
+    check(all(i >= MOVER_INSIDE and i >= MOVER_RATIO * r for i, r in marked),
+          f"phase 51: shares of ones (moving object, rest) {marked}")
+    check(len(loop.steps) == DISK_STEPS and not run["evals"],
+          f"phase 51: {len(loop.steps)} steps, {len(run['evals'])} "
+          "evaluations")
+    shares = []
+    for i, s in enumerate(loop.steps):
+        check(s["launches"] == want["launches"], f"phase 51 step {i}: "
+              f"launches {s['launches']}, want {want['launches']}")
+        check(all(s["dtypes"][k] == v for k, v in want["dtypes"].items()),
+              f"phase 51 step {i}: launches by dtype {s['dtypes']}")
+        check(s["routes"] == want["routes"], f"phase 51 step {i}: routes "
+              f"{s['routes']}, want {want['routes']}")
+        m = s["batch"].get("motion_mask")
+        check(m is not None and tuple(m.shape) == (BATCH, HEIGHT, WIDTH)
+              and m.dtype == torch.uint8 and int(m.max()) <= 1,
+              f"phase 51 step {i}: motion mask "
+              f"{None if m is None else (tuple(m.shape), m.dtype)}")
+        shares.append(float(m.float().mean()))
+    losses = [e["loss"] for e in run["log"]]
+    check(len(losses) == DISK_STEPS and all(np.isfinite(losses)),
+          f"phase 51: losses {losses}")
+    small = white_noise_images({k: v[:2]
+                                for k, v in flagship_masked_np().items()})
+    small["motion_mask"] = loop.steps[0]["batch"]["motion_mask"][:2].numpy()
+    vs_cpu = card_vs_cpu(flagship_model, small,
+                         "phase 51 motion-mask step (grid route)")
+    log = run["log"]
+    out = dict(card=record["card"], run_s=run_s, launches=want["launches"],
+               losses=losses, mask_share=shares,
+               precompute_s=pre.seconds, precompute_masks=pre.written,
+               tree_s=mover["seconds"],
+               mover_inside_min=min(i for i, _ in marked),
+               mover_rest_max=max(r for _, r in marked), card_vs_cpu=vs_cpu,
+               walls_ms=[e["wall_ms"] for e in log],
+               waits_ms=[e["wait_ms"] for e in log])
+    print(f"phase 51 ({record['card']}): drive of {n_train + 2} frames at "
+          f"{KITTI_H}x{KITTI_W} with a moving object written in "
+          f"{mover['seconds']:.1f} s; MotionMaskPrecomputeHook wrote "
+          f"{pre.written} masks at {HEIGHT}x{WIDTH} in {pre.seconds:.2f} s "
+          f"(threshold {TRAIN_THRESHOLD:.3f} px; "
+          f"{pre.seconds / pre.written * 1e3:.1f} ms a sample: dataset[i] "
+          f"at {KITTI_H}x{KITTI_W}, the resize, the flow and the PNG); each "
+          f"marks at least "
+          f"{out['mover_inside_min']:.4f} of the moving object, at most "
+          f"{out['mover_rest_max']:.4f} of the rest; "
+          f"train.main with is_motion_mask: {DISK_STEPS} steps, losses "
+          f"{[round(x, 6) for x in losses]}, launches per step phase 43's "
+          f"with I once: {want['launches']}; share of ones in the batches' "
+          f"masks {[round(x, 4) for x in shares]}; step walls "
+          f"{[round(v, 1) for v in out['walls_ms']]} ms, loader waits "
+          f"{[round(v, 1) for v in out['waits_ms']]} ms; run {run_s:.1f} s")
+    return out
+
+
+def postopt_phase(counters, record, tree):
+    """Phase 52: ``test.main`` on phase 45's checkpoint with
+    ``trainer.evaluate_hook`` set to ``PostOptFastNuscEvaluationHook`` over
+    val splits of its own on phase 45's frames (``disk_trees.
+    write_nusc_val``), each frame with a VO PNG at 288x512
+    (``disk_trees.write_nusc_vo``: the frame's own ground truth with 5%
+    log-normal noise): 16 frames (8 a camera, CAM_FRONT and CAM_BACK in
+    turn) on the card, each forward 14 conv3x3 and nothing else of the
+    hand-written kernels, every metric finite, no frame left unrefined, the
+    same frames' unrefined metrics beside them (the config's
+    ``FastNuscEvaluationHook``); the first 2 frames on the card and on the
+    CPU, the card's continuous metrics within 1e-3 relative of the CPU
+    port's (a1-a3 reported); the SLIC assignment of the first frame's
+    refine on the card equal to the CPU's on at least 99.9% of the pixels.
+    Readings: post-opt ms a frame, the evaluation pass's frames/s."""
+    from fsnet_tpu_torch.evaluation.nuscenes_unsupervised_eval import \
+        generate_depth_map
+    from fsnet_tpu_torch.ops import postopt as tpo
+    from fsnet_tpu_torch.pipeline_hooks import evaluation_hooks as teh
+    from fsnet_tpu_torch.scripts import test as test_script
+
+    dt = disk_trees()
+    t0 = time.perf_counter()
+    overs, points = {}, []
+    for n in (POSTOPT_VAL, POSTOPT_PAIR):
+        val = dt.write_nusc_val(tree, f"postopt_{n}", n, generate_depth_map)
+        vo = dt.write_nusc_vo(val, "samples_vo", VO_H, VO_W, seed=52,
+                              depth_map=generate_depth_map)
+        check(len(vo["paths"]) == n and min(vo["points"]) > 1000,
+              f"phase 52: VO maps {vo['points']}")
+        points += vo["points"]
+        overs[n] = nusc_overrides(dict(tree, **val), NUSC_DIR / "unused",
+                                  **{"val_dataset.vo_path": vo["vo_path"]})
+    vo_s = time.perf_counter() - t0
+    hook = {"trainer.evaluate_hook.name": "fsnet_tpu_torch.pipeline_hooks."
+                                          "evaluation_hooks."
+                                          "PostOptFastNuscEvaluationHook"}
+    ckpt = record["nusc_recipe"]["checkpoint"]
+
+    def run(n, device, post_opt=True):
+        res = test_script.main(config=str(NUSC_CONFIG), checkpoint=ckpt,
+                               device=device,
+                               **dict(overs[n], **(hook if post_opt else {})))
+        if post_opt:
+            check(res["samples"] == n and res["post_opt"]["refined"] == n
+                  and res["post_opt"]["unrefined"] == 0,
+                  f"phase 52 ({n} frames, {device}): post_opt "
+                  f"{res['post_opt']}")
+        return res
+
+    captured = []
+    refine = teh.post_optimization
+
+    def kept(*args, **kw):
+        if not captured:
+            captured.append((args, kw))
+        return refine(*args, **kw)
+
+    ev_watch = EvalWatch(counters)
+    teh.post_optimization = kept
+    try:
+        card = run(POSTOPT_VAL, "cuda")
+    finally:
+        teh.post_optimization = refine
+        ev_watch.close()
+    one = dict(dict.fromkeys(ev_watch.forwards[0], 0), conv3x3=len(SHAPES))
+    check(ev_watch.forwards and all(f == one for f in ev_watch.forwards),
+          f"phase 52: evaluation forwards' launches {ev_watch.forwards}")
+    plain = run(POSTOPT_VAL, "cuda", post_opt=False)
+    pair_card, pair_cpu = run(POSTOPT_PAIR, "cuda"), run(POSTOPT_PAIR, "cpu")
+
+    def suites(res):
+        out = {"all": (res["errors"], res["abs_errors"])}
+        out.update(res["channels"])
+        return out
+
+    card_r, plain_r = suites(card), suites(plain)
+    pair_r, cpu_r = suites(pair_card), suites(pair_cpu)
+    check(sorted(card_r) == sorted(plain_r) == sorted(pair_r)
+          == sorted(cpu_r) and all(
+              np.isfinite(s).all() and s.shape == (7,)
+              for r in (card_r, plain_r, pair_r, cpu_r)
+              for v in r.values() for s in v),
+          f"phase 52: metrics card {card_r}, unrefined {plain_r}, "
+          f"{POSTOPT_PAIR} frames card {pair_r} CPU {cpu_r}")
+    vs_cpu = max(rel_max(a[:4], b[:4]) for k in pair_r
+                 for a, b in zip(pair_r[k], cpu_r[k]))
+    a_vs_cpu = max(float(np.abs(a[4:] - b[4:]).max()) for k in pair_r
+                   for a, b in zip(pair_r[k], cpu_r[k]))
+    check(vs_cpu <= 1e-3, f"phase 52: card vs CPU metrics rel {vs_cpu:.3e}"
+          f" > 1e-3: card {pair_r}, CPU {cpu_r}")
+    (image, uvz, *_), kw = captured[0]
+    slic_kw = {k: kw[k] for k in ("lab_dist_weight", "iter_num",
+                                  "depth_dist_weight", "image_dist_weight")}
+    a_card, a_cpu = (tpo.slic_assign(tpo.rgb2lab(im), u, kw["h_seg"],
+                                     kw["w_seg"], **slic_kw)[0].cpu()
+                     for im, u in ((image, uvz), (image.cpu(), uvz.cpu())))
+    agree = float((a_card == a_cpu).float().mean())
+    check(agree >= 0.999, f"phase 52: SLIC assignments agree on "
+          f"{agree:.5f} of the pixels")
+    frames_s = POSTOPT_VAL / card["seconds"]
+    per_frame = card["post_opt"]["seconds"] / POSTOPT_VAL * 1e3
+    out = dict(card=record["card"], vo_points=points, vo_write_s=vo_s,
+               eval_launches_per_forward=one,
+               eval_forwards=len(ev_watch.forwards),
+               refined={k: [s.tolist() for s in v]
+                        for k, v in card_r.items()},
+               unrefined={k: [s.tolist() for s in v]
+                          for k, v in plain_r.items()},
+               card_vs_cpu_rel=vs_cpu, card_vs_cpu_a_abs=a_vs_cpu,
+               slic_agreement=agree, postopt_ms_per_frame=per_frame,
+               postopt_ms_per_frame_cpu=pair_cpu["post_opt"]["seconds"]
+               / POSTOPT_PAIR * 1e3,
+               eval_s=card["seconds"], eval_frames_per_s=frames_s,
+               eval_s_unrefined=plain["seconds"],
+               eval_s_cpu=pair_cpu["seconds"])
+    print(f"phase 52 ({record['card']}): val splits and VO maps at "
+          f"{VO_H}x{VO_W} ({min(points)}-{max(points)} points) written in "
+          f"{vo_s:.1f} s; PostOptFastNuscEvaluationHook over {POSTOPT_VAL} "
+          f"frames ({POSTOPT_VAL // 2} a camera) on phase 45's checkpoint: "
+          f"{len(ev_watch.forwards)} forwards, {one['conv3x3']} conv3x3 "
+          f"launches each and nothing else; {card['post_opt']['refined']} "
+          f"frames refined, {card['post_opt']['unrefined']} left; abs_rel "
+          f"refined against unrefined on the same frames (all mean): scaled "
+          f"{card['errors'][0]:.4f} vs {plain['errors'][0]:.4f}, absolute "
+          f"{card['abs_errors'][0]:.4f} vs {plain['abs_errors'][0]:.4f}; "
+          f"card vs CPU port over {POSTOPT_PAIR} frames {vs_cpu:.2e} rel "
+          f"(a1-a3 {a_vs_cpu:.2e}); SLIC assignments agree on {agree:.5f} "
+          f"of the pixels; post-opt {per_frame:.1f} ms a frame on the card "
+          f"({out['postopt_ms_per_frame_cpu']:.0f} on the CPU); evaluation "
+          f"pass (reading, forward, refine, metrics) {card['seconds']:.2f} "
+          f"s = {frames_s:.2f} frames/s ({plain['seconds']:.2f} s "
+          f"unrefined)")
+    return out
+
+
 def main() -> int:
     global REPEATS
     import argparse
@@ -5901,7 +6351,15 @@ def main() -> int:
 
     counters = launch_counters()
 
-    record = {}
+    record = {"elapsed_s": {}}
+    t_run = time.perf_counter()
+
+    def stamp(phases):
+        """The run's seconds after ``phases``, kept and printed."""
+        record["elapsed_s"][phases] = time.perf_counter() - t_run
+        print(f"elapsed after phases {phases}: "
+              f"{record['elapsed_s'][phases]:.1f} s", flush=True)
+
     # 1. the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6096,13 +6554,16 @@ def main() -> int:
           f"{kernel['ms_library_shapes']:.4f} ms at "
           f"{len(kernel['library_shapes'])} shapes")
 
+    stamp("1-7")
     # 8-11. the train path
     train = train_phases(counters, record)
     kernel["launches_train_path"] = train["counts"]["conv3x3"]
 
+    stamp("8-11")
     # 12-16. the grid route: patched-mask batches and learned poses
     grid_kernels = grid_phases(counters, record, train)
 
+    stamp("12-16")
     # 17-21. the KITTI-360 fisheye recipe: Mei camera, norm-direct warp
     mei_kernels, fish_counts, fish = fisheye_phases(counters, record, train)
     kernel["launches_fisheye_path"] = fish_counts["conv3x3"]
@@ -6110,9 +6571,11 @@ def main() -> int:
         if e["name"].startswith("conv3x3"):
             e["launches_fisheye_path"] = fish_counts[e["name"]]
 
+    stamp("17-21")
     # 22. the photometric loss kernels at both recipes
     photo_kernels = photo_phases(record, train, fish)
 
+    stamp("22")
     # 23-26. the DLA-34 + DLASegUpsample path: deformable convs (E, K)
     kernel_k, e_dla = dla_phases(counters, record)
     for e in grid_kernels:
@@ -6121,12 +6584,14 @@ def main() -> int:
             e["note"] += ("; dla_*: the 16 DCNs of one bs12 @192x640 DLA "
                           "step (phases 23-26), launches over its 3 steps")
 
+    stamp("23-26")
     # 27-31. the nuScenes recipes: the nusc_wpose step and the distillation
     # step with its frozen teacher, bs8 @288x512
     kernels = ([kernel] + train["kernels"] + grid_kernels + mei_kernels
                + photo_kernels + [kernel_k])
     add_nusc_readings(kernels, nusc_phases(counters, record))
 
+    stamp("27-31")
     # 32-35. the bf16 step: each bf16 form against its plain version, the
     # launches, routes and dtypes of one bf16 step of each route, the card
     # against the CPU port, and the steps' and kernels' times
@@ -6141,6 +6606,7 @@ def main() -> int:
                 "kernel alone, the bound at bf16 bytes (phases 33, 35)")
     kernels += bf16_entries
 
+    stamp("32-35")
     # 36-39. every shipped recipe's step at its shipped dtype: kernels G and
     # H in bf16 against their plain versions (and the conv kernels at the
     # one-channel uncertainty convs), one bf16 step of the fisheye and the
@@ -6150,6 +6616,7 @@ def main() -> int:
                                                            fish)
     kernels += mei_bf16
 
+    stamp("36-39")
     # 40-41. the flagship recipe trained from its dataset through the
     # port's train.py and evaluated through its test.py; the loop's
     # readings
@@ -6157,6 +6624,7 @@ def main() -> int:
     record["train_loop_readings"] = loop_readings(record,
                                                   record["train_loop"])
 
+    stamp("40-41")
     # 42-43. the KITTI raw recipe from a PNG tree written on disk: the
     # port's PNG reader, then train.main with the evaluation hook and
     # test.main on the card and on the CPU
@@ -6166,6 +6634,7 @@ def main() -> int:
     kernel["launches_kitti_eval_per_frame"] = \
         record["disk_recipe"]["eval_launches_per_frame"]["conv3x3"]
 
+    stamp("42-43")
     # 44-46. the nuScenes recipes from a JPEG tree written on disk: the
     # port's JPEG decoder, then train.main on nusc_wpose with the
     # per-camera evaluation and test.main on the card and on the CPU, then
@@ -6177,6 +6646,7 @@ def main() -> int:
     kernel["launches_nusc_eval_per_forward"] = \
         record["nusc_recipe"]["eval_launches_per_forward"]["conv3x3"]
 
+    stamp("44-46")
     # 47-49. the KITTI-360 fisheye recipe from a PNG tree (the last shipped
     # config without a run from disk), FusionPortable's dataset and
     # evaluator, and the exported dummy_forward program
@@ -6194,6 +6664,25 @@ def main() -> int:
         if loop_step.get(base):
             e["launches_fisheye_loop_per_step"] = loop_step[base]
 
+    stamp("47-49")
+    # 50-52. the motion-mask path and the VO post-optimisation: the port's
+    # Farneback flow, grey conversion and PNG writer on the card; the KITTI
+    # raw recipe precomputing its masks and training on them through
+    # train.py; the nuScenes evaluation with post-optimisation through
+    # test.py on the card and on the CPU
+    record["flow"] = flow_phase(record, record["png_reader"]["tree"])
+    record["motion_masks"] = motion_mask_phase(
+        counters, record, record["png_reader"]["tree"])
+    record["postopt"] = postopt_phase(counters, record, tree)
+    kernel["launches_nusc_postopt_eval_per_forward"] = \
+        record["postopt"]["eval_launches_per_forward"]["conv3x3"]
+    mask_step = record["motion_masks"]["launches"]
+    for e in kernels:
+        base = e["name"].removesuffix("_bf16")
+        if mask_step.get(base):
+            e["launches_motion_mask_step"] = mask_step[base]
+
+    stamp("50-52")
     record["empty_profiles"] = len(EMPTY_PROFILES)
     print(f"profiler windows with no device event, profiled again: "
           f"{len(EMPTY_PROFILES)}")

@@ -1,8 +1,9 @@
 """Shared config pieces (counterpart of ``configs/common.py`` with
 ``fsnet_tpu_torch`` names and this package's EasyDict): the project paths,
 the flagship's train and val augmentation graphs, its ``MonoDepthWPose``,
-the self-distillation ``DistillWPoseMeta``, the trainer section and the
-KITTI and nuScenes evaluation hooks."""
+the self-distillation ``DistillWPoseMeta``, the trainer section, the
+KITTI and nuScenes evaluation hooks, and the motion-mask precompute
+hook."""
 import os
 
 import numpy as np
@@ -265,4 +266,35 @@ def nusc_evaluate_hook(data_path, base_path):
             split_file=os.path.join(sub, "nusc_val.txt"),
             gt_saved_dir=os.path.join(sub, "samples_depth_gt"),
         ),
+    )
+
+
+# cv2.calcOpticalFlowFarneback's settings in OpenCV's documented example
+FARNEBACK_EXAMPLE = edict(pyr_scale=0.5, levels=3, winsize=15, iterations=3,
+                          poly_n=5, poly_sigma=1.2, flags=0)
+
+
+def motion_mask_hook(dataset_cfg, rgb_shape, output_dir,
+                     distance_threshold=5.0):
+    """``MotionMaskPrecomputeHook`` (the flow at :data:`FARNEBACK_EXAMPLE`)
+    over ``dataset_cfg`` (a training dataset's config, its ``frame_idxs``
+    included) with a resize-only augmentation to ``rgb_shape`` (frames 0
+    and 1 and ``P2``), so that the masks have the training frame's size;
+    the masks go to ``output_dir``. Other flow settings: edit the returned
+    dict's ``flow_estimator_cfg``."""
+    h, w = rgb_shape[0], rgb_shape[1]
+    return edict(
+        name="fsnet_tpu_torch.pipeline_hooks.precompute_hooks."
+             "MotionMaskPrecomputeHook",
+        train_dataset_cfg=edict(dataset_cfg, augmentation=edict(
+            name=f"{BUILDER}.Sequential",
+            cfg_list=[
+                edict(name=f"{AUG}.ConvertToFloat"),
+                edict(name=f"{AUG}.Resize", size=(h, w),
+                      preserve_aspect_ratio=False, calib_keys=["P2"]),
+            ],
+            image_keys=[("image", 0), ("image", 1)])),
+        flow_estimator_cfg=edict(FARNEBACK_EXAMPLE),
+        distance_threshold=distance_threshold,
+        output_dir=output_dir,
     )

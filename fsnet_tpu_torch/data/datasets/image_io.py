@@ -54,6 +54,9 @@ What each reader returns matches the call it replaces exactly:
 * :func:`imread_unchanged` is ``cv2.imread(path, cv2.IMREAD_UNCHANGED)``:
   grey HxW, colour in BGR (BGRA) order, ``uint8`` or ``uint16``;
 * :func:`png_size` reads only the header: (H, W).
+
+:func:`write_png` writes a grey 8- or 16-bit PNG (the motion masks of
+``pipeline_hooks/precompute_hooks.py``) in place of ``cv2.imwrite``.
 """
 from __future__ import annotations
 
@@ -301,6 +304,40 @@ def read_png(path: str, plain: bool = False) -> np.ndarray:
         img = rows
     img = img.reshape(height, width, channels)
     return img[:, :, 0] if channels == 1 else img
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data)))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Writes a grey ``uint8`` or ``uint16`` [H, W] image as a PNG (colour
+    type 0, bit depth 8 or 16, every row filter None, one zlib stream at
+    zlib's level 6 cut into IDAT chunks of 64 KiB, each chunk's CRC by
+    ``zlib.crc32``): the
+    file ``cv2.imwrite`` would hold for these samples, which
+    :func:`read_png` and ``cv2.imread(path, -1)`` read back bit for bit.
+    The file is written to a temporary name and renamed into place."""
+    img = np.asarray(img)
+    if img.ndim != 2 or img.dtype not in (np.uint8, np.uint16):
+        raise TypeError(f"write_png takes a grey uint8 or uint16 [H, W] "
+                        f"image, got {img.dtype} {img.shape}")
+    H, W = img.shape
+    depth = 8 * img.dtype.itemsize
+    rows = np.ascontiguousarray(img.astype(">u2") if depth == 16 else img
+                                ).view(np.uint8).reshape(H, -1)
+    raw = np.concatenate([np.zeros((H, 1), np.uint8), rows], axis=1)
+    stream = zlib.compress(raw.tobytes(), 6)
+    parts = [SIGNATURE, _png_chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", W, H, depth, 0, 0, 0, 0))]
+    parts += [_png_chunk(b"IDAT", stream[i:i + (1 << 16)])
+              for i in range(0, len(stream), 1 << 16)]
+    parts.append(_png_chunk(b"IEND", b""))
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(b"".join(parts))
+    os.replace(tmp, path)
 
 
 def read_image(path: str) -> np.ndarray:

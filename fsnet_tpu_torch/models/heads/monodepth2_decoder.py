@@ -19,13 +19,14 @@ in one pass, on one of the JAX package's two routes:
 Then 0.85 SSIM + 0.15 L1 per pixel
 (:func:`~fsnet_tpu_torch.ops.photo_loss.reprojection_loss_fused`, against
 target n mod B), the overlap mask, the identity automask
-with the identity candidates pre-minned over the frames, the patched mask,
-and edge-aware smoothness over a dyadic color pyramid; with
+with the identity candidates pre-minned over the frames (or, where the
+batch carries a precomputed ``motion_mask``, the min-reprojection with no
+gradient through the mask's pixels and no identity stack), the patched
+mask, and edge-aware smoothness over a dyadic color pyramid; with
 ``distillation_loss_weight`` the teacher-student depth loss of every scale
 (:meth:`MonoDepth2Decoder.compute_distill_loss`). Other branches (residual
-poses or flow, motion masks, light compensation, SSIM weights, depth
-monitors) raise. On a CUDA device the warps and the
-photometric loss are the Hopper kernels.
+poses or flow, light compensation, SSIM weights, depth monitors) raise. On
+a CUDA device the warps and the photometric loss are the Hopper kernels.
 
 The identity tie-break noise is an input: ``noise`` [F, B, H, W] standard
 normal values, scaled by 1e-5 as in the JAX package; without it no noise is
@@ -135,9 +136,8 @@ class MonoDepth2Decoder(nn.Module):
         on = [k for k, v in self.unported.items() if v]
         if self.warp_impl != "band":
             on.append(f"warp_impl={self.warp_impl!r}")
-        for key in ("motion_mask", "depth_gt"):
-            if key in input_dict:
-                on.append(f"input {key!r}")
+        if "depth_gt" in input_dict:
+            on.append("input 'depth_gt'")
         if on:
             raise NotImplementedError("the port's loss does not run the "
                                       f"branches of {on} yet")
@@ -255,23 +255,31 @@ class MonoDepth2Decoder(nn.Module):
             for fi, f in enumerate(frames):
                 hm[f"predicted_image_{f}"] = preds[0, fi, 0:1]
 
-        # identity automask, with the identity candidates pre-minned over
-        # the frames (scale-independent)
-        sources = torch.stack([input_dict[("original_image", f)]
-                               for f in frames]).to(tgt.dtype)
-        identity = reprojection_loss_fused(
-            sources.reshape(F * B, H, W, C), tgt, *t_stats
-        ).reshape(F, B, H, W)
-        if noise is not None:
-            identity = identity + noise.to(identity) * 1e-5
-        identity_min = torch.amin(identity, dim=0)
-        combined = torch.cat([identity_min[None, None].expand(S, 1, B, H, W),
-                              proj_loss], dim=1)
-        to_opt = torch.amin(combined, dim=1)                  # [S, B, H, W]
-        if self.is_log_image:
-            hm["loss_mask_0"] = dict(data=(
-                torch.amin(proj_loss[0], dim=0) < identity_min
-            )[0:1, ..., None])
+        if "motion_mask" in input_dict:
+            # the precomputed motion mask gates the gradient: its pixels
+            # keep their min-reprojection value but pass no gradient; no
+            # identity candidates, so the tie-break noise is not read
+            motion = input_dict["motion_mask"].to(proj_loss.dtype)[None]
+            to_opt = torch.amin(proj_loss, dim=1)             # [S, B, H, W]
+            to_opt = to_opt.detach() * motion + to_opt * (1.0 - motion)
+        else:
+            # identity automask, with the identity candidates pre-minned
+            # over the frames (scale-independent)
+            sources = torch.stack([input_dict[("original_image", f)]
+                                   for f in frames]).to(tgt.dtype)
+            identity = reprojection_loss_fused(
+                sources.reshape(F * B, H, W, C), tgt, *t_stats
+            ).reshape(F, B, H, W)
+            if noise is not None:
+                identity = identity + noise.to(identity) * 1e-5
+            identity_min = torch.amin(identity, dim=0)
+            combined = torch.cat([identity_min[None, None].expand(
+                S, 1, B, H, W), proj_loss], dim=1)
+            to_opt = torch.amin(combined, dim=1)              # [S, B, H, W]
+            if self.is_log_image:
+                hm["loss_mask_0"] = dict(data=(
+                    torch.amin(proj_loss[0], dim=0) < identity_min
+                )[0:1, ..., None])
 
         # sums in float32 or wider; the normaliser is the patched mask's sum
         # (the pixel count without one). Datasets give the mask as float64:

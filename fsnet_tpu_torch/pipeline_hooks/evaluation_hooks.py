@@ -15,11 +15,22 @@ depth resized linearly (not in inverse space) to the original image's
 size, the evaluator's ``single_call`` on each frame's file name, the errors
 grouped by ``camera_type``, each camera's means logged, then their mean.
 :class:`BaseEvaluationHook` is the generic pass, one sample at a time.
-``KittiEvaluationHook_postopt`` and ``PostOptFastNuscEvaluationHook`` (SLIC
-post-optimisation) are not ported.
+:class:`KittiEvaluationHook_postopt` and
+:class:`PostOptFastNuscEvaluationHook` refine each frame's unpadded depth
+with the batch's sparse VO depth (``vo_depth/0``) before the resize:
+SLIC superpixels and a per-segment log-scale solve
+(:func:`~fsnet_tpu_torch.ops.postopt.post_optimization`) on the hook's
+device, with the JAX hooks' defaults and ``post_opt_cfg``'s overrides.
+The VO map must have the unpadded depth's size (no dataset resizes it):
+a mismatch raises. Where the JAX KITTI hook swallows any error of the
+refine, these catch only the refine's own
+(:class:`~fsnet_tpu_torch.ops.postopt.PostOptError`, a singular solve),
+evaluate that frame unrefined and count it: after a call ``post_opt``
+holds the frames refined, those left unrefined and the refine's seconds.
 """
 from __future__ import annotations
 
+import time
 import warnings
 from contextlib import closing
 from typing import Dict, Optional
@@ -30,6 +41,9 @@ import torch
 from ..data.augmentations import resize_linear
 from ..data.dataloader import Dataloader, InferenceSampler
 from ..data.datasets.dataset_utils import collate_fn
+from ..ops.postopt import (PostOptError, denorm,
+                           depth_image_to_point_cloud_array,
+                           post_optimization)
 from ..utils.builder import build
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.keys import encode_batch
@@ -87,13 +101,17 @@ class KittiEvaluationHook:
         self.batch_size = batch_size
         self.num_workers = num_workers
 
+    def _refine(self, batched_data, i: int, depth: np.ndarray) -> np.ndarray:
+        return depth
+
     def __call__(self, model, dataset_val, writer=None, global_step: int = 0,
                  epoch_num: int = 0):
         """Returns the mean median-scaled and absolute errors, each [7]."""
         errors, abs_errors = [], []
         with closing(_predicted_frames(self, model, dataset_val, global_step,
                                        epoch_num)) as frames:
-            for frame_index, (_, _, depth, size) in enumerate(frames):
+            for frame_index, (batch, i, depth, size) in enumerate(frames):
+                depth = self._refine(batch, i, depth)
                 depth_0 = 1.0 / resize_linear(1.0 / depth, *size)
                 result = self.dataset_eval_func.single_call(depth_0,
                                                             frame_index)
@@ -126,6 +144,9 @@ class FastNuscEvaluationHook:
         self.num_workers = num_workers
         self.channel_means: Dict = {}
 
+    def _refine(self, batched_data, i: int, depth: np.ndarray) -> np.ndarray:
+        return depth
+
     def __call__(self, model, dataset_val, writer=None, global_step: int = 0,
                  epoch_num: int = 0):
         """Returns the mean over the cameras of each camera's mean
@@ -135,6 +156,7 @@ class FastNuscEvaluationHook:
         with closing(_predicted_frames(self, model, dataset_val, global_step,
                                        epoch_num)) as frames:
             for batched_data, i, depth, size in frames:
+                depth = self._refine(batched_data, i, depth)
                 depth_0 = resize_linear(depth, *size)
                 camera_type = batched_data["camera_type"][i]
                 errors.setdefault(camera_type, [])
@@ -165,6 +187,78 @@ class FastNuscEvaluationHook:
                                    all_mean_abs, global_step=global_step,
                                    epoch_num=epoch_num)
         return all_mean, all_mean_abs
+
+
+# the JAX hooks' refine parameters; ``post_opt_cfg`` overrides any of them
+POST_OPT_DEFAULTS = dict(lab_dist_weight=1, depth_dist_weight=1,
+                         image_dist_weight=1, h_seg=10, w_seg=18, iter_num=3,
+                         lambda0=0.54 / (10 * 18), lambda1=1.0, lambda2=0.4)
+_RGB_MEAN = (0.485, 0.456, 0.406)
+_RGB_STD = (0.229, 0.224, 0.225)
+
+
+class _PostOpt:
+    """The VO refine of a frame's unpadded float32 depth, for the hooks
+    below: ``post_opt_cfg`` (keyword) overrides :data:`POST_OPT_DEFAULTS`;
+    keys it does not name (``vo_path``) are not read."""
+
+    def __init__(self, *args, post_opt_cfg: Optional[Dict] = None,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.post_opt_cfg = post_opt_cfg
+        self._start()
+
+    def __call__(self, *args, **kwargs):
+        self._start()
+        return super().__call__(*args, **kwargs)
+
+    def _params(self) -> Dict:
+        params = dict(POST_OPT_DEFAULTS)
+        params.update({k: v for k, v in (self.post_opt_cfg or {}).items()
+                       if k in params})
+        return params
+
+    def _start(self) -> None:
+        self.post_opt = dict(refined=0, unrefined=0, seconds=0.0)
+
+    def _refine(self, batched_data, i: int, depth: np.ndarray) -> np.ndarray:
+        vo = batched_data.get("vo_depth/0")
+        if vo is None:
+            return depth
+        t0 = time.perf_counter()
+        dev = self.device
+        vo = torch.as_tensor(_host(vo[i]), dtype=torch.float32, device=dev)
+        if tuple(vo.shape) != depth.shape:
+            raise ValueError(
+                f"vo_depth {tuple(vo.shape)} differs from the unpadded "
+                f"depth {depth.shape}: the VO map must come at the "
+                "evaluation's unpadded input size (no dataset resizes it)")
+        h, w = depth.shape
+        image = torch.as_tensor(_host(batched_data["image/0"][i]),
+                                device=dev)[:h, :w]
+        rgb = denorm(image, _RGB_MEAN, _RGB_STD).to(torch.float32) / 255.0
+        d = torch.as_tensor(depth, dtype=torch.float32, device=dev)
+        try:
+            refined = post_optimization(
+                rgb, depth_image_to_point_cloud_array(d), d, vo,
+                **self._params()).cpu().numpy()
+            self.post_opt["refined"] += 1
+        except (PostOptError, torch.linalg.LinAlgError) as e:
+            warnings.warn(f"post-optimisation left a frame unrefined: {e}")
+            refined = depth
+            self.post_opt["unrefined"] += 1
+        self.post_opt["seconds"] += time.perf_counter() - t0
+        return refined
+
+
+class KittiEvaluationHook_postopt(_PostOpt, KittiEvaluationHook):
+    """:class:`KittiEvaluationHook` with each frame's depth refined by its
+    VO depth before the inverse-space resize."""
+
+
+class PostOptFastNuscEvaluationHook(_PostOpt, FastNuscEvaluationHook):
+    """:class:`FastNuscEvaluationHook` with each frame's depth refined by
+    its VO depth before the resize."""
 
 
 class BaseEvaluationHook:

@@ -12,11 +12,13 @@ Usage, from the root of the repo:
         --checkpoint PATH [--split val] [--device cpu] [--a.b.c value]
 
 A config whose ``evaluate_hook`` or ``precompute_hook`` names something the
-port does not have raises, as ``train.py`` does.
+port does not have raises, as ``train.py`` does; a ported
+``precompute_hook`` is not run (the masks serve training only).
 """
 from __future__ import annotations
 
 import argparse
+import time
 from typing import Dict
 
 
@@ -26,9 +28,11 @@ def main(config: str, checkpoint: str = "", split: str = "val",
     config's ``split`` on ``device`` (CUDA unless the caller asks for the
     CPU). Returns the ``samples`` count and the ``epoch`` restored, and,
     with an ``evaluate_hook``, its mean ``errors`` and ``abs_errors``
-    (median-scaled and absolute, [7] each) and ``channels`` (each camera's
-    two suites where the hook groups by camera), else the depth's ``min``,
-    ``mean`` (of the per-sample means) and ``max``."""
+    (median-scaled and absolute, [7] each), ``channels`` (each camera's
+    two suites where the hook groups by camera), ``seconds`` (the
+    evaluation pass) and ``post_opt`` (a post-opt hook's counts of frames
+    refined and left unrefined, and its seconds; else None), else the
+    depth's ``min``, ``mean`` (of the per-sample means) and ``max``."""
     from ..data.datasets.dataset_utils import collate_fn
     from ..pipeline_hooks.train_val_hooks import BaseValidationHook
     from ..runtime.checkpoint import load_models
@@ -52,10 +56,17 @@ def main(config: str, checkpoint: str = "", split: str = "val",
 
     if cfg.trainer.get("evaluate_hook"):
         evaluate_hook = build(**cfg.trainer.evaluate_hook, device=dev)
+        t0 = time.perf_counter()
         errors, abs_errors = evaluate_hook(model, dataset, None, 0, 0)
+        seconds = time.perf_counter() - t0
+        post_opt = getattr(evaluate_hook, "post_opt", None)
+        if post_opt is not None:
+            print(f"post-optimisation: {post_opt['refined']} frames "
+                  f"refined, {post_opt['unrefined']} left unrefined")
         return dict(errors=errors, abs_errors=abs_errors,
                     channels=dict(getattr(evaluate_hook, "channel_means",
                                           {})),
+                    post_opt=post_opt, seconds=seconds,
                     samples=len(dataset), epoch=epoch)
 
     hook = BaseValidationHook(device=dev)

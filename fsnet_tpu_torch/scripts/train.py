@@ -20,11 +20,14 @@ last, as ``<checkpoint_path>/<model_name>_latest.pth``; set
 statistics, Adam's moments and count, the epoch). ``--debug_nans`` (or
 ``DEBUGGING=1``) turns on ``torch.autograd.set_detect_anomaly``;
 ``--profile_dir DIR`` writes a ``torch.profiler`` trace of steps 10-13.
-The config's ``evaluate_hook`` is built on the device before the first
-step (a KITTI evaluator precomputes its ground truth then) and run on
-``val_dataset`` after the checkpoint of every ``test_iter``-th epoch
-(default 5). A config whose ``evaluate_hook`` or ``precompute_hook`` names
-something the port does not have raises before anything is built.
+The config's ``trainer.precompute_hook`` (the motion masks) is built on
+the device and run before the datasets are built. Its ``evaluate_hook``
+is built on the device before the first step (a KITTI evaluator
+precomputes its ground truth then) and run on ``val_dataset`` after the
+checkpoint of every ``test_iter``-th epoch (default 5); a post-opt hook
+prints the frames it left unrefined. A config whose ``evaluate_hook`` or
+``precompute_hook`` names something the port does not have raises before
+anything is built.
 """
 from __future__ import annotations
 
@@ -98,41 +101,40 @@ def _names(node):
 
 
 def check_hooks(cfg) -> None:
-    """Raises where the config asks for a hook the port does not have: any
-    ``trainer.precompute_hook`` (the motion-mask and flow precompute is not
-    ported), and an ``evaluate_hook`` that names anything outside the
-    port's modules (``KittiEvaluationHook_postopt``,
-    ``PostOptFastNuscEvaluationHook``, a JAX package's name). The port has
-    ``KittiEvaluationHook`` with ``KittiEigenEvaluator``,
+    """Raises where ``trainer.precompute_hook`` or ``trainer.evaluate_hook``
+    names anything outside the port's modules (a JAX package's name, a
+    made-up one). The port has the precompute hooks
+    ``MotionMaskPrecomputeHook`` and ``MotionMaskARFlowPrecomputeHook``,
+    and the evaluation hooks ``KittiEvaluationHook`` and
+    ``KittiEvaluationHook_postopt`` with ``KittiEigenEvaluator``,
     ``Kitti360Evaluator``, ``Kitti360FisheyeEvaluator`` and
-    ``FusionPortableEvaluator``, and ``FastNuscEvaluationHook`` with
-    ``NuscenesEvaluator``."""
+    ``FusionPortableEvaluator``, and ``FastNuscEvaluationHook`` and
+    ``PostOptFastNuscEvaluationHook`` with ``NuscenesEvaluator``."""
     from ..utils.builder import find_object
 
-    if cfg.trainer.get("precompute_hook"):
-        raise NotImplementedError(
-            f"trainer.precompute_hook "
-            f"{cfg.trainer.precompute_hook.get('name')!r}: the precompute "
-            "hooks (motion masks, flow) are not ported yet; drop it from "
-            "the config")
-    hook = cfg.trainer.get("evaluate_hook")
-    if not hook:
-        return
-    for name in _names(hook):
-        ported = name.startswith("fsnet_tpu_torch.")
-        if ported:
-            try:
-                find_object(name)
-            except ModuleNotFoundError:
-                ported = False
-        if not ported:
-            raise NotImplementedError(
-                f"evaluate_hook {hook.get('name')!r}: {name!r} is not "
-                "ported; the port evaluates through fsnet_tpu_torch."
-                "pipeline_hooks.evaluation_hooks.KittiEvaluationHook with "
-                "the KITTI raw, KITTI-360, KITTI-360 fisheye or "
-                "FusionPortable evaluator, or FastNuscEvaluationHook with "
-                "NuscenesEvaluator")
+    for key in ("precompute_hook", "evaluate_hook"):
+        hook = cfg.trainer.get(key)
+        if not hook:
+            continue
+        for name in _names(hook):
+            ported = name.startswith("fsnet_tpu_torch.")
+            if ported:
+                try:
+                    find_object(name)
+                except (ModuleNotFoundError, AttributeError):
+                    ported = False
+            if not ported:
+                raise NotImplementedError(
+                    f"trainer.{key} {hook.get('name')!r}: {name!r} is not "
+                    "ported; the port precomputes motion masks through "
+                    "fsnet_tpu_torch.pipeline_hooks.precompute_hooks."
+                    "MotionMaskPrecomputeHook or "
+                    "MotionMaskARFlowPrecomputeHook, and evaluates through "
+                    "fsnet_tpu_torch.pipeline_hooks.evaluation_hooks."
+                    "KittiEvaluationHook(_postopt) with the KITTI raw, "
+                    "KITTI-360, KITTI-360 fisheye or FusionPortable "
+                    "evaluator, or (PostOpt)FastNuscEvaluationHook with "
+                    "NuscenesEvaluator")
 
 
 def main(config: str = "fsnet_tpu_torch/configs/synthetic_smoke_example.py",
@@ -146,8 +148,10 @@ def main(config: str = "fsnet_tpu_torch/configs/synthetic_smoke_example.py",
     ``log``: one dict per printed window (step, loss, wait_ms, wall_ms,
     steps), and ``evals``: one dict per evaluation (epoch, global_step,
     errors and abs_errors, the evaluator's two mean error suites, channels,
-    each camera's two suites where the hook groups by camera, and
-    seconds)."""
+    each camera's two suites where the hook groups by camera, post_opt, a
+    post-opt hook's counts of frames refined and left unrefined and its
+    seconds, and seconds), and ``precompute``: the precompute hook run
+    before the datasets were built, or None."""
     import torch
 
     from ..data.dataloader import build_dataloader, device_prefetch
@@ -169,6 +173,11 @@ def main(config: str = "fsnet_tpu_torch/configs/synthetic_smoke_example.py",
     seed = getattr(cfg.trainer, "seed", 100)
     set_random_seed(seed)
     writer = _writer(cfg, experiment_name, config)
+
+    precompute = None
+    if cfg.trainer.get("precompute_hook"):
+        precompute = build(**cfg.trainer.precompute_hook, device=dev)
+        precompute()
 
     dataset_train = build(**cfg.train_dataset)
     dataset_val = build(**cfg.val_dataset)
@@ -279,11 +288,16 @@ def main(config: str = "fsnet_tpu_torch/configs/synthetic_smoke_example.py",
                 errors, abs_errors = evaluate_hook(model, dataset_val,
                                                    writer, global_step,
                                                    epoch)
+                post_opt = getattr(evaluate_hook, "post_opt", None)
+                if post_opt is not None:
+                    print(f"post-optimisation: {post_opt['refined']} frames "
+                          f"refined, {post_opt['unrefined']} left unrefined")
                 evals.append(dict(
                     epoch=epoch, global_step=global_step, errors=errors,
                     abs_errors=abs_errors,
                     channels=dict(getattr(evaluate_hook, "channel_means",
                                           {})),
+                    post_opt=post_opt,
                     seconds=time.perf_counter() - t0))
     finally:
         if prof is not None:
@@ -294,7 +308,8 @@ def main(config: str = "fsnet_tpu_torch/configs/synthetic_smoke_example.py",
     print("Training complete")
     return dict(model=model, optimizer=optimizer, schedule=schedule,
                 hook=hook, epoch=done_epochs, global_step=global_step,
-                checkpoint=latest, log=log, evals=evals)
+                checkpoint=latest, log=log, evals=evals,
+                precompute=precompute)
 
 
 if __name__ == "__main__":

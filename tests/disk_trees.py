@@ -26,7 +26,9 @@ ground plane and walls.
 * :func:`write_nusc_json_tree`: nuScenes ``samples/<CAM>/<name>.jpg``
   frames, the train and val JSON files that ``NusceneJsonDataset`` reads
   and 16-bit ground-truth depth PNGs (metres x 256) under the evaluator's
-  ``gt_saved_dir``.
+  ``gt_saved_dir``; :func:`write_nusc_val`: a longer val split over the
+  same frames; :func:`write_nusc_vo`: the val frames' sparse VO depth PNGs
+  beside them, at the evaluation's input size.
 """
 from __future__ import annotations
 
@@ -482,14 +484,39 @@ def poses(n: int, static: Sequence[int] = ()) -> np.ndarray:
     return out
 
 
+def mover_box(H: int, W: int, i: int) -> tuple:
+    """(y0, x0, h, w) of :func:`moving_object` in frame ``i`` of an H x W
+    drive: a quarter of the height and width, left of KITTI's principal
+    point on its row (where the epipolar lines of the drive's forward
+    motion run nearly level), a 32nd of the height lower in odd frames
+    than in even ones."""
+    h, w = max(H // 4, 1), max(W // 4, 1)
+    y0 = (max(round(H * _P2[6] / KITTI_H) - h // 2, 0)
+          + max(H // 32, 1) * (i % 2))
+    return min(y0, max(H - h, 0)), W // 32, h, w
+
+
+def moving_object(img: np.ndarray, i: int, seed: int) -> np.ndarray:
+    """``img`` with a seeded noise block pasted at :func:`mover_box` of
+    frame ``i``: an object that moves up and down on its own, across the
+    epipolar lines, while the background shifts left."""
+    y0, x0, h, w = mover_box(img.shape[0], img.shape[1], i)
+    block = np.random.RandomState(seed).randint(
+        0, 256, (h + 64, w + 128, 3)).astype(np.uint8)
+    out = img.copy()
+    out[y0:y0 + h, x0:x0 + w] = block[32:32 + h, 64:64 + w]
+    return out
+
+
 def write_kitti_drive(root, drive: str, n: int, H: int, W: int,
                       seed: int = 0, cams=("image_02", "image_03"),
                       static: Sequence[int] = (), velodyne: bool = False,
-                      depth: bool = False) -> None:
+                      depth: bool = False, mover: bool = False) -> None:
     """``n`` frames of ``drive`` (``<date>/<date>_drive_XXXX_sync``) under
     ``root``: each camera's PNGs, ``oxts/pose.mat``; with ``velodyne`` a
     scan per frame, with ``depth`` a 16-bit sparse depth PNG per frame under
-    ``depth/`` (the Eigen test dataset's layout)."""
+    ``depth/`` (the Eigen test dataset's layout); with ``mover`` each frame
+    carries :func:`moving_object`."""
     import scipy.io as sio
 
     base = os.path.join(root, drive)
@@ -497,9 +524,10 @@ def write_kitti_drive(root, drive: str, n: int, H: int, W: int,
         d = os.path.join(base, cam, "data")
         os.makedirs(d, exist_ok=True)
         for i in range(n):
-            write_png(os.path.join(d, "%010d.png" % i),
-                      texture(H, W, 4.0 * i + 20 * c, seed * 1000 + 10 * i + c),
-                      level=1)
+            img = texture(H, W, 4.0 * i + 20 * c, seed * 1000 + 10 * i + c)
+            if mover:
+                img = moving_object(img, i, seed * 1000 + 7 + c)
+            write_png(os.path.join(d, "%010d.png" % i), img, level=1)
     os.makedirs(os.path.join(base, "oxts"), exist_ok=True)
     sio.savemat(os.path.join(base, "oxts", "pose.mat"),
                 {"pose_mat": poses(n, static)})
@@ -651,7 +679,7 @@ def write_nusc_json_tree(root, H: int, W: int, n_train: int, n_val: int,
                 "camera_type_indexes": NUSC_CHANNELS.index(cam),
                 "camera_type": cam}
 
-    out = dict(root=root, frames=sorted(frames.values()))
+    out = dict(root=root, frames=sorted(frames.values()), seed=seed)
     for split, n in (("train", n_train), ("val", n_val)):
         out[split] = os.path.join(root, f"json_{split}.json")
         with open(out[split], "w") as f:
@@ -660,18 +688,114 @@ def write_nusc_json_tree(root, H: int, W: int, n_train: int, n_val: int,
                                [f"token{i:04d}" for i in range(n_val)])
     out["gt"] = os.path.join(root, "samples_depth_gt")
     if depth_map is not None:
-        for i in range(n_val):
-            s = sample(i)
-            cam = s["camera_type"]
-            os.makedirs(os.path.join(out["gt"], cam), exist_ok=True)
-            velo = velodyne_scan(seed * 1000 + 500 + i)
-            if cam == "CAM_BACK":              # the scan turned to face it
-                velo[:, :2] = -velo[:, :2]
-            depth = depth_map(velo, nusc_extrinsics(cam), K, im_shape=(H, W))
-            name = os.path.basename(s["frame0"])[:-4] + ".png"
-            write_png(os.path.join(out["gt"], cam, name),
-                      (depth * 256).astype(np.uint16), level=1)
+        _write_nusc_gt(out["gt"], [sample(i) for i in range(n_val)], seed,
+                       depth_map)
     return out
+
+
+def _nusc_depth(s: dict, i: int, seed: int, depth_map) -> np.ndarray:
+    """The ground-truth depth of val sample ``i`` (``s``) of a tree written
+    with ``seed``: its seeded scan through ``depth_map`` at the frame's
+    size."""
+    velo = velodyne_scan(seed * 1000 + 500 + i)
+    if s["camera_type"] == "CAM_BACK":         # the scan turned to face it
+        velo[:, :2] = -velo[:, :2]
+    return depth_map(velo, nusc_extrinsics(s["camera_type"]),
+                     np.asarray(s["P2"]).reshape(3, 3),
+                     im_shape=_jpeg_size(s["frame0"]))
+
+
+def _write_nusc_gt(gt_dir: str, samples, seed: int, depth_map) -> None:
+    """Each val sample's 16-bit ground truth (metres x 256) under
+    ``<gt_dir>/<CAM>/``."""
+    for i, s in enumerate(samples):
+        cam = s["camera_type"]
+        os.makedirs(os.path.join(gt_dir, cam), exist_ok=True)
+        name = os.path.basename(s["frame0"])[:-4] + ".png"
+        write_png(os.path.join(gt_dir, cam, name),
+                  (_nusc_depth(s, i, seed, depth_map) * 256
+                   ).astype(np.uint16), level=1)
+
+
+def write_nusc_val(tree: dict, name: str, n_val: int, depth_map) -> dict:
+    """A val split of ``n_val`` samples over the frames of a tree from
+    :func:`write_nusc_json_tree` under ``<root>/<name>``: the first
+    ``n_val`` samples of its training JSON (whose first samples are its
+    val samples) as ``json_val.json``, ``nusc_val.txt`` and their ground
+    truth, each file as that function writes it. The tree's own files stay
+    as they are. Returns the paths under that function's keys."""
+    with open(tree["train"]) as f:
+        samples = json.load(f)["samples"]
+    if n_val > len(samples):
+        raise ValueError(f"{n_val} val samples from a tree of "
+                         f"{len(samples)} training samples")
+    root = os.path.join(tree["root"], name)
+    os.makedirs(root, exist_ok=True)
+    out = dict(root=root, train=tree["train"], seed=tree["seed"],
+               val=os.path.join(root, "json_val.json"),
+               gt=os.path.join(root, "samples_depth_gt"))
+    with open(out["val"], "w") as f:
+        json.dump({"samples": samples[:n_val]}, f)
+    out["split"] = write_split(os.path.join(root, "nusc_val.txt"),
+                               [f"token{i:04d}" for i in range(n_val)])
+    _write_nusc_gt(out["gt"], samples[:n_val], tree["seed"], depth_map)
+    return out
+
+
+def vo_depth_png(depth: np.ndarray, h: int, w: int, seed: int,
+                 noise: float = 0.05) -> np.ndarray:
+    """[h, w] ``uint16`` VO depth in ``read_vo_depth``'s encoding (metres /
+    120 x 65535, 0 where empty) from an [H, W] sparse ``depth`` (0 where
+    empty): each valid point moved to its place at h x w, scaled by a
+    seeded log-normal factor of ``noise``, the nearest kept where points
+    meet, and only those in (3, 80) m."""
+    H, W = depth.shape
+    ys, xs = np.nonzero(depth > 0)
+    v = depth[ys, xs].astype(np.float64) * np.exp(
+        np.random.RandomState(seed).randn(len(ys)) * noise)
+    vo = np.full((h, w), np.inf)
+    np.minimum.at(vo, (ys * h // H, xs * w // W), v)
+    keep = (vo > 3.0) & (vo < 80.0)
+    out = np.zeros((h, w), np.uint16)
+    out[keep] = np.round(vo[keep] / 120.0 * 65535.0).astype(np.uint16)
+    return out
+
+
+def write_nusc_vo(tree: dict, name: str, h: int, w: int, seed: int = 0,
+                  depth_map=None) -> dict:
+    """VO depth PNGs for the val samples of a tree from
+    :func:`write_nusc_json_tree` (written with ``depth_map``) under
+    ``<root>/<name>``, where ``NusceneJsonDataset`` with ``vo_path`` the
+    returned ``vo_path`` looks: each frame's ``samples/<CAM>/<file>.jpg``
+    with ``samples`` replaced by ``vo_path`` and ``.jpg`` by ``.png``. Each
+    holds :func:`vo_depth_png` of the frame's own ground truth (the same
+    seeded scan through ``depth_map``) at ``h`` x ``w``, the evaluation's
+    unpadded input size. Returns ``vo_path``, the files and each file's
+    valid points."""
+    with open(tree["val"]) as f:
+        samples = json.load(f)["samples"]
+    vo_path = os.path.join(tree["root"], name)
+    written, points = [], []
+    for i, s in enumerate(samples):
+        frame = s["frame0"]
+        vo = vo_depth_png(_nusc_depth(s, i, tree["seed"], depth_map), h, w,
+                          seed * 1000 + i)
+        path = os.path.join(*frame.split("/")[-3:]).replace(
+            "samples", vo_path).replace(".jpg", ".png")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        write_png(path, vo, level=1)
+        written.append(path)
+        points.append(int((vo > 0).sum()))
+    return dict(vo_path=vo_path, paths=written, points=points)
+
+
+def _jpeg_size(path) -> tuple:
+    """(H, W) from a baseline JPEG's SOF0 marker."""
+    with open(path, "rb") as f:
+        blob = f.read()
+    sof = blob.index(b"\xff\xc0")
+    H, W = struct.unpack(">HH", blob[sof + 5:sof + 9])
+    return H, W
 
 
 # ------------------------------------------------- KITTI-360 fisheye tree

@@ -16,8 +16,13 @@ loop's evaluation, on the CPU, on trees written by ``tests/disk_trees.py``
   in both) at the same tolerances;
 * ``train.main`` on the port's KITTI raw recipe on a tiny tree: 2 steps,
   then an evaluation of 2 frames, equal to ``test.main`` on the saved
-  checkpoint, in-process and with a loader worker; ``train.main`` and ``test.main`` raise at config load on a
-  ``precompute_hook`` and on an evaluator the port lacks;
+  checkpoint, in-process and with a loader worker; ``train.main`` and
+  ``test.main`` raise at config load on a hook or an evaluator the port
+  lacks (the JAX package's names, made-up ones);
+* ``KittiEvaluationHook_postopt`` on the same bridged weights against
+  JAX's hook, each frame carrying a seeded VO map (a dataset wrapper):
+  the continuous metrics within 1e-3 relative, a1-a3 within 1/N, every
+  frame refined; a VO map of another size raises;
 * the port's copies of ``configs/kitti_wpose_example.py``,
   ``kitti360_wpose_example.py``, ``nusc_wpose_example.py``,
   ``distill_nusc_example.py``, ``multi_dataset_example.py``,
@@ -199,16 +204,16 @@ def _small_model_cfg():
                                    pretrained=False)
 
 
-def test_evaluation_hook_matches_jax(trees, tmp_path):
-    """Measured when this test was written: the continuous metrics within
-    1.05e-7 relative of JAX's (gate 1e-5), a1-a3 equal (gate 1/8686)."""
+@pytest.fixture(scope="module")
+def bridged():
+    """The small port model with BN statistics away from the identity, and
+    a JAX train state on its weights (bridged by ``to_flax``)."""
     import optax
 
     from fsnet_tpu.runtime.state import TrainState
     from fsnet_tpu.utils.builder import build as jbuild
     from fsnet_tpu_torch.models.flax_convert import to_flax
 
-    port_gt = _gt(trees, "kitti", tmp_path)
     model = tbuild(**_small_model_cfg(), device="cpu", seed=3)
     with torch.no_grad():          # BN statistics away from the identity
         g = torch.Generator().manual_seed(4)
@@ -223,13 +228,26 @@ def test_evaluation_hook_matches_jax(trees, tmp_path):
                               params=variables["params"],
                               batch_stats=variables["batch_stats"],
                               tx=optax.identity())
+    return model, state
 
-    val = edict(
+
+def _val_cfg(trees):
+    return edict(
         name="fsnet_tpu_torch.data.datasets.mono_dataset."
              "KittiDepthMonoEigenTestDataset",
         raw_path=trees["raw"], split_file=trees["test"],
         augmentation=tcommon.wpose_augmentation(
             edict(rgb_shape=(H, W, 3)), [0, 1, -1], train=False))
+
+
+def test_evaluation_hook_matches_jax(trees, tmp_path, bridged):
+    """Measured when this test was written: the continuous metrics within
+    1.05e-7 relative of JAX's (gate 1e-5), a1-a3 equal (gate 1/8686)."""
+    from fsnet_tpu.utils.builder import build as jbuild
+
+    port_gt = _gt(trees, "kitti", tmp_path)
+    model, state = bridged
+    val = _val_cfg(trees)
     hook = tcommon.kitti_evaluate_hook(
         "KittiEigenEvaluator", trees["raw"], trees["test"],
         str(tmp_path / "kitti_port.npz"), "")
@@ -243,6 +261,74 @@ def test_evaluation_hook_matches_jax(trees, tmp_path):
         assert g.shape == (7,) and np.isfinite(g).all()
         assert np.all(np.abs(g[:4] - r[:4]) <= REL * np.abs(r[:4])), (g, r)
         assert np.all(np.abs(g[4:] - r[4:]) <= 1.0 / n), (g, r)
+
+
+class WithVO:
+    """A KITTI evaluation dataset (either package's) whose samples carry
+    ``('vo_depth', 0)`` at the unpadded input size, as no KITTI dataset
+    reads VO: seeded depths in (3, 80) m at 3 pixels in 10, 120 m (the
+    reader's invalid value) elsewhere; ``size`` overrides the size."""
+
+    def __init__(self, dataset, size=None):
+        self.dataset, self.size = dataset, size
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, i):
+        data = self.dataset[i]
+        h, w = self.size or tuple(
+            int(v) for v in data[("image_resize", "effective_size")])
+        rng = np.random.RandomState(100 + i)
+        vo = np.where(rng.rand(h, w) < 0.3, rng.uniform(3.5, 60.0, (h, w)),
+                      120.0)
+        data[("vo_depth", 0)] = vo.astype(np.float32)
+        return data
+
+
+def _jitted_refine(monkeypatch):
+    """JAX's refine jitted for its hook (one compile, not one per
+    operation); the same function."""
+    import fsnet_tpu.ops.postopt as jpo
+
+    monkeypatch.setattr(jpo, "post_optimization", jax.jit(
+        jpo.post_optimization, static_argnames=(
+            "h_seg", "w_seg", "lab_dist_weight", "iter_num",
+            "depth_dist_weight", "image_dist_weight", "lambda0", "lambda1",
+            "lambda2", "max_points")))
+
+
+def test_postopt_hook_matches_jax(trees, tmp_path, bridged, monkeypatch):
+    """``KittiEvaluationHook_postopt`` against JAX's on the same frames and
+    VO maps: the continuous metrics within 1e-3 relative, a1-a3 within
+    1/N; every frame refined (none left), the metrics moved from the
+    unrefined hook's; a VO map of another size raises."""
+    from fsnet_tpu.utils.builder import build as jbuild
+
+    port_gt = _gt(trees, "kitti", tmp_path)
+    model, state = bridged
+    val = _val_cfg(trees)
+    hook = tcommon.kitti_evaluate_hook(
+        "KittiEigenEvaluator", trees["raw"], trees["test"],
+        str(tmp_path / "kitti_port.npz"), "")
+    hook.update(batch_size=2, num_workers=0)
+    plain = tbuild(**hook, device="cpu")(model, tbuild(**val))
+    hook.name += "_postopt"
+    port = tbuild(**hook, device="cpu")
+    got = port(model, WithVO(tbuild(**val)))
+    assert port.post_opt["refined"] == 3 and port.post_opt["unrefined"] == 0
+    _jitted_refine(monkeypatch)
+    with jax.default_matmul_precision("highest"):
+        ref = jbuild(**_jax_names(hook))(
+            state, WithVO(jbuild(**_jax_names(val))))
+    n = min(_valid(np.asarray(d)) for d in port_gt.gt_depths)
+    for g, r, p in zip(got, ref, plain):
+        assert g.shape == (7,) and np.isfinite(g).all()
+        assert np.abs(g[:4] - p[:4]).max() > 1e-3 * np.abs(p[:4]).max()
+        assert np.all(np.abs(g[:4] - r[:4]) <= 1e-3 * np.abs(r[:4])), (g, r)
+        assert np.all(np.abs(g[4:] - r[4:]) <= 1.0 / n), (g, r)
+    with pytest.raises(ValueError, match="vo_depth"):
+        port(model, WithVO(tbuild(**val), size=(H, W - 8)))
 
 
 # ------------------------------------------------------ the training loop
@@ -317,16 +403,21 @@ HOOK = "fsnet_tpu_torch.pipeline_hooks.evaluation_hooks"
     ("test", "trainer.precompute_hook", {"name": "x.ArflowPrecompute"},
      "precompute_hook"),
     ("train", "trainer.evaluate_hook.name",
-     f"{HOOK}.KittiEvaluationHook_postopt", "KittiEvaluationHook_postopt"),
+     "fsnet_tpu.pipeline_hooks.evaluation_hooks.KittiEvaluationHook_postopt",
+     "KittiEvaluationHook_postopt"),
     ("test", "trainer.evaluate_hook.dataset_eval_cfg.name",
      "fsnet_tpu.evaluation.kitti360_fisheye_eval."
      "Kitti360FisheyeEvaluator", "Kitti360FisheyeEvaluator"),
+    ("train", "trainer.precompute_hook",
+     {"name": "fsnet_tpu.pipeline_hooks.precompute_hooks."
+              "MotionMaskPrecomputeHook"}, "MotionMaskPrecomputeHook"),
 ])
 def test_unported_hooks_raise(tmp_path, no_writer, script, key, value,
                               match):
     """Raised at config load: the dataset paths do not exist, so anything
-    built first would fail otherwise. (The fisheye evaluator is ported
-    since; its JAX package's name is refused.)"""
+    built first would fail otherwise. (The fisheye evaluator, the
+    precompute hooks and ``KittiEvaluationHook_postopt`` are ported since;
+    their JAX package's names, and made-up ones, are refused.)"""
     from fsnet_tpu_torch.scripts import test as test_script
     from fsnet_tpu_torch.scripts import train as train_script
 

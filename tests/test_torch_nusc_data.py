@@ -27,7 +27,12 @@ CAM_BACK's mask from row 700 on shows; the model at 64x96):
 * ``train.main`` on the port's ``nusc_wpose_example.py`` (cut to 64x96 and
   ResNet-18) on the tree: 2 steps, then an evaluation, equal to
   ``test.main`` on the saved checkpoint; ``check_hooks`` taking the
-  nuScenes hook and refusing the post-optimised one.
+  nuScenes hooks and refusing the JAX package's names;
+* ``PostOptFastNuscEvaluationHook`` on the same bridged weights against
+  JAX's hook, on VO PNGs ``disk_trees.write_nusc_vo`` writes beside the
+  tree at the unpadded input size: each camera's means within 1e-3
+  relative (continuous) and 1/N (a1-a3), every frame refined; a VO map of
+  another size raises.
 """
 import os
 
@@ -271,16 +276,14 @@ def _hook_cfg(tree, **extra):
     return hook
 
 
-def test_fast_nusc_hook_matches_jax(tree, monkeypatch):
-    """Each camera's means and their mean within REL (continuous) and 1/N
-    (a1-a3) of JAX's, N the fewest valid pixels of a frame."""
+@pytest.fixture(scope="module")
+def bridged():
+    """The small port model with BN statistics away from the identity, and
+    a JAX train state on its weights (bridged by ``to_flax``)."""
     import optax
 
-    import fsnet_tpu.evaluation.nuscenes_unsupervised_eval as jne
-    import fsnet_tpu.pipeline_hooks.train_val_hooks as jtv
     from fsnet_tpu.runtime.state import TrainState
     from fsnet_tpu.utils.builder import build as jbuild
-    from fsnet_tpu_torch.data.datasets.io_utils import read_depth
     from fsnet_tpu_torch.models.flax_convert import to_flax
 
     model = tbuild(**_small(), device="cpu", seed=3)
@@ -297,11 +300,16 @@ def test_fast_nusc_hook_matches_jax(tree, monkeypatch):
                               params=variables["params"],
                               batch_stats=variables["batch_stats"],
                               tx=optax.identity())
-    val = edict(name=f"fsnet_tpu_torch.data.datasets.{JSON}",
-                json_path=tree["val"], augmentation=_val_aug())
-    hook = _hook_cfg(tree, batch_size=3, num_workers=0)
-    port = tbuild(**hook, device="cpu")
-    got = port(model, tbuild(**val))
+    return model, state
+
+
+def _jax_hook_means(hook, state, val, monkeypatch):
+    """JAX's hook over ``val``: each camera's logged means, and the mean
+    over the cameras under ``all mean``."""
+    import fsnet_tpu.evaluation.nuscenes_unsupervised_eval as jne
+    import fsnet_tpu.pipeline_hooks.train_val_hooks as jtv
+    from fsnet_tpu.utils.builder import build as jbuild
+
     logged = {}
     monkeypatch.setattr(
         jne.NuscenesEvaluator, "log",
@@ -317,6 +325,12 @@ def test_fast_nusc_hook_matches_jax(tree, monkeypatch):
                    if not isinstance(v, list)}, *a, **kw))
     with jax.default_matmul_precision("highest"):
         jbuild(**_jax_cfg(hook))(state, jbuild(**_jax_cfg(val)))
+    return logged
+
+
+def _held_means(tree, port, got, logged, rel):
+    from fsnet_tpu_torch.data.datasets.io_utils import read_depth
+
     assert sorted(logged) == ["CAM_BACK", "CAM_FRONT", "all mean"]
     assert sorted(port.channel_means) == ["CAM_BACK", "CAM_FRONT"]
     n = min(_valid(read_depth(p)) for p in (
@@ -326,9 +340,63 @@ def test_fast_nusc_hook_matches_jax(tree, monkeypatch):
     for g_suites, r_suites in pairs:
         for g, r in zip(g_suites, r_suites):
             assert g.shape == (7,) and np.isfinite(g).all()
-            assert np.all(np.abs(g[:4] - r[:4]) <= REL * np.abs(r[:4])), (
+            assert np.all(np.abs(g[:4] - r[:4]) <= rel * np.abs(r[:4])), (
                 g, r)
             assert np.all(np.abs(g[4:] - r[4:]) <= 1.0 / n), (g, r)
+
+
+def test_fast_nusc_hook_matches_jax(tree, monkeypatch, bridged):
+    """Each camera's means and their mean within REL (continuous) and 1/N
+    (a1-a3) of JAX's, N the fewest valid pixels of a frame."""
+    model, state = bridged
+    val = edict(name=f"fsnet_tpu_torch.data.datasets.{JSON}",
+                json_path=tree["val"], augmentation=_val_aug())
+    hook = _hook_cfg(tree, batch_size=3, num_workers=0)
+    port = tbuild(**hook, device="cpu")
+    got = port(model, tbuild(**val))
+    logged = _jax_hook_means(hook, state, val, monkeypatch)
+    _held_means(tree, port, got, logged, REL)
+
+
+def _jitted_refine(monkeypatch):
+    """JAX's refine jitted for its hook (one compile, not one per
+    operation); the same function."""
+    import fsnet_tpu.ops.postopt as jpo
+
+    monkeypatch.setattr(jpo, "post_optimization", jax.jit(
+        jpo.post_optimization, static_argnames=(
+            "h_seg", "w_seg", "lab_dist_weight", "iter_num",
+            "depth_dist_weight", "image_dist_weight", "lambda0", "lambda1",
+            "lambda2", "max_points")))
+
+
+def test_postopt_nusc_hook_matches_jax(tree, monkeypatch, bridged):
+    """``PostOptFastNuscEvaluationHook`` against JAX's on frames whose VO
+    PNGs ``disk_trees.write_nusc_vo`` wrote at the unpadded input size
+    (64x96): each camera's means and their mean within 1e-3 relative
+    (continuous) and 1/N (a1-a3); every frame refined, the metrics moved
+    from the unrefined hook's; a VO map of another size raises."""
+    model, state = bridged
+    vo = dt.write_nusc_vo(tree, "samples_vo", H, W, seed=5,
+                          depth_map=tne.generate_depth_map)
+    assert min(vo["points"]) > 200
+    val = edict(name=f"fsnet_tpu_torch.data.datasets.{JSON}",
+                json_path=tree["val"], augmentation=_val_aug(),
+                vo_path=vo["vo_path"])
+    hook = _hook_cfg(tree, batch_size=3, num_workers=0)
+    plain = tbuild(**hook, device="cpu")(model, tbuild(**val))
+    hook.name = hook.name.replace("FastNusc", "PostOptFastNusc")
+    port = tbuild(**hook, device="cpu")
+    got = port(model, tbuild(**val))
+    assert port.post_opt["refined"] == 4 and port.post_opt["unrefined"] == 0
+    assert np.abs(got[0][:4] - plain[0][:4]).max() > 1e-3
+    _jitted_refine(monkeypatch)
+    logged = _jax_hook_means(hook, state, val, monkeypatch)
+    _held_means(tree, port, got, logged, 1e-3)
+    small = dt.write_nusc_vo(tree, "samples_vo_small", H // 2, W // 2,
+                             seed=5, depth_map=tne.generate_depth_map)
+    with pytest.raises(ValueError, match="vo_depth"):
+        port(model, tbuild(**dict(val, vo_path=small["vo_path"])))
 
 
 # ------------------------------------------------------ the training loop
@@ -385,18 +453,23 @@ def test_check_hooks_takes_nusc(no_writer):
 
     cfg = cfg_from_file(NUSC_CONFIG)
     check_hooks(cfg)
-    hooks = "fsnet_tpu_torch.pipeline_hooks.evaluation_hooks."
     for key, value in (
             ("trainer.evaluate_hook.name",
-             hooks + "PostOptFastNuscEvaluationHook"),
+             "fsnet_tpu.pipeline_hooks.evaluation_hooks."
+             "PostOptFastNuscEvaluationHook"),
             ("trainer.evaluate_hook.dataset_eval_cfg.name",
              "fsnet_tpu.evaluation.fusionportable_eval."
              "FusionPortableEvaluator")):
         with pytest.raises(NotImplementedError, match=value.split(".")[-1]):
             check_hooks(update_cfg(cfg_from_file(NUSC_CONFIG),
                                    **{key: value}))
-    # the port's FusionPortable evaluator (ported since) passes
+    # the port's FusionPortable evaluator and post-opt hook (ported since)
+    # pass
     check_hooks(update_cfg(cfg_from_file(NUSC_CONFIG), **{
         "trainer.evaluate_hook.dataset_eval_cfg.name":
             "fsnet_tpu_torch.evaluation.fusionportable_eval."
             "FusionPortableEvaluator"}))
+    check_hooks(update_cfg(cfg_from_file(NUSC_CONFIG), **{
+        "trainer.evaluate_hook.name":
+            "fsnet_tpu_torch.pipeline_hooks.evaluation_hooks."
+            "PostOptFastNuscEvaluationHook"}))
