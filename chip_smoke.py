@@ -289,8 +289,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     ratio;
 35. times the flagship step at batch 12 in float32 and in bf16 on both
     routes as ``bench.py`` times the JAX step (the batch on the card, 3
-    warm-up steps, the fastest of 2 windows of 20 steps, where bench.py
-    takes 4; device-busy ms under ``torch.profiler``; peak memory), and
+    warm-up steps, one window of 20 steps, where bench.py takes the
+    fastest of 4; device-busy ms under ``torch.profiler``; peak memory), and
     each bf16 form at the step's shapes beside its float32 form, its
     bounds at bf16 bytes and, at the 5 one-part zero-padded conv shapes,
     cuDNN in bf16; the warps through their wrappers on bf16 images,
@@ -310,7 +310,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     with each recipe's ``compute_dtype`` and optimizer, the counters set
     to 0 just before: the launches of its float32 step (phases 19, 27,
     29), every kernel with a bf16 form (conv, G, H, I, J) on bf16
-    operands, the routes as at float32, bf16 warped frames into the loss,
+    operands (the mask's E, on the row route, on its float32 kernel), the
+    routes as at float32, bf16 warped frames into the loss,
     the distillation teacher bitwise unchanged, the lane-window count on
     the step's own depths;
 38. one bf16 step of each at batch 2 on the card and through the port on
@@ -450,6 +451,38 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     frame left unrefined, the metrics within 1e-3 relative, the first
     frame's SLIC assignment
     equal on >= 99.9% of the pixels; post-opt ms a frame, frames/s.
+53. kernels E and K in bfloat16 (``csrc/warp_grid.cu``,
+    ``csrc/warp_grad.cu``: 16-byte vectors of 8 channels, float32
+    arithmetic; K's image cotangent summed in float32 and rounded once) at
+    the 16 DCN shapes of phase 23's scene, on its inputs and offsets
+    rounded to bf16 (the grid formed in bf16, widened), each launched 4
+    times on the channel-wide route on bf16 operands: E bitwise equal to
+    its plain version, K's gfx and gfy within 1e-5 of their largest
+    entries and bitwise launch to launch, its image cotangent within one
+    bf16 ulp beyond 1e-5 of its largest entry; the positional error of
+    the bf16 grid against the float32 grid from the same offsets, the
+    port's and the JAX package's (which unnormalises in bf16), in pixels
+    (a reading); each timed beside the float32 kernel on the same values,
+    the plain version and the bound at bf16 bytes;
+54. one bf16 DLA step at batch 12 through ``make_train_step`` with the
+    recipe's ``compute_dtype``, the counters set to 0 just before: E 16 and
+    K 16, all on the channel-wide route on bf16 operands, nothing else;
+    then the BN-frozen step at batch 2 on the card against the CPU port at
+    phase 34's gates (loss 2e-2, gradients 0.3 and 0.6, cosine against the
+    card's f32 step 0.25), its loss gate shared by the card's f32 step,
+    the control, which must miss the gradients: the bf16 gradients lie
+    under half the control's distance; the f32 and bf16 DLA steps timed
+    as phase 35 times the flagship's;
+55. the learned-pose ``MonoDepthMeta``: one step at f32 and one at bf16 at
+    batch 12, the counters set to 0 just before each: conv3x3 4,
+    conv3x3_bn 10, dx 14, dw 14, F 1 (row route), I 2 and J 1, the conv
+    and photometric launches of the bf16 step on bf16 operands; the bf16
+    step at batch 2 on the card against the CPU port at phase 38's gates;
+    both steps timed as phase 39 times the recipes';
+56. the residual-pose ``MonoDepthWPose`` (``entry.residual_pose_model``):
+    the launches of phase 55 at f32 and bf16; the f32 step at batch 2 on
+    the card against the CPU port at phase 10's gate, the bf16 one at
+    phase 34's; both steps timed.
 
 Every train step (phases 9, 13, 14, 19, 27, 29) launches the forward
 kernel twice (the warped stack and the identity stack) and the cotangent
@@ -476,9 +509,9 @@ import numpy as np
 import torch
 
 BATCH, HEIGHT, WIDTH = 12, 192, 640
-# phases 35 and 39: windows of 20 steps timed, the fastest kept (bench.py
-# times 4; 2 keep the whole run inside its time limit)
-TIMING_WINDOWS = 2
+# phases 35, 39 and 54-56: windows of 20 steps timed, the fastest kept
+# (bench.py times 4; 1 keeps the whole run inside its time limit)
+TIMING_WINDOWS = 1
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores, bf16 dense tensor cores, HBM3 bandwidth
@@ -1644,8 +1677,8 @@ def flagship_masked_np():
     """``entry.synthetic_batch`` at bs12 @192x640 with the ``"ones"``
     patched mask, made once: its textures take the host about a minute.
     Less ``patched_mask`` it is the batch without a mask (the mask is drawn
-    after all else). Phases 8-16, 32-35 and 51 read it and change none of
-    its arrays."""
+    after all else). Phases 8-16, 32-35, 51 and 55-56 read it and change
+    none of its arrays."""
     from fsnet_tpu_torch.entry import synthetic_batch
 
     return synthetic_batch(BATCH, HEIGHT, WIDTH, patched_mask="ones")
@@ -2220,10 +2253,10 @@ DLA_BAND = 8
 
 
 def dcn_scene(model, x):
-    """(module, input, grid) of each deformable conv of ``model`` in a
-    train-mode forward of ``x`` without grad (the BN statistics restored
-    after), the grid from the module's own (perturbed) offset conv: the
-    operands the main path gives kernels E and K."""
+    """(module, input, grid, offsets) of each deformable conv of ``model``
+    in a train-mode forward of ``x`` without grad (the BN statistics
+    restored after), the grid from the module's own (perturbed) offset
+    conv: the operands the main path gives kernels E and K."""
     import copy
 
     from fsnet_tpu_torch.models.backbones.dla_utils import \
@@ -2242,7 +2275,8 @@ def dcn_scene(model, x):
             K = m.weight.shape[0]
             off = m.conv_offset(inp)[..., :2 * K * K]
             out.append((m, inp, tap_grid(off, inp.shape[1], inp.shape[2], K,
-                                         m.stride, m.padding, m.dilation)))
+                                         m.stride, m.padding, m.dilation),
+                        off))
     model.load_state_dict(state)
     for h in hooks:
         h.remove()
@@ -2280,7 +2314,7 @@ def check_dcn_kernels(scene):
     rows, cots = [], []
     tot = dict(samples=0, misses=0)
     gen = torch.Generator(device="cuda").manual_seed(23)
-    for i, (m, x, grid) in enumerate(scene):
+    for i, (m, x, grid, _) in enumerate(scene):
         _, H, W, C = x.shape
         band = min(DLA_BAND, H)
         ref = twf.grid_band_plain(x, grid, "bilinear", "zeros", band,
@@ -2433,7 +2467,7 @@ def dla_phases(counters, record):
     # peak is the step's own) the step and the forward
     t = {k: dict(ms=0.0, plain_ms=0.0, ops=0.0, nbytes=0.0, yard_ms=0.0)
          for k in ("warp_grid_fwd", "warp_grid_bwd")}
-    for i, ((m, x, grid), g) in enumerate(zip(scene, cots)):
+    for i, ((m, x, grid, _), g) in enumerate(zip(scene, cots)):
         _, Hi, Wi, C = x.shape
         band = min(DLA_BAND, Hi)
         N = grid.shape[0]
@@ -2892,16 +2926,18 @@ EMPTY_PROFILES = []
 
 def cuda_kernels(fn, calls=1, tries=3):
     """The CUDA kernels ``torch.profiler`` sees over ``calls`` calls of
-    ``fn`` (its ``key_averages``: name, count, device time). The profiler
-    has returned a window with no device event at all for work that
-    launched kernels (phase 28, once); such a window is profiled again, up
-    to ``tries`` times, and counted in ``EMPTY_PROFILES``."""
+    ``fn`` (its ``key_averages``: name, count, device time), the device
+    activity alone traced: recording the host's operators too took a
+    window of 3 bf16 flagship steps from 1.9 to 5.8 s and read the same
+    device time (25.90 against 25.94 ms a step). The profiler has returned
+    a window with no device event at all for work that launched kernels
+    (phase 28, once); such a window is profiled again, up to ``tries``
+    times, and counted in ``EMPTY_PROFILES``."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(tries):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
@@ -3658,53 +3694,58 @@ def bf16_card_vs_cpu(batches):
             for route, batch in batches.items()}
 
 
-def time_steps(batches):
-    """Phase 35: the flagship step at bs12 @192x640 in float32 and in bf16
-    on each route, the batch on the card, as ``bench.py`` times the JAX
-    step (3 warm-up steps, then windows of 20 steps, the fastest): 2
-    windows (``bench.py`` takes 4; cut to keep the run inside its limit);
+def time_step(build_opt, batch, cdt, what, B):
+    """One train step of the model and optimizer ``build_opt()`` gives, in
+    float32 (``cdt`` None) or at ``cdt``, timed as ``bench.py`` times the
+    JAX step: ``batch`` on the card, 3 warm-up steps, then
+    :data:`TIMING_WINDOWS` windows of 20 steps, the fastest kept;
     device-busy ms a step under ``torch.profiler`` over 3 steps; peak
     memory over the windows."""
-    from fsnet_tpu_torch.entry import (FLAGSHIP_RECIPE, flagship_model,
-                                       flagship_optimizer)
     from fsnet_tpu_torch.runtime.state import make_train_step
 
-    out = {}
-    for route, batch in batches.items():
-        on_card = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    on_card = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    model, opt = build_opt()
+    step = make_train_step("cuda", compute_dtype=cdt)
+    for _ in range(3):
+        step(model, opt, on_card)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    windows = []
+    for _ in range(TIMING_WINDOWS):
+        t0 = time.perf_counter()
+        for _ in range(20):
+            step(model, opt, on_card)
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) / 20 * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    busy = sum(e.self_device_time_total for e in cuda_kernels(
+        lambda: step(model, opt, on_card), calls=3)) / 1e3 / 3
+    check(busy > 0, f"{what}: the profiler saw no device time")
+    ms = min(windows)
+    print(f"train step {what} (fastest of {TIMING_WINDOWS} windows of 20, "
+          f"batch on the card): {ms:.3f} ms = {B / ms * 1e3:.2f} imgs/s, "
+          f"windows {[round(w, 3) for w in windows]}; device busy "
+          f"{busy:.3f} ms a step; peak memory {peak:.3f} GB")
+    return dict(ms=ms, windows_ms=windows, imgs_per_s=B / ms * 1e3,
+                device_busy_ms=busy, peak_mem_gb=peak)
+
+
+def time_steps(batches):
+    """Phase 35: the flagship step at bs12 @192x640 in float32 and in bf16
+    on each route (:func:`time_step`)."""
+    from fsnet_tpu_torch.entry import (FLAGSHIP_RECIPE, flagship_model,
+                                       flagship_optimizer)
+
+    def build_opt():
+        model = flagship_model(HEIGHT, WIDTH, device="cuda", seed=0)
+        return model, flagship_optimizer(model)[0]
+
+    return {f"{route}_{tag}": time_step(
+        build_opt, batch, cdt,
+        f"{route} {tag} bs{BATCH}@{HEIGHT}x{WIDTH}", BATCH)
+        for route, batch in batches.items()
         for tag, cdt in (("f32", None),
-                         ("bf16", FLAGSHIP_RECIPE["compute_dtype"])):
-            model = flagship_model(HEIGHT, WIDTH, device="cuda", seed=0)
-            opt, _ = flagship_optimizer(model)
-            step = make_train_step("cuda", compute_dtype=cdt)
-            for _ in range(3):
-                step(model, opt, on_card)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            windows = []
-            for _ in range(TIMING_WINDOWS):
-                t0 = time.perf_counter()
-                for _ in range(20):
-                    step(model, opt, on_card)
-                torch.cuda.synchronize()
-                windows.append((time.perf_counter() - t0) / 20 * 1e3)
-            peak = torch.cuda.max_memory_allocated() / 1e9
-            busy = sum(e.self_device_time_total for e in cuda_kernels(
-                lambda: step(model, opt, on_card), calls=3)) / 1e3 / 3
-            check(busy > 0, f"{route} {tag}: the profiler saw no device time")
-            ms = min(windows)
-            out[f"{route}_{tag}"] = dict(ms=ms, windows_ms=windows,
-                                         imgs_per_s=BATCH / ms * 1e3,
-                                         device_busy_ms=busy,
-                                         peak_mem_gb=peak)
-            print(f"train step {route} {tag} bs{BATCH}@{HEIGHT}x{WIDTH} "
-                  f"(fastest of {TIMING_WINDOWS} windows of 20, batch on "
-                  "the card): "
-                  f"{ms:.3f} ms = {BATCH / ms * 1e3:.2f} imgs/s, windows "
-                  f"{[round(w, 3) for w in windows]}; device busy "
-                  f"{busy:.3f} ms a step; peak memory {peak:.3f} GB")
-            del model, opt
-    return out
+                         ("bf16", FLAGSHIP_RECIPE["compute_dtype"]))}
 
 
 def time_bf16_kernels(ops_in, counts):
@@ -4073,8 +4114,12 @@ def recipe_bf16_steps(counters, record, cases):
         what = f"bf16 {name} step bs{B}@{H}x{W}"
         check(np.isfinite(loss), f"{what}: loss {loss}")
         check(counts == want, f"{what}: launches {counts}, expected {want}")
+        # kernel E has its bf16 form on the channel-wide route only: the
+        # mask's E (row route) runs its float32 kernel on the widened mask
+        wide = dict(warp_grid_fwd=want["warp_grid_fwd"])
         bad = {k: d for k, d in dtypes.items()
-               if d != dict(float32=0, bfloat16=want[k])}
+               if d != dict(float32=wide.get(k, 0),
+                            bfloat16=want[k] - wide.get(k, 0))}
         check(not bad, f"{what}: launches by dtype {bad}")
         check(all(counts[k] for k in ("conv3x3", "conv3x3_bn", "conv3x3_dx",
                                       "conv3x3_dw", "photo_loss_fwd",
@@ -4166,47 +4211,18 @@ def recipe_bf16_vs_cpu(cases):
 
 
 def time_recipe_steps(cases):
-    """Phase 39: each recipe's step at its batch in float32 and in bf16,
-    the batch on the card, as phase 35 times the flagship's (3 warm-up
-    steps, the fastest of 2 windows of 20; device-busy ms a step under
-    ``torch.profiler`` over 3 steps; peak memory over the windows)."""
+    """Phase 39: each recipe's step at its batch in float32 and in bf16, as
+    phase 35 times the flagship's (:func:`time_step`)."""
     from fsnet_tpu_torch.entry import recipe_optimizer
-    from fsnet_tpu_torch.runtime.state import make_train_step
 
     out = {}
     for name, (build, recipe, cfg, batch, (B, H, W)) in cases.items():
-        on_card = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
-        for tag, cdt in (("f32", None), ("bf16", recipe["compute_dtype"])):
+        def build_opt(build=build, recipe=recipe, cfg=cfg, H=H, W=W):
             model = build(H, W, device="cuda", seed=0)
-            opt, _ = recipe_optimizer(model, recipe, cfg)
-            step = make_train_step("cuda", compute_dtype=cdt)
-            for _ in range(3):
-                step(model, opt, on_card)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            windows = []
-            for _ in range(TIMING_WINDOWS):
-                t0 = time.perf_counter()
-                for _ in range(20):
-                    step(model, opt, on_card)
-                torch.cuda.synchronize()
-                windows.append((time.perf_counter() - t0) / 20 * 1e3)
-            peak = torch.cuda.max_memory_allocated() / 1e9
-            busy = sum(e.self_device_time_total for e in cuda_kernels(
-                lambda: step(model, opt, on_card), calls=3)) / 1e3 / 3
-            check(busy > 0, f"{name} {tag}: the profiler saw no device time")
-            ms = min(windows)
-            out[f"{name}_{tag}"] = dict(ms=ms, windows_ms=windows,
-                                        imgs_per_s=B / ms * 1e3,
-                                        device_busy_ms=busy,
-                                        peak_mem_gb=peak)
-            print(f"train step {name} {tag} bs{B}@{H}x{W} (fastest of "
-                  f"{TIMING_WINDOWS} "
-                  f"windows of 20, batch on the card): {ms:.3f} ms = "
-                  f"{B / ms * 1e3:.2f} imgs/s, windows "
-                  f"{[round(w, 3) for w in windows]}; device busy "
-                  f"{busy:.3f} ms a step; peak memory {peak:.3f} GB")
-            del model, opt
+            return model, recipe_optimizer(model, recipe, cfg)[0]
+        for tag, cdt in (("f32", None), ("bf16", recipe["compute_dtype"])):
+            out[f"{name}_{tag}"] = time_step(
+                build_opt, batch, cdt, f"{name} {tag} bs{B}@{H}x{W}", B)
     return out
 
 
@@ -4288,6 +4304,374 @@ def recipe_bf16_phases(counters, record, fish):
     record["bf16_recipe_card_vs_cpu"] = recipe_bf16_vs_cpu(cases)
     record["bf16_recipe_train_step"] = time_recipe_steps(cases)
     return time_mei_bf16(ops, steps, errs), errs
+
+
+# ------------------------------- the DLA and the pose steps at bf16 (53-56)
+
+def grid_positions(off16, H, W, K, m):
+    """Phase 53: the sampling positions (pixels) of a DCN's taps from its
+    bfloat16 offsets ``off16``: (the port's: the grid formed in bf16,
+    widened, unnormalised in float32; the JAX package's: that grid
+    unnormalised in bf16 as its warp does; exact: the grid formed in
+    float32 from the same offsets), each (x, y)."""
+    from fsnet_tpu_torch.ops import warp_fast as twf
+    from fsnet_tpu_torch.ops.dcn import tap_grid
+
+    g16 = tap_grid(off16, H, W, K, m.stride, m.padding, m.dilation)
+    exact = tap_grid(off16.float(), H, W, K, m.stride, m.padding,
+                     m.dilation)
+    out = []
+    for c, size in ((0, W), (1, H)):
+        jax_like = (g16[..., c] + 1.0) / 2.0 * torch.tensor(size - 1,
+                                                            dtype=BF16)
+        out.append((twf.unnormalize(g16[..., c].float(), size),
+                    jax_like.float(), twf.unnormalize(exact[..., c], size)))
+    return g16.float(), out
+
+
+def check_dcn_bf16(scene):
+    """Phase 53: kernels E and K in bfloat16 at the 16 DCN shapes of phase
+    23's scene, on its inputs and offsets rounded to bf16 (the grid formed
+    in bf16 as the bf16 step forms it, widened): E's bfloat16 form bitwise
+    equal to its plain version (the float32 warp of the widened input,
+    rounded), K's gfx and gfy within 1e-5 of each one's largest entry and
+    bitwise launch to launch, its bfloat16 image cotangent within one bf16
+    ulp beyond 1e-5 of its largest entry, each launched
+    :data:`WARP_REPEATS` times on the channel-wide route on bfloat16
+    operands; the sampling positions of the bf16 grid against the float32
+    grid from the same offsets, the port's and the JAX package's (which
+    unnormalises in bf16), a reading logged in ROADMAP C; then each
+    kernel's time over 10 back-to-back calls beside the float32 kernel on
+    the same values, its plain version and its bound at bf16 bytes. Returns
+    the kernel line's two entries and the per-shape rows."""
+    from fsnet_tpu_torch.ops import warp_fast as twf
+
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    rows = []
+    errs = dict(warp_grid_fwd=0.0, warp_grid_bwd=0.0)
+    t = {k: dict(ms=0.0, f32_kernel_ms=0.0, plain_ms=0.0, ops=0.0,
+                 nbytes=0.0) for k in errs}
+    for i, (m, x32, _, off) in enumerate(scene):
+        _, H, W, C = x32.shape
+        K, band = m.weight.shape[0], min(DLA_BAND, H)
+        x = x32.to(BF16)
+        grid, pos = grid_positions(off.to(BF16), H, W, K, m)
+        g = torch.randn((grid.shape[0], H, W, C), device="cuda",
+                        generator=gen).to(BF16)
+        xw, gw = x.float(), g.float()
+        ref = twf.grid_band_plain(xw, grid, "bilinear", "zeros", band,
+                                  False)[0].to(BF16)
+        refs = twf.grid_band_bwd_plain(xw, grid, gw, "bilinear", "zeros",
+                                       band)
+        d0 = (dict(twf.grid_band_fwd.dtypes), dict(twf.grid_band_bwd.dtypes))
+        r0 = (dict(twf.grid_band_fwd.routes), dict(twf.grid_band_bwd.routes))
+        first, e_bwd, bitwise = None, [0.0, 0.0, 0.0], True
+        big = refs[2].abs().max().item()
+        for _ in range(WARP_REPEATS):
+            out = twf.grid_band_fwd(x, grid, "bilinear", "zeros", band)
+            got = twf.grid_band_bwd(x, grid, g, "bilinear", "zeros", band)
+            torch.cuda.synchronize()
+            bitwise = bitwise and out.dtype == BF16 and torch.equal(out, ref)
+            for k in range(2):
+                e_bwd[k] = max(e_bwd[k], rel_err(got[k], refs[k])[1])
+            d = (got[2].float() - refs[2]).abs()
+            top = torch.maximum(got[2].float().abs(), refs[2].abs())
+            nbad = int((d > bf16_ulp(top) + 1e-5 * big).sum())
+            e_bwd[2] = max(e_bwd[2], d.max().item() / big)
+            check(got[2].dtype == BF16 and nbad == 0, f"DCN {i} bf16: "
+                  f"kernel K's image cotangent: {nbad} elements beyond one "
+                  "bf16 ulp + 1e-5 of its largest entry")
+            if first is None:
+                first = got[:2]
+            check(all(torch.equal(a, b) for a, b in zip(got[:2], first)),
+                  f"DCN {i} bf16: kernel K's gfx, gfy differ launch to "
+                  "launch")
+        n = WARP_REPEATS
+        for fn, d, r in zip((twf.grid_band_fwd, twf.grid_band_bwd), d0, r0):
+            check(fn.dtypes["bfloat16"] - d["bfloat16"] == n
+                  and fn.dtypes["float32"] == d["float32"]
+                  and fn.routes["vector"] - r["vector"] == n,
+                  f"DCN {i} bf16: {fn.__name__} launches by dtype "
+                  f"{fn.dtypes}, routes {fn.routes}")
+        check(bitwise, f"DCN {i} bf16: kernel E differs from its plain "
+              "version")
+        check(all(e <= 1e-5 for e in e_bwd[:2]), f"DCN {i} bf16: kernel K "
+              f"rel errs {e_bwd[:2]} > 1e-5")
+        errs["warp_grid_fwd"] = max(errs["warp_grid_fwd"],
+                                    rel_err(out, ref)[0])
+        errs["warp_grid_bwd"] = max(errs["warp_grid_bwd"], *(
+            rel_err(a, b)[0] for a, b in zip(got, refs)))
+        shift = {f"{tag}_{ax}": dict(max=(p - e).abs().max().item(),
+                                     mean=(p - e).abs().mean().item())
+                 for ax, (port, jax_like, e) in zip("xy", pos)
+                 for tag, p in (("port", port), ("jax", jax_like))}
+        # timings: bytes at bf16 (image, g, out, dimage), the grid and gfx,
+        # gfy float32; operations as phase 26 counts them
+        px = grid[..., 0].numel()
+        work = dict(
+            warp_grid_fwd=(px * (20.0 + 6.0 * C),
+                           2.0 * (x.numel() + px * C) + 4.0 * grid.numel()),
+            warp_grid_bwd=(px * (20.0 + 20.0 * C),
+                           2.0 * (2 * x.numel() + px * C)
+                           + 4.0 * (grid.numel() + 2 * px)))
+        calls = dict(
+            warp_grid_fwd=(
+                lambda: twf.grid_band_fwd(x, grid, "bilinear", "zeros",
+                                          band),
+                lambda: twf.grid_band_fwd(xw, grid, "bilinear", "zeros",
+                                          band),
+                lambda: twf.grid_band_plain(xw, grid, "bilinear", "zeros",
+                                            band, False)[0].to(BF16)),
+            warp_grid_bwd=(
+                lambda: twf.grid_band_bwd(x, grid, g, "bilinear", "zeros",
+                                          band),
+                lambda: twf.grid_band_bwd(xw, grid, gw, "bilinear", "zeros",
+                                          band),
+                lambda: twf.grid_band_bwd_plain(xw, grid, gw, "bilinear",
+                                                "zeros", band)))
+        row = dict(input=list(x.shape), grid=list(grid.shape),
+                   bwd_rel_err=e_bwd, positions_px=shift)
+        for k, (own, f32, plain) in calls.items():
+            ms = cuda_ms(own, iters=10)
+            b_ms, b_by = ms_bound(*work[k])
+            row[k] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by)
+            t[k]["ms"] += ms
+            t[k]["f32_kernel_ms"] += cuda_ms(f32, iters=10)
+            t[k]["plain_ms"] += cuda_ms(plain, iters=1, warmup=1)
+            t[k]["ops"] += work[k][0]
+            t[k]["nbytes"] += work[k][1]
+        rows.append(row)
+        print(f"check DCN {i:2d} bf16 {tuple(x.shape)}: kernel E bitwise "
+              f"{bitwise}, kernel K rel err gfx {e_bwd[0]:.2e} gfy "
+              f"{e_bwd[1]:.2e} dimage {e_bwd[2]:.2e} (one bf16 ulp + 1e-5 "
+              f"held), x{WARP_REPEATS} launches, channel-wide route, bf16 "
+              f"operands; positions (px, max/mean) port x "
+              f"{shift['port_x']['max']:.4f}/{shift['port_x']['mean']:.5f} y "
+              f"{shift['port_y']['max']:.4f}/{shift['port_y']['mean']:.5f}, "
+              f"JAX's bf16 unnormalise x {shift['jax_x']['max']:.4f}/"
+              f"{shift['jax_x']['mean']:.5f} y {shift['jax_y']['max']:.4f}/"
+              f"{shift['jax_y']['mean']:.5f}; E "
+              f"{row['warp_grid_fwd']['ms']:.4f} ms, K "
+              f"{row['warp_grid_bwd']['ms']:.4f} ms")
+        del x, grid, g, xw, gw, ref, refs, out, got, first
+    src = "fsnet_tpu_torch/csrc/"
+    meta = dict(
+        warp_grid_fwd=(src + "warp_grid.cu",
+                       "fsnet_tpu/ops/pallas/warp_kernel.py:752 + "
+                       "warp_kernel.py:1115"),
+        warp_grid_bwd=(src + "warp_grad.cu",
+                       "fsnet_tpu/ops/pallas/warp_kernel.py:815 + "
+                       "warp_kernel.py:1169"))
+    entries = []
+    for k, e in t.items():
+        b_ms, b_by = ms_bound(e["ops"], e["nbytes"])
+        entries.append(dict(
+            name=k + "_bf16", form="bf16", route="cuda", source=meta[k][0],
+            replaces=meta[k][1], launches=None, max_abs_err=errs[k],
+            ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, f32_kernel_ms=e["f32_kernel_ms"],
+            note="bfloat16 operands, the channel-wide route: sums over the "
+                 f"16 DCNs of one bs{BATCH} @{HEIGHT}x{WIDTH} DLA step (9 "
+                 "taps each as one grid batch), bilinear, zeros, band "
+                 f"{DLA_BAND}; launches: one bf16 DLA step (phase 54); "
+                 "f32_kernel_ms: the float32 kernel on the same values; "
+                 "bound at bf16 bytes" + ("; ms includes the rounding of "
+                                          "the float32 sums" if k ==
+                                          "warp_grid_bwd" else "")))
+        print(f"time  {k}_bf16 summed over 16 DCNs: {e['ms']:.4f} ms  "
+              f"f32 kernel {e['f32_kernel_ms']:.4f} ms  plain "
+              f"{e['plain_ms']:.4f} ms  bound at bf16 bytes {b_ms:.4f} ms "
+              f"({b_by})  library none")
+    worst = {k: max(r["positions_px"][k]["max"] for r in rows)
+             for k in rows[0]["positions_px"]}
+    print(f"DCN bf16 grid positions against the float32 grid from the same "
+          f"offsets, worst over 16 DCNs (px): {worst}")
+    return entries, rows
+
+
+def step_launches(counters, step, model, opt, batch, want, what,
+                  bf16_kernels=()):
+    """Phases 54-56: one train step with the counters set to 0 just before
+    and read just after: the launches per kernel equal ``want``, and those
+    of ``bf16_kernels`` all on bfloat16 operands (the wrappers' dtype
+    counts); a finite loss. Returns the launches, dtypes and routes."""
+    zero(counters)
+    met = step(model, opt, batch)
+    torch.cuda.synchronize()
+    counts = read(counters)
+    dtypes = {k: dict(fn.dtypes) for k, fn in counters.items()
+              if hasattr(fn, "dtypes")}
+    rts = routes(counters)
+    loss = float(met["loss"])
+    print(f"{what}: loss {loss:.6f}, launches {counts}, by dtype "
+          f"{ {k: d for k, d in dtypes.items() if want[k]} }, routes "
+          f"{ {k: r for k, r in rts.items() if want[k]} }")
+    check(np.isfinite(loss), f"{what}: loss {loss}")
+    check(counts == want, f"{what}: launches {counts}, expected {want}")
+    bad = {k: dtypes[k] for k in bf16_kernels
+           if dtypes[k] != dict(float32=0, bfloat16=want[k])}
+    check(not bad, f"{what}: launches by dtype {bad}")
+    return dict(loss=loss, launches=counts, dtypes=dtypes, routes=rts)
+
+
+def dla_bf16_vs_cpu(small, H=HEIGHT, W=WIDTH):
+    """Phase 54: one bf16 DLA step at batch 2 with every BN on its init
+    statistics (``dla_model(norm_frozen=True)``, as phase 25) on the card
+    and through the port on the CPU, at phase 34's gates: loss rel < 2e-2;
+    gradients global rel-L2 < 0.3 and every leaf < 0.6 against the CPU
+    port's bf16 ones; gradient cosine against the card's float32 step >
+    0.25; every leaf bf16-valued. The card's float32 step is the control:
+    the DLA's loss sums the whole output, where bf16 and float32 part by
+    less than 2e-2, so the control must miss the gradients instead: the
+    bf16 gradients lie under half the control's global rel-L2 from the
+    CPU's (two bf16 steps share the rounding of the parameters and of the
+    sampling grids)."""
+    from fsnet_tpu_torch.entry import dla_model
+
+    build = functools.partial(dla_model, norm_frozen=True)
+    l16, g16, _ = one_step(build, small, "cuda", H, W,
+                           compute_dtype="bfloat16")
+    l16c, g16c, _ = one_step(build, small, "cpu", H, W,
+                             compute_dtype="bfloat16")
+    l32, g32, _ = one_step(build, small, "cuda", H, W)
+    kept = [k for k in g16c if bool(g16c[k].any())]
+
+    def worst_leaf(g):
+        leaf = {k: float((g[k] - g16c[k]).norm() / g16c[k].norm())
+                for k in kept}
+        worst = max(leaf, key=leaf.get)
+        return worst, leaf[worst]
+
+    a = torch.cat([g16[k].flatten() for k in sorted(g16)])
+    b = torch.cat([g32[k].flatten() for k in sorted(g32)])
+    out = dict(loss_rel=abs(l16 - l16c) / abs(l16c),
+               control_f32_loss_rel=abs(l32 - l16c) / abs(l16c),
+               grad_rel_l2=grad_rel_l2(g16, g16c),
+               control_f32_grad_rel_l2=grad_rel_l2(g32, g16c),
+               grad_cosine_vs_f32=float(a @ b / (a.norm() * b.norm())),
+               leaves_not_bf16=[k for k, g in g16.items()
+                                if not torch.equal(g, g.to(BF16).double())])
+    (out["worst_leaf"], out["worst_leaf_rel_l2"]) = worst_leaf(g16)
+    out["control_f32_worst_leaf_rel_l2"] = worst_leaf(g32)[1]
+    print(f"bf16 card vs CPU port, DLA step (BN frozen) bs2@{H}x{W}: loss "
+          f"{l16:.6f} vs {l16c:.6f} (rel {out['loss_rel']:.2e}, gate 2e-2; "
+          f"the card's f32 step {l32:.6f}, rel "
+          f"{out['control_f32_loss_rel']:.2e}); gradients global rel-L2 "
+          f"{out['grad_rel_l2']:.3e} (gates 0.3 and half the control's), "
+          f"worst leaf {out['worst_leaf']} {out['worst_leaf_rel_l2']:.3e} "
+          f"(gate 0.6); the card's f32 gradients against the same "
+          f"{out['control_f32_grad_rel_l2']:.3e}, "
+          f"{out['control_f32_worst_leaf_rel_l2']:.3e}; cosine against the "
+          f"card's f32 step {out['grad_cosine_vs_f32']:.5f}; leaves not "
+          f"bf16-valued {len(out['leaves_not_bf16'])}")
+    check(out["loss_rel"] < 2e-2, f"bf16 DLA: card vs CPU loss rel "
+          f"{out['loss_rel']:.2e}")
+    check(out["grad_rel_l2"] < min(0.3, 0.5 * out["control_f32_grad_rel_l2"])
+          and out["worst_leaf_rel_l2"] < 0.6, f"bf16 DLA: card vs CPU "
+          f"gradients {out['grad_rel_l2']:.3e}, worst leaf "
+          f"{out['worst_leaf_rel_l2']:.3e}; control "
+          f"{out['control_f32_grad_rel_l2']:.3e}")
+    check(out["grad_cosine_vs_f32"] > 0.25 and not out["leaves_not_bf16"],
+          f"bf16 DLA: cosine {out['grad_cosine_vs_f32']:.4f}, leaves not "
+          f"bf16-valued {out['leaves_not_bf16'][:5]}")
+    return out
+
+
+# the launches of one learned-pose or residual-pose step (the grid route
+# without a mask: kernel F once, E none)
+POSE_STEP = dict(conv3x3=4, conv3x3_bn=10, conv3x3_dx=14, conv3x3_dw=14,
+                 warp_grid_fused=1, photo_loss_fwd=2, photo_loss_bwd=1)
+BF16_CONV_PHOTO = ("conv3x3", "conv3x3_bn", "conv3x3_dx", "conv3x3_dw",
+                   "photo_loss_fwd", "photo_loss_bwd")
+
+
+def bf16_model_phases(counters, record):
+    """Phases 53-56. Returns the kernel line's entries of the bf16 forms of
+    kernels E and K."""
+    from fsnet_tpu_torch.entry import (FLAGSHIP_RECIPE, dla_batch,
+                                       dla_model, flagship_optimizer,
+                                       learned_pose_model,
+                                       residual_pose_model)
+    from fsnet_tpu_torch.runtime.state import make_train_step
+
+    B, H, W = BATCH, HEIGHT, WIDTH
+    cdt = FLAGSHIP_RECIPE["compute_dtype"]
+    size = f"bs{B}@{H}x{W}"
+
+    # 53. E and K in bf16 at the 16 DCN shapes
+    batch = dla_batch(B, H, W)
+    model = dla_model(H, W, device="cuda", seed=0)
+    scene = dcn_scene(model, torch.from_numpy(batch["image/0"]).cuda())
+    entries, record["dla_dcn_bf16"] = check_dcn_bf16(scene)
+    del scene
+
+    # 54. the DLA's bf16 step: launches, card vs CPU, timings
+    want = dict.fromkeys(counters, 0)
+    want.update(warp_grid_fwd=16, warp_grid_bwd=16)
+    opt, _ = flagship_optimizer(model)
+    p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    dla = record["dla_bf16_step"] = step_launches(
+        counters, make_train_step("cuda", compute_dtype=cdt), model, opt,
+        batch, want, f"bf16 DLA step {size}",
+        ("warp_grid_fwd", "warp_grid_bwd"))
+    for k in ("warp_grid_fwd", "warp_grid_bwd"):
+        check(dla["routes"][k]["vector"] == 16, f"bf16 DLA step: {k} routes "
+              f"{dla['routes'][k]}, expected all 16 channel-wide")
+    moved = sum(int(not torch.equal(p.detach(), p0[n]))
+                for n, p in model.named_parameters())
+    check(moved >= len(p0) - 10, f"bf16 DLA step: {moved} of {len(p0)} "
+          "parameters moved")
+    del model, opt, p0
+    for e in entries:
+        e["launches"] = dla["dtypes"][e["name"].removesuffix("_bf16")][
+            "bfloat16"]
+    small = {k: v[:2] for k, v in batch.items()}
+    record["dla_bf16_card_vs_cpu"] = dla_bf16_vs_cpu(small)
+
+    def model_opt(build, **kw):
+        def build_opt():
+            m = build(H, W, device="cuda", seed=0, **kw)
+            return m, flagship_optimizer(m)[0]
+        return build_opt
+
+    record["dla_bf16_train_step"] = {
+        tag: time_step(model_opt(dla_model), batch, c, f"DLA {tag} {size}", B)
+        for tag, c in (("f32", None), ("bf16", cdt))}
+
+    # 55-56. the learned-pose MonoDepthMeta and the residual-pose
+    # MonoDepthWPose: one step at f32 and at bf16 with their launches,
+    # card vs CPU at bs2 on the synthetic batch's textures, timings
+    pose_batch = {k: v for k, v in flagship_masked_np().items()
+                  if k != "patched_mask"}
+    small = {k: v[:2] for k, v in pose_batch.items()}
+    want = dict.fromkeys(counters, 0)
+    want.update(POSE_STEP)
+    for name, build in (("learned_pose", learned_pose_model),
+                        ("residual_pose", residual_pose_model)):
+        rec = record[f"{name}_bf16"] = {}
+        for tag, c in (("f32", None), ("bf16", cdt)):
+            m, o = model_opt(build)()
+            rec[f"launches_{tag}"] = step_launches(
+                counters, make_train_step("cuda", compute_dtype=c), m, o,
+                pose_batch, want, f"{name} {tag} step {size}",
+                BF16_CONV_PHOTO if c else ())
+            check(rec[f"launches_{tag}"]["routes"]["warp_grid_fused"]
+                  == dict(narrow=0, row=1), f"{name} {tag}: kernel F "
+                  "off its row route")
+            del m, o
+        if name == "residual_pose":
+            rec["card_vs_cpu_f32"] = card_vs_cpu(
+                residual_pose_model, small, "residual-pose train step")
+        # phase 55 at phase 38's gates (the gradients below the control's
+        # distances), phase 56 at phase 34's
+        rec["card_vs_cpu_bf16"] = bf16_vs_cpu(
+            build, small, name, H, W, cdt,
+            against_control=name == "learned_pose")
+        rec["train_step"] = {
+            tag: time_step(model_opt(build), pose_batch, c,
+                           f"{name} {tag} {size}", B)
+            for tag, c in (("f32", None), ("bf16", cdt))}
+    return entries
 
 
 # ----------------------------------------------- training from a dataset
@@ -4596,7 +4980,7 @@ DISK_TRAIN = f"{DISK_DATE}/{DISK_DATE}_drive_0001_sync"
 DISK_TEST = f"{DISK_DATE}/{DISK_DATE}_drive_0002_sync"
 # 36 training samples (3 steps of 12), 24 Eigen-style test frames;
 # dataset[i] timed over DISK_SAMPLES samples a run, two runs of each tree
-DISK_STEPS, DISK_EVAL, DISK_SAMPLES, READ_REPEATS = 3, 24, 8, 20
+DISK_STEPS, DISK_EVAL, DISK_SAMPLES, READ_REPEATS = 3, 24, 4, 20
 
 
 def disk_trees():
@@ -4902,7 +5286,7 @@ NUSC_DIR = ROOT / "build" / "nusc_tree"
 NUSC_FRAME_H, NUSC_FRAME_W = 900, 1600
 # 24 training samples (3 steps of 8, CAM_FRONT and CAM_BACK in turn), 8
 # val frames; dataset[i] timed over NUSC_SAMPLES samples a run, two runs
-NUSC_STEPS, NUSC_VAL, NUSC_SAMPLES = 3, 8, 6
+NUSC_STEPS, NUSC_VAL, NUSC_SAMPLES = 3, 8, 3
 # phase 44's files: name -> (H, W, subsampling, quality, restart interval)
 JPEG_FILES = {
     "420": (900, 1600, "4:2:0", 90, 0),
@@ -5321,7 +5705,7 @@ FISH_DIR = ROOT / "build" / "fisheye_tree"
 # 16 frames a camera at 1400x1400; 48 training samples (3 steps of 16) on
 # the 14 frames that have both neighbours, 8 val frames with scans;
 # dataset[i] timed over FISH_SAMPLES samples a run, two runs
-FISH_FRAMES, FISH_STEPS, FISH_SAMPLES = 16, 3, 4
+FISH_FRAMES, FISH_STEPS, FISH_SAMPLES = 16, 3, 2
 FISH_VAL_FRAMES = (1, 3, 5, 7, 9, 11, 13, 14)
 
 
@@ -6683,6 +7067,13 @@ def main() -> int:
             e["launches_motion_mask_step"] = mask_step[base]
 
     stamp("50-52")
+    # 53-56. the DLA and the pose nets at bf16: kernels E and K in bf16 at
+    # the DCN shapes, the DLA's bf16 step, the learned-pose MonoDepthMeta's
+    # bf16 step and the residual-pose MonoDepthWPose at f32 and bf16, each
+    # with its launches, against the CPU port, and timed
+    kernels += bf16_model_phases(counters, record)
+
+    stamp("53-56")
     record["empty_profiles"] = len(EMPTY_PROFILES)
     print(f"profiler windows with no device event, profiled again: "
           f"{len(EMPTY_PROFILES)}")

@@ -6,6 +6,7 @@
 // kThreads threads (the row route's: csrc/warp_rows.cuh).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -129,10 +130,11 @@ __device__ __forceinline__ int band_start_warp(const float* grow, int Wo,
   return band_round(warp_min(lo), H, band);
 }
 
-// Channel-wide layout (C a multiple of 4, every pointer 16-byte aligned):
-// L = the power of two >= min(32, C / 4) lanes per sample, each lane owning
-// 4 consecutive channels (a float4) and stepping by 4 L channels, so one
-// warp covers 32 / L samples at a time. A warp task is (output row, part):
+// Channel-wide layout (C bytes a multiple of 16, every pointer 16-byte
+// aligned): Q = 16-byte vectors per sample (C / 4 in float32, C / 8 in
+// bfloat16), L = the power of two >= min(32, Q) lanes per sample, each lane
+// owning one vector of consecutive channels and stepping by L vectors, so
+// one warp covers 32 / L samples at a time. A warp task is (output row, part):
 // a row of warp n is split into `parts` tasks, part p taking the samples
 // (p + m parts) 32 / L + (lane / L), m = 0, 1, ...: the warps of a block
 // cover neighbouring samples and share their corners in L1.
@@ -166,7 +168,7 @@ inline bool bad_dims(int M, int N, int H, int W, int C, int Ho, int Wo,
          Wo <= 0 || band <= 0 || band > H;
 }
 
-// The channel-wide launch of N warps of Ho x Wo samples of C channels:
+// The channel-wide launch of N warps of Ho x Wo samples of Q vectors:
 // lanes per sample (log2), parts per row, and blocks of kThreads; false
 // where the blocks would exceed the launch limit.
 struct VecLaunch {
@@ -174,8 +176,8 @@ struct VecLaunch {
   unsigned blocks;
 };
 
-inline bool vec_launch(int C, int N, int Ho, int Wo, VecLaunch& v) {
-  const int q = C / 4 < 32 ? C / 4 : 32;
+inline bool vec_launch(int Q, int N, int Ho, int Wo, VecLaunch& v) {
+  const int q = Q < 32 ? Q : 32;
   v.lanes_log2 = 0;
   while ((1 << v.lanes_log2) < q) ++v.lanes_log2;
   v.rows = N * Ho;
@@ -231,6 +233,53 @@ __device__ __forceinline__ Blended blend_vjp(float i00, float i01, float i10,
   return Blended{__fadd_rn(__fmul_rn(h0, k.wy0), __fmul_rn(h1, k.wy1)),
                  __fadd_rn(__fmul_rn(a0, k.wy0), __fmul_rn(a1, k.wy1)),
                  __fsub_rn(__fmul_rn(h1, k.my1), __fmul_rn(h0, k.my0))};
+}
+
+// 16 bytes of consecutive channels widened to float (exactly) and back: 4
+// float32 values, or 8 bfloat16 values (channel 2k in the low half of
+// word k), rounded to nearest even as PyTorch's .to(torch.bfloat16) rounds.
+template <typename T>
+struct Vec16 {
+  static constexpr int kN = 16 / (int)sizeof(T);
+};
+
+__device__ __forceinline__ void widen(const uint4& u, float (&v)[4]) {
+  v[0] = __uint_as_float(u.x);
+  v[1] = __uint_as_float(u.y);
+  v[2] = __uint_as_float(u.z);
+  v[3] = __uint_as_float(u.w);
+}
+
+__device__ __forceinline__ void widen(const uint4& u, float (&v)[8]) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] = __uint_as_float(w[k] << 16);
+    v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+
+// 4 bfloat16 values (8 bytes) widened to float
+__device__ __forceinline__ void widen(const uint2& u, float (&v)[4]) {
+  v[0] = __uint_as_float(u.x << 16);
+  v[1] = __uint_as_float(u.x & 0xffff0000u);
+  v[2] = __uint_as_float(u.y << 16);
+  v[3] = __uint_as_float(u.y & 0xffff0000u);
+}
+
+__device__ __forceinline__ uint4 narrow(const float (&v)[4]) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                    __float_as_uint(v[2]), __float_as_uint(v[3]));
+}
+
+__device__ __forceinline__ uint4 narrow(const float (&v)[8]) {
+  unsigned w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+    w[k] = *reinterpret_cast<const unsigned*>(&p);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 }  // namespace

@@ -5,7 +5,8 @@
 //
 // Layouts: image [M, H, W, C] NHWC f32, grid [N, Ho, Wo, 2] f32 with
 // normalized (x, y) in [-1, 1] (align_corners), N a multiple of M, and the
-// output cotangent g [N, Ho, Wo, C] f32. Warp n reads image n mod M and
+// output cotangent g [N, Ho, Wo, C] f32 (image, g and dimage bf16 in the
+// channel-wide route's bfloat16 form). Warp n reads image n mod M and
 // scatters into its cotangent: the K*K taps of a deformable conv run as one
 // grid batch of K*K*B against B images.
 //
@@ -42,7 +43,16 @@
 //   a quarter of the L2 operations of scalar adds). Each lane sums gfx and
 //   gfy over its channels, then the L lanes of a sample reduce by
 //   __shfl_xor_sync in a fixed order: gfx and gfy are reproducible launch
-//   to launch; dimage's atomic sums are not.
+//   to launch; dimage's atomic sums are not. Its bfloat16 form (the bf16
+//   train step's deformable convs, C a multiple of 8) loads bfloat16 g and
+//   image as 8-byte vectors of 4 channels (a lane's float4 of the
+//   scratch, so its adds keep the float32 form's addresses), works in
+//   float32 as the float32 form does (gfx, gfy float32), adds into a
+//   float32 scratch with
+//   the same float4 atomics and rounds the scratch to the bfloat16 dimage
+//   once, in a second kernel (round_bf16_kernel): bfloat16 atomics would
+//   round at every add. Its plain version is the float32 one on the
+//   widened operands, dimage rounded.
 // What bounds it on an H100: bytes, on paper: it reads g once and the ~4
 // band rows of each output row (L1/L2 resident), adds into dimage (L2
 // atomics), and writes 2 floats per sample; about 32 operations per sample
@@ -132,21 +142,43 @@ warp_grid_bwd_kernel(const float* __restrict__ image,
   }
 }
 
+// The channel-wide kernel on T image and g (float, or __nv_bfloat16: the
+// bf16 train step's deformable convs): each lane takes 4 channels, one
+// float4 of dimage, loaded as one vector of T (16 bytes of float32, 8 of
+// bfloat16) and widened exactly, works them in float32 as the float32
+// kernel does, and adds its corner products into the float32 dimage as
+// float4 atomics: a warp's vector adds cover consecutive addresses in both
+// types (8 bfloat16 channels a lane, two float4 adds each, left every
+// other float4 of a warp's adds apart and ran 1.6 times slower than the
+// float32 kernel).
+template <typename T>
+struct Quad;  // 4 channels of T as one vector load
+template <>
+struct Quad<float> {
+  using V = uint4;
+};
+template <>
+struct Quad<__nv_bfloat16> {
+  using V = uint2;
+};
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-warp_grid_bwd_vec_kernel(const float4* __restrict__ image,
+warp_grid_bwd_vec_kernel(const typename Quad<T>::V* __restrict__ image,
                          const float* __restrict__ grid,
-                         const float4* __restrict__ g, float* __restrict__ gfx,
-                         float* __restrict__ gfy, float4* __restrict__ dimage,
-                         int M, int H, int W, int Q, int Ho, int Wo, int band,
-                         int lanes_log2, int parts, int rows, bool nearest,
-                         bool zeros) {
+                         const typename Quad<T>::V* __restrict__ g,
+                         float* __restrict__ gfx, float* __restrict__ gfy,
+                         float4* __restrict__ dimage, int M, int H, int W,
+                         int Q, int Ho, int Wo, int band, int lanes_log2,
+                         int parts, int rows, bool nearest, bool zeros) {
+  using V = typename Quad<T>::V;
   const VecTask t = vec_task(parts);
   if (t.row >= rows) return;               // whole warps: tasks are warps
   const float* grow = grid + (size_t)t.row * Wo * 2;
   const int ymin = band_start_warp(grow, Wo, H, band, nearest, zeros);
   const int lane = threadIdx.x & 31, L = 1 << lanes_log2;
   const size_t img = (size_t)(t.row / Ho % M) * H * W * Q;
-  const float4* src = image + img;
+  const V* src = image + img;
   float4* dst = dimage + img;
   const int groups = (Wo + (32 >> lanes_log2) - 1) >> (5 - lanes_log2);
   const int iters = (groups - t.part + parts - 1) / parts;
@@ -160,15 +192,22 @@ warp_grid_bwd_vec_kernel(const float4* __restrict__ image,
       const size_t c01 = ((size_t)k.y0 * W + k.x1) * Q;
       const size_t c10 = ((size_t)k.y1 * W + k.x0) * Q;
       const size_t c11 = ((size_t)k.y1 * W + k.x1) * Q;
-      const float4* gp = g + ((size_t)t.row * Wo + j) * Q;
+      const V* gp = g + ((size_t)t.row * Wo + j) * Q;
       for (int q = lane & (L - 1); q < Q; q += L) {
-        const float4 gv = __ldcs(gp + q);
-        const float4 a = __ldg(src + c00 + q), b = __ldg(src + c01 + q);
-        const float4 c = __ldg(src + c10 + q), d = __ldg(src + c11 + q);
-        const CornerAdds x = channel_bwd(gv.x, a.x, b.x, c.x, d.x, k, sa, sb);
-        const CornerAdds y = channel_bwd(gv.y, a.y, b.y, c.y, d.y, k, sa, sb);
-        const CornerAdds z = channel_bwd(gv.z, a.z, b.z, c.z, d.z, k, sa, sb);
-        const CornerAdds w = channel_bwd(gv.w, a.w, b.w, c.w, d.w, k, sa, sb);
+        float gv[4], a[4], b[4], c[4], d[4];
+        widen(__ldcs(gp + q), gv);
+        widen(__ldg(src + c00 + q), a);
+        widen(__ldg(src + c01 + q), b);
+        widen(__ldg(src + c10 + q), c);
+        widen(__ldg(src + c11 + q), d);
+        const CornerAdds x = channel_bwd(gv[0], a[0], b[0], c[0], d[0], k,
+                                         sa, sb);
+        const CornerAdds y = channel_bwd(gv[1], a[1], b[1], c[1], d[1], k,
+                                         sa, sb);
+        const CornerAdds z = channel_bwd(gv[2], a[2], b[2], c[2], d[2], k,
+                                         sa, sb);
+        const CornerAdds w = channel_bwd(gv[3], a[3], b[3], c[3], d[3], k,
+                                         sa, sb);
         atomicAdd(dst + c00 + q, make_float4(x.d00, y.d00, z.d00, w.d00));
         atomicAdd(dst + c01 + q, make_float4(x.d01, y.d01, z.d01, w.d01));
         atomicAdd(dst + c10 + q, make_float4(x.d10, y.d10, z.d10, w.d10));
@@ -186,6 +225,43 @@ warp_grid_bwd_vec_kernel(const float4* __restrict__ image,
       gfy[(size_t)t.row * Wo + j] = sb;
     }
   }
+}
+
+// The float32 sums of the bfloat16 form's image cotangent rounded to
+// bfloat16 once: n8 vectors of 8 values, read and written once.
+__global__ void __launch_bounds__(kThreads)
+round_bf16_kernel(const float4* __restrict__ sums, uint4* __restrict__ out,
+                  size_t n8) {
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < n8;
+       i += (size_t)gridDim.x * kThreads) {
+    const float4 a = __ldcs(sums + 2 * i), b = __ldcs(sums + 2 * i + 1);
+    const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    __stcs(out + i, narrow(v));
+  }
+}
+
+// Kernel K's channel-wide launch on T image and g (dimage float32, zero on
+// entry): C a multiple of 16 / sizeof(T) (the route's rule, shared with
+// kernel E), image, g and dimage 16-byte aligned (else
+// cudaErrorInvalidValue, nothing launched).
+template <typename T>
+int launch_bwd_vec(const void* image, const void* grid, const void* g,
+                   void* gfx, void* gfy, void* dimage, int M, int N, int H,
+                   int W, int C, int Ho, int Wo, int band, int nearest,
+                   int zeros, void* stream) {
+  using V = typename Quad<T>::V;
+  if (bad_dims(M, N, H, W, C, Ho, Wo, band) || C % (16 / (int)sizeof(T)) ||
+      !aligned16(image) || !aligned16(g) || !aligned16(dimage))
+    return (int)cudaErrorInvalidValue;
+  VecLaunch v;
+  if (!vec_launch(C / 4, N, Ho, Wo, v)) return (int)cudaErrorInvalidValue;
+  warp_grid_bwd_vec_kernel<T><<<v.blocks, kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const V*>(image), static_cast<const float*>(grid),
+      static_cast<const V*>(g), static_cast<float*>(gfx),
+      static_cast<float*>(gfy), static_cast<float4*>(dimage), M, H, W, C / 4,
+      Ho, Wo, band, v.lanes_log2, v.parts, v.rows, nearest != 0, zeros != 0);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -220,16 +296,34 @@ extern "C" int fsnet_warp_grid_bwd_vec(const void* image, const void* grid,
                                        void* dimage, int M, int N, int H,
                                        int W, int C, int Ho, int Wo, int band,
                                        int nearest, int zeros, void* stream) {
-  if (bad_dims(M, N, H, W, C, Ho, Wo, band) || C % 4 ||
-      !aligned16(image) || !aligned16(g) || !aligned16(dimage))
-    return (int)cudaErrorInvalidValue;
-  VecLaunch v;
-  if (!vec_launch(C, N, Ho, Wo, v)) return (int)cudaErrorInvalidValue;
-  warp_grid_bwd_vec_kernel<<<v.blocks, kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(image), static_cast<const float*>(grid),
-      static_cast<const float4*>(g), static_cast<float*>(gfx),
-      static_cast<float*>(gfy), static_cast<float4*>(dimage), M, H, W, C / 4,
-      Ho, Wo, band, v.lanes_log2, v.parts, v.rows, nearest != 0, zeros != 0);
+  return launch_bwd_vec<float>(image, grid, g, gfx, gfy, dimage, M, N, H, W,
+                               C, Ho, Wo, band, nearest, zeros, stream);
+}
+
+// Kernel K's bfloat16 form, the channel-wide route: image [M,H,W,C] and g
+// [N,Ho,Wo,C] bfloat16, the grid float32; writes gfx, gfy [N,Ho,Wo] float32
+// (float32 sums of the widened values, as the float32 form forms them),
+// adds the corner products into `sums` [M,H,W,C] float32 (zero on entry)
+// and then rounds those sums once into dimage [M,H,W,C] bfloat16 (a second
+// kernel on the same stream). For C a multiple of 8 with image, g, sums and
+// dimage 16-byte aligned (else cudaErrorInvalidValue, nothing launched).
+extern "C" int fsnet_warp_grid_bwd_vec_bf16(const void* image,
+                                            const void* grid, const void* g,
+                                            void* gfx, void* gfy, void* sums,
+                                            void* dimage, int M, int N,
+                                            int H, int W, int C, int Ho,
+                                            int Wo, int band, int nearest,
+                                            int zeros, void* stream) {
+  if (!aligned16(dimage)) return (int)cudaErrorInvalidValue;
+  const int err = launch_bwd_vec<__nv_bfloat16>(
+      image, grid, g, gfx, gfy, sums, M, N, H, W, C, Ho, Wo, band, nearest,
+      zeros, stream);
+  if (err != 0) return err;
+  const size_t n8 = (size_t)M * H * W * C / 8;
+  const size_t want = (n8 + kThreads - 1) / kThreads;
+  const size_t most = (size_t)sm_count() * 8;
+  round_bf16_kernel<<<(unsigned)(want < most ? want : most), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(sums), static_cast<uint4*>(dimage), n8);
   return (int)cudaGetLastError();
 }

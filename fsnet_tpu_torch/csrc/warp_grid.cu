@@ -3,7 +3,8 @@
 // forward with the values of its VJP (kernel F) of the band warp
 // fsnet_tpu_torch.ops.warp_fast.grid_sample.
 //
-// Layouts: image [M, H, W, C] NHWC f32, grid [N, Ho, Wo, 2] f32 with
+// Layouts: image [M, H, W, C] NHWC f32 (bf16 on the channel-wide route's
+// bfloat16 form, with its output), grid [N, Ho, Wo, 2] f32 with
 // normalized (x, y) in [-1, 1] (align_corners), N a multiple of M. Warp n
 // reads image n mod M: the images are indexed modulo the grid batch, never
 // tiled (the S scales x F frames of the loss warp F*B sources).
@@ -56,7 +57,12 @@
 //   written once and never read here, so it goes out as streaming stores
 //   (__stcs) that do not push the image out of L2. Each warp reduces its
 //   row's band start itself, so a row can be split among warps and every
-//   DCN shape fills the SMs (vec_parts).
+//   DCN shape fills the SMs (vec_parts). Its bfloat16 form (the bf16 train
+//   step's deformable convs, C a multiple of 8) loads 8 channels a lane as
+//   one 16-byte vector, widens them, blends in float32 and stores the
+//   rounding: bitwise the plain version's float32 blend of the widened
+//   image, rounded. The narrow and row routes have no bfloat16 form: the
+//   wrapper widens their image and rounds their output.
 // What bounds them on an H100: bytes. They read the grid and ~4 source rows
 // per output row (L1/L2 resident), and write C (E) or 3C (F) floats per
 // sample; about 30 operations per output value. The channel-wide route
@@ -171,19 +177,27 @@ warp_grid_row_kernel(const float* __restrict__ image,
             nullptr);
 }
 
+// The channel-wide kernel on T images (float, or __nv_bfloat16: the bf16
+// train step's deformable convs): each lane loads its corners' channels as
+// 16-byte vectors (4 float32 or 8 bfloat16 values), widens them to float32
+// exactly, blends each channel in float32 as the float32 kernel does, and
+// stores the vector rounded to T once: the plain version's float32 blend
+// of the widened image, rounded.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-warp_grid_vec_kernel(const float4* __restrict__ image,
-                     const float* __restrict__ grid, float4* __restrict__ out,
+warp_grid_vec_kernel(const uint4* __restrict__ image,
+                     const float* __restrict__ grid, uint4* __restrict__ out,
                      int M, int H, int W, int Q, int Ho, int Wo, int band,
                      int lanes_log2, int parts, int rows, bool nearest,
                      bool zeros) {
+  constexpr int kN = Vec16<T>::kN;
   const VecTask t = vec_task(parts);
   if (t.row >= rows) return;               // whole warps: tasks are warps
   const float* grow = grid + (size_t)t.row * Wo * 2;
   const int ymin = band_start_warp(grow, Wo, H, band, nearest, zeros);
   const int lane = threadIdx.x & 31, L = 1 << lanes_log2;
-  const float4* src = image + (size_t)(t.row / Ho % M) * H * W * Q;
-  float4* dst = out + (size_t)t.row * Wo * Q;
+  const uint4* src = image + (size_t)(t.row / Ho % M) * H * W * Q;
+  uint4* dst = out + (size_t)t.row * Wo * Q;
   const int groups = (Wo + (32 >> lanes_log2) - 1) >> (5 - lanes_log2);
   const int iters = (groups - t.part + parts - 1) / parts;
   for (int m = 0; m < iters; ++m) {
@@ -191,20 +205,43 @@ warp_grid_vec_kernel(const float4* __restrict__ image,
     const Corners k =
         band_corners(grow, j, Wo, H, W, ymin, band, nearest, zeros);
     if (j >= Wo) continue;
-    const float4* p00 = src + ((size_t)k.y0 * W + k.x0) * Q;
-    const float4* p01 = src + ((size_t)k.y0 * W + k.x1) * Q;
-    const float4* p10 = src + ((size_t)k.y1 * W + k.x0) * Q;
-    const float4* p11 = src + ((size_t)k.y1 * W + k.x1) * Q;
-    float4* o = dst + (size_t)j * Q;
+    const uint4* p00 = src + ((size_t)k.y0 * W + k.x0) * Q;
+    const uint4* p01 = src + ((size_t)k.y0 * W + k.x1) * Q;
+    const uint4* p10 = src + ((size_t)k.y1 * W + k.x0) * Q;
+    const uint4* p11 = src + ((size_t)k.y1 * W + k.x1) * Q;
+    uint4* o = dst + (size_t)j * Q;
     for (int q = lane & (L - 1); q < Q; q += L) {
-      const float4 a = __ldg(p00 + q), b = __ldg(p01 + q);
-      const float4 c = __ldg(p10 + q), d = __ldg(p11 + q);
-      __stcs(o + q, make_float4(blend(a.x, b.x, c.x, d.x, k),
-                                blend(a.y, b.y, c.y, d.y, k),
-                                blend(a.z, b.z, c.z, d.z, k),
-                                blend(a.w, b.w, c.w, d.w, k)));
+      float a[kN], b[kN], c[kN], d[kN], v[kN];
+      widen(__ldg(p00 + q), a);
+      widen(__ldg(p01 + q), b);
+      widen(__ldg(p10 + q), c);
+      widen(__ldg(p11 + q), d);
+#pragma unroll
+      for (int e = 0; e < kN; ++e) v[e] = blend(a[e], b[e], c[e], d[e], k);
+      __stcs(o + q, narrow(v));
     }
   }
+}
+
+// Kernel E's channel-wide launch on T images and outputs: C a multiple of
+// 16 / sizeof(T), image and out 16-byte aligned (else
+// cudaErrorInvalidValue, nothing launched).
+template <typename T>
+int launch_vec(const void* image, const void* grid, void* out, int M, int N,
+               int H, int W, int C, int Ho, int Wo, int band, int nearest,
+               int zeros, void* stream) {
+  constexpr int kN = Vec16<T>::kN;
+  if (bad_dims(M, N, H, W, C, Ho, Wo, band) || C % kN ||
+      !aligned16(image) || !aligned16(out))
+    return (int)cudaErrorInvalidValue;
+  VecLaunch v;
+  if (!vec_launch(C / kN, N, Ho, Wo, v)) return (int)cudaErrorInvalidValue;
+  warp_grid_vec_kernel<T><<<v.blocks, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(image), static_cast<const float*>(grid),
+      static_cast<uint4*>(out), M, H, W, C / kN, Ho, Wo, band, v.lanes_log2,
+      v.parts, v.rows, nearest != 0, zeros != 0);
+  return (int)cudaGetLastError();
 }
 
 int launch(bool fused, const void* image, const void* grid, void* out,
@@ -293,17 +330,22 @@ extern "C" int fsnet_warp_grid_fwd_vec(const void* image, const void* grid,
                                        void* out, int M, int N, int H, int W,
                                        int C, int Ho, int Wo, int band,
                                        int nearest, int zeros, void* stream) {
-  if (bad_dims(M, N, H, W, C, Ho, Wo, band) || C % 4 ||
-      !aligned16(image) || !aligned16(out))
-    return (int)cudaErrorInvalidValue;
-  VecLaunch v;
-  if (!vec_launch(C, N, Ho, Wo, v)) return (int)cudaErrorInvalidValue;
-  warp_grid_vec_kernel<<<v.blocks, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(image), static_cast<const float*>(grid),
-      static_cast<float4*>(out), M, H, W, C / 4, Ho, Wo, band, v.lanes_log2,
-      v.parts, v.rows, nearest != 0, zeros != 0);
-  return (int)cudaGetLastError();
+  return launch_vec<float>(image, grid, out, M, N, H, W, C, Ho, Wo, band,
+                           nearest, zeros, stream);
+}
+
+// Kernel E's bfloat16 form, the channel-wide route: image [M,H,W,C] and out
+// [N,Ho,Wo,C] bfloat16, the grid float32; out is the float32 blend of the
+// widened image rounded to bfloat16 once. For C a multiple of 8 with image
+// and out 16-byte aligned (else cudaErrorInvalidValue, nothing launched).
+extern "C" int fsnet_warp_grid_fwd_vec_bf16(const void* image,
+                                            const void* grid, void* out,
+                                            int M, int N, int H, int W,
+                                            int C, int Ho, int Wo, int band,
+                                            int nearest, int zeros,
+                                            void* stream) {
+  return launch_vec<__nv_bfloat16>(image, grid, out, M, N, H, W, C, Ho, Wo,
+                                   band, nearest, zeros, stream);
 }
 
 // Kernel F, bilinear. As kernel E, and also writes va, vb [N,Ho,Wo,C] f32.

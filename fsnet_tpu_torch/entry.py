@@ -10,7 +10,9 @@ names: a ResNet-18 encoder with ``out_indices=(-1, 0, 1, 2, 3)`` and a
 ``MultiChannelDepthDecoder`` with 16 bins, scales 0-3 and depth 0.5-100,
 under ``MonoDepthWPose``. The learned-pose baseline is ``MonoDepthMeta``
 with the same depth net, a ResNet-18 pose encoder over frame pairs (six
-input channels) and a ``PoseDecoder`` for two frames. The fisheye model is
+input channels) and a ``PoseDecoder`` for two frames; the residual-pose
+model is the flagship ``MonoDepthWPose`` with that pose net refining its
+GT poses. The fisheye model is
 the flagship with the ``FishEyeDecoder`` head of
 ``configs/kitti360_fisheye_example.py`` (depth 0.1-150, band 16), which
 trains with :data:`FISHEYE_RECIPE`. All are built through the builder.
@@ -77,14 +79,11 @@ def flagship_model(height: int, width: int, device: DeviceLike = "cuda",
     return build(**flagship_config(height, width), device=device, seed=seed)
 
 
-def learned_pose_config(height: int, width: int) -> Dict:
-    """``MonoDepthMeta``: the flagship's depth net and head, with a
-    ResNet-18 pose encoder over the concatenated frame pairs (BN in train
-    mode) and ``PoseDecoder(num_ch_enc=(64, 64, 128, 256, 512),
+def _with_pose_net(cfg: Dict) -> Dict:
+    """``cfg`` with a ResNet-18 pose encoder over the concatenated frame
+    pairs (six input channels, BN in train mode) and the head's
+    ``PoseDecoder(num_ch_enc=(64, 64, 128, 256, 512),
     num_input_features=1, num_frames_to_predict_for=2)``."""
-    cfg = flagship_config(height, width)
-    cfg["name"] = \
-        "fsnet_tpu_torch.models.meta_archs.monodepth2_model.MonoDepthMeta"
     cfg["pose_backbone_cfg"] = dict(
         name="fsnet_tpu_torch.models.backbones.resnet.resnet",
         depth=18, num_stages=4, out_indices=(-1, 0, 1, 2, 3),
@@ -96,6 +95,31 @@ def learned_pose_config(height: int, width: int) -> Dict:
         num_frames_to_predict_for=2,
     )
     return cfg
+
+
+def learned_pose_config(height: int, width: int) -> Dict:
+    """``MonoDepthMeta``: the flagship's depth net and head with the pose
+    net of :func:`_with_pose_net`, whose poses drive the warp."""
+    cfg = flagship_config(height, width)
+    cfg["name"] = \
+        "fsnet_tpu_torch.models.meta_archs.monodepth2_model.MonoDepthMeta"
+    return _with_pose_net(cfg)
+
+
+def residual_pose_config(height: int, width: int) -> Dict:
+    """The flagship ``MonoDepthWPose`` with its residual-pose branch: the
+    pose net of :func:`_with_pose_net` refines each GT pose (the
+    translation rescaled to the GT norm), so the loss takes the grid
+    route."""
+    return _with_pose_net(flagship_config(height, width))
+
+
+def residual_pose_model(height: int, width: int,
+                        device: DeviceLike = "cuda", seed: int = 0):
+    """The residual-pose ``MonoDepthWPose`` with seeded random weights on
+    ``device``."""
+    return build(**residual_pose_config(height, width), device=device,
+                 seed=seed)
 
 
 def learned_pose_model(height: int, width: int, device: DeviceLike = "cuda",

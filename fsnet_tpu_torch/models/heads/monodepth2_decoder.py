@@ -116,7 +116,11 @@ class MonoDepth2Decoder(nn.Module):
     def forward_depth(self, features, P2=None, train: bool = False) -> Dict:
         return self.depth_decoder(features, P2, train=train)
 
-    def forward_pose(self, pose_features):
+    def forward_pose(self, pose_features, base_pose=None):
+        """(axisangle, translation) of the pose decoder; ``base_pose``, which
+        the residual-pose branch passes, is unused, as in the JAX package
+        and the reference."""
+        del base_pose
         return self.pose_decoder(pose_features)
 
     def get_prediction(self, input_dict, output_dict) -> Dict:

@@ -1,7 +1,8 @@
 """MonoDepth meta-architectures (counterpart of
 ``fsnet_tpu.models.meta_archs.monodepth2_model``: ``MonoDepthMeta``, the
-learned-pose baseline; ``MonoDepthWPose``'s GT-pose ``forward_train``,
-``forward_test`` and ``dummy_forward``; ``MonoDepthInference``; and
+learned-pose baseline; ``MonoDepthWPose`` with GT poses or GT poses refined
+by its residual-pose branch, ``forward_test`` and ``dummy_forward``;
+``MonoDepthInference``; and
 ``DistillWPoseMeta``, the self-distillation student with its frozen
 teacher).
 
@@ -19,7 +20,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from ...ops.geometry import transformation_from_parameters
+from ...ops.geometry import _mat_dtype, transformation_from_parameters
 from ...utils.builder import build
 from ...utils.device import DeviceLike, resolve_device
 from ...utils.keys import decode_batch
@@ -99,22 +100,57 @@ class MonoDepthMeta(BaseMetaArch):
 
 class MonoDepthWPose(BaseMetaArch):
     """"Full-scale" flagship: dataset GT relative poses drive the warp in
-    training; at test time a depth backbone + the head's depth decoder."""
+    training; at test time a depth backbone + the head's depth decoder.
+    With ``pose_backbone_cfg`` the residual-pose branch refines each GT
+    pose by the pose net's residual, its translation rescaled to the GT
+    norm (``fsnet_tpu/models/meta_archs/monodepth2_model.py:98-160``)."""
 
     def __init__(self, depth_backbone_cfg: Dict, head_cfg: Dict,
                  train_cfg: Dict, test_cfg: Optional[Dict] = None,
                  pose_backbone_cfg: Optional[Dict] = None,
                  device: DeviceLike = "cuda", seed: int = 0):
         super().__init__()
-        if pose_backbone_cfg is not None:
-            raise NotImplementedError("the residual-pose branch comes with a "
-                                      "later slice")
         self.train_cfg = dict(train_cfg)
         self.test_cfg = dict(test_cfg or {})
         self.depth_backbone = build(**dict(depth_backbone_cfg))
         self.head = build(frame_ids=tuple(self.train_cfg["frame_ids"]),
                           **dict(head_cfg))
+        self.is_use_res_pose = pose_backbone_cfg is not None
+        if self.is_use_res_pose:
+            self.pose_backbone = build(**dict(pose_backbone_cfg))
         _place(self, device, seed)
+
+    def _residual_poses(self, data: Dict, outputs: Dict) -> None:
+        """Per source frame, the pose net in train mode on the ordered pair
+        (``cat([f, 0])`` for f < 0, else ``cat([0, f])``), its residual
+        composed after the GT pose, ``rel @ T(axisangle, translation)``
+        (inverted for f < 0), and the translation rescaled to the GT
+        translation's norm per sample, as the JAX package does (the
+        reference reduces the norm over the batch, a latent bug JAX
+        notes). The head's ``forward_pose`` takes the base pose (the GT
+        pose, inverted for f > 0) and leaves it unused, as in both."""
+        for f_i in self.train_cfg["frame_ids"][1:]:
+            rel = data[("relative_pose", f_i)]
+            if f_i < 0:
+                pair, base_pose = [data[("image", f_i)],
+                                   data[("image", 0)]], rel
+            else:
+                pair = [data[("image", 0)], data[("image", f_i)]]
+                base_pose = torch.linalg.inv(rel.to(_mat_dtype(rel.dtype)))
+            pose_feats = [self.pose_backbone(torch.cat(pair, dim=-1),
+                                             train=True)]
+            axisangle, translation = self.head.forward_pose(pose_feats,
+                                                            base_pose)
+            outputs[("axisangle", f_i)] = axisangle
+            outputs[("translation", f_i)] = translation
+            T = torch.matmul(rel, transformation_from_parameters(
+                axisangle[:, 0], translation[:, 0], invert=f_i < 0))
+            gt_norm = torch.linalg.vector_norm(rel[:, :3, 3], dim=-1)
+            t = T[:, :3, 3]
+            ratio = torch.linalg.vector_norm(t, dim=-1) / (gt_norm + 1e-12)
+            top = torch.cat([T[:, :3, :3], (t / ratio[:, None])[..., None]],
+                            dim=2)
+            outputs[("cam_T_cam", f_i)] = torch.cat([top, T[:, 3:]], dim=1)
 
     def forward_train(self, data: Dict, meta: Dict,
                       noise: Optional[torch.Tensor] = None) -> Dict:
@@ -136,11 +172,16 @@ class MonoDepthWPose(BaseMetaArch):
                     if key[0] == "depth":
                         outputs[(f"depth_{f_i}", key[1], key[2])] = \
                             outputs[key]
-        for f_i in self.train_cfg["frame_ids"][1:]:
-            outputs[("cam_T_cam", f_i)] = data[("relative_pose", f_i)]
-        # every warp pose is a dataset constant: the head may take the
-        # depth-direct warp
-        outputs["pose_is_const"] = True
+        if self.is_use_res_pose:
+            # learned residuals: the poses carry gradients, so the head
+            # takes its grid route
+            self._residual_poses(data, outputs)
+        else:
+            for f_i in self.train_cfg["frame_ids"][1:]:
+                outputs[("cam_T_cam", f_i)] = data[("relative_pose", f_i)]
+            # every warp pose is a dataset constant: the head may take the
+            # depth-direct warp
+            outputs["pose_is_const"] = True
         return self.head.loss(outputs, data, noise=noise)
 
     def forward_test(self, data: Dict, meta: Dict) -> Dict:

@@ -29,24 +29,33 @@ The kernels have several routes, all hand-written, which :func:`warp_route`
 picks from the operands before the launch (a launch that fails raises,
 never falls back): the narrow one (one thread per sample for E and F,
 scalar loads and atomics for K) takes every shape; the channel-wide one
-(float4 lanes over the channels, vector atomics for K) takes E and K at C
-a multiple of 4 with every pointer 16-byte aligned, the deformable convs'
-case; the row one (each sample's grid read once, the row staged in shared
-memory and written as 16-byte stores) takes E elsewhere and F where the
-row width is a multiple of 4 and the staged row fits, the grid route's
-frames and masks. ``grid_band_fwd.routes``, ``grid_band_fused.routes``
-and ``grid_band_bwd.routes`` count the launches of each route, and
+(vector lanes over the channels, vector atomics for K) takes E and K at C
+a multiple of 4 (8 in bfloat16) with every pointer 16-byte aligned, the
+deformable convs' case; the row one (each sample's grid read once, the
+row staged in shared memory and written as 16-byte stores) takes E
+elsewhere and F where the row width is a multiple of 4 and the staged row
+fits, the grid route's frames and masks. ``grid_band_fwd.routes``,
+``grid_band_fused.routes`` and ``grid_band_bwd.routes`` count the
+launches of each route, and
 :func:`_launch_grid` launches E or F on one route (the card tests and
 ``chip_smoke.py`` hold the routes against each other with it).
 
 A bfloat16 image (the bf16 train step) takes a float32 grid, as the JAX
 package's grid route hands it one (``reproject`` computes and returns the
-grid in float32): E and F warp it as that route's unpacked TPU kernels do
-(``warp_fast.py:244-263``), the image widened to float32 (exactly), float32
-arithmetic in the float32 kernel, and out, va and vb rounded to bfloat16;
-the grid cotangent is then formed from them in bfloat16 and scaled by the
-bfloat16-rounded ``(W - 1) / 2``, as JAX's weakly typed scalars round. Kernel
-K (``image_grad``, the deformable conv) refuses bfloat16.
+grid in float32) and as the deformable conv widens its bfloat16 one: E and
+F warp it as that route's unpacked TPU kernels do (``warp_fast.py:244-263``),
+the image widened to float32 (exactly), float32 arithmetic, and out, va and
+vb rounded to bfloat16; the grid cotangent is then formed from va and vb in
+bfloat16 and scaled by the bfloat16-rounded ``(W - 1) / 2``, as JAX's weakly
+typed scalars round. On the channel-wide route (the deformable convs, C a
+multiple of 8) kernels E and K have bfloat16 forms of their own, which load
+the bfloat16 operands as vectors (E 8 channels a lane, K 4) and compute in
+float32: E stores its output rounded (bitwise the widened warp, rounded); K
+(``image_grad``) writes float32 gfx and gfy and adds the image cotangent in
+a float32 scratch, rounded to bfloat16 once. On the narrow and row routes,
+and in the plain versions, the wrapper widens the image (and K's ``g``) and
+rounds the outputs. ``grid_band_fwd.dtypes`` and ``grid_band_bwd.dtypes``
+count E's and K's launches by the dtype of the operands the kernel read.
 """
 from __future__ import annotations
 
@@ -54,7 +63,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .conv3x3 import _entry, _raise_on, _route, _stream, is_low
+from .conv3x3 import _DT_NAMES, _entry, _raise_on, _route, _stream, is_low
 
 MODES = ("bilinear", "nearest")
 PADDINGS = ("border", "zeros")
@@ -150,14 +159,6 @@ def _check(image: torch.Tensor, grid: torch.Tensor, mode: str, padding: str,
                         "device, or a bfloat16 image with a float32 grid")
 
 
-def _refuse_low(image: torch.Tensor) -> None:
-    """Kernel K (the image cotangent, the deformable conv's) has no
-    bfloat16 form."""
-    if is_low(image.dtype):
-        raise TypeError("the image-gradient warp (kernel K) takes float32, "
-                        f"not {image.dtype}")
-
-
 def grid_band_plain(image: torch.Tensor, grid: torch.Tensor, mode: str,
                     padding: str, band: int, with_vjp: bool = True):
     """Plain version of kernels E and F: (out, va, vb), each
@@ -186,8 +187,9 @@ def warp_route(*tensors: torch.Tensor, grid: Optional[torch.Tensor] = None,
     image [M, H, W, C]:
 
     * ``'vector'`` (the channel-wide kernels of E and K; not with
-      ``fused``, kernel F) when C is a multiple of 4 and every tensor's
-      data is 16-byte aligned;
+      ``fused``, kernel F) when a sample's C channels are a multiple of 16
+      bytes (C a multiple of 4 in float32, of 8 in bfloat16) and every
+      tensor's data is 16-byte aligned;
     * else ``'row'`` (kernels E and F, which pass their ``grid``
       [N, Ho, Wo, 2]) when Wo % 4 == 0, Wo <= 2048, the staged row (4 Wo C
       bytes; with ``fused`` 12 Wo C) fits in shared memory and the grid's
@@ -195,7 +197,7 @@ def warp_route(*tensors: torch.Tensor, grid: Optional[torch.Tensor] = None,
     * else ``'narrow'``."""
     C = tensors[0].shape[-1]
     aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
-    if not fused and C % 4 == 0 and aligned:
+    if not fused and C * tensors[0].element_size() % 16 == 0 and aligned:
         return "vector"
     if grid is not None:
         Wo = grid.shape[2]
@@ -224,13 +226,18 @@ def _launch_grid(route: str, image: torch.Tensor, grid: torch.Tensor,
     """Kernel E, or with ``fused`` kernel F (bilinear), on ``route`` for
     checked CUDA operands (the channel-wide and row entry points raise where
     the operands do not fit them): out, or (out, va, vb), each
-    [N, Ho, Wo, C]."""
+    [N, Ho, Wo, C] of the image's dtype. A bfloat16 image launches E's
+    bfloat16 form, on the channel-wide route only."""
     routes = FUSED_ROUTES if fused else FWD_ROUTES
     if route not in routes:
         raise ValueError(f"kernel {'F' if fused else 'E'} route must be one "
                          f"of {routes}, got {route!r}")
+    low = is_low(image.dtype)
+    if low and (fused or route != "vector"):
+        raise TypeError(f"kernel {'F' if fused else 'E'} has no bfloat16 "
+                        f"form on the {route} route")
     outs = tuple(torch.empty((*grid.shape[:3], image.shape[3]),
-                             dtype=torch.float32, device=image.device)
+                             dtype=image.dtype, device=image.device)
                  for _ in range(3 if fused else 1))
     zeros = int(padding == "zeros")
     if fused:
@@ -239,18 +246,24 @@ def _launch_grid(route: str, image: torch.Tensor, grid: torch.Tensor,
     else:
         fn, flags, counter = "fsnet_warp_grid_fwd", \
             (int(mode == "nearest"), zeros), grid_band_fwd
-    _launch("warp_grid", fn + _SUFFIX[route], image, grid, outs, band, flags)
+    _launch("warp_grid", fn + _SUFFIX[route] + ("_bf16" if low else ""),
+            image, grid, outs, band, flags)
     counter.launches += 1
     counter.routes[route] += 1
+    if not fused:
+        counter.dtypes[_DT_NAMES[image.dtype]] += 1
     return outs if fused else outs[0]
 
 
 def grid_band_fwd(image: torch.Tensor, grid: torch.Tensor, mode: str,
                   padding: str, band: int) -> torch.Tensor:
     """The forward (kernel E on a CUDA device, on the route of
-    :func:`warp_route`): out [N, Ho, Wo, C]."""
+    :func:`warp_route`): out [N, Ho, Wo, C]. A bfloat16 image takes E's
+    bfloat16 form on the channel-wide route, else it is widened and the
+    output rounded."""
     _check(image, grid, mode, padding, band)
-    if is_low(image.dtype):
+    if is_low(image.dtype) and not (_route(image, "grid_band_fwd") and
+                                    warp_route(image, grid=grid) == "vector"):
         return grid_band_fwd(image.float(), grid, mode, padding, band).to(
             image.dtype)
     if not _route(image, "grid_band_fwd"):
@@ -305,8 +318,10 @@ def grid_band_bwd(image: torch.Tensor, grid: torch.Tensor, g: torch.Tensor,
                   mode: str, padding: str, band: int):
     """Both cotangents of the warp (kernel K on a CUDA device, on the route
     of :func:`warp_route`): (gfx, gfy, dimage) as
-    :func:`grid_band_bwd_plain` gives them."""
-    _refuse_low(image)
+    :func:`grid_band_bwd_plain` gives them. A bfloat16 image and ``g``
+    take K's bfloat16 form on the channel-wide route (float32 gfx and gfy,
+    dimage summed in float32 and rounded once), else they are widened and
+    dimage rounded."""
     _check(image, grid, mode, padding, band)
     if g.shape != (*grid.shape[:3], image.shape[3]) or \
             g.dtype != image.dtype or g.device != image.device or \
@@ -314,17 +329,32 @@ def grid_band_bwd(image: torch.Tensor, grid: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"grid warp backward: cotangent {tuple(g.shape)} "
                          f"{g.dtype} does not fit the warp of image "
                          f"{tuple(image.shape)} by grid {tuple(grid.shape)}")
+    low = is_low(image.dtype)
+    if low and not (_route(image, "grid_band_bwd") and
+                    warp_route(image, g) == "vector"):
+        gfx, gfy, dimage = grid_band_bwd(image.float(), grid, g.float(),
+                                         mode, padding, band)
+        return gfx, gfy, dimage.to(image.dtype)
     if not _route(image, "grid_band_bwd"):
         return grid_band_bwd_plain(image, grid, g, mode, padding, band)
     gfx, gfy = (torch.empty(grid.shape[:3], dtype=torch.float32,
                             device=image.device) for _ in range(2))
-    dimage = torch.zeros_like(image)
-    route = warp_route(image, g, dimage)
-    _launch("warp_grad", "fsnet_warp_grid_bwd" + _SUFFIX[route], image, grid,
-            (g, gfx, gfy, dimage), band,
+    if low:
+        sums = torch.zeros(image.shape, dtype=torch.float32,
+                           device=image.device)
+        dimage = torch.empty_like(image)
+        route, fn, outs = "vector", "fsnet_warp_grid_bwd_vec_bf16", \
+            (g, gfx, gfy, sums, dimage)
+    else:
+        dimage = torch.zeros_like(image)
+        route = warp_route(image, g, dimage)
+        fn, outs = "fsnet_warp_grid_bwd" + _SUFFIX[route], \
+            (g, gfx, gfy, dimage)
+    _launch("warp_grad", fn, image, grid, outs, band,
             (int(mode == "nearest"), int(padding == "zeros")))
     grid_band_bwd.launches += 1
     grid_band_bwd.routes[route] += 1
+    grid_band_bwd.dtypes[_DT_NAMES[image.dtype]] += 1
     return gfx, gfy, dimage
 
 
@@ -357,7 +387,6 @@ class GridSampleBand(torch.autograd.Function):
         ctx.image_grad = image_grad
         ctx.hw = image.shape[1:3]
         if image_grad:
-            _refuse_low(image)
             ctx.save_for_backward(image, grid)
         elif mode == "bilinear" and ctx.needs_input_grad[1]:
             out, va, vb = grid_band_fused(image, grid, padding, band)
@@ -414,3 +443,5 @@ grid_band_bwd.launches = 0
 grid_band_fwd.routes = dict.fromkeys(FWD_ROUTES, 0)
 grid_band_fused.routes = dict.fromkeys(FUSED_ROUTES, 0)
 grid_band_bwd.routes = dict.fromkeys(ROUTES, 0)
+grid_band_fwd.dtypes = dict.fromkeys(_DT_NAMES.values(), 0)
+grid_band_bwd.dtypes = dict.fromkeys(_DT_NAMES.values(), 0)

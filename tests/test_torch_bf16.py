@@ -384,21 +384,33 @@ def test_grid_warps_bf16_match_jax(monkeypatch):
 
 
 def test_bf16_refused_where_there_is_no_bf16_form():
-    """Kernel K and the deformable conv have no bfloat16 form (kernel G's
-    has one: ``tests/test_torch_bf16_recipes.py`` holds what it refuses)."""
+    """Kernels E and K have bfloat16 forms on their channel-wide route only
+    and kernel F none: the grid warps' launcher refuses a bfloat16 image on
+    the other routes (the wrappers widen it there; kernel G's refusals are
+    ``tests/test_torch_bf16_recipes.py``'s). No warp takes float16, nor
+    does the deformable conv, and the train step takes no other compute
+    dtype than bfloat16."""
     from fsnet_tpu_torch.ops import dcn
 
-    image = torch.rand(2, 8, 16, 3, dtype=BF)
+    image = torch.rand(2, 8, 16, 8, dtype=BF)
     grid = torch.zeros(4, 8, 16, 2)
+    for route, fused in (("narrow", False), ("row", False), ("narrow", True),
+                         ("row", True)):
+        with pytest.raises(TypeError):
+            twf._launch_grid(route, image, grid, "bilinear", "zeros", 4,
+                             fused)
+    half = image.to(torch.float16)
     with pytest.raises(TypeError):
-        twf.grid_band_bwd(image, grid, torch.zeros(4, 8, 16, 3, dtype=BF),
+        twf.grid_band_bwd(half, grid, torch.zeros(4, 8, 16, 8,
+                                                  dtype=torch.float16),
                           "bilinear", "zeros", 4)
     with pytest.raises(TypeError):
-        twf.grid_sample(image, grid, padding_mode="zeros", image_grad=True)
+        twf.grid_sample(half, grid, padding_mode="zeros", image_grad=True)
     with pytest.raises(TypeError):
-        dcn.modulated_deform_conv(image, torch.zeros(2, 8, 16, 18, dtype=BF),
-                                  torch.ones(2, 8, 16, 9, dtype=BF),
-                                  torch.zeros(3, 3, 3, 4, dtype=BF))
+        dcn.modulated_deform_conv(
+            half, torch.zeros(2, 8, 16, 18, dtype=torch.float16),
+            torch.ones(2, 8, 16, 9, dtype=torch.float16),
+            torch.zeros(3, 3, 8, 4, dtype=torch.float16))
     with pytest.raises(ValueError):
         tstate.make_train_step("cpu", compute_dtype="float16")
 

@@ -1060,3 +1060,160 @@ def test_distill_train_step_on_card_keeps_the_teacher(cuda):
     moved = [k for k, v in before.items() if not k.startswith("teacher_net.")
              and not torch.equal(after[k], v)]
     assert len(moved) > 100
+
+
+def _bf16_ulp(t):
+    """One bfloat16 ulp at |t| elementwise (0 at 0)."""
+    a = t.float().abs()
+    e = torch.frexp(a).exponent
+    return torch.where(a > 0, torch.ldexp(torch.ones_like(a), e - 8),
+                       torch.zeros_like(a))
+
+
+@pytest.mark.parametrize("case", [
+    # (M, N, H, W, Ho, Wo, C, band): a DCN's 9 taps against its inputs at
+    # C = 64 (8 lanes of 8 channels a sample, Wo odd) and 512 (two slices
+    # of 256 channels); C = 128; C = 8 (one 16-byte vector a sample, 32
+    # samples a warp) and 24 (three vectors on 4 lanes, one idle); C = 12
+    # (not a multiple of 8: the wrapper widens to the float32 channel-wide
+    # kernel) and C = 3 (narrow and row routes, widened)
+    (2, 18, 12, 41, 12, 41, 64, 8),
+    (1, 9, 6, 20, 6, 20, 512, 6),
+    (2, 4, 12, 37, 10, 29, 128, 8),
+    (2, 6, 8, 19, 8, 19, 8, 4),
+    (2, 4, 9, 21, 9, 21, 24, 4),
+    (2, 6, 8, 19, 8, 19, 12, 4),
+    (2, 4, 16, 128, 12, 100, 3, 4),
+], ids=lambda c: "-".join(map(str, c)))
+def test_bf16_dcn_warp_kernels_match_plain(cuda, case):
+    """Kernels E and K on bfloat16 operands (bilinear, zeros, the DCN's
+    warp) against their plain versions, the float32 ones on the widened
+    operands: E bitwise the plain output rounded; K's gfx and gfy (float32)
+    within 1e-5 of their largest entries, its bfloat16 image cotangent
+    within one bf16 ulp beyond 1e-5 of its largest entry. At C a multiple
+    of 8 both take their bfloat16 forms on the channel-wide route (the
+    dtype counters read bfloat16); elsewhere the wrapper widens to the
+    float32 kernels (float32)."""
+    from fsnet_tpu_torch.ops import warp_fast as twf
+
+    M, N, H, W, Ho, Wo, C, band = case
+    g = torch.Generator(device=cuda).manual_seed(11)
+    _, grid = _grid_scene(g, M, N, Ho, Wo, C)
+    image = torch.rand(M, H, W, C, generator=g, device=cuda).to(
+        torch.bfloat16)
+    cot = torch.randn(N, Ho, Wo, C, generator=g, device=cuda).to(
+        torch.bfloat16)
+    own = C % 8 == 0
+    dt = "bfloat16" if own else "float32"
+    d_e, d_k = (dict(twf.grid_band_fwd.dtypes),
+                dict(twf.grid_band_bwd.dtypes))
+    r_k = twf.grid_band_bwd.routes["vector"]
+    out = twf.grid_band_fwd(image, grid, "bilinear", "zeros", band)
+    got = twf.grid_band_bwd(image, grid, cot, "bilinear", "zeros", band)
+    torch.cuda.synchronize()
+    assert twf.grid_band_fwd.dtypes[dt] == d_e[dt] + 1
+    assert twf.grid_band_bwd.dtypes[dt] == d_k[dt] + 1
+    if own:
+        assert twf.grid_band_bwd.routes["vector"] == r_k + 1
+    ref_out = twf.grid_band_plain(image.float(), grid, "bilinear", "zeros",
+                                  band, False)[0].to(torch.bfloat16)
+    assert out.dtype == torch.bfloat16 and torch.equal(out, ref_out)
+    ref = twf.grid_band_bwd_plain(image.float(), grid, cot.float(),
+                                  "bilinear", "zeros", band)
+    for a, r in zip(got[:2], ref[:2]):
+        assert a.dtype == torch.float32
+        assert (a - r).abs().max() <= 1e-5 * r.abs().max()
+    dimage = got[2]
+    assert dimage.dtype == torch.bfloat16 and dimage.shape == image.shape
+    diff = (dimage.float() - ref[2]).abs()
+    big = torch.maximum(dimage.float().abs(), ref[2].abs())
+    assert bool((diff <= _bf16_ulp(big) + 1e-5 * ref[2].abs().max()).all())
+
+
+def test_bf16_dla_train_step_on_card_matches_cpu(cuda):
+    """The DLA's bf16 step at a small size (BN on its init statistics): on
+    the card 16 launches of E and 16 of K, all on the channel-wide route on
+    bfloat16 operands, against the CPU port's bf16 step: loss rel < 2e-2
+    and gradient cosine > 0.99 (measured on the card in the build of
+    these forms: see ``chip_smoke.py`` phase 54)."""
+    from fsnet_tpu_torch.entry import (dla_batch, dla_model,
+                                       flagship_optimizer)
+    from fsnet_tpu_torch.ops import warp_fast as twf
+    from fsnet_tpu_torch.runtime.state import make_train_step
+
+    batch = dla_batch(2, 64, 128)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = dla_model(64, 128, device=dev, seed=0, norm_frozen=True)
+        opt, _ = flagship_optimizer(model)
+        d0 = (dict(twf.grid_band_fwd.dtypes), dict(twf.grid_band_bwd.dtypes))
+        met = make_train_step(dev, compute_dtype="bfloat16",
+                              with_grads=True)(model, opt, batch)
+        ran = [fn.dtypes["bfloat16"] - d["bfloat16"] for fn, d in
+               zip((twf.grid_band_fwd, twf.grid_band_bwd), d0)]
+        flat = torch.cat([g.detach().cpu().double().reshape(-1)
+                          for g in met["_grads"].values()])
+        res[dev] = (float(met["loss"]), flat, ran)
+    card, cpu = res["cuda"], res["cpu"]
+    assert card[2] == [16, 16] and cpu[2] == [0, 0]
+    assert abs(card[0] - cpu[0]) <= 2e-2 * abs(cpu[0])
+    cos = float(card[1] @ cpu[1] / (card[1].norm() * cpu[1].norm()))
+    assert cos > 0.99, cos
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+def test_residual_pose_train_step_on_card_matches_cpu(cuda, dtype):
+    """The residual-pose ``MonoDepthWPose`` step at a small size on the
+    card (the grid route: F once, E none without a mask, I twice, J once)
+    against the CPU port: float32 at the JAX package's gate between two
+    routes (loss 1e-4, global gradient rel-L2 3e-2); bf16 at its loss gate
+    (2e-2) with the gradients held below the distance of the card's float32
+    step (the control) from the CPU port's bf16 one, global rel-L2 under
+    3/4 of it (``chip_smoke.py`` phase 38's gate for the deeper recipes:
+    the pose net puts this step further from its bf16 twin than phase 34's
+    absolute 0.3)."""
+    from fsnet_tpu_torch.entry import (flagship_optimizer,
+                                       residual_pose_model, synthetic_batch)
+    from fsnet_tpu_torch.ops import photo_loss as tpl
+    from fsnet_tpu_torch.ops import warp_depth as twd
+    from fsnet_tpu_torch.ops import warp_fast as twf
+    from fsnet_tpu_torch.runtime.state import make_train_step
+
+    H, W, B = 64, 128, 2
+    batch = synthetic_batch(B, H, W)
+    rng = np.random.RandomState(7)
+    for key in sorted(batch):
+        if key.startswith(("image/", "original_image/")):
+            batch[key] = rng.rand(*batch[key].shape).astype(np.float32)
+    counters = (twf.grid_band_fused, twf.grid_band_fwd, twd.warp_depth_fwd,
+                tpl.photo_loss_fwd, tpl.photo_loss_bwd)
+    res = {}
+    runs = [("cuda", dtype), ("cpu", dtype)] + (
+        [("control", None)] if dtype else [])
+    for tag, dt in runs:
+        dev = "cpu" if tag == "cpu" else "cuda"
+        model = residual_pose_model(H, W, device=dev, seed=0)
+        opt, _ = flagship_optimizer(model)
+        before = [f.launches for f in counters]
+        met = make_train_step(dev, compute_dtype=dt, with_grads=True)(
+            model, opt, batch)
+        ran = [f.launches - n for f, n in zip(counters, before)]
+        res[tag] = (float(met["loss"]), met["_grads"], ran)
+    assert res["cuda"][2] == [1, 0, 0, 2, 1]
+    assert res["cpu"][2] == [0, 0, 0, 0, 0]
+    cpu = res["cpu"]
+    keys = [k for k in cpu[1]
+            if not (".upconv_" in k and k.endswith(".conv.bias"))]
+    assert any(k.startswith("pose_backbone.") for k in keys)
+    b = torch.cat([cpu[1][k].double().reshape(-1) for k in keys])
+
+    def dist(tag):
+        a = torch.cat([res[tag][1][k].cpu().double().reshape(-1)
+                       for k in keys])
+        return (abs(res[tag][0] - cpu[0]) / abs(cpu[0]),
+                float((a - b).norm() / b.norm()))
+    loss, grad = dist("cuda")
+    if dtype is None:
+        assert loss <= 1e-4 and grad < 3e-2
+    else:
+        assert loss <= 2e-2 and grad < 0.75 * dist("control")[1]
